@@ -1,0 +1,272 @@
+// Phase 1 of the two-phase exact top-k search on Hopper: per-bucket
+// maxima of the fused score, with only the maxima written to memory.
+//
+// Replaces fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq (its two
+// bodies, kernel_f32 for f32/bf16 and kernel_int8 for int8) and, on the
+// card, also the small-Q XLA dot bucket_scores_xla: one kernel serves
+// every query count. For row i and query j it computes
+//
+//   f32 / bf16:  s = (v_i . q_j) * aux_mul[i] + aux_add[i]
+//   int8:        s = f32(v8_i . q8_j) * aux_mul[i] + aux_add[i] * inv_sq[j]
+//
+// and writes out[j, b] = max over the `bucket` rows of bucket b. The
+// output is query-major [QT, N/bucket] so the selection that follows
+// reads each query's bucket maxima as one contiguous row (no transpose).
+//
+// Design (right and simple first):
+// - One block computes a tile of BM corpus rows x BQ queries. Both
+//   operand tiles are staged through shared memory in steps of KW
+//   words (a word is one f32, one bf16 widened to f32, or four int8
+//   packed into an int32); each thread owns a TM x TN register tile.
+// - f32 and bf16 accumulate in fp32 FMAs on the CUDA cores. This is
+//   stricter than the TPU kernel, whose DEFAULT-precision dot made one
+//   bf16 pass over f32 inputs. int8 uses __dp4a into an exact int32
+//   sum (127^2 * D < 2^31 for any D the engine serves).
+// - The epilogue applies the per-row FMA, stages the score tile in
+//   shared memory (reusing the operand buffers) and reduces each bucket
+//   with warp shuffles. Rows past N score -inf; queries past QT are
+//   never written, so any QT works without padding the batch.
+// - Blocks are numbered query tile fastest, so the query tiles of one
+//   row tile run back to back and re-read that V tile from L2.
+//
+// What bounds it on an H100: at Q = 8 the kernel must read V once, 4.3
+// GB at 8M x 128 fp32, so it is bound by memory bandwidth; the small-Q
+// configuration (BQ = 8, BM = 256) keeps the work per row to the real
+// queries. At Q = 1024 it is bound by fp32 FMA throughput on the CUDA
+// cores (2.2 TFLOP at 8M x 128), and because each block holds one query
+// tile it re-reads V once per query tile (16 times at Q = 1024); the
+// block order above serves those re-reads from L2. Tensor cores
+// (wgmma), TMA pipelines and persistent scheduling are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWords = 32;  // KW: shared-memory words per k-step
+
+template <typename T>
+struct Traits;
+
+template <>
+struct Traits<float> {
+  using Word = float;
+  static constexpr int kPerWord = 1;
+};
+
+template <>
+struct Traits<__nv_bfloat16> {
+  using Word = float;
+  static constexpr int kPerWord = 1;
+};
+
+template <>
+struct Traits<int8_t> {
+  using Word = int;
+  static constexpr int kPerWord = 4;
+};
+
+// Word w of row `row` of a row-major [rows, d] matrix; zero outside it.
+__device__ __forceinline__ float load_word(const float* x, int64_t row, int64_t rows,
+                                           int64_t d, int64_t w) {
+  return (row < rows && w < d) ? x[row * d + w] : 0.0f;
+}
+
+__device__ __forceinline__ float load_word(const __nv_bfloat16* x, int64_t row,
+                                           int64_t rows, int64_t d, int64_t w) {
+  return (row < rows && w < d) ? __bfloat162float(x[row * d + w]) : 0.0f;
+}
+
+__device__ __forceinline__ int load_word(const int8_t* x, int64_t row, int64_t rows,
+                                         int64_t d, int64_t w) {
+  const int64_t k = w * 4;
+  if (row >= rows || k >= d) return 0;
+  const int8_t* p = x + row * d + k;
+  if ((d & 3) == 0) return *reinterpret_cast<const int*>(p);  // 4-byte aligned
+  uint32_t packed = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (k + i < d) packed |= static_cast<uint32_t>(static_cast<uint8_t>(p[i])) << (8 * i);
+  }
+  return static_cast<int>(packed);
+}
+
+__device__ __forceinline__ float mac(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ int mac(int a, int b, int c) { return __dp4a(a, b, c); }
+
+template <typename T, int BM, int BQ, int TM, int TN>
+__global__ void __launch_bounds__(kThreads)
+bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
+                     const float* __restrict__ aux_mul, const float* __restrict__ aux_add,
+                     const float* __restrict__ inv_sq, float* __restrict__ out,
+                     int64_t qt, int64_t n, int64_t d, int bucket_log2, int64_t n_qtiles) {
+  using Word = typename Traits<T>::Word;
+  constexpr int NTX = BQ / TN;  // thread columns (query groups)
+  constexpr int NTY = BM / TM;  // thread rows (row groups)
+  static_assert(NTX * NTY == kThreads, "tile does not match the block size");
+  static_assert(BM % 32 == 0, "row tile must be whole warps of rows");
+
+  // +1 pads keep the transposing shared-memory stores free of bank conflicts.
+  struct Stage {
+    Word v[kWords][BM + 1];
+    Word q[kWords][BQ + 1];
+  };
+  struct Epilogue {
+    float s[BQ][BM + 1];
+  };
+  __shared__ union {
+    Stage st;
+    Epilogue ep;
+  } sm;
+
+  const int64_t qtile = blockIdx.x % n_qtiles;
+  const int64_t rtile = blockIdx.x / n_qtiles;
+  const int64_t row0 = rtile * BM;
+  const int64_t q0 = qtile * BQ;
+  const int tid = threadIdx.x;
+  const int tx = tid % NTX;
+  const int ty = tid / NTX;
+  const int64_t words = (d + Traits<T>::kPerWord - 1) / Traits<T>::kPerWord;
+
+  Word acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = Word(0);
+
+  for (int64_t w0 = 0; w0 < words; w0 += kWords) {
+    for (int idx = tid; idx < BM * kWords; idx += kThreads) {
+      const int r = idx / kWords, kk = idx % kWords;
+      sm.st.v[kk][r] = load_word(v, row0 + r, n, d, w0 + kk);
+    }
+    for (int idx = tid; idx < BQ * kWords; idx += kThreads) {
+      const int c = idx / kWords, kk = idx % kWords;
+      sm.st.q[kk][c] = load_word(q, q0 + c, qt, d, w0 + kk);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kWords; ++kk) {
+      Word a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = sm.st.v[kk][ty + NTY * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = sm.st.q[kk][tx + NTX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = mac(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // operand tiles are dead past here; the epilogue reuses them
+  }
+
+  // Epilogue: per-row FMA into the staged [BQ, BM] score tile.
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + NTY * i;
+    const int64_t row = row0 + r;
+    const bool live = row < n;
+    const float mul = live ? aux_mul[row] : 0.0f;
+    const float add = live ? aux_add[row] : -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = tx + NTX * j;
+      float s;
+      if constexpr (Traits<T>::kPerWord == 4) {
+        const float isq = (q0 + c < qt) ? inv_sq[q0 + c] : 1.0f;
+        s = static_cast<float>(acc[i][j]) * mul + add * isq;
+      } else {
+        s = acc[i][j] * mul + add;
+      }
+      sm.ep.s[c][r] = live ? s : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // Bucket maxima: one warp reduces 32 consecutive rows of one query.
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const int bucket = 1 << bucket_log2;
+  const int64_t nb = n >> bucket_log2;
+  if (bucket >= 32) {
+    const int slices = bucket >> 5;
+    const int per_tile = BM >> bucket_log2;
+    for (int item = warp; item < BQ * per_tile; item += kWarps) {
+      const int c = item / per_tile, b = item % per_tile;
+      float m = -INFINITY;
+      for (int s = 0; s < slices; ++s) m = fmaxf(m, sm.ep.s[c][b * bucket + s * 32 + lane]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const int64_t gq = q0 + c;
+      const int64_t gb = (row0 >> bucket_log2) + b;
+      if (lane == 0 && gq < qt && gb < nb) out[gq * nb + gb] = m;
+    }
+  } else {
+    constexpr int chunks = BM / 32;
+    for (int item = warp; item < BQ * chunks; item += kWarps) {
+      const int c = item / chunks, ch = item % chunks;
+      float m = sm.ep.s[c][ch * 32 + lane];
+      for (int off = bucket >> 1; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const int64_t gq = q0 + c;
+      const int64_t row = row0 + ch * 32 + lane;
+      if ((lane & (bucket - 1)) == 0 && gq < qt && row < n) out[gq * nb + (row >> bucket_log2)] = m;
+    }
+  }
+}
+
+template <typename T, int BM, int BQ, int TM, int TN>
+int launch(const void* q, const void* v, const float* aux_mul, const float* aux_add,
+           const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
+           int bucket_log2, cudaStream_t stream) {
+  if ((1 << bucket_log2) > BM) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_qtiles = (qt + BQ - 1) / BQ;
+  const int64_t n_rtiles = (n + BM - 1) / BM;
+  const int64_t blocks = n_qtiles * n_rtiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  bucket_scores_kernel<T, BM, BQ, TM, TN><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v), aux_mul, aux_add, inv_sq, out, qt, n,
+      d, bucket_log2, n_qtiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* v, const float* aux_mul, const float* aux_add,
+             const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d, int bucket_log2,
+             cudaStream_t stream) {
+  // Small batches take a narrow query tile so no FMA is spent on
+  // padding queries; larger ones a 128 x 64 tile.
+  if (qt <= 8)
+    return launch<T, 256, 8, 8, 1>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
+                                   stream);
+  return launch<T, 128, 64, 8, 4>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
+                                  stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8 (inv_sq required).
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int fenix_bucket_scores(int dtype, const void* q, const void* v, const float* aux_mul,
+                                   const float* aux_add, const float* inv_sq, float* out,
+                                   int64_t qt, int64_t n, int64_t d, int bucket_log2,
+                                   void* stream) {
+  if (qt <= 0 || n <= 0 || d <= 0 || bucket_log2 < 0 || bucket_log2 > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((n & ((int64_t(1) << bucket_log2) - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch<float>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
+    case 1:
+      return dispatch<__nv_bfloat16>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
+                                     s);
+    case 2:
+      if (inv_sq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return dispatch<int8_t>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

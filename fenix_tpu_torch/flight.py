@@ -1,0 +1,370 @@
+"""Arrow Flight serving surface: Server + client SDK — port of
+``fenix_tpu/flight.py``.
+
+The JSON wire is the contract, so the JAX package's ``fenix_tpu.Flight``
+client drives this server unchanged, and this client drives either
+server. ``do_put`` ingests a table (overwrite), ``do_get`` reads,
+``do_exchange`` runs kNN search, ``do_action`` is the control plane.
+Commands, tickets and action bodies are JSON; filters are
+``fenix_tpu_torch.expr`` trees; the server keeps no session state.
+
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP item: append/upsert puts, coded reads, the index and coder
+lifecycle (make-coder, make-index, drop-index), row deletes, compaction
+and repartitioning.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import time
+from typing import Any, Iterator, Sequence
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+import pyarrow.flight as fl
+
+from fenix_tpu_torch import expr as expr_mod
+from fenix_tpu_torch import index as index_mod
+from fenix_tpu_torch.engine import executor, service
+from fenix_tpu_torch.io import ingest, table
+from fenix_tpu_torch.io.locks import catalog_lock
+from fenix_tpu_torch.ops import kernels
+from fenix_tpu_torch.utils.faults import GLOBAL as FAULTS
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+LOGGER = logging.getLogger("fenix_tpu_torch")
+
+METRICS_SET: set[str] = {"cosine", "dot", "inner_product", "l2", "euclidean"}
+
+_MUTATIONS_TODO = "ROADMAP queue 1: append/upsert/delete in do_put/do_action"
+_IVF_TODO = "ROADMAP queue 1: IVF port (coders and indexes)"
+_NOT_PORTED = {
+    "make-coder": _IVF_TODO,
+    "make-index": _IVF_TODO,
+    "drop-index": _IVF_TODO,
+    "delete-rows": _MUTATIONS_TODO,
+    "compact-table": _MUTATIONS_TODO,
+    "repartition": "ROADMAP queue 1: repartitioned (sharded) tables",
+}
+
+
+def _dumps(obj: Any) -> bytes:
+    return json.dumps(obj, separators=(",", ":")).encode()
+
+
+def _loads(raw: bytes) -> Any:
+    return json.loads(raw.decode())
+
+
+def _decode_filter(obj: Any) -> expr_mod.Expr | None:
+    return None if obj is None else expr_mod.Expr.from_dict(obj)
+
+
+def _manifest_path(root: str, name: str) -> str:
+    # where the JAX package records a repartitioned table's shards
+    return os.path.join(root, table.LOCATION, name + ".manifest.json")
+
+
+class Server(fl.FlightServerBase):
+    """Stateless Flight front-end over the query engine on ``device``."""
+
+    def __init__(
+        self, root: str, host: str = "0.0.0.0", port: int = 9001, device: str = "cuda"
+    ) -> None:
+        self.root = os.path.abspath(root)
+        self.device = device
+        self.grpc = f"grpc://{host}:{port}"
+        super().__init__(location=self.grpc)
+
+    @property
+    def cache(self) -> Any:
+        return executor.get_cache(self.root, self.device)
+
+    # -- ingest -----------------------------------------------------------
+
+    def do_put(
+        self,
+        ctx: fl.ServerCallContext,
+        descriptor: fl.FlightDescriptor,
+        reader: fl.MetadataRecordBatchReader,
+        writer: fl.FlightMetadataWriter,
+    ) -> None:
+        FAULTS.check("put")
+        name = descriptor.path[0].decode()
+        mode = descriptor.path[1].decode() if len(descriptor.path) > 1 else "overwrite"
+        if mode in ("append", "upsert"):
+            raise NotImplementedError(f"put mode {mode!r} ({_MUTATIONS_TODO})")
+        if mode != "overwrite":
+            raise ValueError(f"unknown put mode {mode!r}")
+        if os.path.exists(_manifest_path(self.root, name)):
+            raise NotImplementedError(
+                f"table {name!r} is repartitioned ({_NOT_PORTED['repartition']})"
+            )
+        with METRICS.timed("put", table=name, mode=mode):
+            # One lock scope: the rewrite and the index drop form a
+            # single catalog mutation.
+            with catalog_lock(self.root):
+                table.make(self.root, name, reader.to_reader())
+                # Existing indexes are no longer row-aligned; drop them so
+                # probed search fails loudly instead of returning rows
+                # assigned under the previous revision.
+                index_mod.drop_for_source(self.root, name)
+
+    # -- table read -------------------------------------------------------
+
+    def do_get(self, ctx: fl.ServerCallContext, ticket: fl.Ticket):
+        FAULTS.check("get")
+        req = _loads(ticket.ticket)
+        source = req["source"]
+        if req.get("coding") is not None and req.get("column") is not None:
+            raise NotImplementedError(f"coded table reads ({_IVF_TODO})")
+        select = req.get("select")
+        filter_ = _decode_filter(req.get("filter"))
+        order_by = req.get("order_by")  # [[column, "ascending"|"descending"], ...]
+
+        with METRICS.timed("get", source=source):
+            data = table.load(self.root, source)
+            if filter_ is not None:
+                data = data.filter(pa.array(filter_.mask(data)))
+            if order_by:
+                data = data.take(pc.sort_indices(data, sort_keys=[(c, d) for c, d in order_by]))
+            if select is not None:
+                data = data.select(select)
+            return fl.GeneratorStream(data.schema, data.to_reader())
+
+    # -- search -----------------------------------------------------------
+
+    def do_exchange(
+        self,
+        ctx: fl.ServerCallContext,
+        descriptor: fl.FlightDescriptor,
+        reader: fl.MetadataRecordBatchReader,
+        writer: fl.MetadataRecordBatchWriter,
+    ) -> None:
+        FAULTS.check("search")
+        config = _loads(descriptor.command)
+        target = reader.read_all().column("target").combine_chunks()
+
+        with METRICS.timed(
+            "search", source=config["source"], metric=config.get("metric")
+        ) as record:
+            data = service.run_search_config(self.cache, config, target)
+            record["rows_returned"] = data.num_rows
+            # flat value column = one query (reference wire shape);
+            # FixedSizeList column = one query per row
+            record["queries"] = len(target) if pa.types.is_fixed_size_list(target.type) else 1
+            record["maxval"] = config.get("maxval")
+            record["precision"] = config.get("precision") or "fp32"
+
+        writer.begin(data.schema)
+        writer.write_table(data)
+
+    # -- control plane ----------------------------------------------------
+
+    def do_action(self, ctx: fl.ServerCallContext, action: fl.Action) -> Iterator[fl.Result]:
+        body = action.body.to_pybytes()
+        config = _loads(body) if body else {}
+
+        match action.type:
+            case "drop-table":
+                # indexes first: attribution needs the table's schema
+                index_mod.drop_for_source(self.root, config["name"])
+                table.drop(self.root, **config)
+                self.cache.invalidate()
+                return iter([])
+
+            case "remove":
+                shutil.rmtree(self.root, ignore_errors=True)
+                self.cache.invalidate()
+                return iter([])
+
+            case "list-tables":
+                return iter([fl.Result(_dumps([*table.list(self.root)]))])
+
+            case "list-indexes":
+                return iter([fl.Result(_dumps([*index_mod.list(self.root)]))])
+
+            case "stats":
+                snap = METRICS.snapshot()
+                snap["cache.device_bytes"] = float(self.cache.device_bytes())
+                snap["cache.evictions"] = float(self.cache.evictions)
+                for name, count in kernels.LAUNCHES.items():
+                    snap[f"kernel.{name}.launches"] = float(count)
+                return iter([fl.Result(_dumps(snap))])
+
+            case "health":
+                return iter([fl.Result(b'{"status":"ok"}')])
+
+            case verb if verb in _NOT_PORTED:
+                raise NotImplementedError(f"action {verb!r} ({_NOT_PORTED[verb]})")
+
+            case _:
+                raise ValueError(f"unknown action {action.type!r}")
+
+
+class Flight:
+    """Client SDK for the verbs this package serves (the JAX package's
+    ``fenix_tpu.Flight`` speaks the same wire).
+
+    ``retries`` > 0 re-issues idempotent requests (search, reads, admin
+    queries) on transient server failures with exponential backoff."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 9001, retries: int = 0) -> None:
+        self.host = host
+        self.port = port
+        self.retries = retries
+        self._conn: fl.FlightClient | None = None
+
+    def _retrying(self, fn):
+        last: Exception | None = None
+        for attempt in range(self.retries + 1):
+            try:
+                return fn()
+            except fl.FlightError as e:  # noqa: PERF203
+                last = e
+                if attempt < self.retries:
+                    time.sleep(0.05 * (2**attempt))
+        assert last is not None
+        raise last
+
+    @property
+    def conn(self) -> fl.FlightClient:
+        if self._conn is None:
+            self._conn = fl.connect(f"grpc://{self.host}:{self.port}")
+        return self._conn
+
+    def close(self) -> None:
+        if self._conn is not None:
+            self._conn.close()
+            self._conn = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    # -- tables -----------------------------------------------------------
+
+    def make_table(self, name: str, data: pa.RecordBatchReader) -> "Flight":
+        descriptor = fl.FlightDescriptor.for_path(name, "overwrite")
+        writer, _ = self.conn.do_put(descriptor, data.schema)
+        with writer:
+            for batch in data:
+                writer.write_batch(batch)
+        return self
+
+    def read_table(
+        self,
+        source: str | Sequence[str],
+        select: Sequence[str] | None = None,
+        filter: expr_mod.Expr | None = None,
+        order_by: Sequence[tuple[str, str]] | None = None,
+    ) -> pa.RecordBatchReader:
+        if filter is not None and not isinstance(filter, expr_mod.Expr):
+            raise TypeError("filter must be a fenix_tpu_torch.expr.Expr")
+        ticket = fl.Ticket(
+            _dumps(
+                {
+                    "source": source if isinstance(source, str) else [*source],
+                    "select": [*select] if select is not None else None,
+                    "filter": filter.to_dict() if filter is not None else None,
+                    "order_by": (
+                        [[c, d] for c, d in order_by] if order_by is not None else None
+                    ),
+                }
+            )
+        )
+        return self._retrying(lambda: self.conn.do_get(ticket).to_reader())
+
+    def drop_table(self, name: str) -> "Flight":
+        self._action("drop-table", {"name": name})
+        return self
+
+    # -- search -----------------------------------------------------------
+
+    def search(
+        self,
+        target: Any,
+        source: str | Sequence[str],
+        column: str,
+        metric: str,
+        select: Sequence[str] | None = None,
+        filter: expr_mod.Expr | None = None,
+        maxval: int | None = None,
+        precision: str = "fp32",
+    ) -> pa.Table:
+        assert metric in METRICS_SET, f"metric must be one of {sorted(METRICS_SET)}"
+        assert precision in ("fp32", "bf16", "int8"), precision
+        if filter is not None and not isinstance(filter, expr_mod.Expr):
+            raise TypeError("filter must be a fenix_tpu_torch.expr.Expr")
+
+        descriptor = fl.FlightDescriptor.for_command(
+            _dumps(
+                {
+                    "source": source if isinstance(source, str) else [*source],
+                    "column": column,
+                    "metric": metric,
+                    "select": [*select] if select is not None else None,
+                    "filter": filter.to_dict() if filter is not None else None,
+                    "maxval": maxval,
+                    "precision": precision,
+                }
+            )
+        )
+        target = self._encode_target(target)
+
+        def attempt() -> pa.Table:
+            writer, reader = self.conn.do_exchange(descriptor)
+            with writer:
+                writer.begin(target.schema)
+                writer.write_table(target)
+                writer.done_writing()
+                return reader.read_all()
+
+        return self._retrying(attempt)
+
+    @staticmethod
+    def _encode_target(target: Any) -> pa.Table:
+        """Single query → flat float column (the reference wire shape);
+        query batch [Q, D] → FixedSizeList column."""
+        if hasattr(target, "__array__") and not isinstance(target, (pa.Array, pa.ChunkedArray)):
+            target = np.asarray(target)
+        if isinstance(target, np.ndarray):
+            if target.ndim == 2:
+                target = ingest.numpy_to_fixed_size_list(
+                    np.ascontiguousarray(target, dtype=np.float32), pa.float32()
+                )
+            else:
+                target = pa.array(np.ascontiguousarray(target))
+        return pa.table({"target": target})
+
+    # -- admin ------------------------------------------------------------
+
+    def remove(self) -> "Flight":
+        self._action("remove", {})
+        return self
+
+    def list_tables(self) -> list[str]:
+        return self._action_json("list-tables")
+
+    def list_indexes(self) -> list[str]:
+        return self._action_json("list-indexes")
+
+    def stats(self) -> dict[str, float]:
+        return self._action_json("stats")
+
+    def health(self) -> dict[str, str]:
+        return self._action_json("health")
+
+    def _action(self, verb: str, body: Any) -> list[fl.Result]:
+        # drain the iterator: server-side errors surface on consumption
+        return self._retrying(lambda: [*self.conn.do_action(fl.Action(verb, _dumps(body)))])
+
+    def _action_json(self, verb: str) -> Any:
+        return _loads(self._action(verb, {})[0].body.to_pybytes())

@@ -1,0 +1,219 @@
+"""Hand-written CUDA kernels: build, binding, wrappers, plain twins.
+
+One kernel family lives here today, the phase-1 bucket-max scan
+(``csrc/bucket_scores.cu``), which replaces
+``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16 and
+int8 bodies) and the small-Q XLA dot beside it.
+
+Build: ``nvcc`` compiles the sources for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``. The library
+lands in ``build/fenix_tpu_torch/`` at the repository root when the
+package runs from a source checkout, in ``$XDG_CACHE_HOME/fenix_tpu_torch``
+(default ``~/.cache``) when it is installed, or in
+``$FENIX_TORCH_BUILD_DIR``; it is named by a hash of its sources and
+flags so a changed source rebuilds. The build runs at most once per process
+(thread lock) and once per build directory (file lock), the first time
+a CUDA tensor reaches a wrapper — never at import.
+
+Dispatch: a wrapper given CPU tensors computes its plain PyTorch twin
+(the CPU tests run that); given CUDA tensors it launches the kernel or
+raises. No path falls back from a failed build or launch to the twin.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("bucket_scores.cu",)
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Launches per kernel route, counted where the wrapper launches the
+# kernel and nowhere else (the plain twins do not count).
+LAUNCHES: dict[str, int] = {"bucket_scores.f32": 0, "bucket_scores.bf16": 0, "bucket_scores.int8": 0}
+
+_DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
+MAX_BUCKET = 128  # the kernel's row tile bounds one bucket
+
+_LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()  # Flight handlers launch from a thread pool
+
+
+def build_dir() -> Path:
+    env = os.environ.get("FENIX_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    checkout = Path(__file__).resolve().parents[2]
+    if (checkout / "pyproject.toml").exists():
+        return checkout / "build" / "fenix_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "fenix_tpu_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update(name.encode())
+        digest.update((_CSRC / name).read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    return build_dir() / f"libfenix_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library if this source revision has none yet."""
+    lib = library_path()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({done.returncode}):\n{done.stderr}")
+            os.replace(tmp, lib)
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.fenix_bucket_scores
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                ctypes.c_int,  # dtype code
+                ctypes.c_void_p, ctypes.c_void_p,  # q, v
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # aux_mul, aux_add, inv_sq
+                ctypes.c_void_p,  # out
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # qt, n, d
+                ctypes.c_int,  # log2(bucket)
+                ctypes.c_void_p,  # stream
+            ]
+            _LIB = lib
+        return _LIB
+
+
+def bucket_scores_plain(
+    q: torch.Tensor,  # [QT, D] f32 / bf16 / int8
+    v: torch.Tensor,  # [N, D] same dtype
+    aux_mul: torch.Tensor,  # [N] f32
+    aux_add: torch.Tensor,  # [N] f32
+    bucket: int,
+    inv_sq: torch.Tensor | None = None,  # [QT] f32, int8 only
+) -> torch.Tensor:  # [QT, N // bucket] f32
+    """Plain PyTorch version of the kernel: matmul, epilogue, bucket max.
+
+    f32 and bf16 inputs are widened to f32 and multiplied with TF32 off.
+    int8 codes multiply in f32 too, which is exact: every partial sum is
+    an integer below 127²·D < 2²⁴ for D ≤ 1024 (f64 above that)."""
+    qt, n = q.shape[0], v.shape[0]
+    if q.dtype == torch.int8 and v.shape[1] > 1024:  # f64 stays exact past 2²⁴
+        s = (q.to(torch.float64) @ v.to(torch.float64).T).to(torch.float32)
+    else:
+        s = q.to(torch.float32) @ v.to(torch.float32).T
+    if inv_sq is not None:
+        s = s * aux_mul[None, :] + aux_add[None, :] * inv_sq[:, None]
+    else:
+        s = s * aux_mul[None, :] + aux_add[None, :]
+    return s.reshape(qt, n // bucket, bucket).amax(-1)
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def bucket_scores(
+    q: torch.Tensor,
+    v: torch.Tensor,
+    aux_mul: torch.Tensor,
+    aux_add: torch.Tensor,
+    bucket: int,
+    inv_sq: torch.Tensor | None = None,
+) -> torch.Tensor:  # [QT, N // bucket] f32
+    """Phase-1 bucket maxima (see :func:`bucket_scores_plain` for the
+    function). CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/bucket_scores.cu`` or raise."""
+    if v.device.type == "cpu":
+        return bucket_scores_plain(q, v, aux_mul, aux_add, bucket, inv_sq)
+    if v.device.type != "cuda":
+        raise ValueError(f"bucket_scores runs on cpu or cuda tensors, got {v.device}")
+    if v.dtype not in _DTYPE_CODES:
+        raise ValueError(f"bucket_scores takes f32, bf16 or int8 inputs, got {v.dtype}")
+    code, route = _DTYPE_CODES[v.dtype]
+    device = v.device
+    _check(v, "v", v.dtype, 2, device)
+    _check(q, "q", v.dtype, 2, device)
+    _check(aux_mul, "aux_mul", torch.float32, 1, device)
+    _check(aux_add, "aux_add", torch.float32, 1, device)
+    n, d = v.shape
+    qt = q.shape[0]
+    if q.shape[1] != d or aux_mul.shape[0] != n or aux_add.shape[0] != n:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, v {tuple(v.shape)}, "
+            f"aux {tuple(aux_mul.shape)}/{tuple(aux_add.shape)}"
+        )
+    if bucket < 1 or bucket > MAX_BUCKET or bucket & (bucket - 1) or n % bucket:
+        raise ValueError(f"bucket must be a power of two <= {MAX_BUCKET} dividing N={n}, got {bucket}")
+    if (inv_sq is not None) != (v.dtype == torch.int8):
+        raise ValueError("inv_sq is required for int8 inputs and only for them")
+    if inv_sq is not None:
+        _check(inv_sq, "inv_sq", torch.float32, 1, device)
+        if inv_sq.shape[0] != qt:
+            raise ValueError(f"inv_sq has {inv_sq.shape[0]} entries for {qt} queries")
+    out = torch.empty((qt, n // bucket), dtype=torch.float32, device=device)
+    if qt == 0 or n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fenix_bucket_scores(
+            code,
+            ctypes.c_void_p(q.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()),
+            ctypes.c_void_p(aux_mul.data_ptr()),
+            ctypes.c_void_p(aux_add.data_ptr()),
+            ctypes.c_void_p(inv_sq.data_ptr() if inv_sq is not None else None),
+            ctypes.c_void_p(out.data_ptr()),
+            qt, n, d, bucket.bit_length() - 1,
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"bucket_scores kernel launch failed: cudaError {err}")
+    with _COUNT_LOCK:
+        LAUNCHES[f"bucket_scores.{route}"] += 1
+    return out

@@ -1,0 +1,276 @@
+"""Two-phase exact top-k search: bucket maxima → select → rescore.
+
+Port of ``fenix_tpu/ops/topk2.py`` for PyTorch on a CUDA card.
+
+**Phase 1** scores every corpus row against every query with the fused
+score ``s = (q·v)·aux_mul + aux_add`` (one formula for all metrics;
+filter and padding masks are −inf in ``aux_add``) and keeps only the
+max of each ``bucket`` rows. On the card this is one hand-written
+kernel for every query count and scan type (``ops/kernels.py``,
+``csrc/bucket_scores.cu``): fp32, the bf16 scan copy, or the per-row
+int8 copy. CPU tensors take the kernel's plain PyTorch twin.
+
+**Phase 2** selects the top ``k + pad`` buckets per query, gathers
+their rows and rescores them exactly in fp32 (TF32 is off, see
+``ops/__init__.py``), then takes the final top-k.
+
+Tie rule (the engine's contract): equal distances resolve to the
+smallest row id. The reference inherits it from the stable
+``lax.top_k``; ``torch.topk`` promises no order on ties, so both
+selections here enforce it explicitly: the bucket selection keeps the
+lowest bucket indices among maxima tied at the kp-th value, and the
+final top-k is a stable descending sort over candidates laid out in
+ascending row order.
+
+Exactness: a bucket holding a true top-k row has a bucket max ≥ that
+row's score, and at most k buckets hold values ≥ the k-th best, so the
+top-k buckets cover the true top-k. The reference's int32 bitcast
+result carrier (a TPU denormal workaround) is gone: results come back
+as two small ``[Q, k]`` tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fenix_tpu_torch.ops import kernels
+from fenix_tpu_torch.ops.distance import NEG_INF, canonical_metric, normalize
+
+BUCKET = 128  # rows per bucket for small query batches
+# Finer rescore granularity for big query batches: phase-2 gather
+# traffic is kp·bucket·D per query.
+BUCKET_LARGE_Q = 32
+_BUCKET_SWITCH_Q = 64  # above this query count use BUCKET_LARGE_Q
+BUCKET_PAD = 8  # extra buckets gathered for fp-rounding safety
+_RESCORE_GATHER_CAP = 2 << 30  # phase-2 [chunk, kp, bucket, D] gather cap
+_QUANTIZE_CHUNK_ROWS = 1 << 20  # bounds quantize temporaries to one chunk
+
+
+# -- metric preparation ----------------------------------------------------
+
+
+def prepare_queries(queries: torch.Tensor, metric: str) -> torch.Tensor:
+    """Query-side transform so the phase-1 score is ``q'·v·aux_mul + aux_add``."""
+    metric = canonical_metric(metric)
+    if metric == "l2":
+        return 2.0 * queries
+    if metric == "cosine":
+        return normalize(queries)
+    return queries
+
+
+def prepare_aux(
+    corpus: torch.Tensor, mask: torch.Tensor | None, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (aux_mul, aux_add) for the fused score.
+
+    l2:     s = 2·q·v − ‖v‖²   (order = −dist² order)
+    cosine: s = q̂·v / ‖v‖     (order = cos order)
+    dot:    s = q·v
+    Masked rows get aux_add = −inf."""
+    metric = canonical_metric(metric)
+    sq = torch.sum(torch.square(corpus), dim=-1)  # [N]
+    if metric == "l2":
+        aux_mul = torch.ones_like(sq)
+        aux_add = -sq
+    elif metric == "cosine":
+        aux_mul = 1.0 / torch.clamp_min(torch.sqrt(sq), 1e-12)
+        aux_add = torch.zeros_like(sq)
+    else:
+        aux_mul = torch.ones_like(sq)
+        aux_add = torch.zeros_like(sq)
+    if mask is not None:
+        aux_add = torch.where(mask, aux_add, NEG_INF)
+    return aux_mul, aux_add
+
+
+def _quantize_rows(block: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = torch.clamp_min(block.abs().amax(dim=-1) / 127.0, 1e-30)  # zero rows → zeros
+    codes = torch.clamp(torch.round(block / scale[:, None]), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def quantize_corpus_int8(corpus: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization ``v ≈ sv · v8``: scale
+    max|v|/127 with a 1e-30 floor, round half to even, clip to ±127.
+
+    Returns (v8 [N, D] int8, sv [N] f32). Quantized in row chunks so the
+    f32 temporaries stay one chunk in size. Scales may differ from the
+    JAX package's by 1 ulp (XLA folds /127 into a reciprocal multiply);
+    final distances are rescored in fp32 either way."""
+    n, d = corpus.shape
+    v8 = torch.empty((n, d), dtype=torch.int8, device=corpus.device)
+    sv = torch.empty((n,), dtype=torch.float32, device=corpus.device)
+    for start in range(0, n, _QUANTIZE_CHUNK_ROWS):
+        stop = min(start + _QUANTIZE_CHUNK_ROWS, n)
+        v8[start:stop], sv[start:stop] = _quantize_rows(corpus[start:stop])
+    return v8, sv
+
+
+def quantize_queries_int8(queries_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query symmetric int8 quantization of *prepared* queries.
+
+    Returns (q8 [Q, D] int8, inv_sq [Q] f32). Dividing ``aux_add`` by the
+    per-query scale (multiplying by ``inv_sq``) instead of scaling the
+    dot keeps each query's score order exact in real arithmetic."""
+    q8, sq = _quantize_rows(queries_p)
+    return q8, 1.0 / sq
+
+
+def scores_to_distances(scores: torch.Tensor, queries: torch.Tensor, metric: str) -> torch.Tensor:
+    """Exact distance from the fused score."""
+    metric = canonical_metric(metric)
+    if metric == "l2":
+        uu = torch.sum(torch.square(queries), dim=-1, keepdim=True)  # [Q, 1]
+        return torch.sqrt(torch.clamp_min(uu - scores, 0.0))
+    if metric == "cosine":
+        return 0.5 - 0.5 * scores
+    return -scores
+
+
+def bucket_for(q: int, n: int) -> int:
+    """Rescore-bucket granularity for a (query count, corpus rows) pair."""
+    bucket = BUCKET if q <= _BUCKET_SWITCH_Q else BUCKET_LARGE_Q
+    while n % bucket != 0:
+        bucket //= 2
+    return bucket
+
+
+# -- phase 1 + bucket selection ----------------------------------------------
+
+
+def bucket_scores(
+    queries_p: torch.Tensor,  # [Q, D] prepared f32
+    corpus: torch.Tensor,  # [N, D] f32
+    aux_mul: torch.Tensor,
+    aux_add: torch.Tensor,
+    bucket: int,
+    corpus_scan: torch.Tensor | None = None,  # [N, D] bf16 copy
+    corpus_scan_int8: tuple[torch.Tensor, torch.Tensor] | None = None,  # (v8, sv)
+) -> torch.Tensor:  # [Q, N // bucket]
+    """Phase-1 dispatch over the scan copies: fp32, bf16 or int8."""
+    if corpus_scan_int8 is not None:
+        v8, sv = corpus_scan_int8
+        q8, inv_sq = quantize_queries_int8(queries_p)
+        return kernels.bucket_scores(q8, v8, aux_mul * sv, aux_add, bucket, inv_sq=inv_sq)
+    if corpus_scan is not None:
+        q_scan = queries_p.to(corpus_scan.dtype).contiguous()
+        return kernels.bucket_scores(q_scan, corpus_scan, aux_mul, aux_add, bucket)
+    return kernels.bucket_scores(queries_p.contiguous(), corpus, aux_mul, aux_add, bucket)
+
+
+def topk_buckets(bucket_max: torch.Tensor, kp: int) -> torch.Tensor:
+    """Top-``kp`` bucket indices per query, in ascending index order.
+
+    Flat selection: everything above the kp-th largest maximum, plus the
+    lowest-index buckets tied at it — the set ``lax.top_k``'s stable
+    order yields. (The reference's group hierarchy exists because
+    top-k sorts on a TPU.)"""
+    q, nb = bucket_max.shape
+    thr = torch.topk(bucket_max, kp, dim=1).values[:, -1:]  # kp-th largest
+    above = bucket_max > thr
+    tie = bucket_max == thr
+    room = kp - above.sum(dim=1, keepdim=True)
+    keep = above | (tie & (torch.cumsum(tie, dim=1, dtype=torch.int32) <= room))
+    return keep.nonzero()[:, 1].view(q, kp)
+
+
+# -- phase 2: gather + exact rescore -------------------------------------------
+
+
+def topk_two_phase(
+    corpus: torch.Tensor,  # [N_pad, D] f32
+    queries: torch.Tensor,  # [Q, D] f32
+    aux_mul: torch.Tensor,  # [N_pad]
+    aux_add: torch.Tensor,  # [N_pad]  (−inf on masked/padding rows)
+    k: int,
+    metric: str,
+    corpus_scan: torch.Tensor | None = None,
+    corpus_scan_int8: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k: (distances [Q, k], row ids [Q, k]; +inf / −1 padding).
+
+    ``corpus_scan`` substitutes a bf16 copy for phase 1 and
+    ``corpus_scan_int8`` a ``(v8, sv)`` pair from
+    :func:`quantize_corpus_int8`. Phase 2 always rescores against the
+    fp32 ``corpus``, so returned distances are fp32-exact; only bucket
+    selection sees the scan precision (int8 doubles the margin)."""
+    metric = canonical_metric(metric)
+    n, d = corpus.shape
+    q = queries.shape[0]
+    bucket = bucket_for(q, n)
+    n_buckets = n // bucket
+    queries_p = prepare_queries(queries, metric)
+
+    pad = BUCKET_PAD * 2 if corpus_scan_int8 is not None else BUCKET_PAD
+    kp = min(k + pad, n_buckets)
+    bucket_max = bucket_scores(
+        queries_p, corpus, aux_mul, aux_add, bucket, corpus_scan, corpus_scan_int8
+    )
+    bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
+    del bucket_max
+
+    rows = corpus.view(n_buckets, bucket, d)
+    mul_b = aux_mul.view(n_buckets, bucket)
+    add_b = aux_add.view(n_buckets, bucket)
+    kk = min(k, kp * bucket)
+    lane = torch.arange(bucket, device=corpus.device)
+
+    # Chunk the [chunk, kp, bucket, D] candidate gather against the cap.
+    per_query = kp * bucket * d * 4
+    chunk = max(1, min(q, max(64, _RESCORE_GATHER_CAP // per_query)))
+    top_s, top_ids = [], []
+    for start in range(0, q, chunk):
+        qp_c = queries_p[start : start + chunk]
+        b_c = bidx[start : start + chunk]
+        c = qp_c.shape[0]
+        # Elementwise product + sum: fp32-true, and identical rows score
+        # identically wherever they sit (a blocked GEMM may sum in a
+        # position-dependent order, which would break exact ties).
+        s = (rows[b_c] * qp_c[:, None, None, :]).sum(dim=-1)  # [C, kp, bucket]
+        s = (s * mul_b[b_c] + add_b[b_c]).reshape(c, kp * bucket)
+        ids = (b_c[:, :, None] * bucket + lane).reshape(c, kp * bucket)
+        s_sorted, pos = torch.sort(s, dim=1, descending=True, stable=True)
+        top_s.append(s_sorted[:, :kk])
+        top_ids.append(torch.gather(ids, 1, pos[:, :kk]))
+    top_s = torch.cat(top_s) if top_s else corpus.new_empty((0, kk))
+    top_ids = torch.cat(top_ids) if top_ids else lane.new_empty((0, kk))
+
+    if kk < k:  # pad to k
+        top_s = torch.cat([top_s, top_s.new_full((q, k - kk), NEG_INF)], dim=1)
+        top_ids = torch.cat([top_ids, top_ids.new_full((q, k - kk), -1)], dim=1)
+
+    missing = top_s == NEG_INF
+    dist = scores_to_distances(top_s, queries, metric)
+    dist = torch.where(missing, torch.inf, dist)
+    top_ids = torch.where(missing, -1, top_ids)
+    return dist, top_ids
+
+
+def state_from_numpy(
+    corpus,
+    aux_mul,
+    aux_add,
+    v8=None,
+    sv=None,
+    *,
+    device: str | torch.device,
+):
+    """The JAX package's search state, taken as numpy arrays (e.g.
+    ``np.asarray`` of ``fenix_tpu.ops.topk2.prepare_aux`` and
+    ``quantize_corpus_int8`` outputs), as this package's tensors on
+    ``device``: ``(corpus, aux_mul, aux_add, corpus_scan_int8)`` where the
+    last is ``(v8, sv)`` or None. Lets one state feed both packages."""
+    def put(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    scan_int8 = None
+    if v8 is not None:
+        scan_int8 = (put(v8, torch.int8), put(sv, torch.float32))
+    return (
+        put(corpus, torch.float32),
+        put(aux_mul, torch.float32),
+        put(aux_add, torch.float32),
+        scan_int8,
+    )

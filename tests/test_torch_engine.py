@@ -1,0 +1,382 @@
+"""fenix_tpu_torch's engine (DeviceCache + executor + catalog) against the
+JAX package's on the same root, on the CPU.
+
+Result tables must be equal column by column — ids and every gathered
+column exactly — with ``__DISTANCE__`` within rtol/atol 1e-5 (the two
+packages sum the fp32 rescore in different orders).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from fenix_tpu import expr as jexpr
+from fenix_tpu.engine import executor as jexecutor
+from fenix_tpu.engine.session import DeviceCache as JaxCache
+from fenix_tpu.io import table as jtable
+from fenix_tpu_torch import coder, expr, index
+from fenix_tpu_torch.engine import executor, residency, service
+from fenix_tpu_torch.engine.session import DeviceCache
+from fenix_tpu_torch.io import ingest, table
+from fenix_tpu_torch.ops import kernels, topk2
+
+torch.set_num_threads(2)
+
+N, DIM = 20_000, 32
+
+
+def make_table(rng, n=N, dim=DIM) -> pa.Table:
+    vectors = rng.standard_normal((n, dim)).astype(np.float32)
+    dup = min(100, n // 2)
+    vectors[n // 2 : n // 2 + dup] = vectors[:dup]  # exact duplicate rows
+    return pa.table(
+        {
+            "id": pa.array(np.arange(n, dtype=np.int64)),
+            "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+            "tag": pa.array(rng.integers(0, 10, n).astype(np.int32)),
+            "name": pa.array([f"row{i}" for i in range(n)]),
+        }
+    )
+
+
+@pytest.fixture
+def root(tmp_path, rng):
+    # several record batches → several chunks per column, as a table
+    # streamed in over Flight has
+    table.make(str(tmp_path), "items", make_table(rng).to_reader(max_chunksize=3000))
+    return str(tmp_path)
+
+
+def _search_both(root, **kw):
+    req = dict(source="items", column="vector", **kw)
+    got = executor.execute_search(DeviceCache(root, device="cpu"), executor.SearchRequest(**req))
+    if req.get("filter") is not None:  # the same predicate, through the JSON wire form
+        req["filter"] = jexpr.Expr.from_dict(req["filter"].to_dict())
+    want = jexecutor.execute_search(JaxCache(root, mesh=None), jexecutor.SearchRequest(**req))
+    return got, want
+
+
+def assert_tables_match(got: pa.Table, want: pa.Table) -> None:
+    assert got.schema == want.schema
+    for name in want.column_names:
+        if name == "__DISTANCE__":
+            np.testing.assert_allclose(
+                got.column(name).to_numpy(), want.column(name).to_numpy(), rtol=1e-5, atol=1e-5
+            )
+        else:
+            assert got.column(name).equals(want.column(name)), name
+
+
+QUERIES = [1, 20]
+
+
+@pytest.mark.parametrize("q", QUERIES)
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_execute_search_matches_jax(root, rng, q, precision):
+    target = rng.standard_normal((q, DIM)).astype(np.float32)
+    target[0] = make_table(np.random.default_rng(0)).column("vector")[3].values.to_numpy()
+    got, want = _search_both(
+        root, target=target, metric="cosine", maxval=12, precision=precision
+    )
+    assert got.num_rows == q * 12
+    assert_tables_match(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "euclidean"])
+def test_execute_search_filtered_matches_jax(root, rng, metric):
+    target = rng.standard_normal((5, DIM)).astype(np.float32)
+    filt = (expr.field("tag") < 3) & ~expr.field("name").ends_with("7")
+    got, want = _search_both(
+        root, target=target, metric=metric, maxval=20, filter=filt, select=["id", "name", "tag"]
+    )
+    assert_tables_match(got, want)
+    assert (got.column("tag").to_numpy() < 3).all()
+
+
+def test_flat_target_and_maxval_above_rows(tmp_path, rng):
+    root = str(tmp_path)
+    table.make(root, "items", make_table(rng, n=30).to_reader())
+    flat = rng.standard_normal(DIM).astype(np.float32)  # one query, flat wire shape
+    got, want = _search_both(root, target=pa.array(flat), metric="l2", maxval=50)
+    assert got.num_rows == 30 and "__QUERY_ID__" not in got.column_names
+    assert_tables_match(got, want)
+
+
+def test_catalog_is_shared_both_ways(tmp_path, rng):
+    """A root written by either package reads identically through the other."""
+    root = str(tmp_path)
+    a, b = make_table(rng, n=500), make_table(rng, n=700)
+    table.make(root, "from_torch", a.to_reader())
+    jtable.make(root, "from_jax", b.to_reader())
+    assert jtable.load(root, "from_torch").equals(a)
+    assert table.load(root, "from_jax").equals(b)
+    assert [*table.list(root)] == [*jtable.list(root)] == ["from_jax", "from_torch"]
+    assert table.stamp(root, "from_jax") == jtable.stamp(root, "from_jax")
+
+
+def test_index_catalog_helpers_match_jax(tmp_path, rng):
+    from fenix_tpu import coder as jcoder
+    from fenix_tpu import index as jindex
+
+    root = str(tmp_path)
+    table.make(root, "t", make_table(rng, n=64).to_reader())
+    table.make(root, "t/sub", make_table(rng, n=64).to_reader())
+    for name, source in (("ivf", "t"), ("other", "t/sub")):
+        os.makedirs(os.path.dirname(jcoder.path_of(root, name)), exist_ok=True)
+        open(jcoder.path_of(root, name), "wb").close()
+        path = index.path_of(root, name, source, "vector")
+        assert path == jindex.path_of(root, name, source, "vector")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+    assert [*index.list(root)] == [*jindex.list(root)]
+    assert [*index.indexes_for_source(root, "t")] == [*jindex.indexes_for_source(root, "t")]
+    index.drop_for_source(root, "t")
+    assert [*index.list(root)] == ["t/sub/vector/other"]  # the nested sibling keeps its index
+    assert [*coder.list(root)] == [*jcoder.list(root)] == ["ivf", "other"]
+    coder.drop(root, "ivf")
+    assert [*jcoder.list(root)] == ["other"]
+
+
+def test_state_from_numpy_round_trips(rng):
+    corpus = rng.standard_normal((256, 8)).astype(np.float32)
+    aux_mul, aux_add = np.ones(256, np.float32), np.zeros(256, np.float32)
+    v8 = rng.integers(-127, 128, (256, 8)).astype(np.int8)
+    sv = rng.random(256).astype(np.float32)
+    c, m, a, (t8, tsv) = topk2.state_from_numpy(corpus, aux_mul, aux_add, v8, sv, device="cpu")
+    assert c.dtype == torch.float32 and t8.dtype == torch.int8
+    np.testing.assert_array_equal(c.numpy(), corpus)
+    np.testing.assert_array_equal(t8.numpy(), v8)
+    assert topk2.state_from_numpy(corpus, aux_mul, aux_add, device="cpu")[3] is None
+
+
+def test_device_cache_follows_revisions(root, rng):
+    cache = DeviceCache(root, device="cpu")
+    first = cache.matrix("items", "vector")
+    assert first.rows == N and first.rows_padded == 32768
+    assert first.data.device.type == "cpu"
+    assert (first.data[N:] == 0).all()
+    assert cache.matrix("items", "vector") is first  # memoized per revision
+    cache.matrix_bf16("items", "vector")
+    cache.matrix_int8("items", "vector")
+    assert cache.device_bytes() == 32768 * DIM * (4 + 2 + 1) + 32768 * 4
+
+    table.make(root, "items", make_table(rng, n=100).to_reader())
+    second = cache.matrix("items", "vector")
+    assert second.rows == 100 and second.rows_padded == 16384
+    data, matrix, stamp = cache.snapshot("items", "vector")
+    assert data.num_rows == 100 and matrix is second and stamp == cache.snapshot_stamp("items")
+    # the host reload freed the old revision's scan copies
+    assert cache.device_bytes() == 16384 * DIM * 4
+
+
+def test_budget_eviction_keeps_latest(root, monkeypatch):
+    cache = DeviceCache(root, device="cpu")
+    monkeypatch.setenv("FENIX_HBM_BUDGET", str(32768 * DIM * 4 + 1))
+    cache.matrix("items", "vector")
+    cache.matrix_bf16("items", "vector")
+    assert cache.evictions == 1 and cache.device_bytes() == 32768 * DIM * 2
+
+
+def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
+    cache = DeviceCache(root, device="cpu")
+    target = rng.standard_normal((2, DIM)).astype(np.float32)
+
+    def run(**kw):
+        base = dict(source="items", column="vector", target=target, metric="l2", maxval=5)
+        return executor.execute_search(cache, executor.SearchRequest(**{**base, **kw}))
+
+    with pytest.raises(NotImplementedError, match="IVF"):
+        run(coding="ivf", probes=4)
+    with pytest.raises(NotImplementedError, match="_execute_nomax"):
+        run(maxval=None)
+    for mode in ("int8", "stream"):
+        with pytest.raises(NotImplementedError, match="residency"):
+            run(residency=mode)
+    with pytest.raises(ValueError, match="precision"):
+        run(precision="fp16")
+    monkeypatch.setenv("FENIX_HBM_BUDGET", "1000")
+    with pytest.raises(NotImplementedError, match="budget"):
+        run()
+    monkeypatch.delenv("FENIX_HBM_BUDGET")
+    assert residency.plan(cache, executor.SearchRequest("items", "vector", target)) == "dual"
+    with pytest.raises(NotImplementedError, match="joins"):
+        service.run_search_config(
+            cache, {"source": "items", "column": "vector", "join": {"source": "x"}}, target
+        )
+
+
+def test_extension_vector_column_raises(tmp_path, rng):
+    from fenix_tpu.types import tensor as jtensor
+
+    root = str(tmp_path)
+    vectors = rng.standard_normal((64, 4)).astype(np.float32)
+    arr = jtensor.TensorArray.from_numpy(vectors)
+    jtable.make(root, "typed", pa.table({"vector": arr}).to_reader())
+    cache = DeviceCache(root, device="cpu")
+    with pytest.raises(NotImplementedError, match="types/"):
+        executor.execute_search(
+            cache,
+            executor.SearchRequest("typed", "vector", vectors[:1], metric="l2", maxval=3),
+        )
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
+        "or m == 'fenix_tpu' or m.startswith('fenix_tpu.')); "
+        "assert not bad, bad"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, env=env, timeout=120)
+
+
+def _chip_smoke(*args):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"  # the script and its server subprocess
+    return subprocess.run(
+        [sys.executable, os.path.join(repo, "chip_smoke.py"), *args],
+        capture_output=True, text=True, cwd=repo, env=env, timeout=300,
+    )
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    done = _chip_smoke()
+    assert done.returncode != 0 and '"ok": true' not in done.stdout
+
+
+def _load_chip_smoke():
+    """chip_smoke.py's helpers; the script itself runs only on a card."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = _load_chip_smoke()
+
+
+@pytest.mark.parametrize("case", ["equal", "within", "off", "nan", "neginf"])
+@pytest.mark.parametrize("route", ["f32", "bf16", "int8"])
+def test_chip_smoke_check_close(rng, route, case):
+    """The kernel-vs-plain check passes the plain maxima, and inside its
+    tolerance, and refuses an error past it, a NaN and a lost -inf."""
+    n, q, bucket = 4096, 8, 32
+    v32 = torch.from_numpy(rng.standard_normal((n, smoke.D)).astype(np.float32))
+    q32 = torch.from_numpy(rng.standard_normal((q, smoke.D)).astype(np.float32))
+    mul = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    add = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    add[: 2 * bucket] = float("-inf")  # two whole buckets masked
+    if route == "f32":
+        args = (q32, v32, mul, add, None)
+    elif route == "bf16":
+        args = (q32.to(torch.bfloat16), v32.to(torch.bfloat16), mul, add, None)
+    else:
+        v8, sv = topk2.quantize_corpus_int8(v32)
+        q8, inv_sq = topk2.quantize_queries_int8(q32)
+        args = (q8, v8, mul * sv, add, inv_sq)
+    qq, vv, mm, aa, isq = args
+    want = kernels.bucket_scores_plain(qq, vv, mm, aa, bucket, isq)
+    assert torch.isneginf(want[:, :2]).all() and torch.isfinite(want[:, 2:]).all()
+    got = want.clone()
+    if case == "within":
+        got[:, 2:] += 1e-7 * want[:, 2:].abs()
+    elif case == "off":
+        got[0, 5] += 1.0 + 0.01 * float(want[:, 2:].abs().max())
+    elif case == "nan":
+        got[1, 3] = float("nan")
+    elif case == "neginf":
+        got[2, 0] = 0.0
+    if case in ("equal", "within"):
+        err = smoke.check_close(got, want, qq, vv, mm, aa, isq)
+        assert err == 0.0 if case == "equal" else err > 0.0
+    else:
+        with pytest.raises(AssertionError):
+            smoke.check_close(got, want, qq, vv, mm, aa, isq)
+
+
+SMOKE_ROWS = 16_384
+
+
+@pytest.fixture(scope="module")
+def smoke_root(tmp_path_factory):
+    """chip_smoke.py's table (duplicate rows, tags) at a small size."""
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    root = str(tmp_path_factory.mktemp("smoke"))
+    t = pa.table({"id": pa.array(ids),
+                  "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "items", t.to_reader(max_chunksize=4096))
+    return root, vectors, tags
+
+
+def _smoke_search(smoke_root, i):
+    """Search ``i`` of chip_smoke.py through the port's engine on the CPU,
+    at no more than 100 queries."""
+    root, vectors, tags = smoke_root
+    name, qn, metric, k, precision, filtered, flat = smoke.SEARCHES[i]
+    spec = (name, min(qn, 100), metric, k, precision, filtered, flat)
+    queries = smoke.make_queries(vectors, spec[1], seed=10 + i)
+    req = executor.SearchRequest(
+        "items", "vector", queries[0] if flat else queries, metric=metric, maxval=k,
+        precision=precision, filter=(expr.field("tag") < 50) if filtered else None,
+    )
+    result = executor.execute_search(DeviceCache(root, device="cpu"), req)
+    mask = torch.from_numpy(tags < 50) if filtered else None
+    return spec, queries, result, mask
+
+
+@pytest.mark.parametrize("i", range(len(smoke.SEARCHES)), ids=[s[0] for s in smoke.SEARCHES])
+def test_chip_smoke_oracle_accepts_the_port(smoke_root, i):
+    """Each search of chip_smoke.py, answered by the port on the CPU,
+    passes the script's float64 oracle check."""
+    spec, queries, result, mask = _smoke_search(smoke_root, i)
+    oracle = smoke.Oracle(smoke_root[1], "cpu")
+    out = smoke.check_search(oracle, spec, queries, result, mask)
+    assert out["max_rel_dist_err"] <= 1e-4
+    # fp32 is held to the oracle's order (near ties aside), the scan copies to recall
+    assert ("ids_equal_positions" in out) == (spec[4] == "fp32") != ("recall" in out)
+
+
+def _with_ids(result, ids, dist):
+    cols = {name: result.column(name) for name in result.column_names}
+    cols["id"] = pa.array(ids.reshape(-1))
+    cols["__DISTANCE__"] = pa.array(dist.reshape(-1), type=result.schema.field("__DISTANCE__").type)
+    return pa.table(cols)
+
+
+def test_chip_smoke_oracle_refuses_wrong_order(smoke_root):
+    """Reordered results and a duplicate-row tie out of id order both
+    fail the oracle check, with ids and distances kept consistent."""
+    spec, queries, result, mask = _smoke_search(smoke_root, 1)  # Q=8 cosine k=10
+    oracle = smoke.Oracle(smoke_root[1], "cpu")
+    ids, dist = smoke.split_result(result, spec[1], spec[3])
+    with pytest.raises(AssertionError, match="ids differ"):
+        smoke.check_search(oracle, spec, queries, _with_ids(result, ids[:, ::-1], dist[:, ::-1]),
+                           mask)
+    row, col = next((r, c) for r in range(ids.shape[0]) for c in range(ids.shape[1] - 1)
+                    if ids[r, c + 1] == ids[r, c] + smoke.DUP)
+    swapped = ids.copy()
+    swapped[row, [col, col + 1]] = swapped[row, [col + 1, col]]
+    with pytest.raises(AssertionError, match="not in id order"):
+        smoke.check_search(oracle, spec, queries, _with_ids(result, swapped, dist), mask)
+
+
+def test_gather_chunked_matches_concatenation(rng):
+    chunks = [rng.standard_normal((n, 3)).astype(np.float32) for n in (4, 0, 7, 1, 0, 5)]
+    whole = np.concatenate(chunks)
+    ids = rng.integers(0, whole.shape[0], 50)
+    np.testing.assert_array_equal(executor._gather_chunked(chunks, ids), whole[ids])

@@ -1,0 +1,206 @@
+"""fenix_tpu_torch's Flight server against the JAX package's, on the CPU.
+
+Both servers run in threads on port 0 (as tests/test_flight.py runs the
+JAX one) over one storage root. The port's server is driven by the
+unchanged ``fenix_tpu.Flight`` client and by its own client; a table
+written through either server reads and searches identically through
+the other. Result tables compare column by column: ids and gathered
+columns exactly, ``__DISTANCE__`` within rtol/atol 1e-5.
+"""
+
+import os
+import threading
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+import fenix_tpu
+import fenix_tpu_torch
+from fenix_tpu import expr as jexpr
+from fenix_tpu.engine import executor as jexecutor
+from fenix_tpu.engine.session import DeviceCache as JaxCache
+from fenix_tpu_torch import expr
+from fenix_tpu_torch.io import ingest
+
+torch.set_num_threads(2)
+
+DIM = 32
+NUM_ROWS = 6_000
+BATCH = 1_000
+
+
+def batches(seed: int, rows: int = NUM_ROWS):
+    rng = np.random.default_rng(seed)
+    for start in range(0, rows, BATCH):
+        x = rng.standard_normal((BATCH, DIM)).astype(np.float32)
+        if start == BATCH:
+            x[:50] = first[:50]  # exact duplicates of rows 0..49
+        if start == 0:
+            first = x.copy()
+        yield pa.record_batch(
+            [
+                pa.array(np.arange(start, start + BATCH, dtype=np.int64)),
+                ingest.numpy_to_fixed_size_list(x, pa.float32()),
+                pa.array(rng.integers(0, 5, BATCH).astype(np.int32)),
+            ],
+            names=["id", "vector", "tag"],
+        )
+
+
+def reader(seed: int, rows: int = NUM_ROWS) -> pa.RecordBatchReader:
+    first = next(batches(seed, rows))
+    return pa.RecordBatchReader.from_batches(first.schema, batches(seed, rows))
+
+
+def _serve(server):
+    thread = threading.Thread(target=server.serve, daemon=True)
+    thread.start()
+    return server
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("shared"))
+
+
+@pytest.fixture(scope="module")
+def servers(root):
+    # single-device JAX cache (the tests' 8 virtual CPU devices would
+    # otherwise shard it over a mesh)
+    jexecutor._CACHES[os.path.abspath(root)] = JaxCache(os.path.abspath(root), mesh=None)
+    port = _serve(fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu"))
+    jax = _serve(fenix_tpu.Server(root, host="127.0.0.1", port=0))
+    yield port, jax
+    port.shutdown()
+    jax.shutdown()
+    jexecutor._CACHES.pop(os.path.abspath(root), None)
+
+
+@pytest.fixture(scope="module")
+def clients(servers):
+    port, jax = servers
+    return {
+        "jax_client_on_port": fenix_tpu.Flight(host="127.0.0.1", port=port.port),
+        "port_client_on_port": fenix_tpu_torch.Flight(host="127.0.0.1", port=port.port),
+        "jax_client_on_jax": fenix_tpu.Flight(host="127.0.0.1", port=jax.port),
+    }
+
+
+@pytest.fixture(scope="module")
+def loaded(clients):
+    clients["port_client_on_port"].make_table("items", reader(0))
+    return clients
+
+
+def assert_tables_match(got: pa.Table, want: pa.Table) -> None:
+    assert got.schema == want.schema
+    for name in want.column_names:
+        if name == "__DISTANCE__":
+            np.testing.assert_allclose(
+                got.column(name).to_numpy(), want.column(name).to_numpy(), rtol=1e-5, atol=1e-5
+            )
+        else:
+            assert got.column(name).equals(want.column(name)), name
+
+
+def test_health_and_catalog(loaded):
+    for name in ("jax_client_on_port", "port_client_on_port"):
+        c = loaded[name]
+        assert c.health() == {"status": "ok"}
+        assert c.list_tables() == ["items"]
+    # written through the port's server, read through the JAX server
+    want = pa.Table.from_batches([*batches(0)])
+    assert loaded["jax_client_on_jax"].read_table("items").read_all().equals(want)
+    assert loaded["jax_client_on_port"].read_table("items").read_all().equals(want)
+    got = loaded["port_client_on_port"].read_table(
+        "items", select=["id"], filter=expr.field("tag") == 2, order_by=[("id", "descending")]
+    ).read_all()
+    ids = got.column("id").to_numpy()
+    assert (np.diff(ids) < 0).all() and len(ids) == (want.column("tag").to_numpy() == 2).sum()
+
+
+SEARCHES = [
+    dict(metric="cosine", maxval=10, q=1),
+    dict(metric="l2", maxval=7, q=9),
+    dict(metric="dot", maxval=5, q=4, precision="bf16"),
+    dict(metric="euclidean", maxval=6, q=3, precision="int8"),
+    dict(metric="inner_product", maxval=8, q=5, filter=True, select=["id", "tag"]),
+]
+
+
+@pytest.mark.parametrize("case", SEARCHES, ids=lambda c: f"{c['metric']}-q{c['q']}")
+def test_search_matches_jax_server(loaded, case):
+    case = dict(case)
+    q = case.pop("q")
+    filtered = case.pop("filter", False)
+    rng = np.random.default_rng(q)
+    target = rng.standard_normal((q, DIM)).astype(np.float32)
+    target = target[0] if q == 1 else target  # one flat query
+    jkw, pkw = dict(case), dict(case)
+    if filtered:
+        jkw["filter"] = jexpr.field("tag") >= 3
+        pkw["filter"] = expr.field("tag") >= 3
+    want = loaded["jax_client_on_jax"].search(target, "items", "vector", **jkw)
+    via_jax_client = loaded["jax_client_on_port"].search(target, "items", "vector", **jkw)
+    via_port_client = loaded["port_client_on_port"].search(target, "items", "vector", **pkw)
+    assert want.num_rows == q * case["maxval"]
+    assert_tables_match(via_jax_client, want)
+    assert_tables_match(via_port_client, want)
+
+
+def test_duplicate_rows_tie_to_smallest_id(loaded):
+    row = pa.Table.from_batches([*batches(0)]).column("vector")[7].values.to_numpy()
+    got = loaded["port_client_on_port"].search(row, "items", "vector", metric="l2", maxval=2)
+    assert got.column("id").to_pylist() == [7, 1007]
+
+
+def test_stats_report_searches_and_kernel_counts(loaded):
+    stats = loaded["port_client_on_port"].stats()
+    assert stats["search.count"] >= 1
+    assert stats["cache.device_bytes"] > 0
+    # CPU tensors take the kernel's plain version: no launch is counted
+    assert stats["kernel.bucket_scores.f32.launches"] == 0
+
+
+def test_unported_verbs_raise(loaded):
+    c = loaded["jax_client_on_port"]
+    with pytest.raises(pa.ArrowNotImplementedError, match="ROADMAP"):
+        c.append_table("items", reader(1, rows=BATCH))
+    with pytest.raises(pa.ArrowNotImplementedError, match="ROADMAP"):
+        c.make_index("ivf", "items", "vector", {"metric": "l2", "codebook_size": 4,
+                                                "num_codebooks": 1, "batch_size": 64,
+                                                "num_epochs": 1})
+    with pytest.raises(pa.ArrowNotImplementedError, match="_execute_nomax"):
+        c.search(np.zeros(DIM, np.float32), "items", "vector", metric="l2")  # maxval=None
+    with pytest.raises(pa.ArrowInvalid, match="unknown action"):
+        c._action("no-such-verb", {})
+
+
+def test_overwrite_drops_indexes_built_by_jax_server(loaded):
+    """An index the JAX server built goes away when the port's server
+    overwrites its table, and the JAX server then reads the new rows."""
+    jc = loaded["jax_client_on_jax"]
+    jc.make_table("indexed", reader(2, rows=2 * BATCH))
+    jc.make_index("ivf", "indexed", "vector", {"metric": "l2", "codebook_size": 4,
+                                               "num_codebooks": 1, "batch_size": 256,
+                                               "num_epochs": 1})
+    assert loaded["port_client_on_port"].list_indexes() == ["indexed/vector/ivf"]
+    loaded["port_client_on_port"].make_table("indexed", reader(3, rows=BATCH))
+    assert jc.list_indexes() == [] and loaded["port_client_on_port"].list_indexes() == []
+    assert jc.read_table("indexed").read_all().num_rows == BATCH
+
+
+def test_table_written_by_jax_server_serves_through_port(loaded):
+    jc, pc = loaded["jax_client_on_jax"], loaded["port_client_on_port"]
+    jc.make_table("from_jax", reader(4, rows=3 * BATCH))
+    target = np.random.default_rng(5).standard_normal((6, DIM)).astype(np.float32)
+    want = jc.search(target, "from_jax", "vector", metric="cosine", maxval=9)
+    assert_tables_match(pc.search(target, "from_jax", "vector", metric="cosine", maxval=9), want)
+    # an overwrite through the JAX server is a new revision for the port
+    jc.make_table("from_jax", reader(6, rows=2 * BATCH))
+    want = jc.search(target, "from_jax", "vector", metric="cosine", maxval=9)
+    assert_tables_match(pc.search(target, "from_jax", "vector", metric="cosine", maxval=9), want)
+    pc.drop_table("from_jax")
+    assert "from_jax" not in jc.list_tables()
