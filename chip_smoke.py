@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (fenix_tpu_torch) on one CUDA card, end to end.
 
-    python3 chip_smoke.py               # needs one card; ~10 minutes at most
+    python3 chip_smoke.py               # needs one card; ~20 minutes at most
 
 Phases, each printing one JSON line with its own timings:
 
@@ -30,11 +30,32 @@ Phases, each printing one JSON line with its own timings:
    less than NEAR_TIE * max(1, d), which no fp32 engine can order.
    bf16/int8 recall@k >= 0.99; every returned distance within
    1e-4 * max(1, d) of float64.
+   (c) at 1,048,576 x 768: f32 Q=8 bucket 128, int8 Q=8 bucket 128 and
+   Q=1024 bucket 32.
 5. warm per-search latency (client wall clock, median of 5).
+6. host-corpus residency: a 4,194,304 x 768 fp32 table (BASELINE config
+   2's widths, cut from 10M rows; duplicate rows as in phase 3) goes over
+   Flight to a second server started with FENIX_HBM_BUDGET = 6 GiB, where
+   dual residency does not fit and the int8 copy does. First the kernel
+   against its plain version at the inputs each search gives it, then
+   five l2 top-100 searches with tag < 50: Q=8 auto (must route to int8
+   residency), Q=1024 forced int8, Q=8 fp32 stream (10 chunks, one f32
+   launch each), Q=64 int8 stream (3 chunks, one int8 launch each), and
+   Q=8 forced dual, the same server's exact answer. Each call must move
+   its launch count and residency counter by exactly the expected amount;
+   after the fourth search no fp32 device matrix may exist and
+   cache.device_bytes must be within the budget. The fp32 stream ids must
+   equal the dual ids; against the float64 oracle the fp32 routes follow
+   phase 4's rule and the int8 routes reach recall@100 >= 0.99. Printed:
+   the cold first call (mirror quantize, sidecar write, upload), warm
+   latency (median of 5) and a warm split from the server's counters
+   (device phase A, host gather + rescore, upload GB/s).
 
-Then one JSON line of the kernels, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failure exits non-zero with no result.
-The script takes no options: the card run at this size is its only path.
+Then one JSON line of the kernels (K1 f32/bf16, K2 int8, and K3 as the
+f32 kernel at bucket 128, each with its launches on both paths), the
+nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
+exits non-zero with no result. The script takes no options: the card run
+at this size is its only path.
 """
 
 from __future__ import annotations
@@ -50,6 +71,7 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # the card every phase runs on
 ROWS = 8_388_608  # the table of phase 3
 KERNEL_ROWS = 1 << 20  # the kernel-vs-plain inputs of phase 2 (a)
 D = 128
@@ -67,11 +89,36 @@ SEARCHES = (
     ("q256_int8_l2_k10", 256, "l2", 10, "int8", False, False),
 )
 ROUTES = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
-REPLACES = {
-    "f32": "fenix_tpu/ops/topk2.py:453",  # kernel_f32 of bucket_scores_pallas_bigq (:492)
-    "bf16": "fenix_tpu/ops/topk2.py:453",
-    "int8": "fenix_tpu/ops/topk2.py:464",  # kernel_int8 of bucket_scores_pallas_bigq (:492)
-}
+K3_ROUTE = "f32.bucket128"  # the f32 kernel at bucket 128 also serves K3
+KERNELS = (
+    # name in the kernels line, launch-count route, TPU kernel it replaces
+    ("bucket_scores.f32", "f32", "fenix_tpu/ops/topk2.py:453"),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
+    ("bucket_scores.bf16", "bf16", "fenix_tpu/ops/topk2.py:453"),
+    ("bucket_scores.int8", "int8", "fenix_tpu/ops/topk2.py:464"),  # kernel_int8 of the same
+    ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu/ops/topk2.py:357"),  # bucket_scores_pallas (K3)
+)
+D768_SHAPES = ((8, 128, "f32"), (8, 128, "int8"), (1024, 32, "int8"))  # phase 2 (c): q, bucket, route
+
+# phase 6: BASELINE config 2's widths (exact top-100 l2, scalar filter, D=768),
+# cut from 10M to 4,194,304 rows, served past a 6 GiB budget
+RES_ROWS = 4_194_304
+RES_D = 768
+RES_BUDGET = 6 << 30
+RES_K = 100
+RES_SEARCHES = (
+    # name, queries, residency, precision, route, launches per call, counter, rise per call
+    ("auto_q8", 8, "auto", "fp32", "int8", 1, "search.residency_int8", 1),
+    ("int8_q1024", 1024, "int8", "fp32", "int8", 1, "search.residency_int8", 1),
+    ("stream_q8", 8, "stream", "fp32", "f32", 10, "search.stream_chunks", 10),
+    ("stream_int8_q64", 64, "stream", "int8", "int8", 3, "search.stream_chunks", 3),
+    ("dual_q8", 8, "dual", "fp32", "f32", 1, None, 0),
+)
+RES_INT8_GRADED = ("auto_q8", "int8_q1024", "stream_int8_q64")  # held to recall, not order
+SPLIT_KEYS = (
+    "search.seconds", "residency.phase_a_seconds", "residency.rescore_seconds",
+    "transfer.h2d_bytes", "transfer.h2d_seconds", "transfer.stage_seconds",
+    "transfer.wait_seconds",
+)
 
 
 def emit(obj) -> None:
@@ -86,11 +133,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_data(rows: int, seed: int):
+def make_data(rows: int, seed: int, dim: int = D):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    vectors = rng.standard_normal((rows, D), dtype=np.float32)
+    vectors = rng.standard_normal((rows, dim), dtype=np.float32)
     dup = min(DUP, rows // 2)
     vectors[dup : 2 * dup] = vectors[:dup]
     ids = np.arange(rows, dtype=np.int64)
@@ -98,17 +145,19 @@ def make_data(rows: int, seed: int):
     return vectors, ids, tags
 
 
-def make_queries(vectors, q: int, seed: int):
-    """Half of each batch are noisy copies of duplicated rows, so the
-    exact duplicate pairs tie at the top of their results."""
+def make_queries(vectors, q: int, seed: int, src_pool=None):
+    """Half of each batch are noisy copies of duplicated rows (drawn from
+    ``src_pool`` when given), so the exact duplicate pairs tie at the top
+    of their results."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    queries = rng.standard_normal((q, D), dtype=np.float32)
+    dim = vectors.shape[1]
+    queries = rng.standard_normal((q, dim), dtype=np.float32)
     near = q - q // 2
     dup = min(DUP, vectors.shape[0] // 2)
-    src = rng.integers(0, dup, near)
-    queries[:near] = vectors[src] + 0.05 * rng.standard_normal((near, D), dtype=np.float32)
+    src = rng.integers(0, dup, near) if src_pool is None else rng.choice(src_pool, near)
+    queries[:near] = vectors[src] + 0.05 * rng.standard_normal((near, dim), dtype=np.float32)
     return queries
 
 
@@ -187,7 +236,7 @@ def phase_kernel_vs_plain(kernels, topk2) -> list[dict]:
     import torch
 
     rng = np.random.default_rng(1)
-    n, device = KERNEL_ROWS, "cuda"
+    n, device = KERNEL_ROWS, DEVICE
     v32 = torch.from_numpy(rng.standard_normal((n, D), dtype=np.float32)).to(device)
     mul = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(device)
     add = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
@@ -209,6 +258,31 @@ def phase_kernel_vs_plain(kernels, topk2) -> list[dict]:
                     args = (q8, v8, mul * sv, add, bucket, inv_sq)
                 r = compare(kernels, *args)
                 results.append({"route": route, "q": qn, "n": n, "bucket": bucket, **r})
+    return results
+
+
+def phase_kernel_vs_plain_d768(kernels, topk2) -> list[dict]:
+    """Phase 2 (c): the kernel against its plain version at 1,048,576 x 768."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    n = KERNEL_ROWS
+    v32 = torch.randn((n, RES_D), generator=g, device=DEVICE)
+    mul = torch.rand(n, generator=g, device=DEVICE) + 0.5
+    add = torch.randn(n, generator=g, device=DEVICE)
+    add[torch.rand(n, generator=g, device=DEVICE) < 0.1] = float("-inf")
+    add[: 4 * 128] = float("-inf")
+    v8, sv = topk2.quantize_corpus_int8(v32)
+    results = []
+    for qn, bucket, route in D768_SHAPES:
+        q32 = torch.randn((qn, RES_D), generator=g, device=DEVICE)
+        if route == "f32":
+            args = (q32, v32, mul, add, bucket, None)
+        else:
+            q8, inv_sq = topk2.quantize_queries_int8(q32)
+            args = (q8, v8, mul * sv, add, bucket, inv_sq)
+        results.append({"route": route, "q": qn, "n": n, "d": RES_D, "bucket": bucket,
+                        **compare(kernels, *args)})
     return results
 
 
@@ -259,9 +333,10 @@ def wait_healthy(client, proc, timeout_s: float = 300.0) -> None:
         time.sleep(0.5)
 
 
-def launches(client) -> dict:
-    stats = client.stats()
-    return {r: int(stats.get(f"kernel.bucket_scores.{r}.launches", 0)) for r in ROUTES.values()}
+def launches(client, stats: "dict | None" = None) -> dict:
+    stats = client.stats() if stats is None else stats
+    return {r: int(stats.get(f"kernel.bucket_scores.{r}.launches", 0))
+            for r in (*ROUTES.values(), K3_ROUTE)}
 
 
 class Oracle:
@@ -273,7 +348,8 @@ class Oracle:
     def __init__(self, vectors, device):
         import torch
 
-        self.v = torch.from_numpy(vectors).to(device=device, dtype=torch.float64)
+        # widened on the card: a float64 host copy would double host memory
+        self.v = torch.from_numpy(vectors).to(device).to(torch.float64)
         self.sq = (self.v * self.v).sum(dim=1)
         self.norm = self.sq.sqrt().clamp_min(1e-12)
         self.device = device
@@ -385,15 +461,188 @@ def check_search(oracle, spec, queries_np, result, mask) -> dict:
     return out
 
 
-def start_server(root: str, port: int, log_path: str):
+def start_server(root: str, port: int, log_path: str, env_extra: "dict | None" = None):
     env = dict(os.environ)
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra or {})
     log = open(log_path, "w")
     cmd = [
         sys.executable, "-m", "fenix_tpu_torch.launch", root,
-        "--host", "127.0.0.1", "--port", str(port), "--device", "cuda",
+        "--host", "127.0.0.1", "--port", str(port), "--device", DEVICE,
     ]
     return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT), log
+
+
+# -- phase 6: host-corpus residency (int8-resident and streaming) ------------
+
+RES_CHUNK_ROWS = {"stream_q8": 458_752, "stream_int8_q64": 1_867_776}  # at RES_BUDGET
+
+
+def residency_kernel_checks(kernels, topk2, vectors, tags, queries) -> list[dict]:
+    """The kernel against its plain version at the inputs each search of
+    phase 6 gives it (a stream search: its first chunk)."""
+    import torch
+
+    corpus = torch.from_numpy(vectors).to(DEVICE)
+    mul, add = topk2.prepare_aux(corpus, torch.from_numpy(tags < 50).to(DEVICE), "l2")
+    v8, sv = topk2.quantize_corpus_int8(corpus)
+    mul8 = mul * sv
+    out = []
+    for name, qn, _, _, route, *_ in RES_SEARCHES:
+        rows = RES_CHUNK_ROWS.get(name, RES_ROWS)
+        qp = topk2.prepare_queries(torch.from_numpy(queries[qn]).to(DEVICE), "l2").contiguous()
+        bucket = topk2.bucket_for(qn, rows)
+        if route == "int8":
+            q8, inv_sq = topk2.quantize_queries_int8(qp)
+            args = (q8, v8[:rows], mul8[:rows], add[:rows], bucket, inv_sq)
+        else:
+            args = (qp, corpus[:rows], mul[:rows], add[:rows], bucket, None)
+        out.append({"search": name, "route": route, "q": qn, "n": rows, "d": RES_D,
+                    "bucket": bucket, **compare(kernels, *args)})
+        emit({"phase": "kernel_vs_plain_residency_path", **out[-1]})
+    del corpus, mul, add, v8, sv, mul8, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rises(name: str, before: dict, after: dict, spec) -> None:
+    """Each call of a phase-6 search launches its kernel and moves its
+    residency counter by exactly the expected amount."""
+    _, _, _, _, route, per_call, counter, rise = spec
+    got = launches(None, after)[route] - launches(None, before)[route]
+    if got != per_call:
+        raise AssertionError(f"{name}: {got} {route} kernel launches, expected {per_call}")
+    if counter is not None and after.get(counter, 0) - before.get(counter, 0) != rise:
+        raise AssertionError(
+            f"{name}: {counter} rose by {after.get(counter, 0) - before.get(counter, 0)}, expected {rise}"
+        )
+
+
+def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
+    """A 4,194,304 x 768 table served past a 6 GiB budget by a second
+    server: auto routes to int8 residency, then forced int8, fp32 and int8
+    streaming, and dual as the same server's exact answer. Returns the
+    kernel checks and the path's launch counts."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.io import ingest
+
+    t = time.perf_counter()
+    vectors, ids_np, tags = make_data(RES_ROWS, seed=1, dim=RES_D)
+    # near queries copy duplicated rows whose both copies pass tag < 50,
+    # so exact ties reach every filtered top-100
+    pool = np.flatnonzero((tags[:DUP] < 50) & (tags[DUP : 2 * DUP] < 50))
+    queries = {q: make_queries(vectors, q, seed=100 + q, src_pool=pool) for q in (8, 64, 1024)}
+    emit({"phase": "residency_data", "rows": RES_ROWS, "dim": RES_D, "budget": RES_BUDGET,
+          "native_available": native.available(), "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    checks = residency_kernel_checks(kernels, topk2, vectors, tags, queries)
+    emit({"phase": "kernel_vs_plain_residency_done", "seconds": time.perf_counter() - t})
+
+    work = os.path.join(HERE, "build", "chip_smoke", f"residency-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    port = free_port()
+    proc, log = start_server(os.path.join(work, "root"), port, os.path.join(work, "server.log"),
+                             {"FENIX_HBM_BUDGET": str(RES_BUDGET)})
+    client = Flight(host="127.0.0.1", port=port)
+    results = {}
+    try:
+        wait_healthy(client, proc)
+        if any(launches(client).values()):
+            raise AssertionError("launch counts not 0 before the residency path")
+        schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), RES_D),
+                            "tag": pa.int32()})
+
+        def batches():
+            for s in range(0, RES_ROWS, BATCH_ROWS):
+                e = min(s + BATCH_ROWS, RES_ROWS)
+                yield pa.record_batch(
+                    [pa.array(ids_np[s:e]), ingest.numpy_to_fixed_size_list(vectors[s:e], pa.float32()),
+                     pa.array(tags[s:e])],
+                    schema=schema,
+                )
+
+        t = time.perf_counter()
+        client.make_table("smoke/wide", pa.RecordBatchReader.from_batches(schema, batches()))
+        emit({"phase": "residency_put", "rows": RES_ROWS, "seconds": time.perf_counter() - t})
+
+        for spec in RES_SEARCHES:
+            name, qn, mode, precision = spec[:4]
+            kw = dict(metric="l2", maxval=RES_K, precision=precision, residency=mode,
+                      filter=expr.field("tag") < 50)
+            before = client.stats()
+            t = time.perf_counter()
+            results[name] = client.search(queries[qn], "smoke/wide", "vector", **kw)
+            first = time.perf_counter() - t
+            after = client.stats()
+            check_rises(name, before, after, spec)
+            cold = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("cache.int8_sidecar_writes", "cache.int8_sidecar_loads",
+                              "cache.mirror_rows_quantized", "cache.int8_mirror_build_seconds",
+                              "cache.int8_upload_seconds", "cache.evictions", *SPLIT_KEYS)}
+            warm, splits = [], []
+            for _ in range(WARM_REPS):
+                a = client.stats()
+                t = time.perf_counter()
+                client.search(queries[qn], "smoke/wide", "vector", **kw)
+                warm.append((time.perf_counter() - t) * 1e3)
+                b = client.stats()
+                check_rises(name, a, b, spec)
+                splits.append({k: b.get(k, 0) - a.get(k, 0) for k in SPLIT_KEYS})
+            split = {k: float(np.median([x[k] for x in splits])) for k in SPLIT_KEYS}
+            if split["transfer.h2d_seconds"] > 0:
+                split["h2d_GBps"] = split["transfer.h2d_bytes"] / split["transfer.h2d_seconds"] / 1e9
+                split["stage_GBps"] = split["transfer.h2d_bytes"] / split["transfer.stage_seconds"] / 1e9
+            emit({"phase": "residency_search", "search": name, "q": qn, "k": RES_K,
+                  "residency": mode, "precision": precision, "rows_returned": results[name].num_rows,
+                  "first_call_s": first, "cold": cold, "warm_median_ms": float(np.median(warm)),
+                  "warm_ms": warm, "warm_split_median": split, "device": kind, "nvidia_smi": smi})
+            if name == "stream_int8_q64":  # searches 1-4 kept within the budget
+                st = client.stats()
+                state = {k: v for k, v in st.items() if k.startswith("cache.device_")}
+                emit({"phase": "residency_device_state", **state})
+                if st.get("cache.device_entries.matrix", 0):
+                    raise AssertionError("an fp32 device matrix exists after the host-corpus searches")
+                if st["cache.device_bytes"] > RES_BUDGET:
+                    raise AssertionError(f"cache.device_bytes {st['cache.device_bytes']} over the budget")
+        final = client.stats()
+        path_launches = launches(None, final)
+        emit({"phase": "residency_done", "launches": path_launches,
+              "device_entries": {k: v for k, v in final.items() if k.startswith("cache.device_")}})
+    finally:
+        client.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        with open(os.path.join(work, "server.log")) as fh:
+            tail = fh.read().splitlines()[-20:]
+        print("residency server log (last lines):", *tail, sep="\n", file=sys.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+
+    stream_ids = split_result(results["stream_q8"], 8, RES_K)[0]
+    if not np.array_equal(stream_ids, split_result(results["dual_q8"], 8, RES_K)[0]):
+        raise AssertionError("fp32 stream ids differ from the dual ids")
+
+    t = time.perf_counter()
+    oracle = Oracle(vectors, DEVICE)
+    mask = torch.from_numpy(tags < 50).to(DEVICE)
+    for name, qn, *_ in RES_SEARCHES:
+        graded = "int8" if name in RES_INT8_GRADED else "fp32"
+        spec = (name, qn, "l2", RES_K, graded, True, False)
+        emit({"phase": "residency_oracle", "search": name,
+              **check_search(oracle, spec, queries[qn], results[name], mask)})
+    del oracle
+    torch.cuda.empty_cache()
+    emit({"phase": "residency_oracle_done", "seconds": time.perf_counter() - t})
+    return {"checks": checks, "launches": path_launches}
 
 
 def run() -> int:
@@ -408,7 +657,7 @@ def run() -> int:
     from fenix_tpu_torch.flight import Flight
     from fenix_tpu_torch.ops import kernels, topk2
 
-    device = "cuda"
+    device = DEVICE
 
     # -- phase 1 --------------------------------------------------------------
     t = time.perf_counter()
@@ -430,6 +679,9 @@ def run() -> int:
     small = phase_kernel_vs_plain(kernels, topk2)
     for r in small:
         emit({"phase": "kernel_vs_plain", **r})
+    wide = phase_kernel_vs_plain_d768(kernels, topk2)
+    for r in wide:
+        emit({"phase": "kernel_vs_plain_d768", **r})
     main_shapes = []
     for spec, qnp in zip(SEARCHES, queries):
         inputs = main_path_inputs(topk2, vectors, tags, spec, qnp, device)
@@ -541,19 +793,32 @@ def run() -> int:
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
+    del vectors, ids_np, tags, queries, results
+    res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
+
+    # -- the kernels line ------------------------------------------------------
+    compares = small + wide + main_shapes + res["checks"]
+    compares += [{**r, "route": K3_ROUTE} for r in compares if r["route"] == "f32" and r["bucket"] == 128]
+    by_path = {"exact": main_launches, "residency": res["launches"]}
     entries = []
-    for route in ("f32", "bf16", "int8"):
-        shapes = [m for m in main_shapes if m["route"] == route]
-        top = max(shapes, key=lambda m: m["q"])
-        errs = [r["max_abs_err"] for r in small + shapes if r["route"] == route]
+    for name, route, replaces in KERNELS:
+        for path, counts in by_path.items():
+            if route != "bf16" or path == "exact":  # the residency path has no bf16 scan
+                if counts[route] == 0:
+                    raise AssertionError(f"{name} was not launched on the {path} path")
+        mine = [r for r in compares if r["route"] == route]
+        # timed at the largest shape the main paths gave it
+        top = max(mine, key=lambda r: (r.get("search") is not None, r["q"] * r["n"] * r.get("d", D)))
         entries.append({
-            "name": f"bucket_scores.{route}", "route": "cuda",
-            "source": "fenix_tpu_torch/csrc/bucket_scores.cu",
-            "replaces": REPLACES[route], "launches": main_launches[route],
-            "max_abs_err": max(errs), "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "name": name, "route": "cuda", "source": "fenix_tpu_torch/csrc/bucket_scores.cu",
+            "replaces": replaces, "launches": sum(c[route] for c in by_path.values()),
+            "launches_by_path": {p: c[route] for p, c in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "verdict": "kernel faster" if top["ms"] < top["plain_ms"] else "plain faster",
         })
-        emit({"phase": "kernel_timed_at", "name": entries[-1]["name"], "search": top["search"],
-              "q": top["q"], "n": top["n"], "d": D, "bucket": top["bucket"]})
+        emit({"phase": "kernel_timed_at", "name": name, "search": top.get("search"), "q": top["q"],
+              "n": top["n"], "d": top.get("d", D), "bucket": top["bucket"]})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,10 +11,12 @@ Results are sorted ascending by distance with ties broken by row id
 (deterministic, unlike the reference's ``select_k_unstable``).
 
 Served here: exact top-k (``maxval`` set) over one device, ``dual``
-residency, fp32/bf16/int8 scan precision, host-evaluated filters. Not
-ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: IVF ``coding``/``probes``, ``maxval=None`` (the full distance
-column), and multi-device meshes.
+residency, fp32/bf16/int8 scan precision, host-evaluated filters; a
+request that ``residency.plan`` routes to the int8-resident or streaming
+mode goes to ``engine/residency.py`` before any device fp32 is built.
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP item: IVF ``coding``/``probes``, ``maxval=None`` (the full
+distance column), and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -179,7 +181,13 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
         )
     if req.precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {req.precision!r}")
-    residency.plan(cache, req)  # DUAL, or NotImplementedError
+    if req.metric is None:
+        raise ValueError("metric is required when no coder supplies one")
+    # corpora past the budget serve through the host-corpus modes,
+    # before any device fp32 is built
+    mode = residency.plan(cache, req)
+    if mode != residency.DUAL:
+        return residency.execute_solo(cache, req, mode)
 
     # host table + device matrix of the same revision
     data, corpus, snap_stamp = cache.snapshot(req.source, req.column)
@@ -189,7 +197,6 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     target = normalize_target(req.target, column_type.list_size)
     num_queries = target.shape[0]
 
-    assert req.metric is not None, "metric is required when no coder supplies one"
     metric = distance_ops.canonical_metric(req.metric)
 
     n_pad, rows = corpus.rows_padded, corpus.rows

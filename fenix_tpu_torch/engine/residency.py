@@ -1,28 +1,70 @@
-"""Residency planning — port of ``plan`` from ``fenix_tpu/engine/residency.py``.
+"""Residency planning and the host-corpus serving modes — port of
+``fenix_tpu/engine/residency.py`` (its single-device half).
 
-``dual`` keeps the fp32 corpus (plus the optional bf16/int8 scan copy)
-resident on the device; it is the only mode this package serves. The
-JAX package's host-corpus modes — ``int8`` (only the int8 copy resident,
-exact rescore on the host) and ``stream`` (corpora larger than device
-memory, streamed in chunks) — are not ported yet: a request that forces
-one, or whose table does not fit the budget in ``dual``, raises
-``NotImplementedError`` instead of answering from another route.
+``dual``   the fp32 corpus (plus the optional bf16/int8 scan copy)
+           resident on the device; picked whenever it fits
+           (``engine/executor.py`` serves it).
+``int8``   int8-resident: only the int8 copy and 16 B/row of aux live
+           on the device, built without any device fp32
+           (``session.int8_solo``). Device phase A returns a top-W window
+           per query (``topk2.topk_window_int8``, the K2 kernel); the host
+           gathers those rows from the memory-mapped fp32 corpus and
+           rescores them exactly.
+``stream`` larger than device memory: the host corpus moves through the
+           device in double-buffered chunks (``io.batch.prefetch_to_device``).
+           fp32 chunks run the exact two-phase search (the K1 kernel) and
+           the host merges them by (distance, id); ``precision="int8"``
+           streams the host int8 mirror, each chunk gives a window, and
+           one host rescore covers their union.
+
+``plan`` picks the mode from host metadata alone: "auto" takes the
+first that fits ``FENIX_HBM_BUDGET`` (or the card's memory, see
+``utils/hbm.py``); "dual" / "int8" / "stream" force one.
+
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP item: probed (IVF) requests over a host corpus (``probed_topk``,
+queue 1 item 8), ``maxval=None`` over a host corpus
+(``execute_nomax_host``, item d), and the mesh-composed modes (item 11).
+``execute_many`` takes a list of compatible requests, but only
+``execute_solo`` calls it until micro-batching ports (item a).
+
+Counters (``stats``): ``search.residency_int8``,
+``search.residency_stream``, ``search.stream_chunks`` (the reference's
+names), and ``residency.phase_a_seconds`` (host wall time of the device
+calls, each ending in the device→host copy of its result) and
+``residency.rescore_seconds`` (host gather + exact rescore).
 """
 
 from __future__ import annotations
 
+import os
+import time
+from typing import Sequence
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from fenix_tpu_torch import native
+from fenix_tpu_torch.engine import executor  # circular: used at call time only
+from fenix_tpu_torch.io import batch as batch_io
 from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.ops import distance as distance_ops
+from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.utils import hbm
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 DUAL = "dual"
 INT8 = "int8"
 STREAM = "stream"
 _MODES = ("auto", DUAL, INT8, STREAM)
-_TODO = "ROADMAP queue 1: int8-resident and streaming residency"
 
 # fraction of the budget the router plans into (headroom for queries,
 # results and transient staging)
 _SAFETY = 0.9
+# default phase-A window per query (FENIX_RESCORE_WINDOW or the
+# request's extra {"window": ...} overrides it)
+_DEFAULT_WINDOW = 4096
 
 
 def plan(cache, req) -> str:
@@ -31,10 +73,8 @@ def plan(cache, req) -> str:
     forced = getattr(req, "residency", "auto") or "auto"
     if forced not in _MODES:
         raise ValueError(f"unknown residency {forced!r}; one of {_MODES}")
-    if forced == DUAL:
-        return DUAL
-    if forced in (INT8, STREAM):
-        raise NotImplementedError(f"residency={forced!r} ({_TODO})")
+    if forced != "auto":
+        return forced
 
     budget = hbm.budget_bytes(cache.device)
     if budget is None:
@@ -45,11 +85,322 @@ def plan(cache, req) -> str:
     n_pad = max(ingest.round_up(data.num_rows, cache.block), cache.block)
     fp32 = 4 * n_pad * dim
     scan_extra = {"fp32": 0, "bf16": 2 * n_pad * dim, "int8": n_pad * dim}[req.precision]
-    need = fp32 + scan_extra + 16 * n_pad
-    if need <= _SAFETY * budget:
+    avail = _SAFETY * budget
+    if fp32 + scan_extra + 16 * n_pad <= avail:
         return DUAL
-    mode = INT8 if req.maxval is not None and n_pad * dim + 16 * n_pad <= _SAFETY * budget else STREAM
-    raise NotImplementedError(
-        f"table {req.source!r} needs {need} device bytes for dual residency, over the "
-        f"budget of {budget}; the JAX package would serve it as {mode!r} ({_TODO})"
+    # past here dual cannot fit: int8-resident when the int8 copy fits,
+    # streaming otherwise
+    if req.maxval is not None and n_pad * dim + 16 * n_pad <= avail:
+        return INT8
+    return STREAM
+
+
+# -- host-side exact rescore ----------------------------------------------
+
+
+def _prepare_queries_np(queries: np.ndarray, metric: str) -> np.ndarray:
+    """numpy form of ``topk2.prepare_queries``."""
+    if metric == "l2":
+        return 2.0 * queries
+    if metric == "cosine":
+        norm = np.sqrt(np.square(queries).sum(axis=-1, keepdims=True))
+        return queries / np.maximum(norm, 1e-12)
+    return queries
+
+
+def _scores_to_distances_np(scores, queries, metric: str):
+    """numpy form of ``topk2.scores_to_distances``."""
+    if metric == "l2":
+        uu = np.square(queries).sum(axis=-1, keepdims=True)
+        return np.sqrt(np.maximum(uu - scores, 0.0))
+    if metric == "cosine":
+        return 0.5 - 0.5 * scores
+    return -scores
+
+
+def _host_rescore_topk(
+    host: np.ndarray,  # [N, D] fp32
+    aux_mul: np.ndarray,  # [N] f32
+    aux_add: np.ndarray,  # [N] f32
+    mask: "np.ndarray | None",  # [N] bool or None
+    queries: np.ndarray,  # [Q, D] fp32
+    win: np.ndarray,  # [Q, W] candidate row ids (may be invalid)
+    rows: int,
+    k: int,
+    metric: str,
+    q_block: int = 64,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Exact fp32 rescore + top-k over per-query candidate windows, on
+    the host: a threaded row gather (``native.gather_rows``) and one
+    einsum per query block, ordered by (score desc, id asc), i.e.
+    (distance asc, id asc). Returns (dist [Q, k] f32, ids [Q, k] int32;
+    +inf / −1 padding).
+
+    The reference's code, with one change: an l2 distance is returned as
+    ``‖q − v‖`` of the winning row, not as ``sqrt(‖q‖² − s)``. The
+    expanded form cancels for near rows (on an H100 host at D=768 it came
+    out 1.8e-4 relative off float64 for noisy copies of corpus rows); the
+    order stays the score's."""
+    qt, w = win.shape
+    qp = _prepare_queries_np(queries, metric)
+    out_d = np.empty((qt, k), np.float32)
+    out_i = np.empty((qt, k), np.int32)
+
+    for s in range(0, qt, q_block):
+        e = min(s + q_block, qt)
+        wb = win[s:e]
+        flat = wb.reshape(-1)
+        valid = (flat >= 0) & (flat < rows)
+        safe = np.where(valid, flat, 0).astype(np.int64)
+        cand = native.gather_rows(host, safe).reshape(e - s, w, host.shape[1])
+        sc = np.einsum("qd,qwd->qw", qp[s:e], cand, dtype=np.float32, optimize=True)
+        sc = sc * aux_mul[safe].reshape(e - s, w) + aux_add[safe].reshape(e - s, w)
+        ok = valid.reshape(e - s, w)
+        if mask is not None:
+            ok = ok & mask[safe].reshape(e - s, w)
+        sc = np.where(ok, sc, -np.inf)
+
+        kk = min(k, w)
+        part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
+        ps = np.take_along_axis(sc, part, axis=1)
+        pi = np.take_along_axis(wb, part, axis=1)
+        # (score desc, id asc) with the query-block row as the major key:
+        # one sort for the whole block
+        qb = e - s
+        flat_order = np.lexsort((pi.ravel(), -ps.ravel(), np.repeat(np.arange(qb), kk))).reshape(
+            qb, kk
+        )
+        order = flat_order - (np.arange(qb) * kk)[:, None]
+        top_s = np.take_along_axis(ps, order, axis=1)
+        top_i = np.take_along_axis(pi, order, axis=1)
+        dead = ~np.isfinite(top_s)  # invalid, masked or padding candidates
+        if metric == "l2":
+            winners = native.gather_rows(host, np.where(dead, 0, top_i).ravel())
+            diff = winners.reshape(qb, kk, -1) - queries[s:e, None, :]
+            dist = np.sqrt(np.square(diff).sum(axis=-1, dtype=np.float32))
+        else:
+            dist = _scores_to_distances_np(top_s, queries[s:e], metric)
+        dist[dead] = np.inf
+        top_i = np.where(dead, -1, top_i).astype(np.int32)
+        if kk < k:
+            dist = np.concatenate([dist, np.full((qb, k - kk), np.inf, np.float32)], axis=1)
+            top_i = np.concatenate([top_i, np.full((qb, k - kk), -1, np.int32)], axis=1)
+        out_d[s:e] = dist[:, :k]
+        out_i[s:e] = top_i[:, :k]
+    return out_d, out_i
+
+
+def _timed_rescore(*args) -> tuple[np.ndarray, np.ndarray]:
+    t = time.perf_counter()
+    out = _host_rescore_topk(*args)
+    METRICS.add("residency.rescore_seconds", time.perf_counter() - t)
+    return out
+
+
+def _host_mask(cache, req) -> "np.ndarray | None":
+    return cache.host_filter_mask(req.source, req.filter) if req.filter is not None else None
+
+
+# -- int8-resident execution ----------------------------------------------
+
+
+def _request_window(req, n_pad: int, k_pad: int) -> int:
+    w = int((req.extra or {}).get("window") or os.environ.get("FENIX_RESCORE_WINDOW", _DEFAULT_WINDOW))
+    return max(min(w, n_pad), k_pad)
+
+
+def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """(dist [Q, k], ids [Q, k]) via the int8-resident two-phase: device
+    phase A window → host gather + exact fp32 rescore."""
+    metric = distance_ops.canonical_metric(req.metric)
+    v8, sv = cache.int8_solo(req.source, req.column)
+    aux_mul, aux_add = cache.int8_solo_aux(req.source, req.column, metric)
+    n_pad, rows = v8.rows_padded, v8.rows
+
+    mask = _host_mask(cache, req)
+    if mask is not None:
+        if mask.shape[0] != rows:
+            raise executor._StaleRevision
+        padded = np.zeros(n_pad, bool)
+        padded[:rows] = mask
+        METRICS.add("filter.host_upload")
+        aux_add = torch.where(torch.from_numpy(padded).to(cache.device), aux_add, distance_ops.NEG_INF)
+
+    w = _request_window(req, n_pad, k_pad)
+    t = time.perf_counter()
+    queries = torch.tensor(stacked, device=cache.device)
+    win = topk2.topk_window_int8(
+        v8.data, sv.data, queries, aux_mul, aux_add, k=k_pad, w=w, metric=metric
+    ).cpu().numpy()
+    METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
+
+    host = cache.host_matrix(req.source, req.column)
+    hmul, hadd = cache.host_aux(req.source, req.column, metric)
+    METRICS.add("search.residency_int8")
+    return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
+
+
+# -- streaming (larger than device memory) ----------------------------------
+
+
+def _stream_chunk_rows(budget: "int | None", dim: int, block: int, itemsize: int) -> int:
+    """Rows per streamed chunk: two chunks in flight plus the search's
+    working set sit inside the budget, so about a quarter of it per
+    chunk, block-aligned."""
+    if budget is None:
+        budget = 2 << 30
+    per_row = itemsize * dim + 8
+    rows = int(_SAFETY * budget / 4 / per_row)
+    return max((rows // block) * block, block)
+
+
+def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """(dist [Q, k], ids [Q, k]) by streaming the host corpus through the
+    device in fixed-shape chunks (the ragged tail padded with zero rows,
+    ``aux_add = −inf``, ``aux_mul = 0`` and, for int8, scale 1e-30).
+    fp32: the exact two-phase search per chunk, host merge by (dist, id).
+    int8: a phase-A window per chunk, one exact host rescore over the
+    union."""
+    metric = distance_ops.canonical_metric(req.metric)
+    host = cache.host_matrix(req.source, req.column)
+    hmul, hadd = cache.host_aux(req.source, req.column, metric)
+    mask = _host_mask(cache, req)
+    rows, dim = host.shape
+    if mask is not None and mask.shape[0] != rows:
+        raise executor._StaleRevision
+    int8_mode = req.precision == "int8"
+    if int8_mode:
+        # the memoized host mirror: quantizing inside every search would
+        # cost more than the transfer the int8 mode quarters
+        codes, scales = cache.host_int8(req.source, req.column)
+    chunk = min(
+        _stream_chunk_rows(hbm.budget_bytes(cache.device), dim, cache.block, 1 if int8_mode else 4),
+        max(ingest.round_up(rows, cache.block), cache.block),
     )
+    queries = torch.tensor(stacked, device=cache.device)
+    qt = stacked.shape[0]
+
+    def chunks():
+        # full chunks are views of the host corpus or mirror; only the
+        # ragged tail is padded on the host
+        for start in range(0, rows, chunk):
+            end = min(start + chunk, rows)
+            pad = chunk - (end - start)
+            add_c = hadd[start:end]
+            if mask is not None:
+                add_c = np.where(mask[start:end], add_c, np.float32(distance_ops.NEG_INF))
+            mul_c = hmul[start:end]
+            if pad:
+                add_c = np.concatenate([add_c, np.full(pad, distance_ops.NEG_INF, np.float32)])
+                mul_c = np.concatenate([mul_c, np.zeros(pad, np.float32)])
+            if int8_mode:
+                c8, sv_c = codes[start:end], scales[start:end]
+                if pad:
+                    c8 = np.concatenate([c8, np.zeros((pad, dim), np.int8)])
+                    sv_c = np.concatenate([sv_c, np.full(pad, 1e-30, np.float32)])
+                yield c8, sv_c, mul_c, add_c
+            else:
+                buf = host[start:end]
+                if pad:
+                    buf = np.concatenate([buf, np.zeros((pad, dim), np.float32)])
+                yield buf, mul_c, add_c
+
+    n_chunks = 0
+    parts: list = []
+    w_c = max(k_pad, min(_request_window(req, chunk, k_pad), chunk))
+    for i, arrays in enumerate(batch_io.prefetch_to_device(chunks(), cache.device)):
+        start = i * chunk
+        t = time.perf_counter()
+        if int8_mode:
+            c8, sv_c, mul_c, add_c = arrays
+            win = topk2.topk_window_int8(c8, sv_c, queries, mul_c, add_c, k=k_pad, w=w_c, metric=metric)
+            win = win.cpu().numpy()
+            parts.append(np.where(win >= 0, win + start, -1))
+        else:
+            buf, mul_c, add_c = arrays
+            d_c, i_c = topk2.topk_two_phase(buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric)
+            i_c = i_c.cpu().numpy()
+            parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1)))
+        METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
+        n_chunks += 1
+    METRICS.add("search.stream_chunks", n_chunks)
+    METRICS.add("search.residency_stream")
+
+    if int8_mode:
+        win = np.concatenate(parts, axis=1) if parts else np.full((qt, 1), -1, np.int64)
+        return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
+
+    d_all = np.concatenate([d for d, _ in parts], axis=1)
+    i_all = np.concatenate([i for _, i in parts], axis=1)
+    d_all = np.where(i_all >= 0, d_all, np.inf)
+    width = d_all.shape[1]
+    # (dist asc, id asc) merge of the chunks, the query as the major key
+    flat_order = np.lexsort((i_all.ravel(), d_all.ravel(), np.repeat(np.arange(qt), width))).reshape(
+        qt, width
+    )
+    order = (flat_order - (np.arange(qt) * width)[:, None])[:, :k]
+    dq = np.take_along_axis(d_all, order, axis=1).astype(np.float32)
+    iq = np.take_along_axis(i_all, order, axis=1)
+    if width < k:
+        dq = np.concatenate([dq, np.full((qt, k - width), np.inf, np.float32)], axis=1)
+        iq = np.concatenate([iq, np.full((qt, k - width), -1, iq.dtype)], axis=1)
+    return dq, np.where(np.isfinite(dq), iq, -1).astype(np.int32)
+
+
+# -- engine entry points ---------------------------------------------------
+
+
+def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
+    """Serve compatible requests (same source, column, metric, filter,
+    precision) through a host-corpus mode as one device pass, retrying
+    when a catalog mutation lands mid-request."""
+    r0 = reqs[0]
+    if r0.coding is not None and r0.probes is not None:
+        raise NotImplementedError(
+            "probed search over a host-resident corpus (ROADMAP queue 1 item 8: probed_topk)"
+        )
+    fn = int8_topk if mode == INT8 else stream_topk
+    for _ in range(4):
+        stamp = cache.snapshot_stamp(r0.source)
+        data = cache.host_table(r0.source)
+        column_type = ingest.vector_field_type(data.schema.field(r0.column))
+        value_dtype = column_type.value_type.to_pandas_dtype()
+        targets = [executor.normalize_target(r.target, column_type.list_size) for r in reqs]
+        counts = [t.shape[0] for t in targets]
+        stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
+        rows = data.num_rows
+        k = int(min(max(r.maxval for r in reqs), rows))
+        try:
+            dist, ids = fn(cache, r0, stacked, k, executor._canonical_k(k))
+        except executor._StaleRevision:
+            continue
+        if cache.snapshot_stamp(r0.source) != stamp:
+            continue
+
+        views = cache.host_column_views(r0.source, data, stamp)
+        out = []
+        offset = 0
+        for req, c in zip(reqs, counts):
+            m = int(min(req.maxval, rows))
+            select = [*req.select] if req.select is not None else data.column_names
+            out.append(
+                executor.gather_results(
+                    data,
+                    select + [executor.DIST_COL],
+                    dist[offset : offset + c, :m],
+                    ids[offset : offset + c, :m],
+                    value_dtype,
+                    views=views,
+                )
+            )
+            offset += c
+        return out
+    raise RuntimeError(f"table {r0.source!r} kept changing during search")
+
+
+def execute_solo(cache, req, mode: str) -> pa.Table:
+    if req.maxval is None:
+        raise NotImplementedError(
+            "maxval=None over a host-resident corpus (ROADMAP queue 1 item d: execute_nomax_host)"
+        )
+    return execute_many(cache, [req], mode)[0]

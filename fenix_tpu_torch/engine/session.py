@@ -10,19 +10,32 @@ revision stamp and rebuilt when it moves.
 Ported: the host table, the snapshot (host table + device matrix of one
 revision), the fp32 matrix (a new revision rebuilds it in full), the
 metric aux vectors, the bf16 and int8 scan copies, zero-copy host column
-views for the result gather, the LRU budget and ``invalidate``. All
-tensors live on the one ``device`` the cache was made for; nothing moves
-to the CPU when a CUDA device was asked for. The incremental append /
-delete refreshes and the mesh-sharded layouts wait (ROADMAP queue 1).
+views for the result gather, the LRU budget and ``invalidate``; and for
+the host-corpus residency modes (``engine/residency.py``) the host fp32
+matrix, the host int8 mirror with its on-disk sidecar, the host aux and
+filter masks, and the int8-resident device copy built without any fp32
+on the device. All tensors live on the one ``device`` the cache was made
+for; nothing moves to the CPU when a CUDA device was asked for. The
+incremental append / delete refreshes (device and host mirror) and the
+mesh-sharded layouts wait (ROADMAP queue 1 items c, e and 11).
 """
 
 from __future__ import annotations
 
+import collections
+import fcntl
+import glob
+import hashlib
 import itertools
+import json
 import os
+import re
+import shutil
 import threading
+import time
 from typing import Sequence
 
+import numpy as np
 import pyarrow as pa
 import torch
 
@@ -31,13 +44,44 @@ from fenix_tpu_torch.io.locks import read_stable
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.utils import hbm
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 # Row-block granularity for padded device columns (the JAX package's).
 DEFAULT_BLOCK = 16384
+_MASK_CACHE_LIMIT = 128  # host filter masks kept per cache (LRU)
+_INT8_UPLOAD_BLOCKS = 32  # blocks per host→device copy of the int8 mirror
 
 
 def _source_key(source: str | Sequence[str]) -> tuple[str, ...]:
     return (source,) if isinstance(source, str) else tuple(source)
+
+
+def _quantize_chunk_rows(dim: int, target_bytes: int = 256 << 20) -> int:
+    """Rows per host-quantize slice, sized by bytes: each slice makes
+    f32 temporaries about 3× its size."""
+    return max(1, target_bytes // (4 * dim))
+
+
+def _sweep_dead_tmp(cdir: str) -> None:
+    """Remove sidecar ``.tmp-<pid>-*`` files of writers that died (the
+    names carry the writer's pid). A live writer's files stay: deleting
+    them would make its ``os.replace`` fail mid-write."""
+    for orphan in glob.glob(os.path.join(glob.escape(cdir), ".tmp-*")) + glob.glob(
+        os.path.join(glob.escape(cdir), "*.tmp-*")
+    ):
+        m = re.search(r"\.tmp-(\d+)", os.path.basename(orphan))
+        if m and int(m.group(1)) != os.getpid():
+            try:
+                os.kill(int(m.group(1)), 0)
+                continue  # writer alive: leave its files
+            except ProcessLookupError:
+                pass  # dead: sweep
+            except OSError:
+                continue  # EPERM etc: assume alive
+        try:
+            os.unlink(orphan)
+        except OSError:
+            pass
 
 
 class DeviceCache:
@@ -62,6 +106,9 @@ class DeviceCache:
         self._recency: dict = {}
         self._access = itertools.count(1)
         self.evictions: int = 0
+        # in-flight builds outside the lock (ckey -> Event), _memo_unlocked
+        self._builds: dict = {}
+        self._masks: collections.OrderedDict = collections.OrderedDict()
 
     def _touch(self, ckey) -> None:
         self._recency[ckey] = next(self._access)
@@ -107,6 +154,45 @@ class DeviceCache:
                 self._touch(ckey)
                 self._maybe_evict(ckey)
             return value
+
+    def _memo_unlocked(self, store: dict, ckey, stamp, build):
+        """Memoization whose build runs outside the cache lock (the host
+        int8 mirror's quantize + persist takes minutes at scale and must
+        not stall every other cold fill). One builder per key: concurrent
+        callers wait on its event, then re-check the memo and build
+        themselves only if the builder failed or built another revision."""
+        while True:
+            hit = store.get(ckey)
+            if hit is not None and hit[0] == stamp:
+                return hit[1]
+            with self._lock:
+                hit = store.get(ckey)
+                if hit is not None and hit[0] == stamp:
+                    return hit[1]
+                ev = self._builds.get(ckey)
+                am_builder = ev is None
+                if am_builder:
+                    ev = self._builds[ckey] = threading.Event()
+            if not am_builder:
+                ev.wait()
+                continue  # the builder published (or failed): re-check
+            try:
+                value = build()  # no lock held
+                with self._lock:
+                    store[ckey] = (stamp, value)
+                return value
+            finally:
+                with self._lock:
+                    self._builds.pop(ckey, None)
+                ev.set()
+
+    def device_entry_kinds(self) -> dict[str, int]:
+        """Cached device entries by kind (``matrix``, ``int8_solo``, ...)."""
+        counts: dict[str, int] = {}
+        with self._lock:
+            for ckey in self._device:
+                counts[ckey[2]] = counts.get(ckey[2], 0) + 1
+        return counts
 
     def device_bytes(self) -> int:
         """Device bytes held by cached entries (deduplicated by storage)."""
@@ -184,6 +270,174 @@ class DeviceCache:
 
         return self._memo(self._host, (key, "host_column_views"), token, build)
 
+    # -- host-resident corpus (int8-resident and streaming modes) ----------
+
+    def host_matrix(self, source: str | Sequence[str], column: str) -> np.ndarray:
+        """Host ``[N, D]`` fp32 vector column: the exact-rescore side of
+        the int8-resident mode and the source of the streaming scan. A
+        view of the Arrow memory map for a single-chunk fp32 column (one
+        copy otherwise); memoized per revision."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build() -> np.ndarray:
+            host = ingest.fixed_size_list_to_numpy(self.host_table(source).column(column))
+            return np.ascontiguousarray(host, dtype=np.float32)
+
+        return self._memo(self._host, (key, column, "host_matrix"), stamp, build)
+
+    def host_int8(self, source: str | Sequence[str], column: str):
+        """Host int8 mirror ``(codes [N, D] int8, scales [N] f32)`` of the
+        vector column (``topk2.quantize_rows_int8_np``), memoized per
+        revision: the int8 stream slices its chunks out of it, and
+        ``int8_solo`` uploads it.
+
+        Persisted as a revision-stamped sidecar next to the table
+        (``table.int8cache_dir/<sha1(column)[:16]>/``: ``codes.npy``,
+        ``scales.npy``, ``meta.json`` written last), in the JAX package's
+        format, so a restart of either package memory-maps the codes
+        instead of quantizing the corpus again. A sidecar of another
+        revision is rebuilt in full (the JAX package's O(delta) refresh
+        waits for the mutation port, ROADMAP queue 1 item e). Counters:
+        ``cache.int8_sidecar_loads`` / ``cache.int8_sidecar_writes``, and
+        ``cache.int8_mirror_build_seconds`` (quantize + write)."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            cdir = self._int8_cdir(key, column)
+            stamp_s = json.dumps(stamp)
+            loaded = self._read_int8_sidecar(cdir, column)
+            if loaded is not None and loaded[2].get("stamp") == stamp_s:
+                METRICS.add("cache.int8_sidecar_loads")
+                return loaded[0], loaded[1]
+            t = time.perf_counter()
+            host = self.host_matrix(source, column)
+            rows, d = host.shape
+            codes = np.empty((rows, d), np.int8)
+            scales = np.empty(rows, np.float32)
+            step = _quantize_chunk_rows(d)
+            for s in range(0, rows, step):
+                codes[s : s + step], scales[s : s + step] = topk2.quantize_rows_int8_np(
+                    host[s : s + step]
+                )
+            METRICS.add("cache.mirror_rows_quantized", rows)
+            out = self._write_int8_sidecar(cdir, codes, scales, stamp_s, column)
+            METRICS.add("cache.int8_mirror_build_seconds", time.perf_counter() - t)
+            return out
+
+        return self._memo_unlocked(self._host, (key, column, "host_int8"), stamp, build)
+
+    def _int8_cdir(self, key: tuple, column: str) -> "str | None":
+        if len(key) != 1:
+            return None  # joined sources keep their mirror in memory only
+        return os.path.join(
+            table.int8cache_dir(self.root, key[0]), hashlib.sha1(column.encode()).hexdigest()[:16]
+        )
+
+    @staticmethod
+    def _read_int8_sidecar(cdir: "str | None", column: str):
+        """``(codes mmap, scales, meta)`` of whatever revision the sidecar
+        holds (the caller checks the stamp), or None."""
+        if cdir is None or not os.path.isdir(cdir):
+            return None
+        meta_path = os.path.join(cdir, "meta.json")
+        try:
+            with open(meta_path) as fh:
+                meta = json.load(fh)
+            if meta.get("column") != column:
+                return None
+            codes = np.load(os.path.join(cdir, "codes.npy"), mmap_mode="r")
+            scales = np.load(os.path.join(cdir, "scales.npy"))
+            # a writer in another process may have replaced the files
+            # between the meta read and the loads
+            with open(meta_path) as fh:
+                if json.load(fh) != meta:
+                    return None
+            if scales.shape[0] != codes.shape[0] or codes.shape[0] != meta.get("rows"):
+                return None
+            return codes, scales, meta
+        except (OSError, ValueError, EOFError):
+            return None  # corrupt or absent: the caller rebuilds
+
+    @staticmethod
+    def _write_int8_sidecar(cdir: "str | None", codes, scales, stamp_s: str, column: str):
+        """Full sidecar (re)write: invalidate the meta, replace the data
+        files through tmp files, write the meta last — under the flock
+        the JAX package's in-place appender takes, so the two never
+        interleave. Returns ``(codes, scales)``, the codes memory-mapped
+        from the written file."""
+        if cdir is None:
+            return codes, scales
+        meta_path = os.path.join(cdir, "meta.json")
+        try:
+            os.makedirs(cdir, exist_ok=True)
+            with open(os.path.join(cdir, ".append.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                _sweep_dead_tmp(cdir)
+                if os.path.exists(meta_path):
+                    os.unlink(meta_path)  # invalidate before touching data
+                for arr, fname in ((codes, "codes.npy"), (scales, "scales.npy")):
+                    tmp = os.path.join(cdir, f".tmp-{os.getpid()}-{fname}")
+                    with open(tmp, "wb") as fh:
+                        np.save(fh, np.ascontiguousarray(arr))
+                    os.replace(tmp, os.path.join(cdir, fname))
+                tmp = meta_path + f".tmp-{os.getpid()}"
+                with open(tmp, "w") as fh:
+                    json.dump(
+                        {"stamp": stamp_s, "column": column,
+                         "rows": int(codes.shape[0]), "dim": int(codes.shape[1])},
+                        fh,
+                    )
+                os.replace(tmp, meta_path)
+                # serve the page-cache-backed mapping, not the anonymous build array
+                codes = np.load(os.path.join(cdir, "codes.npy"), mmap_mode="r")
+            METRICS.add("cache.int8_sidecar_writes")
+        except OSError:
+            # disk full or unwritable root: serve from memory, leave no
+            # half-written sidecar (no meta = no sidecar to readers)
+            shutil.rmtree(cdir, ignore_errors=True)
+        return codes, scales
+
+    def host_aux(self, source: str | Sequence[str], column: str, metric: str):
+        """Host ``(aux_mul [N], aux_add [N])`` f32 of the fused score over
+        the host corpus (numpy form of ``topk2.prepare_aux``, no mask;
+        request filters overlay per request)."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            host = self.host_matrix(source, column)
+            sq = np.einsum("nd,nd->n", host, host, dtype=np.float32)
+            if canonical == "l2":
+                return np.ones_like(sq), -sq
+            if canonical == "cosine":
+                return (1.0 / np.maximum(np.sqrt(sq), 1e-12)).astype(np.float32), np.zeros_like(sq)
+            return np.ones_like(sq), np.zeros_like(sq)
+
+        return self._memo(self._host, (key, column, "host_aux", canonical), stamp, build)
+
+    def host_filter_mask(self, source: str | Sequence[str], filt) -> np.ndarray:
+        """Host ``[N]`` bool mask of a predicate, memoized per (predicate,
+        revision) in a bounded LRU: the host rescore and the stream
+        re-apply it per request."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+        ckey = (key, "host", filt.to_json())
+        with self._lock:
+            hit = self._masks.get(ckey)
+            if hit is not None and hit[0] == stamp:
+                self._masks.move_to_end(ckey)
+                return hit[1]
+        mask = np.asarray(filt.mask(self.host_table(source)), dtype=bool)
+        with self._lock:
+            self._masks[ckey] = (stamp, mask)
+            self._masks.move_to_end(ckey)
+            while len(self._masks) > _MASK_CACHE_LIMIT:
+                self._masks.popitem(last=False)
+        return mask
+
     # -- device columns ---------------------------------------------------
 
     def matrix(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
@@ -248,6 +502,59 @@ class DeviceCache:
 
         return self._memo(self._device, (key, column, "matrix_int8"), stamp, build)
 
+    def int8_solo(self, source: str | Sequence[str], column: str):
+        """Per-row int8 device copy ``(v8 [N_pad, D], sv [N_pad])`` built
+        without any fp32 on the device: the host mirror (:meth:`host_int8`)
+        is uploaded in chunks into a preallocated int8 tensor, so the int8
+        copy is the only corpus-sized device allocation. Padding rows are
+        zero codes with scale 1e-30. Timed as ``cache.int8_upload_seconds``."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+        ckey = (key, column, "int8_solo")
+        hit = self._device.get(ckey)
+        if hit is not None and hit[0] == stamp:
+            self._touch(ckey)
+            return hit[1]
+        # the mirror builds outside the cache lock (_memo_unlocked): waiting
+        # on its builder while holding the lock would stall the whole cache
+        codes, scales = self.host_int8(source, column)
+
+        def build():
+            t = time.perf_counter()
+            rows, d = codes.shape
+            n_pad = max(ingest.round_up(rows, self.block), self.block)
+            v8 = torch.empty((n_pad, d), dtype=torch.int8, device=self.device)
+            step = _INT8_UPLOAD_BLOCKS * self.block
+            for s in range(0, rows, step):
+                part = np.asarray(codes[s : s + step])
+                v8[s : s + part.shape[0]].copy_(ingest.host_tensor(part))
+            v8[rows:].zero_()
+            sv = torch.full((n_pad,), 1e-30, dtype=torch.float32, device=self.device)
+            sv[:rows].copy_(ingest.host_tensor(np.asarray(scales, np.float32)))
+            METRICS.add("cache.int8_upload_seconds", time.perf_counter() - t)  # ends in a sync copy
+            return ingest.DeviceColumn(data=v8, rows=rows), ingest.DeviceColumn(data=sv, rows=rows)
+
+        return self._memo(self._device, ckey, stamp, build)
+
+    def int8_solo_aux(self, source: str | Sequence[str], column: str, metric: str):
+        """Device ``(aux_mul, aux_add)`` [N_pad] for the int8-resident
+        scan, uploaded from the host aux (8 B/row); padding rows −inf."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            mul, add = self.host_aux(source, column, canonical)
+            rows = mul.shape[0]
+            n_pad = max(ingest.round_up(rows, self.block), self.block)
+            mul_p = np.ones(n_pad, np.float32)
+            mul_p[:rows] = mul
+            add_p = np.full(n_pad, distance_ops.NEG_INF, np.float32)
+            add_p[:rows] = add
+            return torch.from_numpy(mul_p).to(self.device), torch.from_numpy(add_p).to(self.device)
+
+        return self._memo(self._device, (key, column, "int8_solo_aux", canonical), stamp, build)
+
     def metric_aux(self, source: str | Sequence[str], column: str, metric: str):
         """Cached per-row (aux_mul, aux_add) for the fused score
         (ops.topk2.prepare_aux) with padding rows masked to −inf.
@@ -286,3 +593,4 @@ class DeviceCache:
         with self._lock:
             self._host.clear()
             self._device.clear()
+            self._masks.clear()

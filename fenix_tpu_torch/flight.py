@@ -53,6 +53,16 @@ _NOT_PORTED = {
 }
 
 
+# the JAX package's residency counters, under its names
+_RESIDENCY_COUNTERS = (
+    "search.residency_int8",
+    "search.residency_stream",
+    "search.stream_chunks",
+    "cache.int8_sidecar_loads",
+    "cache.int8_sidecar_writes",
+)
+
+
 def _dumps(obj: Any) -> bytes:
     return json.dumps(obj, separators=(",", ":")).encode()
 
@@ -191,8 +201,12 @@ class Server(fl.FlightServerBase):
 
             case "stats":
                 snap = METRICS.snapshot()
+                for name in _RESIDENCY_COUNTERS:  # shown from the start, as 0
+                    snap.setdefault(name, 0.0)
                 snap["cache.device_bytes"] = float(self.cache.device_bytes())
                 snap["cache.evictions"] = float(self.cache.evictions)
+                for kind, count in self.cache.device_entry_kinds().items():
+                    snap[f"cache.device_entries.{kind}"] = float(count)
                 for name, count in kernels.LAUNCHES.items():
                     snap[f"kernel.{name}.launches"] = float(count)
                 return iter([fl.Result(_dumps(snap))])
@@ -298,9 +312,13 @@ class Flight:
         filter: expr_mod.Expr | None = None,
         maxval: int | None = None,
         precision: str = "fp32",
+        residency: str = "auto",
+        extra: dict | None = None,
     ) -> pa.Table:
         assert metric in METRICS_SET, f"metric must be one of {sorted(METRICS_SET)}"
         assert precision in ("fp32", "bf16", "int8"), precision
+        assert residency in ("auto", "dual", "int8", "stream"), residency
+        assert extra is None or isinstance(extra, dict), extra
         if filter is not None and not isinstance(filter, expr_mod.Expr):
             raise TypeError("filter must be a fenix_tpu_torch.expr.Expr")
 
@@ -314,6 +332,10 @@ class Flight:
                     "filter": filter.to_dict() if filter is not None else None,
                     "maxval": maxval,
                     "precision": precision,
+                    "residency": residency,
+                    # per-request knobs, e.g. {"window": ...} for the
+                    # int8-resident / streaming rescore window
+                    "extra": extra,
                 }
             )
         )

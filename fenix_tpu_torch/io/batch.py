@@ -1,0 +1,144 @@
+"""Host→device prefetch pipeline — port of ``prefetch_to_device`` from
+``fenix_tpu/io/batch.py``.
+
+The streaming residency mode (``engine/residency.py``) moves a host
+corpus through the card in fixed-shape chunks. On a CUDA device this is
+double-buffered the CUDA way:
+
+- two pinned host staging buffers of the chunk's shape and two device
+  buffers, allocated once per call (on the caller's stream) from the
+  first item;
+- a worker thread assembles item ``i + 1`` on the host and copies it
+  into its pinned buffer (one host memcpy: the source rows are
+  pageable, often memory-mapped), then queues the upload on a side
+  ``torch.cuda.Stream`` with ``copy_(..., non_blocking=True)``;
+- a ``torch.cuda.Event`` per upload makes the compute stream wait for
+  the copy, and makes the worker wait before it refills a pinned buffer
+  whose copy is still in flight; a second event per slot, recorded on
+  the compute stream when the consumer asks for the next item, makes
+  the side stream wait before it overwrites a device buffer still being
+  read.
+
+So item ``i + 1`` is staged and uploaded while item ``i`` computes. The
+tensors yielded for item ``i`` are reused for item ``i + 2``: a consumer
+enqueues all its work on them before it asks for the next item.
+
+A CPU device takes plain zero-copy tensors (dispatch by device type). An exception raised while producing an item propagates to
+the consumer.
+
+Counters (``stats``, CUDA only): ``transfer.h2d_bytes`` and
+``transfer.h2d_seconds`` (the uploads, timed with CUDA events on the
+side stream), ``transfer.stage_seconds`` (host memcpy into the pinned
+buffers) and ``transfer.wait_seconds`` (time the consumer waited on the
+worker). ``RandomBatchIterator`` ports with the IVF slice.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import itertools
+import time
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+_DEPTH = 2  # items in flight: one computing, one staging/uploading
+
+
+def prefetch_to_device(
+    items: Iterable[tuple[np.ndarray, ...]], device: "str | torch.device"
+) -> Iterator[tuple[torch.Tensor, ...]]:
+    """Yield each item (a tuple of numpy arrays, the same shapes and
+    dtypes for every item) as a tuple of tensors on ``device``, in order."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        for arrays in items:
+            yield tuple(ingest.host_tensor(a) for a in arrays)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"prefetch_to_device runs on cpu or cuda, got {device}")
+    yield from _prefetch_cuda(iter(items), device)
+
+
+class _Slot:
+    """One staging buffer set: pinned host tensors, device tensors, the
+    event of the last upload out of them, and the event that releases
+    the device tensors after the consumer's work."""
+
+    def __init__(self, first: tuple[np.ndarray, ...], device: torch.device) -> None:
+        self.pinned = tuple(
+            torch.empty(a.shape, dtype=ingest.host_tensor(a).dtype, pin_memory=True) for a in first
+        )
+        self.host = tuple(p.numpy() for p in self.pinned)
+        self.dev = tuple(torch.empty(p.shape, dtype=p.dtype, device=device) for p in self.pinned)
+        self.copied: "torch.cuda.Event | None" = None
+        self.released = torch.cuda.Event()
+
+
+def _prefetch_cuda(it: Iterator, device: torch.device) -> Iterator[tuple[torch.Tensor, ...]]:
+    first = next(it, None)
+    if first is None:
+        return
+    compute = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(compute):  # device buffers belong to the compute stream
+        slots = [_Slot(first, device) for _ in range(_DEPTH)]
+    it = itertools.chain([first], it)
+    uploads: list = []  # (start event, end event, bytes) per item
+    stage_s = 0.0
+
+    def produce(i: int) -> "int | None":
+        nonlocal stage_s
+        arrays = next(it, None)
+        if arrays is None:
+            return None
+        slot = slots[i % _DEPTH]
+        if slot.copied is not None:
+            slot.copied.synchronize()  # its last upload has left the pinned buffer
+        t = time.perf_counter()
+        for dst, src in zip(slot.host, arrays, strict=True):
+            np.copyto(dst, src)
+        stage_s += time.perf_counter() - t
+        with torch.cuda.stream(side):
+            side.wait_event(slot.released)  # the consumer is done with the device buffer
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(side)
+            for dst, src in zip(slot.dev, slot.pinned):
+                dst.copy_(src, non_blocking=True)
+            end.record(side)
+        slot.copied = end
+        uploads.append((start, end, sum(p.numel() * p.element_size() for p in slot.pinned)))
+        return i % _DEPTH
+
+    wait_s = 0.0
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            queue = collections.deque(pool.submit(produce, i) for i in range(_DEPTH))
+            i = 0
+            while queue:
+                t = time.perf_counter()
+                s = queue.popleft().result()
+                wait_s += time.perf_counter() - t
+                if s is None:
+                    break
+                slot = slots[s]
+                compute.wait_event(slot.copied)
+                yield slot.dev
+                slot.released.record(compute)
+                queue.append(pool.submit(produce, i + _DEPTH))
+                i += 1
+    finally:
+        # an upload still queued (early exit, a failed item) must land
+        # before its device buffer goes back to the allocator
+        side.synchronize()
+
+    METRICS.add("transfer.h2d_bytes", float(sum(b for _, _, b in uploads)))
+    METRICS.add("transfer.h2d_seconds", sum(s.elapsed_time(e) for s, e, _ in uploads) / 1e3)
+    METRICS.add("transfer.stage_seconds", stage_s)
+    METRICS.add("transfer.wait_seconds", wait_s)

@@ -96,6 +96,14 @@ class DeviceColumn(NamedTuple):
         return self.data.shape[0]
 
 
+def host_tensor(array: np.ndarray) -> torch.Tensor:
+    """Zero-copy CPU tensor over a numpy array. Arrow and memory-mapped
+    buffers are read-only; the tensor is only read."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(array)
+
+
 def to_device_matrix(
     array: pa.Array | pa.ChunkedArray | np.ndarray,
     *,
@@ -113,11 +121,7 @@ def to_device_matrix(
     data = torch.empty((rows_padded, dim), dtype=torch.float32, device=device)
     for start in range(0, rows, _UPLOAD_ROWS):
         part = array[start : start + _UPLOAD_ROWS]
-        with warnings.catch_warnings():
-            # Arrow buffers are read-only; the tensor is only read here
-            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            src = torch.from_numpy(part)
-        data[start : start + part.shape[0]].copy_(src)
+        data[start : start + part.shape[0]].copy_(host_tensor(part))
     data[rows:].zero_()
     return DeviceColumn(data=data, rows=rows)
 

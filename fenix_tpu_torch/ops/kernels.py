@@ -41,8 +41,16 @@ _NVCC_FLAGS = (
 )
 
 # Launches per kernel route, counted where the wrapper launches the
-# kernel and nowhere else (the plain twins do not count).
-LAUNCHES: dict[str, int] = {"bucket_scores.f32": 0, "bucket_scores.bf16": 0, "bucket_scores.int8": 0}
+# kernel and nowhere else (the plain twins do not count). The f32 kernel
+# at bucket 128 also computes what the JAX package's round-1 kernel
+# (``bucket_scores_pallas``) did; those launches are counted again under
+# their own name.
+LAUNCHES: dict[str, int] = {
+    "bucket_scores.f32": 0,
+    "bucket_scores.bf16": 0,
+    "bucket_scores.int8": 0,
+    "bucket_scores.f32.bucket128": 0,
+}
 
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
 MAX_BUCKET = 128  # the kernel's row tile bounds one bucket
@@ -216,4 +224,6 @@ def bucket_scores(
         raise RuntimeError(f"bucket_scores kernel launch failed: cudaError {err}")
     with _COUNT_LOCK:
         LAUNCHES[f"bucket_scores.{route}"] += 1
+        if route == "f32" and bucket == 128:
+            LAUNCHES["bucket_scores.f32.bucket128"] += 1
     return out

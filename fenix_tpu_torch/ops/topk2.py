@@ -12,7 +12,13 @@ int8 copy. CPU tensors take the kernel's plain PyTorch twin.
 
 **Phase 2** selects the top ``k + pad`` buckets per query, gathers
 their rows and rescores them exactly in fp32 (TF32 is off, see
-``ops/__init__.py``), then takes the final top-k.
+``ops/__init__.py``), then takes the final top-k; an l2 distance is
+taken as ``‖q − v‖`` of the winning row (the fused score's expanded
+form cancels for near rows).
+
+**Phase A** of the int8-resident and streaming modes
+(:func:`topk_window_int8`) stops after a narrowing rescore and returns a
+window of candidate row ids for the host to rescore exactly.
 
 Tie rule (the engine's contract): equal distances resolve to the
 smallest row id. The reference inherits it from the stable
@@ -105,6 +111,17 @@ def quantize_corpus_int8(corpus: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     for start in range(0, n, _QUANTIZE_CHUNK_ROWS):
         stop = min(start + _QUANTIZE_CHUNK_ROWS, n)
         v8[start:stop], sv[start:stop] = _quantize_rows(corpus[start:stop])
+    return v8, sv
+
+
+def quantize_rows_int8_np(block) -> tuple[np.ndarray, np.ndarray]:
+    """Host (numpy) quantizer with the semantics of
+    :func:`quantize_corpus_int8` — a copy of the JAX package's
+    ``quantize_rows_int8_np``, bit for bit, so a host int8 mirror (and
+    its on-disk sidecar) is the same whichever package built it."""
+    block = np.asarray(block, np.float32)
+    sv = np.maximum(np.abs(block).max(axis=1, initial=0.0) / 127.0, 1e-30).astype(np.float32)
+    v8 = np.clip(np.round(block / sv[:, None]), -127, 127).astype(np.int8)
     return v8, sv
 
 
@@ -220,7 +237,7 @@ def topk_two_phase(
     # Chunk the [chunk, kp, bucket, D] candidate gather against the cap.
     per_query = kp * bucket * d * 4
     chunk = max(1, min(q, max(64, _RESCORE_GATHER_CAP // per_query)))
-    top_s, top_ids = [], []
+    top_s, top_ids, top_d = [], [], []
     for start in range(0, q, chunk):
         qp_c = queries_p[start : start + chunk]
         b_c = bidx[start : start + chunk]
@@ -232,20 +249,91 @@ def topk_two_phase(
         s = (s * mul_b[b_c] + add_b[b_c]).reshape(c, kp * bucket)
         ids = (b_c[:, :, None] * bucket + lane).reshape(c, kp * bucket)
         s_sorted, pos = torch.sort(s, dim=1, descending=True, stable=True)
+        sel = torch.gather(ids, 1, pos[:, :kk])
         top_s.append(s_sorted[:, :kk])
-        top_ids.append(torch.gather(ids, 1, pos[:, :kk]))
+        top_ids.append(sel)
+        if metric == "l2":
+            # ‖q − v‖ of the winning rows: the expanded ‖q‖² − s cancels
+            # for near rows (about 1e-4 relative at D=768)
+            diff = corpus[sel] - queries[start : start + chunk, None, :]
+            top_d.append(torch.sqrt(torch.sum(torch.square(diff), dim=-1)))
     top_s = torch.cat(top_s) if top_s else corpus.new_empty((0, kk))
     top_ids = torch.cat(top_ids) if top_ids else lane.new_empty((0, kk))
+    if metric != "l2":
+        dist = scores_to_distances(top_s, queries, metric)
+    else:
+        dist = torch.cat(top_d) if top_d else corpus.new_empty((0, kk))
 
     if kk < k:  # pad to k
         top_s = torch.cat([top_s, top_s.new_full((q, k - kk), NEG_INF)], dim=1)
         top_ids = torch.cat([top_ids, top_ids.new_full((q, k - kk), -1)], dim=1)
+        dist = torch.cat([dist, dist.new_full((q, k - kk), torch.inf)], dim=1)
 
     missing = top_s == NEG_INF
-    dist = scores_to_distances(top_s, queries, metric)
     dist = torch.where(missing, torch.inf, dist)
     top_ids = torch.where(missing, -1, top_ids)
     return dist, top_ids
+
+
+def topk_window_int8(
+    v8: torch.Tensor,  # [N_pad, D] int8 scan copy
+    sv: torch.Tensor,  # [N_pad] f32 per-row scale
+    queries: torch.Tensor,  # [Q, D] f32
+    aux_mul: torch.Tensor,  # [N_pad] f32
+    aux_add: torch.Tensor,  # [N_pad] f32 (−inf on masked/padding rows)
+    k: int,
+    w: int,
+    metric: str,
+) -> torch.Tensor:  # [Q, ww] int64 row ids
+    """Phase A of the int8-resident (host-rescore) search: int8 phase-1
+    bucket maxima (the K2 kernel), selection of ``kp`` candidate buckets,
+    a narrowing rescore of their rows (f32 prepared query × dequantized
+    int8 row, with the exact per-row aux), and the top-``ww`` row ids
+    per query, ``ww = min(w, kp·bucket)`` (callers read the width from
+    the shape). The host gathers these rows from the fp32 corpus and
+    rescores them exactly (``engine/residency.py``).
+
+    The window may hold masked or padding rows when fewer than ``ww``
+    candidates score above −inf; the host rescore re-applies validity.
+    Ties keep the smallest row ids (stable sort over candidates in
+    ascending bucket order), as the reference's stable ``lax.top_k``.
+    The narrowing score is fp32-true (elementwise product + sum, TF32
+    off), where the reference's einsum runs one bf16 pass on a TPU."""
+    metric = canonical_metric(metric)
+    n, d = v8.shape
+    q = queries.shape[0]
+    queries_p = prepare_queries(queries, metric)
+    ams = aux_mul * sv
+
+    bucket = bucket_for(q, n)
+    n_buckets = n // bucket
+    # enough buckets to fill the window, plus the int8 selection margin
+    kp = min(max(k, -(-w // bucket)) + 2 * BUCKET_PAD, n_buckets)
+    ww = min(w, kp * bucket)
+    bucket_max = bucket_scores(queries_p, v8, aux_mul, aux_add, bucket, corpus_scan_int8=(v8, sv))
+    bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
+    del bucket_max
+
+    rows8 = v8.view(n_buckets, bucket, d)
+    mul_b = ams.view(n_buckets, bucket)
+    add_b = aux_add.view(n_buckets, bucket)
+    lane = torch.arange(bucket, device=v8.device)
+    # the [C, kp, bucket, D] gather widens to f32: chunk it against the cap
+    per_query = kp * bucket * d * 4
+    chunk = min(q, max(8, _RESCORE_GATHER_CAP // per_query))
+    wins = []
+    for start in range(0, q, max(chunk, 1)):
+        qp_c = queries_p[start : start + chunk]
+        b_c = bidx[start : start + chunk]
+        c = qp_c.shape[0]
+        cand = rows8[b_c].to(torch.float32)  # [C, kp, bucket, D]
+        s = cand.mul_(qp_c[:, None, None, :]).sum(dim=-1)  # in place: one f32 copy
+        del cand
+        s = (s * mul_b[b_c] + add_b[b_c]).reshape(c, kp * bucket)
+        ids = (b_c[:, :, None] * bucket + lane).reshape(c, kp * bucket)
+        pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :ww]
+        wins.append(torch.gather(ids, 1, pos))
+    return torch.cat(wins) if wins else lane.new_empty((0, ww))
 
 
 def state_from_numpy(

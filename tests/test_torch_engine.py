@@ -183,6 +183,8 @@ def test_budget_eviction_keeps_latest(root, monkeypatch):
 
 
 def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
+    """IVF, maxval=None and joins still raise; the int8-resident and
+    streaming modes and requests over the budget are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -194,14 +196,20 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
         run(coding="ivf", probes=4)
     with pytest.raises(NotImplementedError, match="_execute_nomax"):
         run(maxval=None)
+    dual = run()
     for mode in ("int8", "stream"):
-        with pytest.raises(NotImplementedError, match="residency"):
-            run(residency=mode)
+        assert run(residency=mode).column("id").equals(dual.column("id"))
     with pytest.raises(ValueError, match="precision"):
         run(precision="fp16")
     monkeypatch.setenv("FENIX_HBM_BUDGET", "1000")
-    with pytest.raises(NotImplementedError, match="budget"):
-        run()
+    assert residency.plan(cache, executor.SearchRequest("items", "vector", target, maxval=5)) == "stream"
+    assert run().column("id").equals(dual.column("id"))
+    with pytest.raises(NotImplementedError, match="_execute_nomax"):
+        run(maxval=None)
+    with pytest.raises(NotImplementedError, match="execute_nomax_host"):
+        residency.execute_solo(
+            cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
+        )
     monkeypatch.delenv("FENIX_HBM_BUDGET")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target)) == "dual"
     with pytest.raises(NotImplementedError, match="joins"):
@@ -380,3 +388,55 @@ def test_gather_chunked_matches_concatenation(rng):
     whole = np.concatenate(chunks)
     ids = rng.integers(0, whole.shape[0], 50)
     np.testing.assert_array_equal(executor._gather_chunked(chunks, ids), whole[ids])
+
+
+def test_chip_smoke_check_rises():
+    """Phase 6's per-call check: the route's launches and the residency
+    counter must move by exactly the expected amounts."""
+    spec = next(s for s in smoke.RES_SEARCHES if s[0] == "stream_q8")  # f32 x10, 10 chunks
+    key = "kernel.bucket_scores.f32.launches"
+    before = {key: 3.0, "search.stream_chunks": 5.0}
+    smoke.check_rises("stream_q8", before, {key: 13.0, "search.stream_chunks": 15.0}, spec)
+    with pytest.raises(AssertionError, match="kernel launches"):
+        smoke.check_rises("stream_q8", before, {key: 12.0, "search.stream_chunks": 15.0}, spec)
+    with pytest.raises(AssertionError, match="search.stream_chunks"):
+        smoke.check_rises("stream_q8", before, {key: 13.0, "search.stream_chunks": 16.0}, spec)
+
+
+@pytest.fixture(scope="module")
+def smoke_wide_root(tmp_path_factory):
+    """Phase 6's table (duplicate rows, tags) at a small size and width."""
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=1, dim=64)
+    root = str(tmp_path_factory.mktemp("smoke_wide"))
+    t = pa.table({"id": pa.array(ids),
+                  "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "wide", t.to_reader(max_chunksize=4096))
+    return root, vectors, tags
+
+
+@pytest.mark.parametrize("spec", smoke.RES_SEARCHES, ids=[s[0] for s in smoke.RES_SEARCHES])
+def test_chip_smoke_residency_oracle_accepts_the_port(smoke_wide_root, monkeypatch, spec):
+    """Each search of chip_smoke.py's phase 6, answered by the port on the
+    CPU (at most 64 queries) past a budget that routes auto to int8,
+    passes the script's float64 oracle as the script grades it."""
+    root, vectors, tags = smoke_wide_root
+    name, qn, mode, precision = spec[:4]
+    monkeypatch.setenv("FENIX_HBM_BUDGET", str(2 << 20))  # dual 4.5 MB, int8 1.3 MB
+    pool = np.flatnonzero((tags[: smoke.DUP] < 50) & (tags[smoke.DUP : 2 * smoke.DUP] < 50))
+    q = min(qn, 64)
+    queries = smoke.make_queries(vectors, q, seed=100 + qn, src_pool=pool)
+    cache = DeviceCache(root, device="cpu")
+    req = executor.SearchRequest(
+        "wide", "vector", queries, metric="l2", maxval=smoke.RES_K, precision=precision,
+        residency=mode, filter=expr.field("tag") < 50,
+    )
+    if mode == "auto":
+        assert residency.plan(cache, req) == residency.INT8
+    result = executor.execute_search(cache, req)
+    graded = "int8" if name in smoke.RES_INT8_GRADED else "fp32"
+    out = smoke.check_search(
+        smoke.Oracle(vectors, "cpu"), (name, q, "l2", smoke.RES_K, graded, True, False),
+        queries, result, torch.from_numpy(tags < 50),
+    )
+    assert out["max_rel_dist_err"] <= 1e-4 and out["ties_in_results"] > 0

@@ -373,3 +373,24 @@ def test_near_tied_maxima_match_jax(rng, metric, q):
     queries = np.tile(u.astype(np.float32)[None, :], (q, 1))
     queries *= 1.0 + np.arange(q, dtype=np.float32)[:, None] * 1e-3
     _assert_same(*_both(corpus, queries, 16, metric))
+
+
+def test_k3_bucket_scores_pallas_matches_the_port(rng):
+    """K3, the round-1 fp32 phase-1 Pallas kernel (``bucket_scores_pallas``,
+    1024-row blocks, 128-row bucket maxima), in interpret mode against the
+    port's phase-1 wrapper at bucket 128 — the K1 kernel on the card, its
+    plain version here. rtol 1e-5, atol 1e-6 (as tests/test_topk2.py holds
+    K3 against XLA)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    n, d, qt = 4096, 64, 16
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((qt, d)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    mul, add = (np.asarray(a) for a in jtopk2.prepare_aux(jnp.asarray(corpus), jnp.asarray(mask), "cosine"))
+    qp = np.asarray(jtopk2.prepare_queries(jnp.asarray(queries), "cosine"))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jtopk2.bucket_scores_pallas(qp, corpus, mul, add, 1024))
+    got = kernels.bucket_scores(t(qp), t(corpus), t(mul), t(add), 128).numpy()
+    assert got.shape == want.shape == (qt, n // 128)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
