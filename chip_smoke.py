@@ -7,10 +7,20 @@ Phases, each printing one JSON line with its own timings:
 
 1. device and build: the card's name and power limit; build the CUDA
    kernel library from fenix_tpu_torch/csrc/ into build/fenix_tpu_torch/.
-2. kernel vs plain, on the card: the phase-1 kernel against its plain
+2. kernel vs plain, on the card: the phase-1 kernels against their plain
    PyTorch version, (a) on 1,048,576 x 128 inputs over Q in {1, 8, 100,
-   1024}, bucket in {128, 32} and f32/bf16/int8, (b) at the exact inputs
-   the main path gives it in phase 3. Tolerances, per query j:
+   1024}, bucket in {128, 32} and f32/bf16/int8, then the edge shapes
+   (every Q in EDGE_Q x D in EDGE_D x bucket in EDGE_BUCKETS, N not a
+   multiple of the 128-row tile where the bucket allows, whole -inf
+   buckets; f32 and bf16 through both the stream and the tiled kernel,
+   int8 through the generic one), (b) at the exact inputs the main path
+   gives it in phase 3, and each design forced at 8,388,608 x 128 over
+   the query counts of FORCED, the timings that set the dispatcher's
+   thresholds (kernels.STREAM_MAX_Q). Every timed row also carries its
+   bound (the larger of bytes over the read rate and operations over the
+   peak rate of their type, see `bound`), its share of that bound, and
+   library_ms, one PyTorch call for the product alone (`library_fn`).
+   Tolerances, per query j:
    f32 and bf16 (both sides widen the same inputs to f32):
    1e-5 * |q_j| * max_i |v_i| * aux_mul_i + 1e-6 * max_i |aux_add_i|;
    int8 (exact integer dot; FMA vs separate rounding in the epilogue):
@@ -51,9 +61,10 @@ Phases, each printing one JSON line with its own timings:
    latency (median of 5) and a warm split from the server's counters
    (device phase A, host gather + rescore, upload GB/s).
 
-Then one JSON line of the kernels (K1 f32/bf16, K2 int8, and K3 as the
-f32 kernel at bucket 128, each with its launches on both paths), the
-nvidia-smi line, and last {"ok": true, "device": {...}}. Any failure
+Then one JSON line of the kernels (the three designs: stream and tiled
+for K1, generic_int8 for K2, and K3 as f32 at bucket 128, each with its
+launches on both paths), the nvidia-smi line, and last {"ok": true,
+"device": {...}}. Any failure
 exits non-zero with no result. The script takes no options: the card run
 at this size is its only path.
 """
@@ -89,14 +100,32 @@ SEARCHES = (
     ("q256_int8_l2_k10", 256, "l2", 10, "int8", False, False),
 )
 ROUTES = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
-K3_ROUTE = "f32.bucket128"  # the f32 kernel at bucket 128 also serves K3
+K3_ROUTE = "f32.bucket128"  # f32 launches at bucket 128 also serve K3
+DESIGNS = ("stream", "tiled", "generic_int8")  # kernels.LAUNCHES["bucket_scores.kernel.<design>"]
 KERNELS = (
-    # name in the kernels line, launch-count route, TPU kernel it replaces
-    ("bucket_scores.f32", "f32", "fenix_tpu/ops/topk2.py:453"),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
-    ("bucket_scores.bf16", "bf16", "fenix_tpu/ops/topk2.py:453"),
-    ("bucket_scores.int8", "int8", "fenix_tpu/ops/topk2.py:464"),  # kernel_int8 of the same
-    ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu/ops/topk2.py:357"),  # bucket_scores_pallas (K3)
+    # name in the kernels line, launch-count key, source, TPU kernel it
+    # replaces, paths that must launch it
+    ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency")),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
+    ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
+     "fenix_tpu/ops/topk2.py:453", ("exact",)),
+    ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency")),  # kernel_int8 of the same
+    ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
+     "fenix_tpu/ops/topk2.py:357", ("exact", "residency")),  # bucket_scores_pallas (K3)
 )
+# phase 2 (a): edge shapes, each design against the plain version
+EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
+EDGE_D = (96, 100, 130, 768)  # 100 and 130 are not a multiple of 16 bytes of bf16 / f32
+EDGE_BUCKETS = (1, 2, 32, 128)
+# phase 2 (b): each f32/bf16 design forced at ROWS x D over these query counts
+FORCED = (("f32", (1, 8, 16, 32, 64)), ("bf16", (1, 8, 16, 32, 64)))
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): HBM3 read rate, fp32 on the CUDA cores, bf16 and int8 on
+# the tensor cores.
+PEAK_READ = 3.35e12  # bytes/s
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}  # operations/s
+ESIZE = {"f32": 4, "bf16": 2, "int8": 1}
 D768_SHAPES = ((8, 128, "f32"), (8, 128, "int8"), (1024, 32, "int8"))  # phase 2 (c): q, bucket, route
 
 # phase 6: BASELINE config 2's widths (exact top-100 l2, scalar filter, D=768),
@@ -218,17 +247,70 @@ def check_close(got, want, q, v, mul, add, inv_sq) -> float:
     return err
 
 
-def compare(kernels, q, v, mul, add, bucket, inv_sq) -> dict:
-    """The kernel against its plain version on the card, then both timed."""
+def bound(route: str, q: int, n: int, d: int, bucket: int) -> dict:
+    """The least time the card could take for one phase-1 call: the
+    larger of its bytes (V and Q read once, the two f32 aux vectors, int8's
+    inv_sq, the f32 output written once) over the read rate and its
+    2·Q·N·D operations over the peak rate of their type."""
+    nbytes = (n + q) * d * ESIZE[route] + 8 * n + 4 * q * (n // bucket)
+    if route == "int8":
+        nbytes += 4 * q
+    ops = 2 * q * n * d
+    read_ms = nbytes / PEAK_READ * 1e3
+    ops_ms = ops / PEAK_OPS[route] * 1e3
+    if read_ms >= ops_ms:
+        return {"bound_ms": read_ms, "bound_by": "read", "bytes": nbytes, "ops": ops}
+    return {"bound_ms": ops_ms, "bound_by": route, "bytes": nbytes, "ops": ops}
+
+
+def library_fn(q, v, chunk: int = 128):
+    """One PyTorch call for the product alone, over the query chunks of
+    ``plain_chunked``: ``torch.matmul`` (TF32 off) for f32 and bf16,
+    ``torch._int_mm`` for int8; None where ``_int_mm``'s shape rules (more
+    than 16 rows, both widths multiples of 8) refuse the inputs."""
     import torch
 
-    got = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq)
+    if q.dtype == torch.int8:
+        qt, d = q.shape
+        if d % 8 or v.shape[0] % 8 or any(min(chunk, qt - s) <= 16 for s in range(0, qt, chunk)):
+            return None
+        mm = torch._int_mm
+    else:
+        mm = torch.matmul
+
+    def run():
+        for s in range(0, q.shape[0], chunk):
+            mm(q[s : s + chunk], v.T)
+
+    return run
+
+
+def check_kernel(kernels, q, v, mul, add, bucket, inv_sq, kernel) -> float:
+    """A kernel design against its plain version on the card."""
+    import torch
+
+    got = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=kernel)
     want = plain_chunked(kernels, q, v, mul, add, bucket, inv_sq)
     torch.cuda.synchronize()
-    err = check_close(got, want, q, v, mul, add, inv_sq)
-    ms = time_ms(lambda: kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq), TIMING_REPS)
+    return check_close(got, want, q, v, mul, add, inv_sq)
+
+
+def compare(kernels, q, v, mul, add, bucket, inv_sq, kernel=None) -> dict:
+    """A kernel against its plain version on the card, then the kernel, the
+    plain version and the library call timed; ``kernel`` forces a design."""
+    import torch
+
+    route = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[v.dtype]
+    design = kernel or kernels.kernel_for(v.dtype, q.shape[0])
+    err = check_kernel(kernels, q, v, mul, add, bucket, inv_sq, design)
+    ms = time_ms(lambda: kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=design),
+                 TIMING_REPS)
     plain_ms = time_ms(lambda: plain_chunked(kernels, q, v, mul, add, bucket, inv_sq), TIMING_REPS)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    lib = library_fn(q, v)
+    b = bound(route, q.shape[0], v.shape[0], v.shape[1], bucket)
+    return {"kernel": design, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None if lib is None else time_ms(lib, TIMING_REPS),
+            **b, "share_of_bound": b["bound_ms"] / ms}
 
 
 def phase_kernel_vs_plain(kernels, topk2) -> list[dict]:
@@ -259,6 +341,70 @@ def phase_kernel_vs_plain(kernels, topk2) -> list[dict]:
                 r = compare(kernels, *args)
                 results.append({"route": route, "q": qn, "n": n, "bucket": bucket, **r})
     return results
+
+
+def edge_rows(bucket: int) -> int:
+    """Rows of an edge-shape table: not a multiple of the 128-row tile
+    where the bucket allows it (N must stay a multiple of the bucket)."""
+    return 16_384 + 96 if bucket <= 32 else 16_384 + 128
+
+
+def phase_edge_shapes(kernels, topk2) -> dict:
+    """Phase 2 (a), edge shapes: every design against the plain version
+    over EDGE_Q x EDGE_D x EDGE_BUCKETS, untimed."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    checked, err = 0, 0.0
+    for d in EDGE_D:
+        for bucket in EDGE_BUCKETS:
+            n = edge_rows(bucket)
+            v32 = torch.randn((n, d), generator=g, device=DEVICE)
+            mul = torch.rand(n, generator=g, device=DEVICE) + 0.5
+            add = torch.randn(n, generator=g, device=DEVICE)
+            add[torch.rand(n, generator=g, device=DEVICE) < 0.1] = float("-inf")
+            add[: 2 * bucket] = float("-inf")  # two whole buckets of masked rows
+            v16 = v32.to(torch.bfloat16)
+            v8, sv = topk2.quantize_corpus_int8(v32)
+            for qn in EDGE_Q:
+                q32 = torch.randn((qn, d), generator=g, device=DEVICE)
+                q8, inv_sq = topk2.quantize_queries_int8(q32)
+                cases = [(q32, v32, None, k) for k in ("stream", "tiled")]
+                cases += [(q32.to(torch.bfloat16), v16, None, k) for k in ("stream", "tiled")]
+                cases += [(q8, v8, inv_sq, "generic_int8")]
+                for q, v, isq, kernel in cases:
+                    m = mul * sv if isq is not None else mul
+                    err = max(err, check_kernel(kernels, q, v, m, add, bucket, isq, kernel))
+                    checked += 1
+    return {"checked": checked, "q": EDGE_Q, "d": EDGE_D, "buckets": EDGE_BUCKETS,
+            "max_abs_err": err}
+
+
+def phase_forced(kernels, topk2, vectors) -> list[dict]:
+    """Phase 2 (b): the stream and tiled kernels, each forced, at ROWS x D
+    (cosine aux, random queries) over the query counts of FORCED."""
+    import numpy as np
+    import torch
+
+    corpus = torch.from_numpy(vectors).to(DEVICE)
+    mul, add = topk2.prepare_aux(corpus, None, "cosine")
+    rng = np.random.default_rng(2)
+    rows = []
+    for route, counts in FORCED:
+        dtype = torch.float32 if route == "f32" else torch.bfloat16
+        v = corpus if route == "f32" else corpus.to(dtype)
+        for qn in counts:
+            q = torch.from_numpy(rng.standard_normal((qn, D), dtype=np.float32)).to(DEVICE)
+            qp = topk2.prepare_queries(q, "cosine").to(dtype).contiguous()
+            bucket = topk2.bucket_for(qn, ROWS)
+            for kernel in ("stream", "tiled"):
+                rows.append({"route": route, "q": qn, "n": ROWS, "bucket": bucket,
+                             **compare(kernels, qp, v, mul, add, bucket, None, kernel=kernel)})
+                emit({"phase": "kernel_forced", **rows[-1]})
+        del v
+    del corpus, mul, add
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernel_vs_plain_d768(kernels, topk2) -> list[dict]:
@@ -336,7 +482,7 @@ def wait_healthy(client, proc, timeout_s: float = 300.0) -> None:
 def launches(client, stats: "dict | None" = None) -> dict:
     stats = client.stats() if stats is None else stats
     return {r: int(stats.get(f"kernel.bucket_scores.{r}.launches", 0))
-            for r in (*ROUTES.values(), K3_ROUTE)}
+            for r in (*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS))}
 
 
 class Oracle:
@@ -645,6 +791,36 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
     return {"checks": checks, "launches": path_launches}
 
 
+def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
+    """One entry of the kernels line per row of KERNELS: its launches on
+    each path (it must have some on each path KERNELS names), its largest
+    difference from the plain version over every compared shape, and its
+    times and bound at the largest shape a main path gave it."""
+    entries = []
+    for name, key, source, replaces, paths in KERNELS:
+        for path in paths:
+            if by_path[path][key] == 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+        if key == K3_ROUTE:
+            mine = [r for r in compares if r["route"] == "f32" and r["bucket"] == 128]
+        else:
+            mine = [r for r in compares if r["kernel"] == key.removeprefix("kernel.")]
+        top = max(mine, key=lambda r: (r.get("search") is not None, r["q"] * r["n"] * r.get("d", D)))
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(c[key] for c in by_path.values()),
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes" if top["bound_by"] == "read" else "operations",
+            "bound_resource": top["bound_by"], "share_of_bound": top["share_of_bound"],
+            "library_ms": top["library_ms"],
+            "timed_at": {"search": top.get("search"), "route": top["route"], "q": top["q"],
+                         "n": top["n"], "d": top.get("d", D), "bucket": top["bucket"]},
+        })
+    return entries
+
+
 def run() -> int:
     import numpy as np
     import torch
@@ -658,6 +834,7 @@ def run() -> int:
     from fenix_tpu_torch.ops import kernels, topk2
 
     device = DEVICE
+    scan_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
     # -- phase 1 --------------------------------------------------------------
     t = time.perf_counter()
@@ -679,9 +856,12 @@ def run() -> int:
     small = phase_kernel_vs_plain(kernels, topk2)
     for r in small:
         emit({"phase": "kernel_vs_plain", **r})
+    edges = phase_edge_shapes(kernels, topk2)
+    emit({"phase": "kernel_vs_plain_edges", **edges})
     wide = phase_kernel_vs_plain_d768(kernels, topk2)
     for r in wide:
         emit({"phase": "kernel_vs_plain_d768", **r})
+    forced = phase_forced(kernels, topk2, vectors)
     main_shapes = []
     for spec, qnp in zip(SEARCHES, queries):
         inputs = main_path_inputs(topk2, vectors, tags, spec, qnp, device)
@@ -738,21 +918,26 @@ def run() -> int:
                 kw["filter"] = expr.field("tag") < 50
             target = qnp[0] if flat else qnp
             route = ROUTES[precision]
+            # the search's route and the design the dispatcher picks for it
+            keys = (route, f"kernel.{kernels.kernel_for(scan_dtypes[precision], qn)}")
             t = time.perf_counter()
             c0 = launches(client)
             result = client.search(target, "smoke/items", "vector", **kw)
             c1 = launches(client)
             first = time.perf_counter() - t
-            if c1[route] <= c0[route]:
-                raise AssertionError(f"{name}: the {route} kernel count did not rise")
+            for key in keys:
+                if c1[key] <= c0[key]:
+                    raise AssertionError(f"{name}: the {key} kernel count did not rise")
             warm = []
             for _ in range(WARM_REPS):
                 c0 = launches(client)
                 s = time.perf_counter()
                 client.search(target, "smoke/items", "vector", **kw)
                 warm.append((time.perf_counter() - s) * 1e3)
-                if launches(client)[route] <= c0[route]:
-                    raise AssertionError(f"{name}: the {route} kernel count did not rise")
+                c1 = launches(client)
+                for key in keys:
+                    if c1[key] <= c0[key]:
+                        raise AssertionError(f"{name}: the {key} kernel count did not rise")
             latencies[name] = warm
             results.append(result)
             emit({"phase": "search", "search": name, "q": qn, "k": k, "metric": metric,
@@ -797,28 +982,11 @@ def run() -> int:
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
-    compares = small + wide + main_shapes + res["checks"]
-    compares += [{**r, "route": K3_ROUTE} for r in compares if r["route"] == "f32" and r["bucket"] == 128]
+    compares = small + forced + wide + main_shapes + res["checks"]
     by_path = {"exact": main_launches, "residency": res["launches"]}
-    entries = []
-    for name, route, replaces in KERNELS:
-        for path, counts in by_path.items():
-            if route != "bf16" or path == "exact":  # the residency path has no bf16 scan
-                if counts[route] == 0:
-                    raise AssertionError(f"{name} was not launched on the {path} path")
-        mine = [r for r in compares if r["route"] == route]
-        # timed at the largest shape the main paths gave it
-        top = max(mine, key=lambda r: (r.get("search") is not None, r["q"] * r["n"] * r.get("d", D)))
-        entries.append({
-            "name": name, "route": "cuda", "source": "fenix_tpu_torch/csrc/bucket_scores.cu",
-            "replaces": replaces, "launches": sum(c[route] for c in by_path.values()),
-            "launches_by_path": {p: c[route] for p, c in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": top["ms"],
-            "plain_ms": top["plain_ms"],
-            "verdict": "kernel faster" if top["ms"] < top["plain_ms"] else "plain faster",
-        })
-        emit({"phase": "kernel_timed_at", "name": name, "search": top.get("search"), "q": top["q"],
-              "n": top["n"], "d": top.get("d", D), "bucket": top["bucket"]})
+    entries = kernel_entries(compares, by_path)
+    for e in entries:
+        emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

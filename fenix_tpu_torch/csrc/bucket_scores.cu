@@ -1,27 +1,27 @@
 // Phase 1 of the two-phase exact top-k search on Hopper: per-bucket
 // maxima of the fused score, with only the maxima written to memory.
+// This file holds the C entry point of all three phase-1 kernels and
+// the int8 one, generic_kernel (design "generic_int8"); the f32/bf16
+// corpora take
+// bucket_scores_stream.cu (small Q) or bucket_scores_tiled.cu (large Q),
+// chosen by the caller (fenix_tpu_torch/ops/kernels.py).
 //
-// Replaces fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq (its two
-// bodies, kernel_f32 for f32/bf16 and kernel_int8 for int8) and, on the
-// card, also the small-Q XLA dot bucket_scores_xla: one kernel serves
-// every query count. For row i and query j it computes
+// generic_kernel replaces kernel_int8 of
+// fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq (topk2.py:464). For
+// row i and query j it computes
 //
-//   f32 / bf16:  s = (v_i . q_j) * aux_mul[i] + aux_add[i]
-//   int8:        s = f32(v8_i . q8_j) * aux_mul[i] + aux_add[i] * inv_sq[j]
+//   s = f32(v8_i . q8_j) * aux_mul[i] + aux_add[i] * inv_sq[j]
 //
-// and writes out[j, b] = max over the `bucket` rows of bucket b. The
-// output is query-major [QT, N/bucket] so the selection that follows
-// reads each query's bucket maxima as one contiguous row (no transpose).
+// and writes out[j, b] = max over the `bucket` rows of bucket b,
+// query-major [QT, N/bucket].
 //
-// Design (right and simple first):
+// Design (right and simple first; its redesign for this card is later
+// work):
 // - One block computes a tile of BM corpus rows x BQ queries. Both
 //   operand tiles are staged through shared memory in steps of KW
-//   words (a word is one f32, one bf16 widened to f32, or four int8
-//   packed into an int32); each thread owns a TM x TN register tile.
-// - f32 and bf16 accumulate in fp32 FMAs on the CUDA cores. This is
-//   stricter than the TPU kernel, whose DEFAULT-precision dot made one
-//   bf16 pass over f32 inputs. int8 uses __dp4a into an exact int32
-//   sum (127^2 * D < 2^31 for any D the engine serves).
+//   words of four int8 codes packed into an int32; each thread owns a
+//   TM x TN register tile and accumulates with __dp4a into an exact
+//   int32 sum (127^2 * D < 2^31 for any D the engine serves).
 // - The epilogue applies the per-row FMA, stages the score tile in
 //   shared memory (reusing the operand buffers) and reduces each bucket
 //   with warp shuffles. Rows past N score -inf; queries past QT are
@@ -29,59 +29,26 @@
 // - Blocks are numbered query tile fastest, so the query tiles of one
 //   row tile run back to back and re-read that V tile from L2.
 //
-// What bounds it on an H100: at Q = 8 the kernel must read V once, 4.3
-// GB at 8M x 128 fp32, so it is bound by memory bandwidth; the small-Q
-// configuration (BQ = 8, BM = 256) keeps the work per row to the real
-// queries. At Q = 1024 it is bound by fp32 FMA throughput on the CUDA
-// cores (2.2 TFLOP at 8M x 128), and because each block holds one query
-// tile it re-reads V once per query tile (16 times at Q = 1024); the
-// block order above serves those re-reads from L2. Tensor cores
-// (wgmma), TMA pipelines and persistent scheduling are later work.
+// What bounds it on an H100: at Q = 8 the read of V (bandwidth); at
+// Q = 1024 the int8 dot rate, which __dp4a on the CUDA cores reaches only
+// a small part of (the tensor cores' int8 path is the next step); each
+// block holds one query tile, so V is re-read once per query tile.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWords = 32;  // KW: shared-memory words per k-step
 
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  using Word = float;
-  static constexpr int kPerWord = 1;
-};
-
-template <>
-struct Traits<__nv_bfloat16> {
-  using Word = float;
-  static constexpr int kPerWord = 1;
-};
-
-template <>
-struct Traits<int8_t> {
-  using Word = int;
-  static constexpr int kPerWord = 4;
-};
-
-// Word w of row `row` of a row-major [rows, d] matrix; zero outside it.
-__device__ __forceinline__ float load_word(const float* x, int64_t row, int64_t rows,
-                                           int64_t d, int64_t w) {
-  return (row < rows && w < d) ? x[row * d + w] : 0.0f;
-}
-
-__device__ __forceinline__ float load_word(const __nv_bfloat16* x, int64_t row,
-                                           int64_t rows, int64_t d, int64_t w) {
-  return (row < rows && w < d) ? __bfloat162float(x[row * d + w]) : 0.0f;
-}
-
-__device__ __forceinline__ int load_word(const int8_t* x, int64_t row, int64_t rows,
-                                         int64_t d, int64_t w) {
+// Word w (codes 4w .. 4w + 3) of row `row` of a row-major [rows, d]
+// int8 matrix, packed into an int32; zero outside it.
+__device__ __forceinline__ int load_word(const int8_t* x, int64_t row, int64_t rows, int64_t d,
+                                         int64_t w) {
   const int64_t k = w * 4;
   if (row >= rows || k >= d) return 0;
   const int8_t* p = x + row * d + k;
@@ -93,16 +60,12 @@ __device__ __forceinline__ int load_word(const int8_t* x, int64_t row, int64_t r
   return static_cast<int>(packed);
 }
 
-__device__ __forceinline__ float mac(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ int mac(int a, int b, int c) { return __dp4a(a, b, c); }
-
-template <typename T, int BM, int BQ, int TM, int TN>
+template <int BM, int BQ, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
-bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
-                     const float* __restrict__ aux_mul, const float* __restrict__ aux_add,
-                     const float* __restrict__ inv_sq, float* __restrict__ out,
-                     int64_t qt, int64_t n, int64_t d, int bucket_log2, int64_t n_qtiles) {
-  using Word = typename Traits<T>::Word;
+generic_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
+               const float* __restrict__ aux_mul, const float* __restrict__ aux_add,
+               const float* __restrict__ inv_sq, float* __restrict__ out, int64_t qt, int64_t n,
+               int64_t d, int bucket_log2, int64_t n_qtiles) {
   constexpr int NTX = BQ / TN;  // thread columns (query groups)
   constexpr int NTY = BM / TM;  // thread rows (row groups)
   static_assert(NTX * NTY == kThreads, "tile does not match the block size");
@@ -110,8 +73,8 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
 
   // +1 pads keep the transposing shared-memory stores free of bank conflicts.
   struct Stage {
-    Word v[kWords][BM + 1];
-    Word q[kWords][BQ + 1];
+    int v[kWords][BM + 1];
+    int q[kWords][BQ + 1];
   };
   struct Epilogue {
     float s[BQ][BM + 1];
@@ -128,13 +91,13 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
   const int tid = threadIdx.x;
   const int tx = tid % NTX;
   const int ty = tid / NTX;
-  const int64_t words = (d + Traits<T>::kPerWord - 1) / Traits<T>::kPerWord;
+  const int64_t words = (d + 3) / 4;
 
-  Word acc[TM][TN];
+  int acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Word(0);
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
   for (int64_t w0 = 0; w0 < words; w0 += kWords) {
     for (int idx = tid; idx < BM * kWords; idx += kThreads) {
@@ -148,7 +111,7 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kWords; ++kk) {
-      Word a[TM], b[TN];
+      int a[TM], b[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = sm.st.v[kk][ty + NTY * i];
 #pragma unroll
@@ -156,7 +119,7 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
     }
     __syncthreads();  // operand tiles are dead past here; the epilogue reuses them
   }
@@ -172,13 +135,8 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx + NTX * j;
-      float s;
-      if constexpr (Traits<T>::kPerWord == 4) {
-        const float isq = (q0 + c < qt) ? inv_sq[q0 + c] : 1.0f;
-        s = static_cast<float>(acc[i][j]) * mul + add * isq;
-      } else {
-        s = acc[i][j] * mul + add;
-      }
+      const float isq = (q0 + c < qt) ? inv_sq[q0 + c] : 1.0f;
+      const float s = static_cast<float>(acc[i][j]) * mul + add * isq;
       sm.ep.s[c][r] = live ? s : -INFINITY;
     }
   }
@@ -217,56 +175,54 @@ bucket_scores_kernel(const T* __restrict__ q, const T* __restrict__ v,
   }
 }
 
-template <typename T, int BM, int BQ, int TM, int TN>
-int launch(const void* q, const void* v, const float* aux_mul, const float* aux_add,
-           const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
-           int bucket_log2, cudaStream_t stream) {
+template <int BM, int BQ, int TM, int TN>
+int launch(const int8_t* q, const int8_t* v, const float* aux_mul, const float* aux_add,
+           const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d, int bucket_log2,
+           cudaStream_t stream) {
   if ((1 << bucket_log2) > BM) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_qtiles = (qt + BQ - 1) / BQ;
   const int64_t n_rtiles = (n + BM - 1) / BM;
   const int64_t blocks = n_qtiles * n_rtiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  bucket_scores_kernel<T, BM, BQ, TM, TN><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(v), aux_mul, aux_add, inv_sq, out, qt, n,
-      d, bucket_log2, n_qtiles);
+  generic_kernel<BM, BQ, TM, TN><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* v, const float* aux_mul, const float* aux_add,
-             const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d, int bucket_log2,
-             cudaStream_t stream) {
-  // Small batches take a narrow query tile so no FMA is spent on
+int launch_generic(const void* q, const void* v, const float* aux_mul, const float* aux_add,
+                   const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
+                   int bucket_log2, cudaStream_t stream) {
+  const auto* q8 = static_cast<const int8_t*>(q);
+  const auto* v8 = static_cast<const int8_t*>(v);
+  // Small batches take a narrow query tile so no dot is spent on
   // padding queries; larger ones a 128 x 64 tile.
   if (qt <= 8)
-    return launch<T, 256, 8, 8, 1>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
-                                   stream);
-  return launch<T, 128, 64, 8, 4>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
-                                  stream);
+    return launch<256, 8, 8, 1>(q8, v8, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
+                                stream);
+  return launch<128, 64, 8, 4>(q8, v8, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
+                               stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (inv_sq required).
+// kernel: 0 = stream, 1 = tiled (f32/bf16 corpora, f32 queries),
+//         2 = generic (int8 corpus and queries).
 // Returns the cudaError_t of the launch (0 = success).
-extern "C" int fenix_bucket_scores(int dtype, const void* q, const void* v, const float* aux_mul,
-                                   const float* aux_add, const float* inv_sq, float* out,
-                                   int64_t qt, int64_t n, int64_t d, int bucket_log2,
-                                   void* stream) {
+extern "C" int fenix_bucket_scores(int dtype, int kernel, const void* q, const void* v,
+                                   const float* aux_mul, const float* aux_add,
+                                   const float* inv_sq, float* out, int64_t qt, int64_t n,
+                                   int64_t d, int bucket_log2, void* stream) {
   if (qt <= 0 || n <= 0 || d <= 0 || bucket_log2 < 0 || bucket_log2 > 7)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((n & ((int64_t(1) << bucket_log2) - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch<float>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
-    case 1:
-      return dispatch<__nv_bfloat16>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2,
-                                     s);
-    case 2:
-      if (inv_sq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return dispatch<int8_t>(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto* qf = static_cast<const float*>(q);
+  if (kernel == 0 && (dtype == 0 || dtype == 1))
+    return fenix::launch_stream(dtype, qf, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, s);
+  if (kernel == 1 && (dtype == 0 || dtype == 1))
+    return fenix::launch_tiled(dtype, qf, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, s);
+  if (kernel == 2 && dtype == 2 && inv_sq != nullptr)
+    return launch_generic(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,23 +1,33 @@
 """Hand-written CUDA kernels: build, binding, wrappers, plain twins.
 
-One kernel family lives here today, the phase-1 bucket-max scan
-(``csrc/bucket_scores.cu``), which replaces
-``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16 and
-int8 bodies) and the small-Q XLA dot beside it.
+One kernel family lives here today, the phase-1 bucket-max scan, which
+replaces ``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16
+and int8 bodies), the small-Q XLA dot beside it, and
+``bucket_scores_pallas`` (K3). Three designs share one wrapper:
 
-Build: ``nvcc`` compiles the sources for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The library
-lands in ``build/fenix_tpu_torch/`` at the repository root when the
-package runs from a source checkout, in ``$XDG_CACHE_HOME/fenix_tpu_torch``
-(default ``~/.cache``) when it is installed, or in
-``$FENIX_TORCH_BUILD_DIR``; it is named by a hash of its sources and
-flags so a changed source rebuilds. The build runs at most once per process
-(thread lock) and once per build directory (file lock), the first time
-a CUDA tensor reaches a wrapper — never at import.
+- ``stream`` (``csrc/bucket_scores_stream.cu``): f32/bf16 corpora at small
+  query counts, bound by the read of V;
+- ``tiled`` (``csrc/bucket_scores_tiled.cu``): f32/bf16 corpora at large
+  query counts, bound by the fp32 FMA rate;
+- ``generic_int8`` (``csrc/bucket_scores.cu``): the int8 corpus.
+
+:func:`kernel_for` picks one by dtype and query count.
+
+Build: ``nvcc`` compiles each source for ``sm_90a`` (all at once, one
+process per source) and links them into a shared library with a plain C
+interface, loaded with ``ctypes``. The library lands in
+``build/fenix_tpu_torch/`` at the repository root when the package runs
+from a source checkout, in ``$XDG_CACHE_HOME/fenix_tpu_torch`` (default
+``~/.cache``) when it is installed, or in ``$FENIX_TORCH_BUILD_DIR``; it is
+named by a hash of its sources and flags so a changed source rebuilds.
+The build runs at most once per process (thread lock) and once per build
+directory (file lock), the first time a CUDA tensor reaches a wrapper —
+never at import.
 
 Dispatch: a wrapper given CPU tensors computes its plain PyTorch twin
 (the CPU tests run that); given CUDA tensors it launches the kernel or
-raises. No path falls back from a failed build or launch to the twin.
+raises. No path falls back from a failed build or launch to the twin or
+to another kernel.
 """
 
 from __future__ import annotations
@@ -34,26 +44,44 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bucket_scores.cu",)
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+_SOURCES = ("bucket_scores.cu", "bucket_scores_stream.cu", "bucket_scores_tiled.cu")
+_HEADERS = ("common.cuh",)
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-# Launches per kernel route, counted where the wrapper launches the
-# kernel and nowhere else (the plain twins do not count). The f32 kernel
-# at bucket 128 also computes what the JAX package's round-1 kernel
-# (``bucket_scores_pallas``) did; those launches are counted again under
+# Launches, counted where the wrapper launches a kernel and nowhere else
+# (the plain twins do not count): once per call under its route (the
+# scan type), and once under the kernel design that served it. An f32
+# launch at bucket 128 also computes what the JAX package's round-1
+# kernel (``bucket_scores_pallas``) did; those are counted again under
 # their own name.
 LAUNCHES: dict[str, int] = {
     "bucket_scores.f32": 0,
     "bucket_scores.bf16": 0,
     "bucket_scores.int8": 0,
     "bucket_scores.f32.bucket128": 0,
+    "bucket_scores.kernel.stream": 0,
+    "bucket_scores.kernel.tiled": 0,
+    "bucket_scores.kernel.generic_int8": 0,
 }
 
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
-MAX_BUCKET = 128  # the kernel's row tile bounds one bucket
+_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2}
+MAX_BUCKET = 128  # a bucket lies inside one row tile of every design
+
+# Largest query count the stream kernel serves; above it the tiled one.
+# From chip_smoke.py phase 2's forced timings at 8,388,608 x 128 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at Q=32 stream 2.886 ms
+# vs tiled 4.705 (f32) and 3.069 vs 4.456 (bf16); at Q=64 tiled 4.398 vs
+# stream 5.829 and 4.470 vs 6.134.
+STREAM_MAX_Q = {torch.float32: 32, torch.bfloat16: 32}
+
+
+def kernel_for(dtype: torch.dtype, qt: int) -> str:
+    """The kernel design that serves a (corpus dtype, query count) pair."""
+    if dtype == torch.int8:
+        return "generic_int8"
+    return "stream" if qt <= STREAM_MAX_Q[dtype] else "tiled"
+
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
@@ -84,7 +112,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for name in _SOURCES:
+    for name in (*_SOURCES, *_HEADERS):
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
@@ -92,17 +120,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernel library if this source revision has none yet."""
+    """Compile the kernel library if this source revision has none yet:
+    one ``nvcc`` per source, all started together, then one link."""
     lib = library_path()
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
+            nvcc = _nvcc()
+            objs = [lib.with_name(f"{lib.stem}.{Path(s).stem}.{os.getpid()}.o") for s in _SOURCES]
+            logs = [obj.with_suffix(".log") for obj in objs]
+            procs = []
+            for src, obj, log in zip(_SOURCES, objs, logs):
+                with open(log, "w") as fh:  # a file, not a pipe: no compile blocks on output
+                    procs.append(subprocess.Popen(
+                        [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)],
+                        stdout=fh, stderr=subprocess.STDOUT,
+                    ))
+            errors = []
+            for src, proc, log in zip(_SOURCES, procs, logs):
+                if proc.wait() != 0:
+                    errors.append(f"nvcc {src} failed ({proc.returncode}):\n{log.read_text()}")
             tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-            done = subprocess.run(cmd, capture_output=True, text=True)
-            if done.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({done.returncode}):\n{done.stderr}")
+            if not errors:
+                done = subprocess.run(
+                    [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True,
+                )
+                if done.returncode != 0:
+                    errors.append(f"nvcc link failed ({done.returncode}):\n{done.stderr}")
+            for path in (*objs, *logs):
+                path.unlink(missing_ok=True)
+            if errors:
+                raise RuntimeError("\n".join(errors))
             os.replace(tmp, lib)
     return lib
 
@@ -116,6 +166,7 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = [
                 ctypes.c_int,  # dtype code
+                ctypes.c_int,  # kernel design code
                 ctypes.c_void_p, ctypes.c_void_p,  # q, v
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # aux_mul, aux_add, inv_sq
                 ctypes.c_void_p,  # out
@@ -172,10 +223,12 @@ def bucket_scores(
     aux_add: torch.Tensor,
     bucket: int,
     inv_sq: torch.Tensor | None = None,
+    _kernel: str | None = None,
 ) -> torch.Tensor:  # [QT, N // bucket] f32
     """Phase-1 bucket maxima (see :func:`bucket_scores_plain` for the
-    function). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/bucket_scores.cu`` or raise."""
+    function). CPU tensors take the plain version; CUDA tensors launch the
+    design :func:`kernel_for` picks, or raise. ``_kernel`` forces a design
+    (``chip_smoke.py`` times each one at the same shapes)."""
     if v.device.type == "cpu":
         return bucket_scores_plain(q, v, aux_mul, aux_add, bucket, inv_sq)
     if v.device.type != "cuda":
@@ -203,14 +256,20 @@ def bucket_scores(
         _check(inv_sq, "inv_sq", torch.float32, 1, device)
         if inv_sq.shape[0] != qt:
             raise ValueError(f"inv_sq has {inv_sq.shape[0]} entries for {qt} queries")
+    design = kernel_for(v.dtype, qt) if _kernel is None else _kernel
+    if (design == "generic_int8") != (v.dtype == torch.int8) or design not in _KERNEL_CODES:
+        raise ValueError(f"no {design!r} kernel for {v.dtype} inputs")
     out = torch.empty((qt, n // bucket), dtype=torch.float32, device=device)
     if qt == 0 or n == 0:
         return out
+    if v.dtype == torch.bfloat16:
+        q = q.to(torch.float32)  # the f32/bf16 kernels take f32 queries: QT x D, small
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fenix_bucket_scores(
             code,
+            _KERNEL_CODES[design],
             ctypes.c_void_p(q.data_ptr()),
             ctypes.c_void_p(v.data_ptr()),
             ctypes.c_void_p(aux_mul.data_ptr()),
@@ -221,9 +280,10 @@ def bucket_scores(
             ctypes.c_void_p(stream),
         )
     if err != 0:
-        raise RuntimeError(f"bucket_scores kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"bucket_scores {design} kernel launch failed: cudaError {err}")
     with _COUNT_LOCK:
         LAUNCHES[f"bucket_scores.{route}"] += 1
+        LAUNCHES[f"bucket_scores.kernel.{design}"] += 1
         if route == "f32" and bucket == 128:
             LAUNCHES["bucket_scores.f32.bucket128"] += 1
     return out

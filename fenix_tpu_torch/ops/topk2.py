@@ -5,10 +5,10 @@ Port of ``fenix_tpu/ops/topk2.py`` for PyTorch on a CUDA card.
 **Phase 1** scores every corpus row against every query with the fused
 score ``s = (q·v)·aux_mul + aux_add`` (one formula for all metrics;
 filter and padding masks are −inf in ``aux_add``) and keeps only the
-max of each ``bucket`` rows. On the card this is one hand-written
-kernel for every query count and scan type (``ops/kernels.py``,
-``csrc/bucket_scores.cu``): fp32, the bf16 scan copy, or the per-row
-int8 copy. CPU tensors take the kernel's plain PyTorch twin.
+max of each ``bucket`` rows. On the card this is a hand-written kernel
+for every query count and scan type (fp32, the bf16 scan copy, or the
+per-row int8 copy), chosen by dtype and query count in
+``ops/kernels.py``. CPU tensors take the kernels' plain PyTorch twin.
 
 **Phase 2** selects the top ``k + pad`` buckets per query, gathers
 their rows and rescores them exactly in fp32 (TF32 is off, see

@@ -316,6 +316,70 @@ def test_chip_smoke_check_close(rng, route, case):
             smoke.check_close(got, want, qq, vv, mm, aa, isq)
 
 
+@pytest.mark.parametrize(
+    "route,q,n,d,bucket,want_ms,want_by",
+    [
+        # by hand: (8,388,609 x 128 x 4 + 8 x 8,388,608 + 4 x 65,536) B / 3.35 TB/s
+        ("f32", 1, 8_388_608, 128, 128, 4_362_338_816 / 3.35e12 * 1e3, "read"),
+        # 2 x 1024 x 8,388,608 x 128 = 2.199 TFLOP / 67 TFLOP/s
+        ("f32", 1024, 8_388_608, 128, 32, 2_199_023_255_552 / 67e12 * 1e3, "f32"),
+        # 2 x 1024 x 4,194,304 x 768 = 6.597 TOP / 1,979 TOP/s
+        ("int8", 1024, 4_194_304, 768, 32, 6_597_069_766_656 / 1979e12 * 1e3, "int8"),
+        # (8,388,672 x 128 x 2 + 8 x 8,388,608 + 4 x 64 x 65,536) B / 3.35 TB/s
+        ("bf16", 64, 8_388_608, 128, 128, 2_231_386_112 / 3.35e12 * 1e3, "read"),
+    ],
+)
+def test_chip_smoke_bound(route, q, n, d, bucket, want_ms, want_by):
+    """The bound of a phase-1 call against hand-computed rows: 1.302 ms
+    (read), 32.82 ms (fp32), 3.334 ms (int8), 0.666 ms (read)."""
+    got = smoke.bound(route, q, n, d, bucket)
+    assert got["bound_by"] == want_by
+    assert got["bound_ms"] == pytest.approx(want_ms, rel=1e-12)
+    assert round(got["bound_ms"], 2) == {"f32": {1: 1.30, 1024: 32.82}, "int8": {1024: 3.33},
+                                         "bf16": {64: 0.67}}[route][q]
+
+
+def test_chip_smoke_library_fn(rng):
+    """The library yardstick: matmul for f32/bf16, _int_mm for int8 where
+    its shape rules allow (more than 16 rows in every chunk), else None."""
+    v = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
+    v8, _ = topk2.quantize_corpus_int8(v)
+    for q in (v[:3], v[:3].to(torch.bfloat16)):
+        smoke.library_fn(q, v.to(q.dtype))()
+    assert smoke.library_fn(v8[:8], v8) is None  # 8 rows: _int_mm refuses
+    assert smoke.library_fn(v8[:33], v8, chunk=16) is None  # a 1-row last chunk
+    smoke.library_fn(v8[:40], v8)()
+
+
+def test_chip_smoke_kernel_entries():
+    """The kernels line: one entry per design and K3, timed at the largest
+    main-path shape, refused when a design misses a path it must run on."""
+    def row(kernel, route, q, n, bucket, ms, search=None):
+        return {"kernel": kernel, "route": route, "q": q, "n": n, "bucket": bucket, "search": search,
+                "max_abs_err": 1e-6 * q, "ms": ms, "plain_ms": 2 * ms, "library_ms": None,
+                **smoke.bound(route, q, n, smoke.D, bucket)}
+    rows = [row("stream", "f32", 8, 1 << 20, 128, 1.0), row("stream", "f32", 8, 1 << 23, 128, 2.0, "q8"),
+            row("tiled", "f32", 1024, 1 << 23, 32, 60.0, "q1024"), row("tiled", "f32", 64, 1 << 23, 128, 4.0),
+            row("generic_int8", "int8", 8, 1 << 22, 128, 1.5, "auto_q8")]
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.generic_int8": 4}
+    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}}
+    entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
+    assert set(entries) == {k[0] for k in smoke.KERNELS}
+    tiled = entries["bucket_scores.kernel.tiled"]
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 1
+    assert tiled["timed_at"]["search"] == "q1024"
+    stream = entries["bucket_scores.kernel.stream"]
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 4
+    assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
+    for e in entries.values():
+        assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
+    by_path["residency"]["kernel.stream"] = 0
+    with pytest.raises(AssertionError, match="stream was not launched on the residency path"):
+        smoke.kernel_entries(rows, by_path)
+
+
 SMOKE_ROWS = 16_384
 
 

@@ -197,16 +197,43 @@ def test_plain_phase1_edges(rng):
     assert not torch.isnan(out32).any() and torch.isneginf(out32[:, :8]).all()
 
 
-def test_wrapper_counts_only_kernel_launches(rng):
-    """On CPU tensors the wrapper runs the plain version (bit-equal) and
-    counts no launch; a device it has no kernel for raises."""
-    corpus, queries = build(rng, 512, 8, 2)
-    args = (t(queries), t(corpus), torch.ones(512), torch.zeros(512), 128)
+@pytest.mark.parametrize(
+    "dtype,q,design",
+    [(torch.float32, q, "stream") for q in (1, 8, 9, 32)]
+    + [(torch.float32, q, "tiled") for q in (33, 64, 1024)]
+    + [(torch.bfloat16, q, "stream") for q in (1, 16, 32)]
+    + [(torch.bfloat16, q, "tiled") for q in (33, 64)]
+    + [(torch.int8, q, "generic_int8") for q in (1, 8, 256, 1024)],
+)
+def test_kernel_for_picks_by_dtype_and_q(dtype, q, design):
+    """The dispatcher: int8 → generic; f32/bf16 stream up to the measured
+    threshold (32 queries), tiled above it."""
+    assert kernels.kernel_for(dtype, q) == design
+
+
+@pytest.mark.parametrize("design", [None, "stream", "tiled", "generic_int8"])
+@pytest.mark.parametrize("scan", ["f32", "bf16", "int8"])
+def test_wrapper_counts_only_kernel_launches(rng, scan, design):
+    """On CPU tensors the wrapper runs the plain version (bit-equal) for
+    every scan type, whatever design is forced, and counts no launch under
+    a route or a design; a device it has no kernel for raises."""
+    corpus, queries = build(rng, 512, 16, 3)
+    v, q, isq = t(corpus), t(queries), None
+    mul, add = torch.ones(512), torch.zeros(512)
+    if scan == "bf16":
+        v, q = v.to(torch.bfloat16), q.to(torch.bfloat16)
+    elif scan == "int8":
+        v, sv = topk2.quantize_corpus_int8(v)
+        q, isq = topk2.quantize_queries_int8(q)
+        mul = sv
     before = dict(kernels.LAUNCHES)
-    assert torch.equal(kernels.bucket_scores(*args), kernels.bucket_scores_plain(*args))
+    got = kernels.bucket_scores(q, v, mul, add, 32, inv_sq=isq, _kernel=design)
+    assert torch.equal(got, kernels.bucket_scores_plain(q, v, mul, add, 32, isq))
     assert kernels.LAUNCHES == before
+    assert {f"bucket_scores.kernel.{k}" for k in ("stream", "tiled", "generic_int8")} <= set(before)
+    args = (q, v, mul, add, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        kernels.bucket_scores(*(a.to("meta") if torch.is_tensor(a) else a for a in args))
+        kernels.bucket_scores(*(a.to("meta") if torch.is_tensor(a) else a for a in args), inv_sq=isq)
 
 
 def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
@@ -224,32 +251,41 @@ def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version, on the card: ragged Q,
-    every scan type, -inf rows. Runs where a CUDA card is present."""
+@pytest.mark.parametrize("design", ["auto", "stream", "tiled"])
+def test_kernel_matches_plain_on_card(design):
+    """The CUDA kernels against their plain version, on the card: each
+    f32/bf16 design forced ("auto": the dispatcher's pick, int8 included)
+    over ragged Q, D not a multiple of 16 bytes, buckets 1..128, N not a
+    multiple of the 128-row tile where the bucket allows, -inf rows and
+    whole -inf buckets. Runs where a CUDA card is present. Tolerance
+    rtol 1e-5, atol 1e-3 at D=128, atol growing with D (|q|·|v| ~ D)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(0)
-    n, d = 65536, 128
-    v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
-    mul = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).cuda()
-    add = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
-    add[::7] = float("-inf")
-    v8, sv = topk2.quantize_corpus_int8(v)
-    for qn in (1, 8, 33, 64, 100, 1024):
-        q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).cuda()
-        q8, inv_sq = topk2.quantize_queries_int8(q)
-        for bucket in (128, 32):
-            for args in (
-                (q, v, mul, add, bucket, None),
-                (q.bfloat16(), v.bfloat16(), mul, add, bucket, None),
-                (q8, v8, mul * sv, add, bucket, inv_sq),
-            ):
-                got = kernels.bucket_scores(*args[:5], inv_sq=args[5])
-                want = kernels.bucket_scores_plain(*args)
-                assert torch.equal(torch.isneginf(got), torch.isneginf(want))
-                fin = torch.isfinite(want)
-                torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-3)
+    forced = None if design == "auto" else design
+    for d in (96, 100, 128, 130, 768):
+        for bucket in (1, 2, 32, 128):
+            n = 16_384 + (96 if bucket <= 32 else 128)
+            v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+            mul = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).cuda()
+            add = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+            add[::7] = float("-inf")
+            add[: 2 * bucket] = float("-inf")
+            v8, sv = topk2.quantize_corpus_int8(v)
+            for qn in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 1024):
+                q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).cuda()
+                cases = [(q, v, mul, add, bucket, None), (q.bfloat16(), v.bfloat16(), mul, add, bucket, None)]
+                if forced is None:
+                    q8, inv_sq = topk2.quantize_queries_int8(q)
+                    cases.append((q8, v8, mul * sv, add, bucket, inv_sq))
+                for args in cases:
+                    got = kernels.bucket_scores(*args[:5], inv_sq=args[5], _kernel=forced)
+                    want = kernels.bucket_scores_plain(*args)
+                    assert not torch.isnan(got).any()
+                    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+                    assert torch.isneginf(got[:, :2]).all()
+                    fin = torch.isfinite(want)
+                    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-3 * max(1.0, d / 128))
 
 
 # -- bucket selection ---------------------------------------------------------
