@@ -13,13 +13,17 @@ Phases, each printing one JSON line with its own timings:
    (every Q in EDGE_Q x D in EDGE_D x bucket in EDGE_BUCKETS, N not a
    multiple of the 128-row tile where the bucket allows, whole -inf
    buckets; f32 and bf16 through both the stream and the tiled kernel,
-   int8 through the generic one), (b) at the exact inputs the main path
-   gives it in phase 3, and each design forced at 8,388,608 x 128 over
-   the query counts of FORCED, the timings that set the dispatcher's
-   thresholds (kernels.STREAM_MAX_Q). Every timed row also carries its
-   bound (the larger of bytes over the read rate and operations over the
-   peak rate of their type, see `bound`), its share of that bound, and
-   library_ms, one PyTorch call for the product alone (`library_fn`).
+   int8 at EDGE_Q_INT8 through both int8 designs, tensor_int8 where D is
+   a multiple of 16), (b) at the exact inputs the main path gives it in
+   phase 3, each f32/bf16 design forced at 8,388,608 x 128 over the query
+   counts of FORCED and each int8 design at FORCED_INT8's shapes over
+   FORCED_INT8_Q, the timings that set the dispatcher's rules
+   (kernels.STREAM_MAX_Q, kernels.kernel_for). Every timed row also
+   carries its bound (the larger of bytes over the read rate and
+   operations over the peak rate of their type, see `bound`), its share of
+   that bound, and library_ms, one PyTorch call for the product alone
+   (`library_fn`); an int8 row also carries the largest difference between
+   the two int8 designs at its inputs (`design_diff`).
    Tolerances, per query j:
    f32 and bf16 (both sides widen the same inputs to f32):
    1e-5 * |q_j| * max_i |v_i| * aux_mul_i + 1e-6 * max_i |aux_add_i|;
@@ -61,12 +65,12 @@ Phases, each printing one JSON line with its own timings:
    latency (median of 5) and a warm split from the server's counters
    (device phase A, host gather + rescore, upload GB/s).
 
-Then one JSON line of the kernels (the three designs: stream and tiled
-for K1, generic_int8 for K2, and K3 as f32 at bucket 128, each with its
-launches on both paths), the nvidia-smi line, and last {"ok": true,
-"device": {...}}. Any failure
-exits non-zero with no result. The script takes no options: the card run
-at this size is its only path.
+Then one JSON line of the kernels (the four designs: stream and tiled
+for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
+each with its launches on both paths), the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Any failure exits non-zero with no
+result. The script takes no options: the card run at this size is its
+only path.
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ SEARCHES = (
 )
 ROUTES = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
 K3_ROUTE = "f32.bucket128"  # f32 launches at bucket 128 also serve K3
-DESIGNS = ("stream", "tiled", "generic_int8")  # kernels.LAUNCHES["bucket_scores.kernel.<design>"]
+DESIGNS = ("stream", "tiled", "tensor_int8", "generic_int8")  # LAUNCHES["bucket_scores.kernel.<design>"]
+INT8_DESIGNS = ("tensor_int8", "generic_int8")
 KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
@@ -109,17 +114,24 @@ KERNELS = (
      "fenix_tpu/ops/topk2.py:453", ("exact", "residency")),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact",)),
-    ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
+    ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
      "fenix_tpu/ops/topk2.py:464", ("exact", "residency")),  # kernel_int8 of the same
+    # int8 rows that are not 16-byte strided only; no main-path table has them
+    ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
+     "fenix_tpu/ops/topk2.py:464", ()),
     ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
      "fenix_tpu/ops/topk2.py:357", ("exact", "residency")),  # bucket_scores_pallas (K3)
 )
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
+EDGE_Q_INT8 = EDGE_Q + (100, 200, 257, 1024)  # int8 also: 128- and 256-query tiles, several
 EDGE_D = (96, 100, 130, 768)  # 100 and 130 are not a multiple of 16 bytes of bf16 / f32
 EDGE_BUCKETS = (1, 2, 32, 128)
 # phase 2 (b): each f32/bf16 design forced at ROWS x D over these query counts
 FORCED = (("f32", (1, 8, 16, 32, 64)), ("bf16", (1, 8, 16, 32, 64)))
+# phase 2 (b): each int8 design forced at these (rows, D) over these query counts
+FORCED_INT8 = ((8_388_608, 128), (4_194_304, 768))
+FORCED_INT8_Q = (1, 8, 16, 32, 64, 256, 1024)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # 700 W limit): HBM3 read rate, fp32 on the CUDA cores, bf16 and int8 on
 # the tensor cores.
@@ -266,33 +278,64 @@ def bound(route: str, q: int, n: int, d: int, bucket: int) -> dict:
 def library_fn(q, v, chunk: int = 128):
     """One PyTorch call for the product alone, over the query chunks of
     ``plain_chunked``: ``torch.matmul`` (TF32 off) for f32 and bf16,
-    ``torch._int_mm`` for int8; None where ``_int_mm``'s shape rules (more
-    than 16 rows, both widths multiples of 8) refuse the inputs."""
+    ``torch._int_mm`` for int8. ``_int_mm`` takes more than 16 rows on its
+    left and widths that are multiples of 8, so a chunk of 16 queries or
+    fewer goes on its right (``V8 · Q8ᵀ``, ``Q8ᵀ`` a view: the card took it
+    and ran it faster than a contiguous copy); None where a chunk fits
+    neither way."""
     import torch
 
-    if q.dtype == torch.int8:
-        qt, d = q.shape
-        if d % 8 or v.shape[0] % 8 or any(min(chunk, qt - s) <= 16 for s in range(0, qt, chunk)):
-            return None
-        mm = torch._int_mm
-    else:
-        mm = torch.matmul
+    if q.dtype != torch.int8:
+        def run():
+            for s in range(0, q.shape[0], chunk):
+                torch.matmul(q[s : s + chunk], v.T)
 
-    def run():
-        for s in range(0, q.shape[0], chunk):
-            mm(q[s : s + chunk], v.T)
+        return run
+    qt, d = q.shape
+    sizes = [min(chunk, qt - s) for s in range(0, qt, chunk)]
+    if d % 8 or v.shape[0] % 8 or any(m <= 16 and (m % 8 or v.shape[0] <= 16) for m in sizes):
+        return None
 
-    return run
+    def run_int8():
+        for s in range(0, qt, chunk):
+            c = q[s : s + chunk]
+            if c.shape[0] > 16:
+                torch._int_mm(c, v.T)
+            else:
+                torch._int_mm(v, c.T)
+
+    return run_int8
 
 
-def check_kernel(kernels, q, v, mul, add, bucket, inv_sq, kernel) -> float:
-    """A kernel design against its plain version on the card."""
+def check_kernel(kernels, q, v, mul, add, bucket, inv_sq, kernel):
+    """A kernel design against its plain version on the card: the largest
+    difference and the kernel's maxima."""
     import torch
 
     got = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=kernel)
     want = plain_chunked(kernels, q, v, mul, add, bucket, inv_sq)
     torch.cuda.synchronize()
-    return check_close(got, want, q, v, mul, add, inv_sq)
+    return check_close(got, want, q, v, mul, add, inv_sq), got
+
+
+def design_diff(kernels, got, q, v, mul, add, bucket, inv_sq, design) -> dict:
+    """An int8 design's maxima ``got`` against the other int8 design at the
+    same inputs. Both sum exactly in integers and share the epilogue's
+    expression, so they can differ only where the compiler contracts that
+    expression into an FMA differently: the difference is held to
+    check_close's int8 tolerance, which allows for that, and the row says
+    whether the two were bit-equal."""
+    import torch
+
+    other = INT8_DESIGNS[1 - INT8_DESIGNS.index(design)]
+    if other == "tensor_int8" and v.shape[1] % 16:
+        return {}
+    theirs = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=other)
+    torch.cuda.synchronize()
+    diff = check_close(got, theirs, q, v, mul, add, inv_sq)
+    equal = torch.equal(got, theirs)
+    return {"other_design": other, "max_abs_diff_designs": diff, "designs_bit_equal": equal,
+            "designs_differ_by": None if equal else "epilogue FMA contraction, within the int8 tolerance"}
 
 
 def compare(kernels, q, v, mul, add, bucket, inv_sq, kernel=None) -> dict:
@@ -301,8 +344,10 @@ def compare(kernels, q, v, mul, add, bucket, inv_sq, kernel=None) -> dict:
     import torch
 
     route = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[v.dtype]
-    design = kernel or kernels.kernel_for(v.dtype, q.shape[0])
-    err = check_kernel(kernels, q, v, mul, add, bucket, inv_sq, design)
+    design = kernel or kernels.kernel_for(v.dtype, q.shape[0], v.shape[1])
+    err, got = check_kernel(kernels, q, v, mul, add, bucket, inv_sq, design)
+    designs = design_diff(kernels, got, q, v, mul, add, bucket, inv_sq, design) if route == "int8" else {}
+    del got
     ms = time_ms(lambda: kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=design),
                  TIMING_REPS)
     plain_ms = time_ms(lambda: plain_chunked(kernels, q, v, mul, add, bucket, inv_sq), TIMING_REPS)
@@ -310,7 +355,7 @@ def compare(kernels, q, v, mul, add, bucket, inv_sq, kernel=None) -> dict:
     b = bound(route, q.shape[0], v.shape[0], v.shape[1], bucket)
     return {"kernel": design, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None if lib is None else time_ms(lib, TIMING_REPS),
-            **b, "share_of_bound": b["bound_ms"] / ms}
+            **b, "share_of_bound": b["bound_ms"] / ms, **designs}
 
 
 def phase_kernel_vs_plain(kernels, topk2) -> list[dict]:
@@ -351,11 +396,12 @@ def edge_rows(bucket: int) -> int:
 
 def phase_edge_shapes(kernels, topk2) -> dict:
     """Phase 2 (a), edge shapes: every design against the plain version
-    over EDGE_Q x EDGE_D x EDGE_BUCKETS, untimed."""
+    over EDGE_Q (int8: EDGE_Q_INT8) x EDGE_D x EDGE_BUCKETS, untimed; where
+    both int8 designs run, they also agree with each other."""
     import torch
 
     g = torch.Generator(device=DEVICE).manual_seed(5)
-    checked, err = 0, 0.0
+    checked, err, diff_designs = 0, 0.0, 0.0
     for d in EDGE_D:
         for bucket in EDGE_BUCKETS:
             n = edge_rows(bucket)
@@ -366,18 +412,25 @@ def phase_edge_shapes(kernels, topk2) -> dict:
             add[: 2 * bucket] = float("-inf")  # two whole buckets of masked rows
             v16 = v32.to(torch.bfloat16)
             v8, sv = topk2.quantize_corpus_int8(v32)
-            for qn in EDGE_Q:
+            for qn in EDGE_Q_INT8:
                 q32 = torch.randn((qn, d), generator=g, device=DEVICE)
                 q8, inv_sq = topk2.quantize_queries_int8(q32)
-                cases = [(q32, v32, None, k) for k in ("stream", "tiled")]
-                cases += [(q32.to(torch.bfloat16), v16, None, k) for k in ("stream", "tiled")]
-                cases += [(q8, v8, inv_sq, "generic_int8")]
+                cases = []
+                if qn in EDGE_Q:
+                    cases += [(q32, v32, None, k) for k in ("stream", "tiled")]
+                    cases += [(q32.to(torch.bfloat16), v16, None, k) for k in ("stream", "tiled")]
+                cases += [(q8, v8, inv_sq, k) for k in INT8_DESIGNS if k != "tensor_int8" or d % 16 == 0]
+                outs = {}
                 for q, v, isq, kernel in cases:
                     m = mul * sv if isq is not None else mul
-                    err = max(err, check_kernel(kernels, q, v, m, add, bucket, isq, kernel))
+                    e, outs[kernel] = check_kernel(kernels, q, v, m, add, bucket, isq, kernel)
+                    err = max(err, e)
                     checked += 1
-    return {"checked": checked, "q": EDGE_Q, "d": EDGE_D, "buckets": EDGE_BUCKETS,
-            "max_abs_err": err}
+                if "tensor_int8" in outs:
+                    diff_designs = max(diff_designs, check_close(
+                        outs["tensor_int8"], outs["generic_int8"], q8, v8, mul * sv, add, inv_sq))
+    return {"checked": checked, "q": EDGE_Q, "q_int8": EDGE_Q_INT8, "d": EDGE_D, "buckets": EDGE_BUCKETS,
+            "max_abs_err": err, "max_abs_diff_int8_designs": diff_designs}
 
 
 def phase_forced(kernels, topk2, vectors) -> list[dict]:
@@ -404,6 +457,33 @@ def phase_forced(kernels, topk2, vectors) -> list[dict]:
         del v
     del corpus, mul, add
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_forced_int8(kernels, topk2) -> list[dict]:
+    """Phase 2 (b), int8: both int8 designs forced at the (rows, D) of
+    FORCED_INT8 (l2 aux of random normal rows, random queries) over
+    FORCED_INT8_Q; the timings behind kernels.kernel_for's int8 rule."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    rows = []
+    for n, d in FORCED_INT8:
+        v32 = torch.randn((n, d), generator=g, device=DEVICE)
+        mul, add = topk2.prepare_aux(v32, None, "l2")
+        v8, sv = topk2.quantize_corpus_int8(v32)
+        del v32
+        mul8 = mul * sv
+        for qn in FORCED_INT8_Q:
+            q32 = torch.randn((qn, d), generator=g, device=DEVICE)
+            q8, inv_sq = topk2.quantize_queries_int8(topk2.prepare_queries(q32, "l2"))
+            bucket = topk2.bucket_for(qn, n)
+            for kernel in INT8_DESIGNS:
+                rows.append({"route": "int8", "q": qn, "n": n, "d": d, "bucket": bucket,
+                             **compare(kernels, q8, v8, mul8, add, bucket, inv_sq, kernel=kernel)})
+                emit({"phase": "kernel_forced_int8", **rows[-1]})
+        del mul, add, v8, sv, mul8
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -861,7 +941,7 @@ def run() -> int:
     wide = phase_kernel_vs_plain_d768(kernels, topk2)
     for r in wide:
         emit({"phase": "kernel_vs_plain_d768", **r})
-    forced = phase_forced(kernels, topk2, vectors)
+    forced = phase_forced(kernels, topk2, vectors) + phase_forced_int8(kernels, topk2)
     main_shapes = []
     for spec, qnp in zip(SEARCHES, queries):
         inputs = main_path_inputs(topk2, vectors, tags, spec, qnp, device)
@@ -919,7 +999,7 @@ def run() -> int:
             target = qnp[0] if flat else qnp
             route = ROUTES[precision]
             # the search's route and the design the dispatcher picks for it
-            keys = (route, f"kernel.{kernels.kernel_for(scan_dtypes[precision], qn)}")
+            keys = (route, f"kernel.{kernels.kernel_for(scan_dtypes[precision], qn, D)}")
             t = time.perf_counter()
             c0 = launches(client)
             result = client.search(target, "smoke/items", "vector", **kw)

@@ -1,22 +1,25 @@
 // Phase 1 of the two-phase exact top-k search on Hopper: per-bucket
 // maxima of the fused score, with only the maxima written to memory.
-// This file holds the C entry point of all three phase-1 kernels and
-// the int8 one, generic_kernel (design "generic_int8"); the f32/bf16
-// corpora take
-// bucket_scores_stream.cu (small Q) or bucket_scores_tiled.cu (large Q),
-// chosen by the caller (fenix_tpu_torch/ops/kernels.py).
+// This file holds the C entry point of all four phase-1 kernels and one
+// of the two int8 designs, generic_kernel ("generic_int8"). The f32/bf16
+// corpora take bucket_scores_stream.cu (small Q) or bucket_scores_tiled.cu
+// (large Q); int8 rows of a multiple of 16 bytes take the tensor-core
+// design in bucket_scores_int8.cu ("tensor_int8"), faster at every query
+// count measured. generic_kernel serves only int8 rows that TMA cannot
+// address (D not a multiple of 16): a shape rule of the caller
+// (fenix_tpu_torch/ops/kernels.py:kernel_for), not a fallback.
 //
 // generic_kernel replaces kernel_int8 of
-// fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq (topk2.py:464). For
-// row i and query j it computes
+// fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq (topk2.py:464) for
+// those rows. For row i and query j it computes
 //
 //   s = f32(v8_i . q8_j) * aux_mul[i] + aux_add[i] * inv_sq[j]
 //
 // and writes out[j, b] = max over the `bucket` rows of bucket b,
 // query-major [QT, N/bucket].
 //
-// Design (right and simple first; its redesign for this card is later
-// work):
+// Design (right and simple; the int8 path the engine's tables take is
+// bucket_scores_int8.cu):
 // - One block computes a tile of BM corpus rows x BQ queries. Both
 //   operand tiles are staged through shared memory in steps of KW
 //   words of four int8 codes packed into an int32; each thread owns a
@@ -31,8 +34,8 @@
 //
 // What bounds it on an H100: at Q = 8 the read of V (bandwidth); at
 // Q = 1024 the int8 dot rate, which __dp4a on the CUDA cores reaches only
-// a small part of (the tensor cores' int8 path is the next step); each
-// block holds one query tile, so V is re-read once per query tile.
+// a small part of; each block holds one query tile, so V is re-read once
+// per query tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -207,7 +210,8 @@ int launch_generic(const void* q, const void* v, const float* aux_mul, const flo
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (inv_sq required).
 // kernel: 0 = stream, 1 = tiled (f32/bf16 corpora, f32 queries),
-//         2 = generic (int8 corpus and queries).
+//         2 = generic, 3 = tensor_int8 (int8 corpus and queries; 3 needs
+//         D a multiple of 16, bucket_scores_int8.cu).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int fenix_bucket_scores(int dtype, int kernel, const void* q, const void* v,
                                    const float* aux_mul, const float* aux_add,
@@ -224,5 +228,7 @@ extern "C" int fenix_bucket_scores(int dtype, int kernel, const void* q, const v
     return fenix::launch_tiled(dtype, qf, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, s);
   if (kernel == 2 && dtype == 2 && inv_sq != nullptr)
     return launch_generic(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
+  if (kernel == 3 && dtype == 2 && inv_sq != nullptr)
+    return fenix::launch_tensor_int8(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

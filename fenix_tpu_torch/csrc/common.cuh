@@ -1,5 +1,6 @@
 // Helpers shared by the phase-1 kernels: asynchronous 16-byte copies,
-// bf16 widening, and the launch-shape queries the persistent kernels use.
+// bf16 widening, the launch-shape queries the persistent kernels use, and
+// the designs' entry points.
 
 #pragma once
 
@@ -106,5 +107,10 @@ int launch_stream(int dtype, const float* q, const void* v, const float* aux_mul
 int launch_tiled(int dtype, const float* q, const void* v, const float* aux_mul,
                  const float* aux_add, float* out, int64_t qt, int64_t n, int64_t d,
                  int bucket_log2, cudaStream_t stream);
+// Entry point of the int8 tensor-core design (int8 q and v, D a multiple
+// of 16).
+int launch_tensor_int8(const void* q, const void* v, const float* aux_mul, const float* aux_add,
+                       const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
+                       int bucket_log2, cudaStream_t stream);
 
 }  // namespace fenix

@@ -3,15 +3,18 @@
 One kernel family lives here today, the phase-1 bucket-max scan, which
 replaces ``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16
 and int8 bodies), the small-Q XLA dot beside it, and
-``bucket_scores_pallas`` (K3). Three designs share one wrapper:
+``bucket_scores_pallas`` (K3). Four designs share one wrapper:
 
 - ``stream`` (``csrc/bucket_scores_stream.cu``): f32/bf16 corpora at small
   query counts, bound by the read of V;
 - ``tiled`` (``csrc/bucket_scores_tiled.cu``): f32/bf16 corpora at large
   query counts, bound by the fp32 FMA rate;
-- ``generic_int8`` (``csrc/bucket_scores.cu``): the int8 corpus.
+- ``tensor_int8`` (``csrc/bucket_scores_int8.cu``): the int8 corpus on the
+  tensor cores (``wgmma`` fed by TMA), for rows of a multiple of 16 bytes;
+- ``generic_int8`` (``csrc/bucket_scores.cu``): int8 rows that TMA cannot
+  address (D not a multiple of 16), on the CUDA cores.
 
-:func:`kernel_for` picks one by dtype and query count.
+:func:`kernel_for` picks one by dtype, query count and row width.
 
 Build: ``nvcc`` compiles each source for ``sm_90a`` (all at once, one
 process per source) and links them into a shared library with a plain C
@@ -44,7 +47,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bucket_scores.cu", "bucket_scores_stream.cu", "bucket_scores_tiled.cu")
+_SOURCES = ("bucket_scores.cu", "bucket_scores_stream.cu", "bucket_scores_tiled.cu", "bucket_scores_int8.cu")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -62,10 +65,12 @@ LAUNCHES: dict[str, int] = {
     "bucket_scores.kernel.stream": 0,
     "bucket_scores.kernel.tiled": 0,
     "bucket_scores.kernel.generic_int8": 0,
+    "bucket_scores.kernel.tensor_int8": 0,
 }
 
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
-_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2}
+_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3}
+_INT8_DESIGNS = ("tensor_int8", "generic_int8")
 MAX_BUCKET = 128  # a bucket lies inside one row tile of every design
 
 # Largest query count the stream kernel serves; above it the tiled one.
@@ -76,10 +81,12 @@ MAX_BUCKET = 128  # a bucket lies inside one row tile of every design
 STREAM_MAX_Q = {torch.float32: 32, torch.bfloat16: 32}
 
 
-def kernel_for(dtype: torch.dtype, qt: int) -> str:
-    """The kernel design that serves a (corpus dtype, query count) pair."""
+def kernel_for(dtype: torch.dtype, qt: int, d: int) -> str:
+    """The kernel design that serves a (corpus dtype, query count, row
+    width) triple. int8 rows go to the tensor cores when TMA can address
+    them (16-byte row strides); that is a shape rule, not a fallback."""
     if dtype == torch.int8:
-        return "generic_int8"
+        return "tensor_int8" if d % 16 == 0 else "generic_int8"
     return "stream" if qt <= STREAM_MAX_Q[dtype] else "tiled"
 
 
@@ -256,9 +263,11 @@ def bucket_scores(
         _check(inv_sq, "inv_sq", torch.float32, 1, device)
         if inv_sq.shape[0] != qt:
             raise ValueError(f"inv_sq has {inv_sq.shape[0]} entries for {qt} queries")
-    design = kernel_for(v.dtype, qt) if _kernel is None else _kernel
-    if (design == "generic_int8") != (v.dtype == torch.int8) or design not in _KERNEL_CODES:
+    design = kernel_for(v.dtype, qt, d) if _kernel is None else _kernel
+    if (design in _INT8_DESIGNS) != (v.dtype == torch.int8) or design not in _KERNEL_CODES:
         raise ValueError(f"no {design!r} kernel for {v.dtype} inputs")
+    if design == "tensor_int8" and d % 16:
+        raise ValueError(f"tensor_int8 needs rows of a multiple of 16 bytes, got D={d}")
     out = torch.empty((qt, n // bucket), dtype=torch.float32, device=device)
     if qt == 0 or n == 0:
         return out

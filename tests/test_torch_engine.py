@@ -341,12 +341,14 @@ def test_chip_smoke_bound(route, q, n, d, bucket, want_ms, want_by):
 
 def test_chip_smoke_library_fn(rng):
     """The library yardstick: matmul for f32/bf16, _int_mm for int8 where
-    its shape rules allow (more than 16 rows in every chunk), else None."""
+    its shape rules allow: a chunk of more than 16 queries on the left, of
+    16 or fewer (a multiple of 8) on the right as V8 · Q8ᵀ, else None."""
     v = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     v8, _ = topk2.quantize_corpus_int8(v)
     for q in (v[:3], v[:3].to(torch.bfloat16)):
         smoke.library_fn(q, v.to(q.dtype))()
-    assert smoke.library_fn(v8[:8], v8) is None  # 8 rows: _int_mm refuses
+    smoke.library_fn(v8[:8], v8)()  # 8 queries: V8 · Q8ᵀ
+    assert smoke.library_fn(v8[:3], v8) is None  # 3 queries fit neither side
     assert smoke.library_fn(v8[:33], v8, chunk=16) is None  # a 1-row last chunk
     smoke.library_fn(v8[:40], v8)()
 
@@ -360,13 +362,18 @@ def test_chip_smoke_kernel_entries():
                 **smoke.bound(route, q, n, smoke.D, bucket)}
     rows = [row("stream", "f32", 8, 1 << 20, 128, 1.0), row("stream", "f32", 8, 1 << 23, 128, 2.0, "q8"),
             row("tiled", "f32", 1024, 1 << 23, 32, 60.0, "q1024"), row("tiled", "f32", 64, 1 << 23, 128, 4.0),
-            row("generic_int8", "int8", 8, 1 << 22, 128, 1.5, "auto_q8")]
+            row("tensor_int8", "int8", 8, 1 << 22, 128, 1.5, "auto_q8"),
+            row("generic_int8", "int8", 1024, 1 << 23, 32, 57.0)]
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-    counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.generic_int8": 4}
+    counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.tensor_int8": 4,
+              "kernel.generic_int8": 0}
     by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
+    generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
+    assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 8
     tiled = entries["bucket_scores.kernel.tiled"]
     assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 1
     assert tiled["timed_at"]["search"] == "q1024"

@@ -198,20 +198,22 @@ def test_plain_phase1_edges(rng):
 
 
 @pytest.mark.parametrize(
-    "dtype,q,design",
-    [(torch.float32, q, "stream") for q in (1, 8, 9, 32)]
-    + [(torch.float32, q, "tiled") for q in (33, 64, 1024)]
-    + [(torch.bfloat16, q, "stream") for q in (1, 16, 32)]
-    + [(torch.bfloat16, q, "tiled") for q in (33, 64)]
-    + [(torch.int8, q, "generic_int8") for q in (1, 8, 256, 1024)],
+    "dtype,q,d,design",
+    [(torch.float32, q, 128, "stream") for q in (1, 8, 9, 32)]
+    + [(torch.float32, q, 128, "tiled") for q in (33, 64, 1024)]
+    + [(torch.bfloat16, q, 128, "stream") for q in (1, 16, 32)]
+    + [(torch.bfloat16, q, 128, "tiled") for q in (33, 64)]
+    + [(torch.int8, q, d, "tensor_int8") for d in (128, 768) for q in (1, 8, 256, 1024)]
+    + [(torch.int8, q, d, "generic_int8") for d in (100, 130) for q in (1, 8, 256, 1024)],
 )
-def test_kernel_for_picks_by_dtype_and_q(dtype, q, design):
-    """The dispatcher: int8 → generic; f32/bf16 stream up to the measured
-    threshold (32 queries), tiled above it."""
-    assert kernels.kernel_for(dtype, q) == design
+def test_kernel_for_picks_by_dtype_and_q(dtype, q, d, design):
+    """The dispatcher: int8 rows of a multiple of 16 bytes → the tensor-core
+    design at every Q, other int8 rows → generic; f32/bf16 stream up to the
+    measured threshold (32 queries), tiled above it, at any D."""
+    assert kernels.kernel_for(dtype, q, d) == design
 
 
-@pytest.mark.parametrize("design", [None, "stream", "tiled", "generic_int8"])
+@pytest.mark.parametrize("design", [None, "stream", "tiled", "tensor_int8", "generic_int8"])
 @pytest.mark.parametrize("scan", ["f32", "bf16", "int8"])
 def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     """On CPU tensors the wrapper runs the plain version (bit-equal) for
@@ -230,7 +232,8 @@ def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     got = kernels.bucket_scores(q, v, mul, add, 32, inv_sq=isq, _kernel=design)
     assert torch.equal(got, kernels.bucket_scores_plain(q, v, mul, add, 32, isq))
     assert kernels.LAUNCHES == before
-    assert {f"bucket_scores.kernel.{k}" for k in ("stream", "tiled", "generic_int8")} <= set(before)
+    designs = ("stream", "tiled", "tensor_int8", "generic_int8")
+    assert {f"bucket_scores.kernel.{k}" for k in designs} <= set(before)
     args = (q, v, mul, add, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
         kernels.bucket_scores(*(a.to("meta") if torch.is_tensor(a) else a for a in args), inv_sq=isq)
@@ -251,19 +254,24 @@ def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["auto", "stream", "tiled"])
+@pytest.mark.parametrize("design", ["auto", "stream", "tiled", "tensor_int8", "generic_int8"])
 def test_kernel_matches_plain_on_card(design):
     """The CUDA kernels against their plain version, on the card: each
-    f32/bf16 design forced ("auto": the dispatcher's pick, int8 included)
-    over ragged Q, D not a multiple of 16 bytes, buckets 1..128, N not a
-    multiple of the 128-row tile where the bucket allows, -inf rows and
-    whole -inf buckets. Runs where a CUDA card is present. Tolerance
-    rtol 1e-5, atol 1e-3 at D=128, atol growing with D (|q|·|v| ~ D)."""
+    design forced ("auto": the dispatcher's pick for every scan type) over
+    ragged Q (int8 also past its 128- and 256-query tiles), D not a
+    multiple of 16 bytes (tensor_int8 takes only D that is), buckets
+    1..128, N not a multiple of the 128-row tile where the bucket allows,
+    -inf rows and whole -inf buckets. Runs where a CUDA card is present.
+    Tolerance rtol 1e-5, atol 1e-3 at D=128, atol growing with D
+    (|q|·|v| ~ D)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(0)
     forced = None if design == "auto" else design
+    int8_only = design in ("tensor_int8", "generic_int8")
     for d in (96, 100, 128, 130, 768):
+        if design == "tensor_int8" and d % 16:
+            continue
         for bucket in (1, 2, 32, 128):
             n = 16_384 + (96 if bucket <= 32 else 128)
             v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
@@ -272,10 +280,12 @@ def test_kernel_matches_plain_on_card(design):
             add[::7] = float("-inf")
             add[: 2 * bucket] = float("-inf")
             v8, sv = topk2.quantize_corpus_int8(v)
-            for qn in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 1024):
+            for qn in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 200, 257, 1024):
                 q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).cuda()
-                cases = [(q, v, mul, add, bucket, None), (q.bfloat16(), v.bfloat16(), mul, add, bucket, None)]
-                if forced is None:
+                cases = []
+                if not int8_only:
+                    cases += [(q, v, mul, add, bucket, None), (q.bfloat16(), v.bfloat16(), mul, add, bucket, None)]
+                if forced is None or int8_only:
                     q8, inv_sq = topk2.quantize_queries_int8(q)
                     cases.append((q8, v8, mul * sv, add, bucket, inv_sq))
                 for args in cases:
