@@ -65,9 +65,36 @@ Phases, each printing one JSON line with its own timings:
    latency (median of 5) and a warm split from the server's counters
    (device phase A, host gather + rescore, upload GB/s).
 
+7. IVF on the phase-3 server and table: make_index over Flight trains a
+   1 x 16,384-cell l2 coder on the card (batch 65,536, 2 epochs: 256
+   Lloyd steps) and assigns every row; the server's make-coder and
+   make-index seconds and the cell occupancy are printed. Four probed
+   searches, k=10, l2 from the coder: Q=1 with 16 probes and Q=8 with 64
+   probes and tag < 50 on the clustered gather route, Q=1024 with 64
+   probes and Q=256 int8 with 64 probes on the masked-scan route, each
+   route asserted through the server's search.ivf_* counters; one cold
+   and five warm calls each, the server's split from its counters. Then,
+   with the server gone: 1,048,576 sampled rows' __CODED_ID__ (a coded
+   read) against the float64 argmin over the persisted codebooks (near
+   ties within 1e-5 relative allowed and counted); one Lloyd step and one
+   assignment on the card against the CPU from the same codebooks and
+   65,536 rows, for the trained coder and a 2 x 64 composite coder
+   (codebooks within 1e-5 relative except centroids a near-tie flip
+   touched, flips counted); the float64 oracle over the rows of each
+   query's probe cells (those of topk_cells_np, the server's ranking)
+   that pass the filter, held as in phase 4 (fp32 ids up to near ties,
+   int8 recall@10 >= 0.99, distances within 1e-4 * max(1, d)) on every
+   query of a batch up to 64 and 64 evenly spaced queries of larger ones;
+   the count of queries whose topk_cells_np probe set differs from a
+   float64 ranking; and, timed alone, the masked scan at the Q=1024 shape
+   beside the unprobed phase-1 kernel at the same Q, N and D, the
+   clustered gather at the Q=8 shape, one Lloyd step and one assignment
+   block. No hand-written kernel serves IVF: the path's launch counts are
+   read and printed (all 0).
+
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
-each with its launches on both paths), the nvidia-smi line, and last
+each with its launches on every path), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. The script takes no options: the card run at this size is its
 only path.
@@ -160,6 +187,28 @@ SPLIT_KEYS = (
     "transfer.h2d_bytes", "transfer.h2d_seconds", "transfer.stage_seconds",
     "transfer.wait_seconds",
 )
+
+# phase 7: IVF16384 over the phase-3 table, inside the FAISS guideline of
+# 4*sqrt(N) to 16*sqrt(N) cells (11,585-46,341 at 8,388,608 rows; faiss
+# wiki, "Guidelines to choose an index")
+IVF_CODER = "ivf16k"
+IVF_CELLS = 16_384
+IVF_CONFIG = {"metric": "l2", "codebook_size": IVF_CELLS, "num_codebooks": 1,
+              "batch_size": 65_536, "num_epochs": 2}
+IVF_K = 10
+IVF_SEARCHES = (
+    # name, queries, probes, filtered, precision, route, metric sent (None: the coder's)
+    ("ivf_q1_p16", 1, 16, False, "fp32", "clustered", None),
+    ("ivf_q8_p64_filtered", 8, 64, True, "fp32", "clustered", "l2"),
+    ("ivf_q1024_p64", 1024, 64, False, "fp32", "scan", None),
+    ("ivf_q256_p64_int8", 256, 64, False, "int8", "scan", "l2"),
+)
+IVF_ROUTES = {"clustered": "search.ivf_clustered", "scan": "search.ivf_scan"}
+IVF_SPLIT_KEYS = ("search.seconds", "ivf.seconds", "ivf.rank_seconds", "ivf.route_seconds")
+IVF_SAMPLE_ROWS = 1 << 20  # rows of the assignment check
+IVF_STEP_ROWS = 65_536  # rows of the Lloyd-step check
+IVF_CHECKED = 64  # queries of a larger batch held to the oracle, evenly spaced
+IVF_TIMED = {"masked_scan": "ivf_q1024_p64", "clustered": "ivf_q8_p64_filtered"}  # timed alone
 
 
 def emit(obj) -> None:
@@ -591,6 +640,9 @@ class Oracle:
         return -(cand * q[:, None, :]).sum(-1)
 
     def topk(self, queries_np, metric, k, mask=None, chunk=64):
+        """Top-k of each query over the rows ``mask`` allows: a ``[N]``
+        bool tensor for every query, or ``mask(start, stop)`` giving the
+        ``[stop - start, N]`` rows of those queries."""
         import torch
 
         out_ids, out_d = [], []
@@ -604,7 +656,9 @@ class Oracle:
             else:
                 d = -(q @ self.v.T)
             if mask is not None:
-                d = torch.where(mask[None, :], d, torch.inf)
+                m = mask(s, s + q.shape[0]) if callable(mask) else mask[None, :]
+                d = torch.where(m, d, torch.inf)
+                del m
             coarse, idx = torch.topk(d, k + 16, dim=1, largest=False)
             del d
             fine = self.exact(q, idx, metric)
@@ -642,19 +696,41 @@ def split_result(result, qn: int, k: int):
 
 
 def check_search(oracle, spec, queries_np, result, mask) -> dict:
+    name, qn, metric, k, precision, filtered, flat = spec
+    ids, dist = split_result(result, qn, k)
+    return check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask,
+                     require_ties=flat is False)
+
+
+def allowed(mask, ids, device) -> bool:
+    """Whether every returned row passes ``mask`` (see Oracle.topk)."""
+    import torch
+
+    if not callable(mask):
+        return bool(mask.cpu().numpy()[ids].all())
+    for s in range(0, ids.shape[0], 64):
+        sel = torch.from_numpy(ids[s : s + 64]).to(device)
+        if not bool(torch.gather(mask(s, s + sel.shape[0]), 1, sel).all()):
+            return False
+    return True
+
+
+def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, require_ties) -> dict:
+    """Hold [Q, k] result ids and distances to the float64 oracle over the
+    rows ``mask`` allows: fp32 ids position by position up to near ties
+    (exact ties in id order), bf16/int8 recall@k >= 0.99, every distance
+    within 1e-4 * max(1, d)."""
     import numpy as np
     import torch
 
-    name, qn, metric, k, precision, filtered, flat = spec
-    ids, dist = split_result(result, qn, k)
     want_ids, want_d = oracle.topk(queries_np, metric, k, mask)
     q = torch.from_numpy(queries_np).to(oracle.device, torch.float64)
     got_d64 = oracle.exact(q, torch.from_numpy(ids).to(oracle.device), metric).cpu().numpy()
     dist_err = np.abs(dist - got_d64) / np.maximum(1.0, np.abs(got_d64))
     if dist_err.max() > 1e-4:
         raise AssertionError(f"{name}: distance off float64 by {dist_err.max()} relative")
-    if mask is not None and not mask.cpu().numpy()[ids].all():
-        raise AssertionError(f"{name}: a filtered-out row was returned")
+    if mask is not None and not allowed(mask, ids, oracle.device):
+        raise AssertionError(f"{name}: a row outside the filter or the probes was returned")
     ties = sum(
         len(set(row.tolist()) & {i + DUP for i in row.tolist() if i < DUP}) for row in ids
     )
@@ -673,7 +749,7 @@ def check_search(oracle, spec, queries_np, result, mask) -> dict:
         tied = got_d64[:, 1:] == got_d64[:, :-1]
         if (tied & (ids[:, 1:] < ids[:, :-1])).any():
             raise AssertionError(f"{name}: exactly tied rows not in id order")
-        if flat is False and ties == 0:
+        if require_ties and ties == 0:
             raise AssertionError(f"{name}: no duplicate-row ties were exercised")
         out["ids_equal_positions"] = float(1.0 - differ.mean())
         out["near_tie_swaps"] = int(differ.sum())
@@ -871,6 +947,355 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
     return {"checks": checks, "launches": path_launches}
 
 
+# -- phase 7: IVF --------------------------------------------------------------
+
+
+def check_route(name: str, before: dict, after: dict, route: str) -> None:
+    """A phase-7 search moves its route's counter by one and the other by
+    none."""
+    for r, key in IVF_ROUTES.items():
+        rise = after.get(key, 0) - before.get(key, 0)
+        if rise != (r == route):
+            raise AssertionError(f"{name}: {key} rose by {rise}, expected {int(r == route)}")
+
+
+def phase_ivf_serve(client, expr, vectors, root: str, smi: str, kind: str) -> dict:
+    """Phase 7 on the server: build the coder and the index over Flight,
+    read the cell ids back, run the four probed searches (one cold, five
+    warm calls each). Returns what the checks after the server need."""
+    import numpy as np
+
+    from fenix_tpu_torch import coder
+
+    before = client.stats()
+    c0 = launches(None, before)
+    t = time.perf_counter()
+    client.make_index(IVF_CODER, "smoke/items", "vector", IVF_CONFIG)
+    built = client.stats()
+    emit({"phase": "ivf_build", "client_s": time.perf_counter() - t,
+          "make_coder_s": built["make-coder.seconds"] - before.get("make-coder.seconds", 0),
+          "make_index_s": built["make-index.seconds"] - before.get("make-index.seconds", 0),
+          "lloyd_steps": IVF_CONFIG["num_epochs"] * (ROWS // IVF_CONFIG["batch_size"]),
+          "config": IVF_CONFIG, "device": kind, "nvidia_smi": smi})
+
+    t = time.perf_counter()
+    coded = client.read_table("smoke/items", select=["__CODED_ID__"], coding=IVF_CODER,
+                              column="vector").read_all()
+    codes = np.array(coded.column(0).to_numpy())  # writable: torch takes it as is
+    if codes.shape[0] != ROWS or codes.min() < 0 or codes.max() >= IVF_CELLS:
+        raise AssertionError(f"coded read: {codes.shape[0]} ids in [{codes.min()}, {codes.max()}]")
+    occupancy = np.bincount(codes, minlength=IVF_CELLS)
+    emit({"phase": "ivf_cells", "coded_read_s": time.perf_counter() - t, "cells": IVF_CELLS,
+          "rows_min": int(occupancy.min()), "rows_median": float(np.median(occupancy)),
+          "rows_max": int(occupancy.max()), "empty_cells": int((occupancy == 0).sum())})
+    codebooks = coder.load(root, IVF_CODER)["tensor"]
+
+    searches = {}
+    for i, (name, qn, probes, filtered, precision, route, metric) in enumerate(IVF_SEARCHES):
+        queries = make_queries(vectors, qn, seed=200 + i)
+        target = queries[0] if qn == 1 else queries
+        kw = dict(metric=metric, maxval=IVF_K, precision=precision, coding=IVF_CODER, probes=probes,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        a = client.stats()
+        t = time.perf_counter()
+        result = client.search(target, "smoke/items", "vector", **kw)
+        first = time.perf_counter() - t
+        b = client.stats()
+        check_route(name, a, b, route)
+        cold = {k: b.get(k, 0) - a.get(k, 0) for k in IVF_SPLIT_KEYS}
+        warm, splits = [], []
+        for _ in range(WARM_REPS):
+            a = client.stats()
+            t = time.perf_counter()
+            client.search(target, "smoke/items", "vector", **kw)
+            warm.append((time.perf_counter() - t) * 1e3)
+            b = client.stats()
+            check_route(name, a, b, route)
+            splits.append({k: b.get(k, 0) - a.get(k, 0) for k in IVF_SPLIT_KEYS})
+        split = {k: float(np.median([x[k] for x in splits])) for k in IVF_SPLIT_KEYS}
+        emit({"phase": "ivf_search", "search": name, "q": qn, "probes": probes, "k": IVF_K,
+              "precision": precision, "filtered": filtered, "route": route,
+              "metric_sent": metric, "rows_returned": result.num_rows, "first_call_s": first,
+              "cold_split": cold, "warm_median_ms": float(np.median(warm)), "warm_ms": warm,
+              "warm_split_median": split, "device": kind, "nvidia_smi": smi})
+        searches[name] = (queries, result)
+    after = client.stats()
+    path_launches = {k: v - c0[k] for k, v in launches(None, after).items()}
+    emit({"phase": "ivf_served", "launches": path_launches,
+          "cache_device_bytes": after.get("cache.device_bytes"),
+          "clustered_entries": after.get("cache.device_entries.clustered", 0)})
+    return {"codes": codes, "codebooks": codebooks, "searches": searches, "launches": path_launches}
+
+
+def ivf_assignment_check(codes, codebooks, vectors) -> dict:
+    """IVF_SAMPLE_ROWS sampled rows' cell ids against the float64 argmin
+    over the persisted codebooks; a different id is allowed only where the
+    best two float64 distances are within 1e-5 relative and the id is one
+    of them."""
+    import numpy as np
+    import torch
+
+    sample = np.sort(np.random.default_rng(7).choice(ROWS, IVF_SAMPLE_ROWS, replace=False))
+    cb = torch.from_numpy(codebooks[0]).to(DEVICE, torch.float64)
+    cc = (cb * cb).sum(1)
+    exceptions = 0
+    for s in range(0, sample.shape[0], 16_384):
+        idx = sample[s : s + 16_384]
+        x = torch.from_numpy(vectors[idx]).to(DEVICE, torch.float64)
+        d = ((x * x).sum(1, keepdim=True) - 2.0 * x @ cb.T + cc[None, :]).clamp_min_(0.0).sqrt_()
+        best = torch.topk(d, 2, dim=1, largest=False)
+        got = torch.from_numpy(codes[idx]).to(DEVICE)
+        wrong = got != best.indices[:, 0]
+        d_got = torch.gather(d, 1, got[:, None])[:, 0]
+        near = (best.values[:, 1] - best.values[:, 0] <= 1e-5 * best.values[:, 0]) & (
+            d_got <= best.values[:, 1])
+        if (wrong & ~near).any():
+            raise AssertionError(f"{int((wrong & ~near).sum())} rows not in their float64-nearest cell")
+        exceptions += int(wrong.sum())
+    return {"rows": int(sample.shape[0]), "near_tie_exceptions": exceptions}
+
+
+def composite_scores64(x, codebooks, cells_ids):
+    """Float64 l2 composite score (sum over codebooks) of rows ``x`` [B, D]
+    in cells ``cells_ids`` [B] under ``codebooks`` [n, K, D]."""
+    import torch
+
+    n, k, _ = codebooks.shape
+    total = torch.zeros(x.shape[0], dtype=torch.float64)
+    for j in range(n):
+        digit = (cells_ids // k ** (n - 1 - j)) % k
+        total += (x - codebooks[j][digit]).norm(dim=1)
+    return total
+
+
+def lloyd_step_check(kmeans, cells, codebooks_np, rows_np, name: str) -> dict:
+    """One Lloyd step and one assignment on the card against the CPU from
+    the same codebooks ``[n, K, D]`` and rows (split evenly over the
+    codebooks for the step). Assignments may differ only on float64 near
+    ties (1e-5 relative); the new codebooks agree within 1e-5 relative
+    except the centroids such a flip touched."""
+    import numpy as np
+    import torch
+
+    n, k, d = codebooks_np.shape
+    batch_np = rows_np.reshape(n, -1, d)
+    cb_cpu, batch_cpu = torch.from_numpy(codebooks_np), torch.from_numpy(batch_np)
+    new_gpu, a_gpu = kmeans.lloyd_step_assign(cb_cpu.to(DEVICE), batch_cpu.to(DEVICE), "l2")
+    new_cpu, a_cpu = kmeans.lloyd_step_assign(cb_cpu, batch_cpu, "l2")
+    new_gpu, a_gpu = new_gpu.cpu(), a_gpu.cpu()
+    cb64, x64 = cb_cpu.double(), batch_cpu.double()
+    touched = torch.zeros((n, k), dtype=torch.bool)
+    flips = 0
+    for j in range(n):
+        rows = torch.nonzero(a_gpu[j] != a_cpu[j])[:, 0]
+        flips += int(rows.numel())
+        if rows.numel():
+            da = (x64[j, rows] - cb64[j, a_gpu[j, rows]]).norm(dim=1)
+            db = (x64[j, rows] - cb64[j, a_cpu[j, rows]]).norm(dim=1)
+            if ((da - db).abs() > 1e-5 * torch.maximum(da, db)).any():
+                raise AssertionError(f"{name}: a Lloyd assignment flipped off a near tie")
+            touched[j, a_gpu[j, rows]] = True
+            touched[j, a_cpu[j, rows]] = True
+    scale = new_cpu.abs().amax(dim=-1).clamp_min(1.0)
+    err = ((new_gpu - new_cpu).abs().amax(dim=-1) / scale)[~touched]
+    if err.numel() and float(err.max()) > 1e-5:
+        raise AssertionError(f"{name}: Lloyd step off the CPU by {float(err.max())} relative")
+
+    flat = torch.from_numpy(rows_np)
+    c_gpu = cells.assign_cells(flat.to(DEVICE), cb_cpu.to(DEVICE), "l2").cpu()
+    c_cpu = cells.assign_cells(flat, cb_cpu, "l2")
+    moved = torch.nonzero(c_gpu != c_cpu)[:, 0]
+    if moved.numel():
+        sa = composite_scores64(flat[moved].double(), cb64, c_gpu[moved].long())
+        sb = composite_scores64(flat[moved].double(), cb64, c_cpu[moved].long())
+        if ((sa - sb).abs() > 1e-5 * torch.maximum(sa, sb)).any():
+            raise AssertionError(f"{name}: an assignment differs off a near tie")
+    return {"coder": name, "rows": int(rows_np.shape[0]), "lloyd_flips": flips,
+            "centroids_touched": int(touched.sum()),
+            "max_rel_err": float(err.max()) if err.numel() else 0.0,
+            "assign_near_tie_differences": int(moved.numel())}
+
+
+def probe_mask(codes_dev, cells_np, tags_dev):
+    """``mask(start, stop)`` for Oracle.topk: the rows whose cell is among
+    those queries' probe cells (and, given ``tags_dev``, with tag < 50)."""
+    import torch
+
+    def mask(start, stop):
+        c = cells_np[start:stop]
+        table = torch.zeros((c.shape[0], IVF_CELLS), dtype=torch.bool, device=codes_dev.device)
+        table[torch.arange(c.shape[0], device=codes_dev.device)[:, None],
+              torch.from_numpy(c.astype("int64")).to(codes_dev.device)] = True
+        m = table[:, codes_dev]
+        return m & (tags_dev < 50)[None, :] if tags_dev is not None else m
+
+    return mask
+
+
+def ivf_oracle_checks(oracle, ivf: dict, tags) -> list[dict]:
+    """Each phase-7 search against the float64 oracle over its probe
+    cells (as the server ranks them, cells.topk_cells_np), on every query
+    of a batch up to IVF_CHECKED and IVF_CHECKED evenly spaced queries of
+    a larger one; and the count of queries whose probe set differs from a
+    float64 ranking of the cells."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import cells
+
+    codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
+    tags_dev = torch.from_numpy(tags).to(oracle.device)
+    cb = ivf["codebooks"]
+    cb64 = torch.from_numpy(cb[0]).to(oracle.device, torch.float64)
+    out = []
+    for name, qn, probes, filtered, precision, route, _ in IVF_SEARCHES:
+        queries, result = ivf["searches"][name]
+        ids, dist = split_result(result, qn, IVF_K)
+        sel = np.arange(qn) if qn <= IVF_CHECKED else np.linspace(0, qn - 1, IVF_CHECKED).astype(np.int64)
+        probe_cells = cells.topk_cells_np(queries, cb, "l2", probes)
+        q64 = torch.from_numpy(queries).to(oracle.device, torch.float64)
+        d64 = torch.cdist(q64, cb64)
+        ranked = torch.topk(d64, probes, dim=1, largest=False).indices.cpu().numpy()
+        boundary = sum(set(a.tolist()) != set(b.tolist()) for a, b in zip(ranked, probe_cells))
+        check = check_ids(oracle, name, "l2", IVF_K, precision, np.ascontiguousarray(queries[sel]),
+                          ids[sel], dist[sel], probe_mask(codes_dev, probe_cells[sel],
+                                                          tags_dev if filtered else None),
+                          require_ties=False)
+        out.append({"search": name, "route": route, "queries_checked": int(sel.shape[0]),
+                    "probe_sets_off_float64": int(boundary), **check})
+        emit({"phase": "ivf_oracle", **out[-1]})
+    return out
+
+
+def ivf_timings(kernels, topk2, kmeans, cells, executor, vectors, tags, ivf, smi, kind) -> dict:
+    """The IVF hot ops timed alone on the card (CUDA events): the masked
+    scan at the shape of IVF_TIMED's scan search (Q=1024, 64 probes)
+    beside the unprobed phase-1 kernel and the bare product at the same
+    Q, N and D; the clustered gather and rescore at its clustered search's
+    (Q=8, 64 probes, filtered; its ids held to the server's); one Lloyd
+    step and one assignment block of the trained coder."""
+    import numpy as np
+    import torch
+
+    corpus = torch.from_numpy(vectors).to(DEVICE)
+    codes = ivf["codes"]
+    codebooks = torch.from_numpy(ivf["codebooks"]).to(DEVICE)
+    out = {}
+
+    probes = {spec[0]: spec[2] for spec in IVF_SEARCHES}
+    queries, _ = ivf["searches"][IVF_TIMED["masked_scan"]]
+    qn, p = queries.shape[0], probes[IVF_TIMED["masked_scan"]]
+    mul, add = topk2.prepare_aux(corpus, None, "l2")
+    coded = torch.from_numpy(codes.astype(np.int32)).to(DEVICE)
+    probe = torch.from_numpy(cells.topk_cells_np(queries, ivf["codebooks"], "l2", p)).to(DEVICE)
+    q = torch.from_numpy(queries).to(DEVICE)
+    qp = topk2.prepare_queries(q, "l2").contiguous()
+    bucket = topk2.bucket_for(qn, ROWS)
+    probed = topk2.bucket_scores_scan_probed(qp, corpus, mul, add, coded, probe, bucket)
+    unprobed = kernels.bucket_scores(qp, corpus, mul, add, bucket)
+    # a probed bucket's maximum is over fewer rows: never above the unprobed one
+    if bool((probed > unprobed + 1e-3 * unprobed.abs().clamp_min(1.0)).any()):
+        raise AssertionError("a probed bucket maximum exceeds the unprobed one")
+    del probed, unprobed
+    b = bound("f32", qn, ROWS, D, bucket)
+    out["masked_scan"] = {
+        "shape": {"q": qn, "n": ROWS, "d": D, "bucket": bucket, "probes": p, "cells": IVF_CELLS},
+        "ms": time_ms(lambda: topk2.bucket_scores_scan_probed(qp, corpus, mul, add, coded, probe, bucket),
+                      TIMING_REPS),
+        "unprobed_kernel_ms": time_ms(lambda: kernels.bucket_scores(qp, corpus, mul, add, bucket),
+                                      TIMING_REPS),
+        "unprobed_kernel": kernels.kernel_for(torch.float32, qn, D),
+        "product_ms": time_ms(library_fn(qp, corpus), TIMING_REPS),
+        "search_ms": time_ms(lambda: topk2.topk_two_phase_probed(
+            corpus, q, mul, add, coded, probe, k=16, metric="l2"), 1),
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+    }
+    out["masked_scan"]["ratio_to_kernel"] = out["masked_scan"]["ms"] / out["masked_scan"]["unprobed_kernel_ms"]
+    del mul, add, probe, q, qp
+
+    queries, result = ivf["searches"][IVF_TIMED["clustered"]]
+    p = probes[IVF_TIMED["clustered"]]
+    perm = np.argsort(codes, kind="stable")
+    offsets = np.searchsorted(codes[perm], np.arange(IVF_CELLS + 1))
+    perm_dev = torch.from_numpy(perm).to(DEVICE)
+    corpus_s = corpus[perm_dev]
+    valid_s = torch.from_numpy(tags[perm] < 50).to(DEVICE)
+    mul_s, add_s = topk2.prepare_aux(corpus_s, valid_s, "l2")
+    coded_s = coded[perm_dev]
+    orig = perm_dev.to(torch.int32)
+    probe = cells.topk_cells_np(queries, ivf["codebooks"], "l2", p)
+    bucket = topk2.bucket_for(queries.shape[0], ROWS)
+    lists = executor._ivf_bucket_lists(probe, offsets, bucket, ROWS // bucket)
+    q = torch.from_numpy(queries).to(DEVICE)
+    args = (corpus_s, q, mul_s, add_s, coded_s, orig, torch.from_numpy(probe).to(DEVICE),
+            torch.from_numpy(lists).to(DEVICE))
+    _, got = topk2.topk_ivf_clustered(*args, k=16, metric="l2")
+    served = split_result(result, queries.shape[0], IVF_K)[0]
+    if not np.array_equal(got[:, :IVF_K].cpu().numpy(), served):
+        raise AssertionError("the clustered gather alone and the server disagree")
+    out["clustered"] = {
+        "shape": {"q": queries.shape[0], "n": ROWS, "d": D, "bucket": bucket, "probes": p,
+                  "buckets_per_query": int(lists.shape[1]), "filtered": True},
+        "ms": time_ms(lambda: topk2.topk_ivf_clustered(*args, k=16, metric="l2"), TIMING_REPS),
+    }
+    del corpus_s, mul_s, add_s, coded_s, orig, args, valid_s, perm_dev
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    rows = torch.randint(0, ROWS, (IVF_CONFIG["batch_size"],), generator=g).to(DEVICE)
+    batch = corpus[rows]
+    out["lloyd_step"] = {
+        "shape": {"k": IVF_CELLS, "batch": IVF_CONFIG["batch_size"], "d": D},
+        "ms": time_ms(lambda: kmeans.lloyd_step(codebooks, batch[None], "l2"), TIMING_REPS),
+        "calls_per_make_coder": IVF_CONFIG["num_epochs"] * (ROWS // IVF_CONFIG["batch_size"]),
+    }
+    out["assign_block"] = {
+        "shape": {"k": IVF_CELLS, "rows": batch.shape[0], "d": D},
+        "ms": time_ms(lambda: cells.assign_cells(batch, codebooks, "l2"), TIMING_REPS),
+        "calls_per_make_index": -(-ROWS // batch.shape[0]),
+    }
+    del corpus, coded, batch
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        emit({"phase": "ivf_timing", "op": name, **row, "device": kind, "nvidia_smi": smi})
+    return out
+
+
+def phase_ivf_checks(kernels, topk2, oracle, vectors, tags, ivf, smi, kind) -> dict:
+    """Phase 7 after the server: the assignment, device-step and oracle
+    checks, then the timings."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.engine import executor
+    from fenix_tpu_torch.ops import cells, kmeans
+
+    t = time.perf_counter()
+    assign = ivf_assignment_check(ivf["codes"], ivf["codebooks"], vectors)
+    emit({"phase": "ivf_assignment", **assign, "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(9)
+    rows_np = vectors[np.sort(rng.choice(ROWS, IVF_STEP_ROWS, replace=False))]
+    steps = [lloyd_step_check(kmeans, cells, ivf["codebooks"], rows_np, IVF_CODER)]
+    corpus = torch.from_numpy(vectors[: 1 << 20]).to(DEVICE)
+    composite = kmeans.train(corpus, 5, num_codebooks=2, codebook_size=64, batch_size=32_768,
+                             num_epochs=1, metric="l2").cpu().numpy()
+    del corpus
+    steps.append(lloyd_step_check(kmeans, cells, composite, rows_np, "composite_2x64"))
+    for r in steps:
+        emit({"phase": "ivf_device_step", **r})
+    emit({"phase": "ivf_device_step_done", "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    checks = ivf_oracle_checks(oracle, ivf, tags)
+    emit({"phase": "ivf_oracle_done", "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    timings = ivf_timings(kernels, topk2, kmeans, cells, executor, vectors, tags, ivf, smi, kind)
+    emit({"phase": "ivf_timings_done", "seconds": time.perf_counter() - t})
+    return {"assignment": assign, "device_step": steps, "oracle": checks, "timings": timings}
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -1027,6 +1452,11 @@ def run() -> int:
         stats = client.stats()
         emit({"phase": "main_path_done", "launches": main_launches,
               "cache_device_bytes": stats.get("cache.device_bytes")})
+
+        # -- phase 7 (on the server) ------------------------------------------
+        t = time.perf_counter()
+        ivf = phase_ivf_serve(client, expr, vectors, root, smi, kind)
+        emit({"phase": "ivf_serve_done", "seconds": time.perf_counter() - t})
     finally:
         client.close()
         proc.terminate()
@@ -1048,8 +1478,14 @@ def run() -> int:
     for spec, qnp, result in zip(SEARCHES, queries, results):
         check = check_search(oracle, spec, qnp, result, mask if spec[5] else None)
         emit({"phase": "oracle", "search": spec[0], **check})
-    del oracle
     emit({"phase": "oracle_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 7 (after the server) -------------------------------------------
+    t = time.perf_counter()
+    phase_ivf_checks(kernels, topk2, oracle, vectors, tags, ivf, smi, kind)
+    del oracle
+    torch.cuda.empty_cache()
+    emit({"phase": "ivf_done", "seconds": time.perf_counter() - t})
 
     # -- phase 5 --------------------------------------------------------------
     for spec in SEARCHES:
@@ -1058,12 +1494,13 @@ def run() -> int:
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
-    del vectors, ids_np, tags, queries, results
+    ivf_launches = ivf["launches"]
+    del vectors, ids_np, tags, queries, results, ivf
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
     compares = small + forced + wide + main_shapes + res["checks"]
-    by_path = {"exact": main_launches, "residency": res["launches"]}
+    by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})

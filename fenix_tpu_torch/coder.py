@@ -1,24 +1,131 @@
-"""Coder artifact paths — the file-level part of ``fenix_tpu/coder.py``.
+"""Coder (multi-codebook k-means quantizer) lifecycle — port of
+``fenix_tpu/coder.py``.
 
-Only what the catalog needs before coders are ported: where a coder's
-``.npz`` lives, listing and dropping them. Training, loading and cell
-ranking wait for the IVF port (ROADMAP queue 1). Paths are the JAX
-package's, so a root serves both packages.
+``Config`` (metric, codebook_size, num_codebooks, batch_size,
+num_epochs); ``make`` trains on the device (``ops/kmeans.train``) and
+persists; ``load`` / ``list`` / ``drop`` manage the artifacts; ``call``
+ranks composite cells for targets (``ops/cells``). Artifacts are the JAX
+package's ``codings/<name>.npz`` (codebooks + JSON config), so one root
+serves both packages whichever trained the coder; a coder this package
+trains differs from the JAX package's for the same seed (its own random
+stream, ``ops/kmeans.py``).
+
+Not ported yet (ROADMAP queue 1 item 8b, IVF past the budget): training
+a corpus whose fp32 form does not fit the device budget
+(``kmeans.train_streaming``) raises; and the mesh-sharded training
+(item 11).
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
-from typing import Iterator
+from typing import Iterator, Sequence, TypedDict
 
-from fenix_tpu_torch.io import table
+import numpy as np
+import pyarrow as pa
+import torch
+
+from fenix_tpu_torch.io import ingest, table
+from fenix_tpu_torch.ops import cells as cells_ops
+from fenix_tpu_torch.ops import distance as distance_ops
+from fenix_tpu_torch.ops import kmeans
+from fenix_tpu_torch.utils import hbm
 
 LOCATION: str = "codings"
+_PAST_BUDGET_TODO = "ROADMAP queue 1 item 8b: IVF past the budget, kmeans.train_streaming"
+
+
+class Config(TypedDict):
+    metric: str
+    codebook_size: int
+    num_codebooks: int
+    batch_size: int
+    num_epochs: int
+
+
+class Coding(TypedDict):
+    tensor: np.ndarray  # [num_codebooks, codebook_size, dim] fp32
+    column: pa.DataType  # fixed_size_list value type of the coded column
+    config: Config
+
+
+def distance(u, v, metric: str, device: "str | torch.device" = "cuda") -> np.ndarray:
+    """Pairwise ``[Q, N]`` distance of host arrays, computed on ``device``."""
+    def put(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    return distance_ops.pairwise_distance(put(u), put(v), metric).cpu().numpy()
 
 
 def path_of(root: str, name: str) -> str:
     return table.safe_join(root, LOCATION, name + ".npz")
+
+
+def make(
+    root: str,
+    name: str,
+    source: str | Sequence[str],
+    column: str,
+    config: Config,
+    seed: int | None = None,
+    device: "str | torch.device" = "cuda",
+) -> Coding:
+    """Train a coder over ``<source>.<column>`` on ``device`` and persist
+    it: init from a random row subset, then ``num_epochs`` passes of
+    permuted ``num_codebooks·batch_size`` batches, one Lloyd step each."""
+    data = table.load(root, source)
+    column_type = ingest.vector_field_type(data.schema.field(column))
+    matrix = ingest.fixed_size_list_to_numpy(data.column(column))
+    n, k = config["num_codebooks"], config["codebook_size"]
+    num_rows, dim = matrix.shape
+    cells_ops.check_cell_space(k, n)
+
+    budget = hbm.budget_bytes(device)
+    if budget is not None and 4 * num_rows * dim > 0.9 * budget:
+        raise NotImplementedError(
+            f"training a coder over {num_rows} x {dim} fp32 rows past the device budget "
+            f"of {budget} bytes ({_PAST_BUDGET_TODO})"
+        )
+    if seed is None:
+        seed = int(np.random.default_rng().integers(1 << 31))
+    corpus = ingest.to_device_matrix(matrix, block=1, device=device).data
+    codebooks = kmeans.train(
+        corpus,
+        seed,
+        num_codebooks=n,
+        codebook_size=k,
+        batch_size=config["batch_size"],
+        num_epochs=config["num_epochs"],
+        metric=config["metric"],
+    )
+    del corpus
+    return _persist(root, name, config, column_type, codebooks.cpu().numpy())
+
+
+def _persist(root: str, name: str, config: Config, column_type, codebooks: np.ndarray) -> Coding:
+    path = path_of(root, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(
+        tmp,
+        codebooks=np.asarray(codebooks, dtype=np.float32),
+        config=json.dumps(dict(config)),
+        value_type=str(column_type.value_type),
+        list_size=np.int64(column_type.list_size),
+    )
+    os.replace(tmp, path)
+    return load(root, name)
+
+
+def load(root: str, name: str) -> Coding:
+    with np.load(path_of(root, name), allow_pickle=False) as blob:
+        config: Config = json.loads(str(blob["config"]))
+        value_type = pa.type_for_alias(str(blob["value_type"]))
+        list_size = int(blob["list_size"])
+        tensor = blob["codebooks"]
+    return Coding(tensor=tensor, column=pa.list_(value_type, list_size), config=config)
 
 
 def list(root: str) -> Iterator[str]:
@@ -31,3 +138,37 @@ def drop(root: str, name: str) -> None:
     path = path_of(root, name)
     if os.path.exists(path):
         os.unlink(path)
+
+
+def call(
+    target,
+    coding: Coding | tuple[str, str],
+    maxval: int | None = None,
+    device: "str | torch.device" = "cuda",
+) -> np.ndarray:
+    """Rank composite cells for target vector(s) on ``device``: ``[Q,
+    maxval]`` (all ``k^n`` when maxval is None) int64 cell ids, ascending
+    by summed per-codebook distance, earliest id on ties. A 1-D target
+    is one query and returns ``[maxval]``."""
+    if isinstance(coding, tuple):
+        coding = load(*coding)
+    metric = coding["config"]["metric"]
+    n, k, _ = coding["tensor"].shape
+    codebooks = torch.tensor(coding["tensor"], device=device)
+
+    if isinstance(target, pa.Table):
+        target = target.column("target")
+    if isinstance(target, (pa.Array, pa.ChunkedArray)):
+        target = ingest.fixed_size_list_to_numpy(target)
+    target = np.asarray(target, dtype=np.float32)
+    squeeze = target.ndim == 1
+    targets = torch.tensor(target[None, :] if squeeze else target, device=device)
+
+    if maxval is None:
+        out = cells_ops.all_cell_ranks(targets, codebooks, metric)
+    elif k**n > cells_ops.DENSE_CELL_LIMIT:
+        out = cells_ops.topk_cells_bounded(targets, codebooks, metric, min(maxval, k**n))
+    else:
+        out = cells_ops.topk_cells(targets, codebooks, metric, min(maxval, k**n))
+    out = out.cpu().numpy().astype(np.int64)
+    return out[0] if squeeze else out

@@ -1,5 +1,5 @@
 """Search query executor: request → device search → Arrow — port of
-``fenix_tpu/engine/executor.py`` (its exact top-k path).
+``fenix_tpu/engine/executor.py`` (its single-device top-k paths).
 
 One device pass per request: the filter mask folds into the cached
 ``aux_add`` as −inf, the two-phase search (ops.topk2) runs over the
@@ -14,15 +14,33 @@ Served here: exact top-k (``maxval`` set) over one device, ``dual``
 residency, fp32/bf16/int8 scan precision, host-evaluated filters; a
 request that ``residency.plan`` routes to the int8-resident or streaming
 mode goes to ``engine/residency.py`` before any device fp32 is built.
+
+IVF (``coding`` + ``probes``): the metric defaults to the coder's; the
+probe cells are ranked on the host (``cells.topk_cells_np``; the bounded
+beam on the device past ``DENSE_CELL_LIMIT``); then one of two routes,
+decided before any device layout is built, by the JAX package's rule on
+total work ``q_pad · B · bucket ≤ n_pad`` (``_canonical_q`` copied, so
+both packages pick the same route though this one pads no queries):
+the clustered gather (``topk2.topk_ivf_clustered`` over
+``session.clustered``; counter ``search.ivf_clustered``) or the masked
+scan (``topk2.topk_two_phase_probed``, fp32/bf16/int8; counter
+``search.ivf_scan``). Timers: ``ivf.seconds`` (ranking, layouts, the
+device search and the copy of its result, so ``search.seconds`` minus
+it is the wire and the result gather), and within it
+``ivf.rank_seconds`` (the host cell ranking) and ``ivf.route_seconds``
+(the clustered layout's host metadata, the bucket lists and the route
+decision).
+
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: IVF ``coding``/``probes``, ``maxval=None`` (the full
-distance column), and multi-device meshes.
+ROADMAP item: ``maxval=None`` (the full distance column), probed search
+past the device budget, and multi-device meshes.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -34,6 +52,7 @@ from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch.engine import residency
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
@@ -42,6 +61,22 @@ DIST_COL: str = "__DISTANCE__"
 QUERY_COL: str = "__QUERY_ID__"
 
 _PRECISIONS = ("fp32", "bf16", "int8")
+
+# The JAX package's canonical query-batch sizes. This package pads no
+# queries, but the IVF route rule reads the padded count, so both
+# packages route a request alike.
+_Q_STEPS = (1, 8, 64, 256, 1024)
+
+# Above this composite-cell count the clustered layout's offset table is
+# not built (high-cardinality coders rank with the bounded beam and scan).
+_CLUSTERED_MAX_CELLS = 1 << 22
+
+
+def _canonical_q(q: int) -> int:
+    for step in _Q_STEPS:
+        if q <= step:
+            return step
+    return -(-q // 1024) * 1024
 
 
 def _canonical_k(k: int) -> int:
@@ -120,9 +155,10 @@ class _StaleRevision(Exception):
 class _FilterPlan:
     """Per-request filter: the predicate evaluates on the HOST table with
     Arrow kernels (the JAX package's host-mask route), and the ``[N_pad]``
-    mask folds into the cached ``aux_add`` on the device. A length
-    mismatch means the mask and the device layout span table revisions
-    → _StaleRevision retry."""
+    mask folds into the cached ``aux_add`` on the device — in row order,
+    or permuted by ``perm`` into the clustered layout's sorted order. A
+    length mismatch means the mask and the device layout span table
+    revisions → _StaleRevision retry."""
 
     def __init__(self, filt, data: pa.Table, n_pad: int, rows: int, device) -> None:
         self.filt = filt
@@ -141,10 +177,14 @@ class _FilterPlan:
         m[: self.rows] = self.filt.mask(self.data)
         return m
 
-    def overlay(self, aux_add: torch.Tensor) -> torch.Tensor:
+    def overlay(self, aux_add: torch.Tensor, perm: "np.ndarray | None" = None) -> torch.Tensor:
         if not self.active:
             return aux_add
         m = self.host_mask()
+        if perm is not None:
+            if perm.shape[0] != m.shape[0]:
+                raise _StaleRevision
+            m = m[perm]
         if m.shape[0] != aux_add.shape[0]:
             raise _StaleRevision
         METRICS.add("filter.host_upload")
@@ -152,13 +192,73 @@ class _FilterPlan:
         return torch.where(mask, aux_add, distance_ops.NEG_INF)
 
 
-def _check_revision(cache: DeviceCache, source, snap_stamp: tuple) -> None:
+def _check_revision(cache: DeviceCache, source, column: str, coding, snap_stamp: tuple) -> None:
     """Raise _StaleRevision when a catalog mutation landed after the
-    snapshot: the aux and scan copies memoize under their own stamps, so
-    checking AFTER assembling the inputs proves they all saw the
-    snapshot's files."""
-    if cache.snapshot_stamp(source) != snap_stamp:
+    snapshot: the aux, scan copies, coded ids and clustered layouts
+    memoize under their own stamps, so checking AFTER assembling the
+    inputs proves they all saw the snapshot's files."""
+    if cache.snapshot_stamp(source, column, coding) != snap_stamp:
         raise _StaleRevision
+
+
+def _rank_cells(target: np.ndarray, coding_data, metric: str, probes: int, device) -> np.ndarray:
+    """Top-``probes`` composite cells per query as a host ``[Q, P]`` int32
+    array: ranked on the host for dense grids, by the bounded beam on the
+    device past ``DENSE_CELL_LIMIT`` (as ``coder.call``)."""
+    codebooks = coding_data["tensor"]
+    n_books, k_book, _ = codebooks.shape
+    probes = int(min(probes, k_book**n_books))
+    if k_book**n_books > cells_ops.DENSE_CELL_LIMIT:
+        return cells_ops.topk_cells_bounded(
+            torch.tensor(target, device=device), torch.tensor(codebooks, device=device), metric, probes
+        ).cpu().numpy()
+    return cells_ops.topk_cells_np(target, codebooks, metric, probes)
+
+
+def _clustered_eligible(coding_data) -> bool:
+    """Whether the coder's cell count permits a clustered offset table."""
+    n_books, k_book, _ = coding_data["tensor"].shape
+    return int(k_book) ** int(n_books) <= _CLUSTERED_MAX_CELLS
+
+
+def _ivf_bucket_lists(
+    cells_np: np.ndarray, offsets: np.ndarray, bucket: int, n_buckets: int
+) -> np.ndarray:
+    """Bucket indices covering each query's probed cells in the clustered
+    layout (``[Q, B]`` int32, −1 padded; B a power of two). The JAX
+    package's function, copied."""
+    q, p = cells_np.shape
+    sentinel = np.iinfo(np.int64).max
+    ok = (cells_np >= 0) & (cells_np < len(offsets) - 1)
+    cs = np.where(ok, cells_np, 0)
+    starts = np.where(ok, offsets[cs] // bucket, 0)
+    ends = np.where(ok, -(-offsets[cs + 1] // bucket), 0)  # ceil
+    widths = np.maximum(ends - starts, 0)  # [Q, P]
+    m = int(widths.max(initial=0))
+    if m == 0:
+        return np.full((q, 8), -1, np.int32)
+
+    # [Q, P, M] candidate grid, invalid slots → sentinel
+    grid = starts[:, :, None] + np.arange(m)[None, None, :]
+    grid = np.where(
+        (np.arange(m)[None, None, :] < widths[:, :, None]) & (grid < n_buckets),
+        grid,
+        sentinel,
+    ).reshape(q, p * m)
+    grid.sort(axis=1)
+    # dedupe within each row: repeats → sentinel, then re-sort compacts
+    dup = np.zeros_like(grid, dtype=bool)
+    dup[:, 1:] = grid[:, 1:] == grid[:, :-1]
+    grid = np.where(dup | (grid == sentinel), sentinel, grid)
+    grid.sort(axis=1)
+
+    counts = (grid != sentinel).sum(axis=1)
+    width = int(counts.max(initial=1)) or 1
+    b = 1 << (width - 1).bit_length()
+    b = min(max(b, 8), max(n_buckets, 1))
+    out = grid[:, :b].astype(np.int64)
+    out[out == sentinel] = -1
+    return out.astype(np.int32)
 
 
 def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
@@ -173,15 +273,14 @@ def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
 
 
 def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
-    if req.coding is not None or req.probes is not None:
-        raise NotImplementedError("IVF coding/probes search (ROADMAP queue 1: IVF port)")
     if req.maxval is None:
         raise NotImplementedError(
             "maxval=None, the full distance column (ROADMAP queue 1: _execute_nomax)"
         )
     if req.precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {req.precision!r}")
-    if req.metric is None:
+    probed = req.coding is not None and req.probes is not None
+    if req.metric is None and not probed:
         raise ValueError("metric is required when no coder supplies one")
     # corpora past the budget serve through the host-corpus modes,
     # before any device fp32 is built
@@ -189,18 +288,22 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     if mode != residency.DUAL:
         return residency.execute_solo(cache, req, mode)
 
-    # host table + device matrix of the same revision
-    data, corpus, snap_stamp = cache.snapshot(req.source, req.column)
+    # host table (with the __CODED_ID__ join under a coder) + device
+    # matrix of the same revision
+    data, corpus, snap_stamp = cache.snapshot(req.source, req.column, req.coding)
 
     column_type = ingest.vector_field_type(data.schema.field(req.column))
     value_dtype = column_type.value_type.to_pandas_dtype()
     target = normalize_target(req.target, column_type.list_size)
     num_queries = target.shape[0]
 
-    metric = distance_ops.canonical_metric(req.metric)
+    coding_data = cache.coding(req.coding) if probed else None
+    # the reference's index.py:116-117: the coder's metric by default
+    metric = req.metric if req.metric is not None else coding_data["config"]["metric"]
+    metric = distance_ops.canonical_metric(metric)
 
     n_pad, rows = corpus.rows_padded, corpus.rows
-    views = cache.host_column_views(req.source, data, snap_stamp)
+    views = cache.host_column_views(req.source, data, snap_stamp, req.coding)
     plan = _FilterPlan(req.filter, data, n_pad, rows, cache.device)
 
     select = [*req.select] if req.select is not None else data.column_names
@@ -210,31 +313,87 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     k_pad = min(_canonical_k(k), n_pad)
     queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
 
-    aux_mul, aux_add = cache.metric_aux(req.source, req.column, metric)
-    aux_add = plan.overlay(aux_add)
-    corpus_scan = (
-        cache.matrix_bf16(req.source, req.column).data if req.precision == "bf16" else None
-    )
-    corpus_scan_int8 = None
-    if req.precision == "int8":
-        v8, sv = cache.matrix_int8(req.source, req.column)
-        corpus_scan_int8 = (v8.data, sv.data)
-    _check_revision(cache, req.source, snap_stamp)
-
-    dists, ids = topk2.topk_two_phase(
-        corpus.data,
-        queries,
-        aux_mul,
-        aux_add,
-        k=k_pad,
-        metric=metric,
-        corpus_scan=corpus_scan,
-        corpus_scan_int8=corpus_scan_int8,
-    )
+    t = time.perf_counter()
+    if probed:
+        dists, ids = _probed_topk(
+            cache, req, coding_data, corpus, queries, target, metric, plan, k_pad, snap_stamp
+        )
+    else:
+        aux_mul, aux_add = cache.metric_aux(req.source, req.column, metric)
+        aux_add = plan.overlay(aux_add)
+        scan = _scan_copies(cache, req)
+        _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+        dists, ids = topk2.topk_two_phase(
+            corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
+        )
     # one device→host copy of the small [Q, k] results
     dists = dists[:, :k].cpu().numpy()
     ids = ids[:, :k].cpu().numpy()
+    if probed:
+        METRICS.add("ivf.seconds", time.perf_counter() - t)
     return gather_results(data, select, dists, ids, value_dtype, views=views)
+
+
+def _scan_copies(cache: DeviceCache, req: SearchRequest) -> dict:
+    """kwargs holding the phase-1 scan copy of the request's precision
+    (empty for fp32)."""
+    if req.precision == "bf16":
+        return {"corpus_scan": cache.matrix_bf16(req.source, req.column).data}
+    if req.precision == "int8":
+        v8, sv = cache.matrix_int8(req.source, req.column)
+        return {"corpus_scan_int8": (v8.data, sv.data)}
+    return {}
+
+
+def _probed_topk(
+    cache: DeviceCache, req: SearchRequest, coding_data, corpus, queries: torch.Tensor,
+    target: np.ndarray, metric: str, plan: _FilterPlan, k_pad: int, snap_stamp: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The IVF routes: the clustered gather when the coder permits an
+    offset table and the gather moves at most about one corpus pass, else
+    the masked scan. Returns device ``(dists, ids)`` ``[Q, k_pad]``."""
+    n_pad = corpus.rows_padded
+    q_pad = _canonical_q(target.shape[0])
+    t = time.perf_counter()
+    cells_np = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
+    METRICS.add("ivf.rank_seconds", time.perf_counter() - t)
+    cells = torch.from_numpy(cells_np).to(cache.device)
+
+    t = time.perf_counter()
+    bucket_lists = None
+    if _clustered_eligible(coding_data):
+        perm, offsets = cache.clustered_meta(req.coding, req.source, req.column)
+        if perm.shape[0] != n_pad:
+            raise _StaleRevision  # snapshot and layout span revisions
+        bucket = topk2.bucket_for(q_pad, n_pad)
+        bucket_lists = _ivf_bucket_lists(cells_np, offsets, bucket, n_pad // bucket)
+        # the clustered gather moves Q·B·bucket rows in scattered chunks,
+        # the masked scan reads the corpus once whatever Q is
+        if q_pad * bucket_lists.shape[1] * bucket > n_pad:
+            bucket_lists = None
+    METRICS.add("ivf.route_seconds", time.perf_counter() - t)
+
+    if bucket_lists is None:
+        coded = cache.coded_ids(req.coding, req.source, req.column)
+        aux_mul, aux_add = cache.metric_aux(req.source, req.column, metric)
+        aux_add = plan.overlay(aux_add)
+        scan = _scan_copies(cache, req)
+        _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+        METRICS.add("search.ivf_scan")
+        return topk2.topk_two_phase_probed(
+            corpus.data, queries, aux_mul, aux_add, coded.data, cells, k=k_pad, metric=metric, **scan
+        )
+
+    corpus_s, coded_s, orig_ids = cache.clustered(req.coding, req.source, req.column)
+    aux_mul_s, aux_add_s = cache.clustered_aux(req.coding, req.source, req.column, metric)
+    aux_add_s = plan.overlay(aux_add_s, perm)
+    _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+    METRICS.add("search.ivf_clustered")
+    # the gather rescores fp32-true: ``precision`` has no scan to quantize
+    return topk2.topk_ivf_clustered(
+        corpus_s.data, queries, aux_mul_s, aux_add_s, coded_s.data, orig_ids.data, cells,
+        torch.from_numpy(bucket_lists).to(cache.device), k=k_pad, metric=metric,
+    )
 
 
 def _gather_chunked(chunks: list[np.ndarray], row_ids: np.ndarray) -> np.ndarray:

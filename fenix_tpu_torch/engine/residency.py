@@ -22,8 +22,9 @@ first that fits ``FENIX_HBM_BUDGET`` (or the card's memory, see
 ``utils/hbm.py``); "dual" / "int8" / "stream" force one.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: probed (IVF) requests over a host corpus (``probed_topk``,
-queue 1 item 8), ``maxval=None`` over a host corpus
+ROADMAP item: probed (IVF) requests over a host corpus (``probed_topk``
+over ``session.host_clustered_int8`` and its IVF sidecar, queue 1 item
+8b, IVF past the budget), ``maxval=None`` over a host corpus
 (``execute_nomax_host``, item d), and the mesh-composed modes (item 11).
 ``execute_many`` takes a list of compatible requests, but only
 ``execute_solo`` calls it until micro-batching ports (item a).
@@ -357,7 +358,8 @@ def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
     r0 = reqs[0]
     if r0.coding is not None and r0.probes is not None:
         raise NotImplementedError(
-            "probed search over a host-resident corpus (ROADMAP queue 1 item 8: probed_topk)"
+            "probed search over a host-resident corpus (ROADMAP queue 1 item 8b, IVF past the "
+            "budget: residency.probed_topk, session.host_clustered_int8 and its IVF sidecar)"
         )
     fn = int8_topk if mode == INT8 else stream_topk
     for _ in range(4):

@@ -15,9 +15,20 @@ the host-corpus residency modes (``engine/residency.py``) the host fp32
 matrix, the host int8 mirror with its on-disk sidecar, the host aux and
 filter masks, and the int8-resident device copy built without any fp32
 on the device. All tensors live on the one ``device`` the cache was made
-for; nothing moves to the CPU when a CUDA device was asked for. The
-incremental append / delete refreshes (device and host mirror) and the
-mesh-sharded layouts wait (ROADMAP queue 1 items c, e and 11).
+for; nothing moves to the CPU when a CUDA device was asked for.
+
+IVF: the coder (``coding``), the coded host table with the
+``__CODED_ID__`` join (``coded_table``, resynced when an index and its
+table disagree on rows), the device cell-id column (``coded_ids``) and
+the clustered layout: ``clustered_meta`` (host permutation and cell
+offsets), ``clustered`` (the permuted fp32 copy, its cell ids and
+original row ids, counted in ``device_bytes`` and under the LRU) and
+``clustered_aux``. Entries derived from an index memoize under the table
+stamp plus the index files' mtimes.
+
+The incremental append / delete refreshes (device and host mirror), the
+host-resident IVF layouts (``host_clustered_int8`` and its sidecar) and
+the mesh-sharded layouts wait (ROADMAP queue 1 items c, e, 8b and 11).
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import glob
 import hashlib
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -39,12 +51,16 @@ import numpy as np
 import pyarrow as pa
 import torch
 
-from fenix_tpu_torch.io import ingest, table
-from fenix_tpu_torch.io.locks import read_stable
+from fenix_tpu_torch import coder as coder_mod
+from fenix_tpu_torch import index as index_mod
+from fenix_tpu_torch.io import arrow, ingest, table
+from fenix_tpu_torch.io.locks import catalog_lock, read_stable
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.utils import hbm
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+LOGGER = logging.getLogger("fenix_tpu_torch")
 
 # Row-block granularity for padded device columns (the JAX package's).
 DEFAULT_BLOCK = 16384
@@ -234,7 +250,7 @@ class DeviceCache:
         return self._memo(self._host, key, stamp, build)
 
     def host_column_views(
-        self, source: str | Sequence[str], data: pa.Table, token
+        self, source: str | Sequence[str], data: pa.Table, token, variant: "str | None" = None
     ) -> dict:
         """Numpy views of the result-gatherable columns of ``data``:
         null-free int/float/bool primitives (1-D) and float FixedSizeList
@@ -243,7 +259,8 @@ class DeviceCache:
         batch; Arrow ``take`` on such a column concatenates every chunk,
         a corpus-sized copy per request). Other columns are absent and the
         executor takes them with Arrow ``take``. Memoized under the
-        caller's snapshot revision ``token``."""
+        caller's snapshot revision ``token``; ``variant`` (the coder of a
+        coded table) keeps the plain and coded table shapes apart."""
         key = _source_key(source)
 
         def build() -> dict:
@@ -268,7 +285,7 @@ class DeviceCache:
                     continue  # non-viewable layout: Arrow take
             return views
 
-        return self._memo(self._host, (key, "host_column_views"), token, build)
+        return self._memo(self._host, (key, "host_column_views", variant), token, build)
 
     # -- host-resident corpus (int8-resident and streaming modes) ----------
 
@@ -570,24 +587,185 @@ class DeviceCache:
 
         return self._memo(self._device, (key, column, "aux", canonical), stamp, build)
 
-    def snapshot(self, source: str | Sequence[str], column: str):
+    # -- IVF: coders, indexes and the clustered layout ----------------------
+
+    def coding(self, name: str) -> coder_mod.Coding:
+        """The coder ``name``, memoized per artifact mtime."""
+        stamp = os.path.getmtime(coder_mod.path_of(self.root, name))
+        return self._memo(self._host, ("coding", name), stamp, lambda: coder_mod.load(self.root, name))
+
+    def _coded_paths(self, coding: str, key: tuple[str, ...], column: str) -> list[str]:
+        return [index_mod.path_of(self.root, coding, s, column) for s in key]
+
+    def _coded_stamp(self, coding: str, key: tuple[str, ...], column: str) -> tuple:
+        """The table stamp plus the index files' mtimes: an index rebuilt
+        over an unchanged table is a new revision of every entry derived
+        from it."""
+        return self._mtimes(key) + tuple(
+            os.path.getmtime(p) for p in self._coded_paths(coding, key, column)
+        )
+
+    def _synced_index(self, coding: str, source: str, column: str) -> pa.Table:
+        """The index table of one source, rebuilt when its row count
+        differs from the table's (a reader inside a writer's
+        table-then-index publish, or a crash between the two): the catalog
+        lock waits out a writer in flight; a mismatch that persists is
+        assigned again from the current table."""
+        path = index_mod.path_of(self.root, coding, source, column)
+        idx = arrow.load(path)
+        if idx.num_rows == table.load(self.root, source).num_rows:
+            return idx
+        with catalog_lock(self.root):
+            idx = arrow.load(path)
+            rows = table.load(self.root, source).num_rows
+            if idx.num_rows == rows:
+                return idx  # the writer finished while we waited
+            LOGGER.warning(
+                "index %r over %r/%r has %d rows vs the table's %d; resyncing",
+                coding, source, column, idx.num_rows, rows,
+            )
+            index_mod.make(self.root, coding, source, column, device=self.device)
+            return arrow.load(path)
+
+    def coded_table(self, coding: str, source: str | Sequence[str], column: str) -> pa.Table:
+        """Host table with the ``__CODED_ID__`` column joined on, memoized
+        on the table and index revisions."""
+        key = _source_key(source)
+
+        def build() -> pa.Table:
+            return table.join(
+                *[
+                    table.join(table.load(self.root, s), self._synced_index(coding, s, column), axis=1)
+                    for s in key
+                ]
+            )
+
+        return self._memo(
+            self._host, (key, column, "coded_table", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def _host_codes(self, coding: str, key: tuple[str, ...], column: str) -> np.ndarray:
+        """Concatenated (resync-checked) cell ids of the sources."""
+        parts = [
+            ingest.scalar_column_to_numpy(self._synced_index(coding, s, column).column(index_mod.CODE_COL))
+            for s in key
+        ]
+        return np.concatenate(parts) if len(parts) > 1 else parts[0]
+
+    def _padded_codes(self, coding: str, key: tuple[str, ...], column: str) -> tuple[np.ndarray, int]:
+        """``([N_pad] int32 cell ids, rows)``: −1 on the padding rows (which
+        never match a probe cell), row-aligned with :meth:`matrix`."""
+        codes = self._host_codes(coding, key, column)
+        rows = codes.shape[0]
+        out = np.full(max(ingest.round_up(rows, self.block), self.block), -1, np.int32)
+        out[:rows] = codes
+        return out, rows
+
+    def coded_ids(self, coding: str, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
+        """Padded ``[N_pad]`` int32 cell-id column on the device
+        (padding −1)."""
+        key = _source_key(source)
+
+        def build() -> ingest.DeviceColumn:
+            codes, rows = self._padded_codes(coding, key, column)
+            return ingest.DeviceColumn(data=torch.from_numpy(codes).to(self.device), rows=rows)
+
+        return self._memo(
+            self._device, (key, column, "coded", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def clustered_meta(self, coding: str, source: str | Sequence[str], column: str):
+        """Host side of the IVF-clustered layout: ``(perm, offsets)``.
+        ``perm`` maps sorted position → original row (a stable sort by
+        cell id: within a cell ascending row id, padding rows last under
+        an int-max key); ``offsets[c]`` is cell ``c``'s first sorted
+        position (length ``n_cells + 1``). No device work, so the executor
+        routes before any device layout is built."""
+        key = _source_key(source)
+
+        def build():
+            codes, _ = self._padded_codes(coding, key, column)
+            n_books, k_book, _ = self.coding(coding)["tensor"].shape
+            keys = np.where(codes >= 0, codes, np.iinfo(np.int32).max)
+            perm = np.argsort(keys, kind="stable")
+            offsets = np.searchsorted(keys[perm], np.arange(int(k_book) ** int(n_books) + 1))
+            return perm, offsets
+
+        return self._memo(
+            self._host, (key, column, "clustered_meta", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def clustered(self, coding: str, source: str | Sequence[str], column: str):
+        """Device side of the IVF-clustered layout, rows sorted by cell id:
+        ``(corpus_sorted, coded_sorted, orig_ids_sorted)`` DeviceColumns,
+        the last the original row id per position (−1 padding). Built
+        only when the router sends a request down the gather route; the
+        permuted fp32 copy counts in ``device_bytes``."""
+        key = _source_key(source)
+
+        def build():
+            full = self.matrix(source, column)
+            coded = self.coded_ids(coding, source, column)
+            perm, _ = self.clustered_meta(coding, source, column)
+            perm_dev = torch.from_numpy(perm).to(self.device)
+            orig = np.where(perm < full.rows, perm, -1).astype(np.int32)
+            return (
+                ingest.DeviceColumn(data=full.data[perm_dev], rows=full.rows),
+                ingest.DeviceColumn(data=coded.data[perm_dev], rows=full.rows),
+                ingest.DeviceColumn(data=torch.from_numpy(orig).to(self.device), rows=full.rows),
+            )
+
+        return self._memo(
+            self._device, (key, column, "clustered", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def clustered_aux(self, coding: str, source: str | Sequence[str], column: str, metric: str):
+        """``(aux_mul, aux_add)`` in the clustered layout's sorted order
+        (padding rows, sorted last, −inf)."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+
+        def build():
+            corpus_sorted, _, _ = self.clustered(coding, source, column)
+            valid = torch.arange(corpus_sorted.rows_padded, device=self.device) < corpus_sorted.rows
+            return topk2.prepare_aux(corpus_sorted.data, valid, canonical)
+
+        return self._memo(
+            self._device,
+            (key, column, "clustered_aux", coding, canonical),
+            self._coded_stamp(coding, key, column),
+            build,
+        )
+
+    def snapshot(self, source: str | Sequence[str], column: str, coding: str | None = None):
         """``(host table, device matrix, revision stamp)`` of ONE table
         revision, retried until stable. Fetching them separately could
         straddle a concurrent re-ingest and gather ids from a different
-        table version than was scanned. Executors re-check the stamp
+        table version than was scanned. With ``coding`` the host table
+        carries the ``__CODED_ID__`` join and the index files' mtimes are
+        part of the stamp. Executors re-check the stamp
         (:meth:`snapshot_stamp`) after fetching the other device entries
-        (aux, scan copies), which memoize under their own stamps."""
+        (aux, scan copies, coded ids, clustered layouts), which memoize
+        under their own stamps."""
         def read():
-            return self.host_table(source), self.matrix(source, column)
+            data = (
+                self.coded_table(coding, source, column) if coding is not None else self.host_table(source)
+            )
+            return data, self.matrix(source, column)
 
         (data, matrix), stamp = read_stable(
-            lambda: self.snapshot_stamp(source), read, f"table {source!r}"
+            lambda: self.snapshot_stamp(source, column, coding), read, f"table {source!r}"
         )
         return data, matrix, stamp
 
-    def snapshot_stamp(self, source: str | Sequence[str]) -> tuple:
+    def snapshot_stamp(
+        self, source: str | Sequence[str], column: str | None = None, coding: str | None = None
+    ) -> tuple:
         """The revision token :meth:`snapshot` stabilizes under."""
-        return self._mtimes(_source_key(source))
+        key = _source_key(source)
+        if coding is None:
+            return self._mtimes(key)
+        return self._coded_stamp(coding, key, column)
 
     def invalidate(self) -> None:
         with self._lock:

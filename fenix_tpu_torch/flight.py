@@ -8,10 +8,16 @@ server. ``do_put`` ingests a table (overwrite), ``do_get`` reads,
 Commands, tickets and action bodies are JSON; filters are
 ``fenix_tpu_torch.expr`` trees; the server keeps no session state.
 
+IVF: ``make-coder`` trains a coder on the server's device,
+``make-index`` assigns the table's rows to its cells, ``drop-index``
+drops the coder and every index built from it, ``list-coders`` lists
+coders, and a read with ``coding`` and ``column`` joins the
+``__CODED_ID__`` column on. The server's ``stats`` show the probed
+routes as ``search.ivf_clustered`` and ``search.ivf_scan``.
+
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: append/upsert puts, coded reads, the index and coder
-lifecycle (make-coder, make-index, drop-index), row deletes, compaction
-and repartitioning.
+ROADMAP item: append/upsert puts, row deletes, compaction and
+repartitioning.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import pyarrow.flight as fl
 
+from fenix_tpu_torch import coder as coder_mod
 from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch.engine import executor, service
@@ -42,19 +49,18 @@ LOGGER = logging.getLogger("fenix_tpu_torch")
 METRICS_SET: set[str] = {"cosine", "dot", "inner_product", "l2", "euclidean"}
 
 _MUTATIONS_TODO = "ROADMAP queue 1: append/upsert/delete in do_put/do_action"
-_IVF_TODO = "ROADMAP queue 1: IVF port (coders and indexes)"
 _NOT_PORTED = {
-    "make-coder": _IVF_TODO,
-    "make-index": _IVF_TODO,
-    "drop-index": _IVF_TODO,
     "delete-rows": _MUTATIONS_TODO,
     "compact-table": _MUTATIONS_TODO,
     "repartition": "ROADMAP queue 1: repartitioned (sharded) tables",
 }
 
 
-# the JAX package's residency counters, under its names
-_RESIDENCY_COUNTERS = (
+# route counters, shown from the start: the JAX package's residency
+# counters under its names, and the two IVF routes
+_ROUTE_COUNTERS = (
+    "search.ivf_clustered",
+    "search.ivf_scan",
     "search.residency_int8",
     "search.residency_stream",
     "search.stream_chunks",
@@ -131,14 +137,16 @@ class Server(fl.FlightServerBase):
         FAULTS.check("get")
         req = _loads(ticket.ticket)
         source = req["source"]
-        if req.get("coding") is not None and req.get("column") is not None:
-            raise NotImplementedError(f"coded table reads ({_IVF_TODO})")
+        coding, column = req.get("coding"), req.get("column")
         select = req.get("select")
         filter_ = _decode_filter(req.get("filter"))
         order_by = req.get("order_by")  # [[column, "ascending"|"descending"], ...]
 
         with METRICS.timed("get", source=source):
-            data = table.load(self.root, source)
+            if coding is not None and column is not None:
+                data = index_mod.load(self.root, coding, source, column)
+            else:
+                data = table.load(self.root, source)
             if filter_ is not None:
                 data = data.filter(pa.array(filter_.mask(data)))
             if order_by:
@@ -169,6 +177,7 @@ class Server(fl.FlightServerBase):
             # FixedSizeList column = one query per row
             record["queries"] = len(target) if pa.types.is_fixed_size_list(target.type) else 1
             record["maxval"] = config.get("maxval")
+            record["probes"] = config.get("probes")
             record["precision"] = config.get("precision") or "fp32"
 
         writer.begin(data.schema)
@@ -181,6 +190,23 @@ class Server(fl.FlightServerBase):
         config = _loads(body) if body else {}
 
         match action.type:
+            case "make-coder":
+                with METRICS.timed("make-coder", coder=config.get("name")):
+                    coder_mod.make(self.root, **config, device=self.device)
+                return iter([])
+
+            case "make-index":
+                with METRICS.timed("make-index", coder=config.get("name")):
+                    index_mod.make(self.root, **config, device=self.device)
+                self.cache.invalidate()
+                return iter([])
+
+            case "drop-index":
+                coder_mod.drop(self.root, config["name"])
+                index_mod.drop_all(self.root, config["name"])
+                self.cache.invalidate()
+                return iter([])
+
             case "drop-table":
                 # indexes first: attribution needs the table's schema
                 index_mod.drop_for_source(self.root, config["name"])
@@ -196,12 +222,15 @@ class Server(fl.FlightServerBase):
             case "list-tables":
                 return iter([fl.Result(_dumps([*table.list(self.root)]))])
 
+            case "list-coders":
+                return iter([fl.Result(_dumps([*coder_mod.list(self.root)]))])
+
             case "list-indexes":
                 return iter([fl.Result(_dumps([*index_mod.list(self.root)]))])
 
             case "stats":
                 snap = METRICS.snapshot()
-                for name in _RESIDENCY_COUNTERS:  # shown from the start, as 0
+                for name in _ROUTE_COUNTERS:  # shown from the start, as 0
                     snap.setdefault(name, 0.0)
                 snap["cache.device_bytes"] = float(self.cache.device_bytes())
                 snap["cache.evictions"] = float(self.cache.evictions)
@@ -279,13 +308,19 @@ class Flight:
         select: Sequence[str] | None = None,
         filter: expr_mod.Expr | None = None,
         order_by: Sequence[tuple[str, str]] | None = None,
+        coding: str | None = None,
+        column: str | None = None,
     ) -> pa.RecordBatchReader:
+        """Read a table; with ``coding`` and ``column`` the index's
+        ``__CODED_ID__`` column is joined on."""
         if filter is not None and not isinstance(filter, expr_mod.Expr):
             raise TypeError("filter must be a fenix_tpu_torch.expr.Expr")
         ticket = fl.Ticket(
             _dumps(
                 {
                     "source": source if isinstance(source, str) else [*source],
+                    "coding": coding,
+                    "column": column,
                     "select": [*select] if select is not None else None,
                     "filter": filter.to_dict() if filter is not None else None,
                     "order_by": (
@@ -300,6 +335,27 @@ class Flight:
         self._action("drop-table", {"name": name})
         return self
 
+    # -- index lifecycle --------------------------------------------------
+
+    def make_index(
+        self, name: str, source: str | Sequence[str], column: str, config: dict
+    ) -> "Flight":
+        """Train coder ``name`` over ``source.column`` with ``config``
+        (metric, codebook_size, num_codebooks, batch_size, num_epochs),
+        then assign the rows to its cells."""
+        self._action(
+            "make-coder", {"name": name, "source": source, "column": column, "config": dict(config)}
+        )
+        return self.sync_index(name, source, column)
+
+    def sync_index(self, name: str, source: str | Sequence[str], column: str) -> "Flight":
+        self._action("make-index", {"name": name, "source": source, "column": column})
+        return self
+
+    def drop_index(self, name: str) -> "Flight":
+        self._action("drop-index", {"name": name})
+        return self
+
     # -- search -----------------------------------------------------------
 
     def search(
@@ -307,15 +363,20 @@ class Flight:
         target: Any,
         source: str | Sequence[str],
         column: str,
-        metric: str,
+        metric: str | None = None,
         select: Sequence[str] | None = None,
         filter: expr_mod.Expr | None = None,
         maxval: int | None = None,
         precision: str = "fp32",
         residency: str = "auto",
         extra: dict | None = None,
+        coding: str | None = None,
+        probes: int | None = None,
     ) -> pa.Table:
-        assert metric in METRICS_SET, f"metric must be one of {sorted(METRICS_SET)}"
+        """k-NN search; with ``coding`` and ``probes`` an IVF search over
+        the coder's ``probes`` nearest cells, whose metric is the
+        default."""
+        assert metric is None or metric in METRICS_SET, f"metric must be one of {sorted(METRICS_SET)}"
         assert precision in ("fp32", "bf16", "int8"), precision
         assert residency in ("auto", "dual", "int8", "stream"), residency
         assert extra is None or isinstance(extra, dict), extra
@@ -325,12 +386,14 @@ class Flight:
         descriptor = fl.FlightDescriptor.for_command(
             _dumps(
                 {
+                    "coding": coding,
                     "source": source if isinstance(source, str) else [*source],
                     "column": column,
                     "metric": metric,
                     "select": [*select] if select is not None else None,
                     "filter": filter.to_dict() if filter is not None else None,
                     "maxval": maxval,
+                    "probes": probes,
                     "precision": precision,
                     "residency": residency,
                     # per-request knobs, e.g. {"window": ...} for the
@@ -374,6 +437,9 @@ class Flight:
 
     def list_tables(self) -> list[str]:
         return self._action_json("list-tables")
+
+    def list_coders(self) -> list[str]:
+        return self._action_json("list-coders")
 
     def list_indexes(self) -> list[str]:
         return self._action_json("list-indexes")

@@ -1,5 +1,9 @@
-"""Host→device prefetch pipeline — port of ``prefetch_to_device`` from
-``fenix_tpu/io/batch.py``.
+"""Random-batch iteration and the host→device prefetch pipeline — port
+of ``fenix_tpu/io/batch.py``.
+
+``RandomBatchIterator`` yields permuted fixed-size row blocks of a table
+column, one epoch per pass (a fresh numpy permutation, the remainder
+dropped): the JAX package's, so one seed yields the same blocks.
 
 The streaming residency mode (``engine/residency.py``) moves a host
 corpus through the card in fixed-shape chunks. On a CUDA device this is
@@ -30,7 +34,7 @@ Counters (``stats``, CUDA only): ``transfer.h2d_bytes`` and
 ``transfer.h2d_seconds`` (the uploads, timed with CUDA events on the
 side stream), ``transfer.stage_seconds`` (host memcpy into the pinned
 buffers) and ``transfer.wait_seconds`` (time the consumer waited on the
-worker). ``RandomBatchIterator`` ports with the IVF slice.
+worker).
 """
 
 from __future__ import annotations
@@ -39,15 +43,45 @@ import collections
 import concurrent.futures
 import itertools
 import time
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
-from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch import native
+from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 _DEPTH = 2  # items in flight: one computing, one staging/uploading
+
+
+class RandomBatchIterator:
+    """Permuted fixed-size batches over a table column: each pass is one
+    epoch, a fresh full permutation with the remainder dropped, rows
+    gathered by the native threaded gather."""
+
+    def __init__(
+        self,
+        root: str,
+        name: str | Sequence[str],
+        size: int,
+        column: str,
+        seed: int | None = None,
+    ) -> None:
+        self.root = root
+        self.name = name
+        self.size = size
+        self.column = column
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        data = table.load(self.root, self.name)
+        matrix = ingest.fixed_size_list_to_numpy(data.column(self.column))
+        num_rows = matrix.shape[0]
+        perm = self.rng.permutation(num_rows)
+        perm = perm[: num_rows // self.size * self.size]
+        for start in range(0, perm.size, self.size):
+            yield native.gather_rows(matrix, perm[start : start + self.size])
 
 
 def prefetch_to_device(

@@ -227,7 +227,27 @@ def topk_two_phase(
     )
     bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
     del bucket_max
+    return _rescore(corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric)
 
+
+def _rescore(
+    corpus: torch.Tensor,  # [N_pad, D] f32
+    queries: torch.Tensor,  # [Q, D] f32
+    queries_p: torch.Tensor,  # [Q, D] prepared
+    aux_mul: torch.Tensor,
+    aux_add: torch.Tensor,
+    bidx: torch.Tensor,  # [Q, kp] selected buckets, ascending
+    bucket: int,
+    k: int,
+    metric: str,
+    probe: "tuple[torch.Tensor, torch.Tensor] | None" = None,  # (coded [N_pad], cells [Q, P])
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2: gather the selected buckets' rows, rescore them fp32-true,
+    and take the top-k by (score desc, row id asc); with ``probe``, rows
+    whose cell is not among the query's probe cells score −inf."""
+    n, d = corpus.shape
+    q, kp = bidx.shape
+    n_buckets = n // bucket
     rows = corpus.view(n_buckets, bucket, d)
     mul_b = aux_mul.view(n_buckets, bucket)
     add_b = aux_add.view(n_buckets, bucket)
@@ -248,6 +268,10 @@ def topk_two_phase(
         s = (rows[b_c] * qp_c[:, None, None, :]).sum(dim=-1)  # [C, kp, bucket]
         s = (s * mul_b[b_c] + add_b[b_c]).reshape(c, kp * bucket)
         ids = (b_c[:, :, None] * bucket + lane).reshape(c, kp * bucket)
+        if probe is not None:
+            coded, cells = probe
+            ok = probe_member(coded[ids], cells[start : start + chunk])
+            s = s.masked_fill(~ok, NEG_INF)
         s_sorted, pos = torch.sort(s, dim=1, descending=True, stable=True)
         sel = torch.gather(ids, 1, pos[:, :kk])
         top_s.append(s_sorted[:, :kk])
@@ -263,12 +287,19 @@ def topk_two_phase(
         dist = scores_to_distances(top_s, queries, metric)
     else:
         dist = torch.cat(top_d) if top_d else corpus.new_empty((0, kk))
+    return _finish(top_s, top_ids, dist, k)
 
+
+def _finish(
+    top_s: torch.Tensor, top_ids: torch.Tensor, dist: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad ``[Q, kk]`` winners to ``k`` and mark the −inf ones as
+    (+inf, −1)."""
+    q, kk = top_s.shape
     if kk < k:  # pad to k
         top_s = torch.cat([top_s, top_s.new_full((q, k - kk), NEG_INF)], dim=1)
         top_ids = torch.cat([top_ids, top_ids.new_full((q, k - kk), -1)], dim=1)
         dist = torch.cat([dist, dist.new_full((q, k - kk), torch.inf)], dim=1)
-
     missing = top_s == NEG_INF
     dist = torch.where(missing, torch.inf, dist)
     top_ids = torch.where(missing, -1, top_ids)
@@ -334,6 +365,258 @@ def topk_window_int8(
         pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :ww]
         wins.append(torch.gather(ids, 1, pos))
     return torch.cat(wins) if wins else lane.new_empty((0, ww))
+
+
+# -- IVF: probed search -------------------------------------------------------
+
+# The masked scan's row chunk keeps its [QT, rows] score tile, and an int8
+# chunk widened to f32, under these sizes; a [cells, QT] probe table is
+# built when it has at most _PROBE_TABLE_CAP entries, else each query's
+# sorted probe list is searched.
+_PROBED_TILE = 64 << 20  # score entries (256 MiB of f32)
+_PROBED_WIDEN_BYTES = 256 << 20
+_PROBE_TABLE_CAP = 64 << 20
+
+
+def probe_member(codes: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+    """``codes[c, w] ∈ cells[c]`` as ``[C, W]`` bool, through each row's
+    sorted probe list (memory ∝ C·W, whatever P is). A −1 code (padding)
+    and a −1 probe slot never match."""
+    srt = torch.sort(cells, dim=1).values
+    codes = codes.to(srt.dtype).contiguous()
+    pos = torch.searchsorted(srt, codes).clamp_max_(srt.shape[1] - 1)
+    return (torch.gather(srt, 1, pos) == codes) & (codes >= 0)
+
+
+def _probe_rows(cells: torch.Tensor):
+    """``member(codes [rows]) → [QT, rows]`` bool: row ``i`` belongs to
+    query ``q``'s probes. The probed cells are compacted (``unique``) into
+    a ``[cells + 1, QT]`` table when that is small (at 1,024 queries × 64
+    probes at most 64 Mi entries), so a row chunk costs one gather of
+    table rows; otherwise the per-query sorted search of
+    :func:`probe_member`."""
+    qt = cells.shape[0]
+    live = cells >= 0
+    uniq = torch.unique(cells[live])  # sorted
+    u = uniq.numel()
+    if u == 0:
+        return lambda codes: torch.zeros((qt, codes.shape[0]), dtype=torch.bool, device=codes.device)
+    if (u + 1) * qt > _PROBE_TABLE_CAP:
+        return lambda codes: probe_member(codes.expand(qt, -1), cells)
+    table = torch.zeros((u + 1, qt), dtype=torch.bool, device=cells.device)  # row u: probed by none
+    q_idx = torch.arange(qt, device=cells.device)[:, None].expand_as(cells)
+    table[torch.searchsorted(uniq, cells[live]), q_idx[live]] = True
+
+    def member(codes: torch.Tensor) -> torch.Tensor:
+        codes = codes.to(uniq.dtype)
+        pos = torch.searchsorted(uniq, codes).clamp_max_(u - 1)
+        row = torch.where(uniq[pos] == codes, pos, u)
+        return table[row].T
+
+    return member
+
+
+def _int8_products(q8: torch.Tensor, v8: torch.Tensor) -> torch.Tensor:
+    """``Q8 · V8ᵀ`` as f32 of the exact integer sums. Up to D = 1024 an
+    f32 product of int8 values is exact (127²·1024 < 2²⁴, every partial
+    sum an integer f32 holds); wider rows sum exact 1024-wide slices in
+    int32, then convert, as the JAX package's int32 accumulate does."""
+    d = q8.shape[1]
+    if d <= 1024:
+        return q8.float() @ v8.float().T
+    acc = None
+    for lo in range(0, d, 1024):
+        part = (q8[:, lo : lo + 1024].float() @ v8[:, lo : lo + 1024].float().T).to(torch.int32)
+        acc = part if acc is None else acc.add_(part)
+    return acc.float()
+
+
+def bucket_scores_scan_probed(
+    queries_p: torch.Tensor,  # [QT, D] prepared f32 / bf16 / q8 (int8)
+    corpus: torch.Tensor,  # [N, D] f32 / bf16 scan copy / v8 (int8)
+    aux_mul: torch.Tensor,  # [N] (int8: aux_mul · sv, the corpus scale folded in)
+    aux_add: torch.Tensor,  # [N]
+    coded: torch.Tensor,  # [N] int32 cell ids (−1 padding)
+    cells: torch.Tensor,  # [QT, P] per-query probe cells (−1 padding)
+    bucket: int = BUCKET,
+    inv_sq: torch.Tensor | None = None,  # [QT] int8: per-query 1/scale
+) -> torch.Tensor:  # [QT, N // bucket] f32
+    """Phase 1 with each query's probe mask: the fused score of every row,
+    −inf where ``coded[row] ∉ cells[q]``, max per bucket.
+
+    Score forms, as the JAX package's scan: fp32 is an fp32 product
+    (TF32 off); a bf16 corpus gives bf16 scores and a bf16 epilogue
+    (selection only, inside the margin); int8 is ``f32(Σ q8·v8)·(aux_mul·sv)
+    + aux_add·inv_sq`` with exact integer sums. Torch ops over row chunks
+    bounded by ``_PROBED_TILE``: no kernel of the JAX package computes
+    this (XLA fuses it there)."""
+    n, d = corpus.shape
+    qt = queries_p.shape[0]
+    int8_mode = corpus.dtype == torch.int8
+    rows = min(_PROBED_TILE // max(qt, 1), _PROBED_WIDEN_BYTES // (4 * d))
+    rows = max(bucket, rows // bucket * bucket)
+    member = _probe_rows(cells)
+    out = torch.empty((qt, n // bucket), dtype=torch.float32, device=corpus.device)
+    for start in range(0, n, rows):
+        stop = min(start + rows, n)
+        mul, add = aux_mul[start:stop], aux_add[start:stop]
+        if int8_mode:
+            s = _int8_products(queries_p, corpus[start:stop])
+            s = s * mul + add * inv_sq[:, None]
+        elif corpus.dtype == torch.bfloat16:
+            s = queries_p @ corpus[start:stop].T  # bf16 scores
+            s = s * mul.to(torch.bfloat16) + add.to(torch.bfloat16)
+        else:
+            s = (queries_p @ corpus[start:stop].T).mul_(mul).add_(add)
+        s.masked_fill_(~member(coded[start:stop]), NEG_INF)
+        out[:, start // bucket : stop // bucket] = s.view(qt, -1, bucket).amax(dim=-1)
+    return out
+
+
+def topk_two_phase_probed(
+    corpus: torch.Tensor,  # [N_pad, D] f32
+    queries: torch.Tensor,  # [Q, D] f32
+    aux_mul: torch.Tensor,
+    aux_add: torch.Tensor,
+    coded: torch.Tensor,  # [N_pad] int32 (−1 on padding)
+    cells: torch.Tensor,  # [Q, P] int32 probe cells per query (−1 padding)
+    k: int,
+    metric: str,
+    corpus_scan: torch.Tensor | None = None,
+    corpus_scan_int8: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probed (IVF) exact-within-probes top-k, two-phase: the masked scan
+    (:func:`bucket_scores_scan_probed`) over the fp32 corpus or a bf16 /
+    int8 scan copy, the bucket selection, and the fp32-true rescore with
+    the probe mask re-applied. Only selection sees the scan precision
+    (int8 doubles the margin); ties go to the smaller row id."""
+    metric = canonical_metric(metric)
+    n, _ = corpus.shape
+    q = queries.shape[0]
+    bucket = bucket_for(q, n)
+    queries_p = prepare_queries(queries, metric)
+    if corpus_scan_int8 is not None:
+        v8, sv = corpus_scan_int8
+        q8, inv_sq = quantize_queries_int8(queries_p)
+        bucket_max = bucket_scores_scan_probed(
+            q8, v8, aux_mul * sv, aux_add, coded, cells, bucket, inv_sq=inv_sq
+        )
+    elif corpus_scan is not None:
+        bucket_max = bucket_scores_scan_probed(
+            queries_p.to(corpus_scan.dtype), corpus_scan, aux_mul, aux_add, coded, cells, bucket
+        )
+    else:
+        bucket_max = bucket_scores_scan_probed(
+            queries_p, corpus, aux_mul, aux_add, coded, cells, bucket
+        )
+    pad = BUCKET_PAD * 2 if corpus_scan_int8 is not None else BUCKET_PAD
+    bidx = topk_buckets(bucket_max, min(k + pad, n // bucket))
+    del bucket_max
+    return _rescore(
+        corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric, probe=(coded, cells)
+    )
+
+
+def _topk_min_id(
+    s: torch.Tensor, ids: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`topk_values_min_id`, plus the position of each pick in ``s``."""
+    big = torch.iinfo(torch.int32).max
+    s = s.clone()
+    valid = ids >= 0
+    vals, sids, where = [], [], []
+    for _ in range(k):
+        m = s.amax(dim=1)  # [C]
+        tie = s == m[:, None]
+        sel = torch.where(tie & valid, ids, big).amin(dim=1)
+        hit = tie & (ids == sel[:, None])
+        where.append(hit.to(torch.uint8).argmax(dim=1))  # the first hit
+        s.masked_fill_(hit, NEG_INF)
+        vals.append(m)
+        sids.append(sel)
+    c = s.shape[0]
+    if not vals:
+        empty = ids.new_empty((c, 0))
+        return s.new_empty((c, 0)), empty, empty.long()
+    sids = torch.stack(sids, dim=1)
+    return torch.stack(vals, dim=1), torch.where(sids == big, -1, sids), torch.stack(where, dim=1)
+
+
+def topk_values_min_id(
+    s: torch.Tensor, ids: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by (score desc, id asc) — the engine's tie contract,
+    whatever the candidates' order: k rounds of the max score, then the
+    smallest id among the rows tying at it. Returns ``(values [C, k], ids
+    [C, k])``, −1 where no valid id tied."""
+    vals, sids, _ = _topk_min_id(s, ids, k)
+    return vals, sids
+
+
+def topk_ivf_clustered(
+    corpus_s: torch.Tensor,  # [N_pad, D] rows sorted by cell id
+    queries: torch.Tensor,  # [Q, D]
+    aux_mul_s: torch.Tensor,  # [N_pad] (sorted order)
+    aux_add_s: torch.Tensor,  # [N_pad] (sorted order; −inf on masked/padding rows)
+    coded_s: torch.Tensor,  # [N_pad] int32 cell ids, sorted (−1 padding)
+    orig_ids_s: torch.Tensor,  # [N_pad] int32 original row id per position (−1 padding)
+    cells: torch.Tensor,  # [Q, P] int32 probe cells per query
+    bucket_lists: torch.Tensor,  # [Q, B] int32 bucket indices (−1 padding)
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probed top-k over the IVF-clustered layout, with no corpus scan:
+    with rows sorted by cell id, a query's probed cells are at most P
+    contiguous ranges, and ``bucket_lists`` (host-computed from the cell
+    offsets) names the buckets covering them. Only those buckets are
+    gathered and rescored fp32-true; rows of neighbouring cells in the
+    boundary buckets are masked by probe membership. Returns ORIGINAL row
+    ids ordered by (distance asc, id asc): the min-id rounds of
+    :func:`topk_values_min_id` tie on original ids, so the answer equals
+    the masked scan's."""
+    metric = canonical_metric(metric)
+    n, d = corpus_s.shape
+    q = queries.shape[0]
+    bucket = bucket_for(q, n)
+    n_buckets = n // bucket
+    queries_p = prepare_queries(queries, metric)
+    kp = bucket_lists.shape[1]
+    bucket_ok = bucket_lists >= 0
+    bidx = torch.where(bucket_ok, bucket_lists, 0).long()
+
+    rows = corpus_s.view(n_buckets, bucket, d)
+    mul_b = aux_mul_s.view(n_buckets, bucket)
+    add_b = aux_add_s.view(n_buckets, bucket)
+    kk = min(k, kp * bucket)
+    lane = torch.arange(bucket, device=corpus_s.device)
+
+    per_query = kp * bucket * d * 4
+    chunk = max(1, min(q, max(8, _RESCORE_GATHER_CAP // per_query)))
+    top_s, top_ids, top_d = [], [], []
+    for start in range(0, q, chunk):
+        qp_c = queries_p[start : start + chunk]
+        b_c = bidx[start : start + chunk]
+        c = qp_c.shape[0]
+        s = (rows[b_c] * qp_c[:, None, None, :]).sum(dim=-1)  # [C, kp, bucket], fp32-true
+        s = (s * mul_b[b_c] + add_b[b_c]).reshape(c, kp * bucket)
+        pos = (b_c[:, :, None] * bucket + lane).reshape(c, kp * bucket)  # sorted positions
+        ok = probe_member(coded_s[pos], cells[start : start + chunk])
+        ok &= bucket_ok[start : start + chunk, :, None].expand(c, kp, bucket).reshape(c, -1)
+        s.masked_fill_(~ok, NEG_INF)
+        vals, sids, where = _topk_min_id(s, orig_ids_s[pos], kk)
+        top_s.append(vals)
+        top_ids.append(sids)
+        if metric == "l2":
+            # ‖q − v‖ of the winners, as topk_two_phase returns it
+            diff = corpus_s[torch.gather(pos, 1, where)] - queries[start : start + chunk, None, :]
+            top_d.append(torch.sqrt(torch.sum(torch.square(diff), dim=-1)))
+    top_s = torch.cat(top_s) if top_s else corpus_s.new_empty((0, kk))
+    top_ids = torch.cat(top_ids) if top_ids else orig_ids_s.new_empty((0, kk))
+    if metric != "l2":
+        dist = scores_to_distances(top_s, queries, metric)
+    else:
+        dist = torch.cat(top_d) if top_d else corpus_s.new_empty((0, kk))
+    return _finish(top_s, top_ids, dist, k)
 
 
 def state_from_numpy(

@@ -183,8 +183,9 @@ def test_budget_eviction_keeps_latest(root, monkeypatch):
 
 
 def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
-    """IVF, maxval=None and joins still raise; the int8-resident and
-    streaming modes and requests over the budget are served."""
+    """maxval=None and joins still raise, as do probed search and coder
+    training past the budget; IVF, the int8-resident and streaming modes
+    and requests over the budget are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -192,8 +193,12 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
         base = dict(source="items", column="vector", target=target, metric="l2", maxval=5)
         return executor.execute_search(cache, executor.SearchRequest(**{**base, **kw}))
 
-    with pytest.raises(NotImplementedError, match="IVF"):
-        run(coding="ivf", probes=4)
+    config = {"metric": "l2", "codebook_size": 8, "num_codebooks": 1, "batch_size": 512,
+              "num_epochs": 1}
+    coder.make(root, "ivf", "items", "vector", config, seed=0, device="cpu")
+    index.make(root, "ivf", "items", "vector", device="cpu")
+    probed = run(coding="ivf", probes=4, metric=None)  # the coder's metric
+    assert probed.num_rows == 10 and "__CODED_ID__" in probed.column_names
     with pytest.raises(NotImplementedError, match="_execute_nomax"):
         run(maxval=None)
     dual = run()
@@ -201,6 +206,8 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
         assert run(residency=mode).column("id").equals(dual.column("id"))
     with pytest.raises(ValueError, match="precision"):
         run(precision="fp16")
+    with pytest.raises(ValueError, match="metric is required"):
+        run(metric=None)
     monkeypatch.setenv("FENIX_HBM_BUDGET", "1000")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target, maxval=5)) == "stream"
     assert run().column("id").equals(dual.column("id"))
@@ -210,6 +217,10 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
         residency.execute_solo(
             cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
         )
+    with pytest.raises(NotImplementedError, match="IVF past the budget.*probed_topk"):
+        run(coding="ivf", probes=4)
+    with pytest.raises(NotImplementedError, match="IVF past the budget.*train_streaming"):
+        coder.make(root, "big", "items", "vector", config, seed=0, device="cpu")
     monkeypatch.delenv("FENIX_HBM_BUDGET")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target)) == "dual"
     with pytest.raises(NotImplementedError, match="joins"):
@@ -511,3 +522,54 @@ def test_chip_smoke_residency_oracle_accepts_the_port(smoke_wide_root, monkeypat
         queries, result, torch.from_numpy(tags < 50),
     )
     assert out["max_rel_dist_err"] <= 1e-4 and out["ties_in_results"] > 0
+
+
+def test_chip_smoke_ivf_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 7 of chip_smoke.py rehearsed on the CPU at a small size: the
+    port's server (CPU device) builds the coder and the index over Flight,
+    the four probed searches take their routes, and every check after the
+    server (assignment, device step, oracle, the timed ops) passes."""
+    import threading
+
+    import fenix_tpu_torch
+    from fenix_tpu_torch.ops import kmeans
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    root = str(tmp_path)
+    t = pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "smoke/items", t.to_reader(max_chunksize=4096))
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "WARM_REPS": 1, "IVF_SAMPLE_ROWS": 4096,
+        "IVF_STEP_ROWS": 2048, "IVF_CHECKED": 16,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        # 64 cells over 16,384 padded rows (k-means on these isotropic rows
+        # leaves a few hub cells of ~1,000 rows): Q=1 and Q=8 at one probe
+        # fit the gather rule, Q=100 and Q=70 do not
+        "IVF_SEARCHES": (("ivf_q1_p16", 1, 4, False, "fp32", "clustered", None),
+                         ("ivf_q8_p64_filtered", 8, 1, True, "fp32", "clustered", "l2"),
+                         ("ivf_q1024_p64", 100, 8, False, "fp32", "scan", None),
+                         ("ivf_q256_p64_int8", 70, 8, False, "int8", "scan", "l2")),
+        "time_ms": lambda fn, reps: (fn(), 1.0)[1],
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    try:
+        ivf = smoke.phase_ivf_serve(client, expr, vectors, root, "cpu", "cpu")
+    finally:
+        client.close()
+        server.shutdown()
+    assert ivf["codebooks"].shape == (1, 64, smoke.D) and not any(ivf["launches"].values())
+    out = smoke.phase_ivf_checks(kernels, topk2, smoke.Oracle(vectors, "cpu"), vectors, tags, ivf,
+                                 "cpu", "cpu")
+    assert [c["queries_checked"] for c in out["oracle"]] == [1, 8, 16, 16]
+    assert out["device_step"][1]["coder"] == "composite_2x64"
+    assert out["timings"]["clustered"]["shape"]["probes"] == 1
+    # the check refuses a search sent down the other route
+    with pytest.raises(AssertionError, match="search.ivf_scan rose by 1.0, expected 0"):
+        smoke.check_route("x", {"search.ivf_clustered": 3.0, "search.ivf_scan": 1.0},
+                          {"search.ivf_clustered": 4.0, "search.ivf_scan": 2.0}, "clustered")
+    assert kmeans.draw_indices(10, 0, 1, 2, 4, 1)[0].shape == (2,)

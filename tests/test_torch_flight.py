@@ -169,9 +169,7 @@ def test_unported_verbs_raise(loaded):
     with pytest.raises(pa.ArrowNotImplementedError, match="ROADMAP"):
         c.append_table("items", reader(1, rows=BATCH))
     with pytest.raises(pa.ArrowNotImplementedError, match="ROADMAP"):
-        c.make_index("ivf", "items", "vector", {"metric": "l2", "codebook_size": 4,
-                                                "num_codebooks": 1, "batch_size": 64,
-                                                "num_epochs": 1})
+        c.delete_rows("items", jexpr.field("id") < 3)
     with pytest.raises(pa.ArrowNotImplementedError, match="_execute_nomax"):
         c.search(np.zeros(DIM, np.float32), "items", "vector", metric="l2")  # maxval=None
     with pytest.raises(pa.ArrowInvalid, match="unknown action"):
@@ -204,3 +202,51 @@ def test_table_written_by_jax_server_serves_through_port(loaded):
     assert_tables_match(pc.search(target, "from_jax", "vector", metric="cosine", maxval=9), want)
     pc.drop_table("from_jax")
     assert "from_jax" not in jc.list_tables()
+
+
+IVF_CONFIG = {"metric": "cosine", "codebook_size": 8, "num_codebooks": 1, "batch_size": 256,
+              "num_epochs": 2}
+
+
+@pytest.mark.parametrize("q,probes", [(1, 2), (40, 3)], ids=["clustered", "scan"])
+def test_ivf_lifecycle_through_both_clients(loaded, q, probes):
+    """The unchanged JAX client drives the port's IVF verbs end to end:
+    make_index trains and assigns on the port's server, list_coders and a
+    coded read see it, probed searches (on the route the port counts)
+    answer as the JAX server does over the same files, and drop_index
+    removes coder and index. Each case names its coder anew: the JAX
+    server memoizes cell ids on the table's revision alone, so an index
+    rebuilt by another server under the same name stays stale there
+    (ROADMAP queue 3)."""
+    jc, pc, jj = loaded["jax_client_on_port"], loaded["port_client_on_port"], loaded["jax_client_on_jax"]
+    name = f"ivf{q}"
+    jc.make_index(name, "items", "vector", IVF_CONFIG)
+    try:
+        assert name in jc.list_coders() and pc.list_coders() == jc.list_coders()
+        assert f"items/vector/{name}" in pc.list_indexes()
+        coded = jc.read_table("items", coding=name, column="vector",
+                              select=["id", "__CODED_ID__"]).read_all()
+        assert coded.equals(jj.read_table("items", coding=name, column="vector",
+                                          select=["id", "__CODED_ID__"]).read_all())
+        assert coded.equals(pc.read_table("items", coding=name, column="vector",
+                                          select=["id", "__CODED_ID__"]).read_all())
+        codes = coded.column("__CODED_ID__").to_numpy()
+        assert codes.min() >= 0 and codes.max() < 8
+        target = np.random.default_rng(q).standard_normal((q, DIM)).astype(np.float32)
+        target = target[0] if q == 1 else target
+        kw = dict(coding=name, probes=probes, maxval=5)
+        before = pc.stats()
+        want = jj.search(target, "items", "vector", metric="cosine", **kw)
+        assert_tables_match(jc.search(target, "items", "vector", metric="cosine", **kw), want)
+        # the port's client may leave the metric to the coder
+        assert_tables_match(pc.search(target, "items", "vector", **kw), want)
+        after = pc.stats()
+        route = "search.ivf_clustered" if q == 1 else "search.ivf_scan"
+        assert after[route] - before[route] == 2
+        assert set(want.column("__CODED_ID__").to_numpy()) <= set(codes)
+    finally:
+        jc.drop_index(name)
+    assert name not in pc.list_coders() and f"items/vector/{name}" not in pc.list_indexes()
+    with pytest.raises(pa.ArrowException):
+        jc.search(np.zeros(DIM, np.float32), "items", "vector", metric="cosine", maxval=5,
+                  coding=name, probes=2)
