@@ -91,10 +91,32 @@ Phases, each printing one JSON line with its own timings:
    clustered gather at the Q=8 shape, one Lloyd step and one assignment
    block. No hand-written kernel serves IVF: the path's launch counts are
    read and printed (all 0).
+8. selection, on the phase-3 server after phase 7: (a) three filtered
+   searches, each on the device filter route (tag < 50, evaluated on the
+   card: filter.device_pushdown rises by one per call, filter.host_upload
+   by none) and then the host route ((tag / 1) < 50, the same rows; "/"
+   keeps it on the host: the other way round): phase 3's Q=1024 l2 k=100
+   (tiled K1, one launch a call), phase 3's Q=256 int8 l2 k=10 with the
+   filter added (tensor_int8 K2, one launch a call) and phase 7's Q=8
+   64-probe clustered search (no launch); both routes return the same ids,
+   the device route the earlier phase's; warm medians (client clock,
+   median of WARM_REPS) and the server's split per route, and
+   cache.device_mask_builds. (b) three no-top-k reads (maxval=None,
+   select=["id"]): Q=8 cosine tag == 7 (~84k rows a query), Q=8 l2
+   through the coder with 16 probes and tag < 50 (the probed count pass)
+   and Q=1 l2 unfiltered (the full read, every row); each moves its
+   search.nomax_* counter by one and launches no kernel; rows, server and
+   client times printed. (c) after the server, the oracle: each query's
+   rows are exactly those of the filter (for the probed read: of the
+   server's probe cells, through probe_mask) in table order, every
+   distance within 1e-4 * max(1, d) of float64. (d) on the phase-6
+   server, Q=8 l2 tag == 7 maxval=None over the host corpus must move
+   search.residency_host_nomax and pass the same oracle.
 
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
-each with its launches on every path), the nvidia-smi line, and last
+each with its launches on every path: exact, residency, ivf, selection),
+the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. The script takes no options: the card run at this size is its
 only path.
@@ -140,9 +162,9 @@ KERNELS = (
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "residency")),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact",)),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency")),  # kernel_int8 of the same
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection")),  # kernel_int8 of the same
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -209,6 +231,29 @@ IVF_SAMPLE_ROWS = 1 << 20  # rows of the assignment check
 IVF_STEP_ROWS = 65_536  # rows of the Lloyd-step check
 IVF_CHECKED = 64  # queries of a larger batch held to the oracle, evenly spaced
 IVF_TIMED = {"masked_scan": "ivf_q1024_p64", "clustered": "ivf_q8_p64_filtered"}  # timed alone
+
+# phase 8: selection, on the phase-3 server and table after phase 7 (the
+# host read on the phase-6 server). (a) filtered searches on both filter
+# routes: the predicate tag < 50 runs on the card; (tag / 1) < 50 selects
+# the same rows, but "/" keeps it on the host
+SEL_PUSHDOWN = (
+    # name, the earlier search it reruns (phase 3 or 7), filtered there
+    ("pushdown_q1024_l2_k100", "q1024_l2_k100_filtered"),
+    ("pushdown_q256_int8_l2_k10", "q256_int8_l2_k10"),  # phase 3's int8 search, tag < 50 added
+    ("pushdown_ivf_q8_p64", "ivf_q8_p64_filtered"),
+)
+SEL_ROUTES = {"device": "filter.device_pushdown", "host": "filter.host_upload"}
+SEL_SPLIT_KEYS = ("search.seconds", "filter.seconds", "ivf.seconds", "nomax.seconds")
+# (b) no-top-k reads (maxval=None): name, queries, metric, tag predicate
+# ("==", v) / ("<", v) or None, probes of the phase-7 coder or None
+SEL_READS = (
+    ("read_q8_cosine_tag_eq_7", 8, "cosine", ("==", 7), None),  # ~84k rows a query
+    ("read_q8_l2_p16_tag_lt_50", 8, "l2", ("<", 50), 16),  # the probed count pass
+    ("read_q1_l2_full", 1, "l2", None, None),  # every row: 8,388,608
+)
+SEL_READ_REPS = 3  # warm calls per read
+SEL_HOST_READ = ("read_host_q8_l2_tag_eq_7", 8, "l2", ("==", 7), None)  # (d), phase-6 server
+SEL_ORACLE_ROWS = 1 << 20  # rows per float64 distance check step
 
 
 def emit(obj) -> None:
@@ -911,6 +956,10 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
                     raise AssertionError("an fp32 device matrix exists after the host-corpus searches")
                 if st["cache.device_bytes"] > RES_BUDGET:
                     raise AssertionError(f"cache.device_bytes {st['cache.device_bytes']} over the budget")
+        # phase 8 (d): the no-top-k read over the host corpus
+        host_read_queries = make_queries(vectors, SEL_HOST_READ[1], seed=400)
+        host_read = selection_read(client, expr, SEL_HOST_READ, "smoke/wide", host_read_queries, smi, kind,
+                                   "search.residency_host_nomax", pushdown=False)[0]
         final = client.stats()
         path_launches = launches(None, final)
         emit({"phase": "residency_done", "launches": path_launches,
@@ -941,6 +990,10 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
         spec = (name, qn, "l2", RES_K, graded, True, False)
         emit({"phase": "residency_oracle", "search": name,
               **check_search(oracle, spec, queries[qn], results[name], mask)})
+    rows = np.flatnonzero(tag_mask(tags, SEL_HOST_READ[3]))
+    emit({"phase": "selection_oracle", **check_selection(
+        oracle, SEL_HOST_READ[0], SEL_HOST_READ[2], host_read_queries, host_read, lambda qi: rows)})
+    host_read_timings(vectors, tags, host_read_queries, smi, kind)
     del oracle
     torch.cuda.empty_cache()
     emit({"phase": "residency_oracle_done", "seconds": time.perf_counter() - t})
@@ -950,13 +1003,18 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
 # -- phase 7: IVF --------------------------------------------------------------
 
 
+def check_counter_rises(name: str, before: dict, after: dict, rises: dict) -> None:
+    """Each counter of ``rises`` moved by exactly its amount in one call."""
+    for key, want in rises.items():
+        got = after.get(key, 0) - before.get(key, 0)
+        if got != want:
+            raise AssertionError(f"{name}: {key} rose by {got}, expected {want}")
+
+
 def check_route(name: str, before: dict, after: dict, route: str) -> None:
     """A phase-7 search moves its route's counter by one and the other by
     none."""
-    for r, key in IVF_ROUTES.items():
-        rise = after.get(key, 0) - before.get(key, 0)
-        if rise != (r == route):
-            raise AssertionError(f"{name}: {key} rose by {rise}, expected {int(r == route)}")
+    check_counter_rises(name, before, after, {key: int(r == route) for r, key in IVF_ROUTES.items()})
 
 
 def phase_ivf_serve(client, expr, vectors, root: str, smi: str, kind: str) -> dict:
@@ -966,15 +1024,23 @@ def phase_ivf_serve(client, expr, vectors, root: str, smi: str, kind: str) -> di
     import numpy as np
 
     from fenix_tpu_torch import coder
+    from fenix_tpu_torch.ops import kmeans
 
     before = client.stats()
     c0 = launches(None, before)
     t = time.perf_counter()
     client.make_index(IVF_CODER, "smoke/items", "vector", IVF_CONFIG)
     built = client.stats()
-    emit({"phase": "ivf_build", "client_s": time.perf_counter() - t,
+    client_s = time.perf_counter() - t
+    # the host draws of make-coder alone (the JAX package's threefry
+    # permutations, ops/kmeans.draw_indices)
+    t = time.perf_counter()
+    kmeans.draw_indices(ROWS, 0, IVF_CONFIG["num_codebooks"], IVF_CONFIG["codebook_size"],
+                        IVF_CONFIG["batch_size"], IVF_CONFIG["num_epochs"])
+    emit({"phase": "ivf_build", "client_s": client_s,
           "make_coder_s": built["make-coder.seconds"] - before.get("make-coder.seconds", 0),
           "make_index_s": built["make-index.seconds"] - before.get("make-index.seconds", 0),
+          "draws_s": time.perf_counter() - t,
           "lloyd_steps": IVF_CONFIG["num_epochs"] * (ROWS // IVF_CONFIG["batch_size"]),
           "config": IVF_CONFIG, "device": kind, "nvidia_smi": smi})
 
@@ -1296,6 +1362,322 @@ def phase_ivf_checks(kernels, topk2, oracle, vectors, tags, ivf, smi, kind) -> d
     return {"assignment": assign, "device_step": steps, "oracle": checks, "timings": timings}
 
 
+# -- phase 8: selection -------------------------------------------------------
+
+
+def tag_filter(expr, pred, divide: bool = False):
+    """The filter of a phase-8 predicate ``(op, value)`` on the tag column;
+    with ``divide`` the same rows through ``(tag / 1)``, which keeps it on
+    the host route."""
+    if pred is None:
+        return None
+    col = expr.field("tag") / 1 if divide else expr.field("tag")
+    op, value = pred
+    return col == value if op == "==" else col < value
+
+
+def tag_mask(tags, pred):
+    """Host bool mask of a phase-8 predicate over ``tags``."""
+    import numpy as np
+
+    if pred is None:
+        return np.ones(tags.shape[0], bool)
+    op, value = pred
+    return tags == value if op == "==" else tags < value
+
+
+def launch_rises(keys, per_call: int) -> dict:
+    """The launch counters of ``keys`` each rising by ``per_call``: on a
+    card only; CPU tensors take the plain version and count nothing."""
+    return {f"kernel.bucket_scores.{k}.launches": per_call if DEVICE == "cuda" else 0 for k in keys}
+
+
+def selection_pushdown(client, expr, kernels, vectors, tags, specs: dict, smi: str, kind: str) -> list[dict]:
+    """Phase 8 (a): each search of SEL_PUSHDOWN on the device filter route
+    and then on the host route (one cold and WARM_REPS warm calls each),
+    every call moving its route's counter by one, the other's by none, and
+    its kernel's launches by one. Both routes must return the same ids,
+    and the device route the ids the earlier phase got."""
+    import numpy as np
+    import torch
+
+    scan_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    out = []
+    for name, earlier in SEL_PUSHDOWN:
+        queries, kw, before_ids = specs[earlier]
+        qn = queries.shape[0] if queries.ndim == 2 else 1
+        if "coding" in kw:
+            keys = ()
+        else:
+            keys = (ROUTES[kw["precision"]],
+                    f"kernel.{kernels.kernel_for(scan_dtypes[kw['precision']], qn, D)}")
+        row = {"phase": "selection_pushdown", "search": name, "reruns": earlier, "q": qn,
+               "device": kind, "nvidia_smi": smi}
+        ids = {}
+        for route, counter in SEL_ROUTES.items():
+            filt = tag_filter(expr, ("<", 50), divide=route == "host")
+            rises = {**{c: int(c == counter) for c in SEL_ROUTES.values()}, **launch_rises(keys, 1)}
+            warm, splits = [], []
+            for rep in range(1 + WARM_REPS):
+                a = client.stats()
+                t = time.perf_counter()
+                result = client.search(queries, "smoke/items", "vector", **kw, filter=filt)
+                took = (time.perf_counter() - t) * 1e3
+                b = client.stats()
+                check_counter_rises(f"{name} ({route})", a, b, rises)
+                if rep == 0:
+                    ids[route] = np.asarray(result.column("id"))
+                    row[f"{route}_first_call_ms"] = took
+                else:
+                    warm.append(took)
+                    splits.append({k: b.get(k, 0) - a.get(k, 0) for k in SEL_SPLIT_KEYS})
+            row[f"{route}_warm_median_ms"] = float(np.median(warm))
+            row[f"{route}_warm_ms"] = warm
+            row[f"{route}_warm_split_median"] = {k: float(np.median([x[k] for x in splits]))
+                                                 for k in SEL_SPLIT_KEYS}
+        if not np.array_equal(ids["device"], ids["host"]):
+            raise AssertionError(f"{name}: the device and host filter routes return different ids")
+        if before_ids is not None and not np.array_equal(ids["device"], before_ids):
+            raise AssertionError(f"{name}: ids differ from the earlier phase's")
+        row["rows_returned"] = int(ids["device"].shape[0])
+        row["cache_device_mask_builds"] = client.stats()["cache.device_mask_builds"]
+        emit(row)
+        out.append(row)
+    return out
+
+
+def selection_read(client, expr, spec, table_name: str, queries, smi: str, kind: str, counter: str,
+                   pushdown: bool) -> tuple:
+    """One no-top-k read of phase 8 (b) or (d): a cold call and
+    SEL_READ_REPS warm ones, each moving ``counter`` by one and no kernel
+    launch; a filter moves ``filter.device_pushdown`` by one where it runs
+    on the card (``pushdown``, the device reads) and no filter counter on
+    the host-corpus read, which takes the host's memoized mask. Returns
+    the first result and its printed row."""
+    import numpy as np
+
+    name, qn, metric, pred, probes = spec
+    kw = dict(metric=metric, maxval=None, select=["id"], filter=tag_filter(expr, pred))
+    if probes is not None:
+        kw.update(coding=IVF_CODER, probes=probes)
+    target = queries[0] if qn == 1 else queries
+    rises = {counter: 1, "filter.device_pushdown": int(pred is not None and pushdown),
+             "filter.host_upload": 0,
+             **launch_rises((*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS)), 0)}
+    client_ms, server_ms, device_ms = [], [], []
+    result = None
+    for _ in range(1 + SEL_READ_REPS):
+        a = client.stats()
+        t = time.perf_counter()
+        got = client.search(target, table_name, "vector", **kw)
+        client_ms.append((time.perf_counter() - t) * 1e3)
+        b = client.stats()
+        check_counter_rises(name, a, b, rises)
+        server_ms.append((b["search.seconds"] - a.get("search.seconds", 0)) * 1e3)
+        device_ms.append((b.get("nomax.seconds", 0) - a.get("nomax.seconds", 0)) * 1e3)
+        result = got if result is None else result
+    row = {"phase": "selection_read", "search": name, "q": qn, "metric": metric, "filter": pred,
+           "probes": probes, "rows_returned": result.num_rows, "first_client_ms": client_ms[0],
+           "first_server_ms": server_ms[0], "warm_client_median_ms": float(np.median(client_ms[1:])),
+           "warm_server_median_ms": float(np.median(server_ms[1:])),
+           "warm_nomax_median_ms": float(np.median(device_ms[1:])),
+           "client_ms": client_ms, "server_ms": server_ms, "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return result, row
+
+
+def rerun_specs(queries, results, ivf: dict) -> dict:
+    """The earlier searches phase 8 (a) reruns: per name, the target, the
+    search's options without its filter, and its ids where it was
+    filtered with tag < 50 (None otherwise)."""
+    import numpy as np
+
+    specs = {}
+    for spec, qnp, result in zip(SEARCHES, queries, results):
+        name, qn, metric, k, precision, filtered, flat = spec
+        specs[name] = (qnp[0] if flat else qnp, dict(metric=metric, maxval=k, precision=precision),
+                       np.asarray(result.column("id")) if filtered else None)
+    for name, qn, probes, filtered, precision, _, metric in IVF_SEARCHES:
+        qnp, result = ivf["searches"][name]
+        kw = dict(metric=metric, maxval=IVF_K, precision=precision, coding=IVF_CODER, probes=probes)
+        specs[name] = (qnp[0] if qn == 1 else qnp, kw, np.asarray(result.column("id")) if filtered else None)
+    return specs
+
+
+def phase_selection_serve(client, expr, kernels, vectors, tags, specs: dict, smi: str, kind: str) -> dict:
+    """Phase 8 on the phase-3 server: (a) the filter routes, (b) the
+    device no-top-k reads. Returns what the oracle after the server needs
+    and the path's kernel launches."""
+    before = launches(client)
+    pushdown = selection_pushdown(client, expr, kernels, vectors, tags, specs, smi, kind)
+    reads = {}
+    for i, spec in enumerate(SEL_READS):
+        queries = make_queries(vectors, spec[1], seed=300 + i)
+        counter = "search.nomax_full" if spec[3] is None and spec[4] is None else "search.nomax_selected"
+        reads[spec[0]] = (spec, queries, selection_read(client, expr, spec, "smoke/items", queries, smi,
+                                                        kind, counter, pushdown=True)[0])
+    after = launches(client)
+    return {"pushdown": pushdown, "reads": reads,
+            "launches": {k: v - before[k] for k, v in after.items()}}
+
+
+def check_selection(oracle, name: str, metric: str, queries, result, want_rows) -> dict:
+    """A no-top-k result held to its oracle: per query, exactly the rows
+    ``want_rows(qi)`` (ascending row numbers) in table order, queries in
+    order; every distance within 1e-4 * max(1, d) of float64 (computed on
+    the oracle's device, SEL_ORACLE_ROWS rows at a time)."""
+    import numpy as np
+    import torch
+
+    ids = np.asarray(result.column("id"))
+    dist = np.asarray(result.column("__DISTANCE__"))
+    qn = queries.shape[0]
+    if "__QUERY_ID__" in result.column_names:
+        qid = result.column("__QUERY_ID__").to_numpy()
+    elif qn == 1:
+        qid = np.zeros(ids.shape[0], np.int64)
+    else:
+        raise AssertionError(f"{name}: a batch result without __QUERY_ID__")
+    if (np.diff(qid) < 0).any():
+        raise AssertionError(f"{name}: queries out of order")
+    bounds = np.searchsorted(qid, np.arange(qn + 1))
+    worst = 0.0
+    for qi in range(qn):
+        got = ids[bounds[qi] : bounds[qi + 1]]
+        want = want_rows(qi)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: query {qi} returned {got.shape[0]} rows, not the "
+                                 f"{want.shape[0]} selected rows in table order")
+        q = torch.from_numpy(queries[qi : qi + 1]).to(oracle.device, torch.float64)
+        d = dist[bounds[qi] : bounds[qi + 1]]
+        for s in range(0, got.shape[0], SEL_ORACLE_ROWS):
+            idx = torch.from_numpy(got[s : s + SEL_ORACLE_ROWS]).to(oracle.device)
+            d64 = oracle.exact(q, idx[None, :], metric)[0].cpu().numpy()
+            err = np.abs(d[s : s + SEL_ORACLE_ROWS] - d64) / np.maximum(1.0, np.abs(d64))
+            worst = max(worst, float(err.max(initial=0.0)))
+    if worst > 1e-4:
+        raise AssertionError(f"{name}: distance off float64 by {worst} relative")
+    return {"search": name, "rows": int(ids.shape[0]), "rows_per_query": int(ids.shape[0] // max(qn, 1)),
+            "max_rel_dist_err": worst}
+
+
+def phase_selection_checks(oracle, tags, ivf: dict, sel: dict) -> list[dict]:
+    """Phase 8 (c): each device read against its oracle; the probed read's
+    rows are those of the server's probe cells (cells.topk_cells_np over
+    the persisted codebooks) that pass the filter, through probe_mask."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import cells
+
+    out = []
+    for name, (spec, queries, result) in sel["reads"].items():
+        _, qn, metric, pred, probes = spec
+        host_mask = tag_mask(tags, pred)
+        if probes is None:
+            rows = np.flatnonzero(host_mask)
+            want = lambda qi, rows=rows: rows  # noqa: E731
+        else:
+            codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
+            probe = cells.topk_cells_np(queries, ivf["codebooks"], "l2", probes)
+            mask = probe_mask(codes_dev, probe, torch.from_numpy(tags).to(oracle.device))
+            want = lambda qi, mask=mask: np.flatnonzero(mask(qi, qi + 1)[0].cpu().numpy())  # noqa: E731
+        out.append(check_selection(oracle, name, metric, queries, result, want))
+        emit({"phase": "selection_oracle", **out[-1]})
+    return out
+
+
+def selection_timings(vectors, tags, ivf: dict, smi: str, kind: str) -> dict:
+    """The hot ops of phase 8 timed alone on the card (CUDA events), at
+    the phase's shapes: the device mask build of tag < 50 over the int32
+    column, its permutation into the clustered order, the two count passes
+    and the compaction of one chunk of the Q=8 cosine tag == 7 read."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch import expr
+    from fenix_tpu_torch.engine import executor
+    from fenix_tpu_torch.ops import cells
+    from fenix_tpu_torch.ops import select as select_ops
+
+    def timed(shape: dict, per_request: str, fn) -> dict:
+        return {"shape": shape, "launches_per_request": per_request, "ms": time_ms(fn, TIMING_REPS)}
+
+    n = vectors.shape[0]
+    out = {}
+    tag_dev = torch.from_numpy(tags).to(DEVICE)
+    skeleton, literals = (expr.field("tag") < 50).split_literals()
+    slots = [torch.tensor(v) for v in literals]
+    out["mask_build"] = timed({"rows": n, "column": "int32"}, "1 per (predicate, revision)",
+                              lambda: skeleton.device_mask({"tag": tag_dev}, slots))
+    mask = tag_dev < 50
+    perm = torch.from_numpy(np.argsort(ivf["codes"], kind="stable")).to(DEVICE)
+    out["permutation_take"] = timed({"rows": n}, "1 per filtered clustered search", lambda: mask[perm])
+    del perm
+
+    _, qn, metric, pred, _ = SEL_READS[0]
+    chunk = select_ops.chunk_for(n, qn, executor._NOMAX_BLOCK)
+    eq = tag_dev == pred[1]
+    out["count_pass_mask"] = timed({"rows": n, "chunk": chunk}, "1 per filtered read",
+                                   lambda: select_ops.count_selected_mask(eq, n, chunk=chunk))
+    corpus = torch.from_numpy(vectors).to(DEVICE)
+    queries = torch.from_numpy(make_queries(vectors, qn, seed=300)).to(DEVICE)
+    width = executor._canonical_k(int(select_ops.count_selected_mask(eq, n, chunk=chunk).max()))
+    out["compact_chunk"] = timed(
+        {"q": qn, "chunk": chunk, "d": D, "width": width, "metric": metric},
+        f"1 per chunk with matches ({n // chunk} here)",
+        lambda: select_ops.compact_chunk(corpus, queries, eq, None, None, 0, n, metric=metric,
+                                         chunk=chunk, width=width))
+
+    _, qn, metric, pred, probes = SEL_READS[1]
+    probe = cells.topk_cells_np(make_queries(vectors, qn, seed=301), ivf["codebooks"], "l2", probes)
+    cells_sorted = torch.from_numpy(np.sort(probe, axis=1).astype(np.int32)).to(DEVICE)
+    coded = torch.from_numpy(ivf["codes"].astype(np.int32)).to(DEVICE)
+    chunk = select_ops.chunk_for(n, qn, executor._NOMAX_BLOCK)
+    out["count_pass_probed"] = timed(
+        {"q": qn, "rows": n, "probes": probes, "chunk": chunk}, "1 per probed read",
+        lambda: select_ops.count_selected_probed(mask, coded, cells_sorted, n, chunk=chunk))
+    del corpus, coded, tag_dev
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        emit({"phase": "selection_timing", "op": name, **row, "device": kind, "nvidia_smi": smi})
+    return out
+
+
+def host_read_timings(vectors, tags, queries, smi: str, kind: str) -> dict:
+    """Phase 8 (d)'s host work timed alone (host clock, mean of
+    TIMING_REPS after a warm-up): native.row_score of one query over the
+    selected rows, the primitive of a cosine or dot host read, and the
+    l2 distances of every query (residency._host_l2)."""
+    import numpy as np
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.engine import residency
+
+    sel = np.flatnonzero(tag_mask(tags, SEL_HOST_READ[3]))
+    ones, zeros = np.ones(vectors.shape[0], np.float32), np.zeros(vectors.shape[0], np.float32)
+
+    def host_ms(fn) -> float:
+        fn()
+        t = time.perf_counter()
+        for _ in range(TIMING_REPS):
+            fn()
+        return (time.perf_counter() - t) / TIMING_REPS * 1e3
+
+    out = {
+        "host_row_score": {"shape": {"rows": int(sel.size), "d": vectors.shape[1]},
+                           "launches_per_request": "1 per query of a cosine or dot host read",
+                           "ms": host_ms(lambda: native.row_score(vectors, sel, queries[0], ones, zeros))},
+        "host_l2_distances": {"shape": {"q": queries.shape[0], "rows": int(sel.size), "d": vectors.shape[1]},
+                              "launches_per_request": "1 per l2 host read",
+                              "ms": host_ms(lambda: residency._host_l2(vectors, sel, queries))},
+    }
+    for name, row in out.items():
+        emit({"phase": "selection_timing", "op": name, **row, "clock": "host", "device": kind,
+              "nvidia_smi": smi})
+    return out
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -1457,6 +1839,13 @@ def run() -> int:
         t = time.perf_counter()
         ivf = phase_ivf_serve(client, expr, vectors, root, smi, kind)
         emit({"phase": "ivf_serve_done", "seconds": time.perf_counter() - t})
+
+        # -- phase 8 (on the server) ------------------------------------------
+        t = time.perf_counter()
+        sel = phase_selection_serve(client, expr, kernels, vectors, tags,
+                                    rerun_specs(queries, results, ivf), smi, kind)
+        emit({"phase": "selection_serve_done", "launches": sel["launches"],
+              "seconds": time.perf_counter() - t})
     finally:
         client.close()
         proc.terminate()
@@ -1483,9 +1872,16 @@ def run() -> int:
     # -- phase 7 (after the server) -------------------------------------------
     t = time.perf_counter()
     phase_ivf_checks(kernels, topk2, oracle, vectors, tags, ivf, smi, kind)
+    emit({"phase": "ivf_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 8 (after the server) -------------------------------------------
+    t = time.perf_counter()
+    phase_selection_checks(oracle, tags, ivf, sel)
     del oracle
     torch.cuda.empty_cache()
-    emit({"phase": "ivf_done", "seconds": time.perf_counter() - t})
+    selection_timings(vectors, tags, ivf, smi, kind)
+    torch.cuda.empty_cache()
+    emit({"phase": "selection_done", "seconds": time.perf_counter() - t})
 
     # -- phase 5 --------------------------------------------------------------
     for spec in SEARCHES:
@@ -1494,13 +1890,14 @@ def run() -> int:
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
-    ivf_launches = ivf["launches"]
-    del vectors, ids_np, tags, queries, results, ivf
+    ivf_launches, sel_launches = ivf["launches"], sel["launches"]
+    del vectors, ids_np, tags, queries, results, ivf, sel
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
     compares = small + forced + wide + main_shapes + res["checks"]
-    by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches}
+    by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
+               "selection": sel_launches}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})

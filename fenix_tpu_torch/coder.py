@@ -7,10 +7,10 @@ persists; ``load`` / ``list`` / ``drop`` manage the artifacts; ``call``
 ranks composite cells for targets (``ops/cells``). Artifacts are the JAX
 package's ``codings/<name>.npz`` (codebooks + JSON config), so one root
 serves both packages whichever trained the coder; a coder this package
-trains differs from the JAX package's for the same seed (its own random
-stream, ``ops/kmeans.py``).
+trains is the JAX package's coder of the same seed, up to fp32 summation
+order (the same draws, ``ops/kmeans.py``).
 
-Not ported yet (ROADMAP queue 1 item 8b, IVF past the budget): training
+Not ported yet (ROADMAP queue 1 item 3, IVF past the budget): training
 a corpus whose fp32 form does not fit the device budget
 (``kmeans.train_streaming``) raises; and the mesh-sharded training
 (item 11).
@@ -34,7 +34,7 @@ from fenix_tpu_torch.ops import kmeans
 from fenix_tpu_torch.utils import hbm
 
 LOCATION: str = "codings"
-_PAST_BUDGET_TODO = "ROADMAP queue 1 item 8b: IVF past the budget, kmeans.train_streaming"
+_PAST_BUDGET_TODO = "ROADMAP queue 1 item 3: IVF past the budget, kmeans.train_streaming"
 
 
 class Config(TypedDict):

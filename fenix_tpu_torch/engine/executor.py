@@ -1,5 +1,5 @@
 """Search query executor: request → device search → Arrow — port of
-``fenix_tpu/engine/executor.py`` (its single-device top-k paths).
+``fenix_tpu/engine/executor.py`` (its single-device paths).
 
 One device pass per request: the filter mask folds into the cached
 ``aux_add`` as −inf, the two-phase search (ops.topk2) runs over the
@@ -11,12 +11,16 @@ Results are sorted ascending by distance with ties broken by row id
 (deterministic, unlike the reference's ``select_k_unstable``).
 
 Served here: exact top-k (``maxval`` set) over one device, ``dual``
-residency, fp32/bf16/int8 scan precision, host-evaluated filters; a
-request that ``residency.plan`` routes to the int8-resident or streaming
-mode goes to ``engine/residency.py`` before any device fp32 is built.
+residency, fp32/bf16/int8 scan precision; the no-top-k read
+(``maxval=None``, ``_execute_nomax`` over ``ops/select.py``); filters on
+the card where the predicate allows it, else from the host table
+(``_FilterPlan``). A request that ``residency.plan`` routes to the
+int8-resident or streaming mode goes to ``engine/residency.py`` before
+any device fp32 is built.
 
-IVF (``coding`` + ``probes``): the metric defaults to the coder's; the
-probe cells are ranked on the host (``cells.topk_cells_np``; the bounded
+IVF (a ``coding`` and a nonzero ``probes``; ``probes=0`` is the exact
+search over the coded table, as in the JAX package): the metric defaults
+to the coder's; the probe cells are ranked on the host (``cells.topk_cells_np``; the bounded
 beam on the device past ``DENSE_CELL_LIMIT``); then one of two routes,
 decided before any device layout is built, by the JAX package's rule on
 total work ``q_pad · B · bucket ≤ n_pad`` (``_canonical_q`` copied, so
@@ -32,8 +36,8 @@ it is the wire and the result gather), and within it
 decision).
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: ``maxval=None`` (the full distance column), probed search
-past the device budget, and multi-device meshes.
+ROADMAP item: probed search past the device budget (queue 1 item 3) and
+multi-device meshes (item 10).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
+from fenix_tpu_torch.ops import select as select_ops
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -153,42 +158,81 @@ class _StaleRevision(Exception):
 
 
 class _FilterPlan:
-    """Per-request filter: the predicate evaluates on the HOST table with
-    Arrow kernels (the JAX package's host-mask route), and the ``[N_pad]``
-    mask folds into the cached ``aux_add`` on the device — in row order,
-    or permuted by ``perm`` into the clustered layout's sorted order. A
-    length mismatch means the mask and the device layout span table
-    revisions → _StaleRevision retry."""
+    """Per-request filter handling (the JAX package's ``_FilterPlan``, its
+    "flat" and "clustered" layouts).
 
-    def __init__(self, filt, data: pa.Table, n_pad: int, rows: int, device) -> None:
+    Device pushdown: a device-evaluable predicate (``expr.device_evaluable``:
+    bool / integer / float32 columns, exactly representable literals) is
+    evaluated on the card over the device scalar columns and memoized per
+    (predicate, revision) (``session.device_filter_mask``); counted as
+    ``filter.device_pushdown``. Host route (strings, float64 columns, ``/``,
+    ``is_null``, integers past int32, nulls): the predicate runs over the
+    host table with Arrow kernels, once per request, and the ``[N_pad]``
+    mask is copied to the card; counted as ``filter.host_upload``. Either
+    mask folds into the cached ``aux_add`` as −inf, in row order or, for
+    the clustered layout, permuted into its sorted order (on the card for
+    a device mask). A length mismatch means the mask and the layout span
+    table revisions → _StaleRevision retry. ``filter.seconds`` times the
+    host side of both routes."""
+
+    def __init__(
+        self, cache: DeviceCache, source, column: str, filt, data: pa.Table, n_pad: int, rows: int
+    ) -> None:
+        self.cache = cache
+        self.source = source
+        self.column = column
         self.filt = filt
         self.data = data
         self.n_pad = n_pad
         self.rows = rows
-        self.device = device
+        self._host: np.ndarray | None = None
+        self.pushdown = filt is not None and filt.device_evaluable(data.schema)
 
     @property
     def active(self) -> bool:
         return self.filt is not None
 
     def host_mask(self) -> np.ndarray:
-        """``[n_pad]`` bool mask via Arrow kernels (padding rows False)."""
-        m = np.zeros(self.n_pad, dtype=bool)
-        m[: self.rows] = self.filt.mask(self.data)
-        return m
+        """``[n_pad]`` bool mask via Arrow kernels (padding rows False),
+        built once per request."""
+        if self._host is None:
+            m = np.zeros(self.n_pad, dtype=bool)
+            m[: self.rows] = self.filt.mask(self.data)
+            self._host = m
+        return self._host
 
-    def overlay(self, aux_add: torch.Tensor, perm: "np.ndarray | None" = None) -> torch.Tensor:
+    def mask(self, coding: "str | None" = None) -> torch.Tensor:
+        """The request's ``[n_pad]`` device mask, in row order, or in the
+        clustered layout's sorted order of ``coding``."""
+        t = time.perf_counter()
+        mask = self.cache.device_filter_mask(self.source, self.filt) if self.pushdown else None
+        if mask is not None:
+            if mask.shape[0] != self.n_pad:
+                raise _StaleRevision
+            if coding is not None:
+                perm = self.cache.clustered_perm(coding, self.source, self.column)
+                if perm.shape[0] != self.n_pad:
+                    raise _StaleRevision
+                mask = mask[perm]
+            METRICS.add("filter.device_pushdown")
+        else:
+            m = self.host_mask()
+            if coding is not None:
+                perm, _ = self.cache.clustered_meta(coding, self.source, self.column)
+                if perm.shape[0] != self.n_pad:
+                    raise _StaleRevision
+                m = m[perm]
+            METRICS.add("filter.host_upload")
+            mask = torch.from_numpy(m).to(self.cache.device)
+        METRICS.add("filter.seconds", time.perf_counter() - t)
+        return mask
+
+    def overlay(self, aux_add: torch.Tensor, coding: "str | None" = None) -> torch.Tensor:
         if not self.active:
             return aux_add
-        m = self.host_mask()
-        if perm is not None:
-            if perm.shape[0] != m.shape[0]:
-                raise _StaleRevision
-            m = m[perm]
-        if m.shape[0] != aux_add.shape[0]:
+        mask = self.mask(coding)
+        if mask.shape[0] != aux_add.shape[0]:
             raise _StaleRevision
-        METRICS.add("filter.host_upload")
-        mask = torch.from_numpy(m).to(self.device)
         return torch.where(mask, aux_add, distance_ops.NEG_INF)
 
 
@@ -273,13 +317,11 @@ def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
 
 
 def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
-    if req.maxval is None:
-        raise NotImplementedError(
-            "maxval=None, the full distance column (ROADMAP queue 1: _execute_nomax)"
-        )
     if req.precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {req.precision!r}")
-    probed = req.coding is not None and req.probes is not None
+    # the reference's rule: probe only with a coder and a nonzero probe
+    # count; probes=0 answers the exact search over the coded table
+    probed = bool(req.coding) and bool(req.probes)
     if req.metric is None and not probed:
         raise ValueError("metric is required when no coder supplies one")
     # corpora past the budget serve through the host-corpus modes,
@@ -295,7 +337,6 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     column_type = ingest.vector_field_type(data.schema.field(req.column))
     value_dtype = column_type.value_type.to_pandas_dtype()
     target = normalize_target(req.target, column_type.list_size)
-    num_queries = target.shape[0]
 
     coding_data = cache.coding(req.coding) if probed else None
     # the reference's index.py:116-117: the coder's metric by default
@@ -304,15 +345,20 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
 
     n_pad, rows = corpus.rows_padded, corpus.rows
     views = cache.host_column_views(req.source, data, snap_stamp, req.coding)
-    plan = _FilterPlan(req.filter, data, n_pad, rows, cache.device)
+    plan = _FilterPlan(cache, req.source, req.column, req.filter, data, n_pad, rows)
 
     select = [*req.select] if req.select is not None else data.column_names
     select = select + [DIST_COL]
 
+    queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
+    if req.maxval is None:  # every selected row, before any top-k work
+        return _execute_nomax(
+            cache, req, data, corpus, plan, coding_data, metric, target, queries,
+            value_dtype, select, snap_stamp, views,
+        )
+
     k = int(min(req.maxval, rows))
     k_pad = min(_canonical_k(k), n_pad)
-    queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
-
     t = time.perf_counter()
     if probed:
         dists, ids = _probed_topk(
@@ -332,6 +378,101 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     if probed:
         METRICS.add("ivf.seconds", time.perf_counter() - t)
     return gather_results(data, select, dists, ids, value_dtype, views=views)
+
+
+# rows per chunk of a no-top-k read, before chunk_for's cap on the
+# [Q, chunk] distance tile
+_NOMAX_BLOCK = 1 << 20
+
+
+def _execute_nomax(
+    cache: DeviceCache,
+    req: SearchRequest,
+    data: pa.Table,
+    corpus,
+    plan: _FilterPlan,
+    coding_data,
+    metric: str,
+    target: np.ndarray,
+    queries: torch.Tensor,
+    value_dtype,
+    select: Sequence[str],
+    snap_stamp: tuple,
+    views: "dict | None",
+) -> pa.Table:
+    """No-top-k read (``maxval=None``): every selected row with its exact
+    distance, in table order (the reference's index.py:162, probe pruning
+    AND'd into the filter). Counters: ``search.nomax_full`` and
+    ``search.nomax_selected``; ``nomax.seconds`` times the device work and
+    its copies to the host.
+
+    Full read (no filter, no probes): the output is ``[Q, rows]``; it is
+    computed in row chunks, each copied to the host, so no ``[Q, N_pad]``
+    matrix is held on the card. Selected: one count pass, then a
+    compaction of each chunk holding matches at a width of its largest
+    count rounded up to a power of two, kept on the card and copied to
+    the host once. An empty selection returns one −1 / +inf slot per
+    query, which ``gather_results`` drops."""
+    rows, n_pad = corpus.rows, corpus.rows_padded
+    num_queries = target.shape[0]
+    chunk = select_ops.chunk_for(n_pad, num_queries, _NOMAX_BLOCK)
+    t = time.perf_counter()
+
+    if not plan.active and coding_data is None:
+        dists = np.empty((num_queries, rows), np.float32)
+        for start in range(0, rows, chunk):
+            stop = min(start + chunk, rows)
+            dists[:, start:stop] = select_ops.distances(
+                queries, corpus.data[start:stop], metric
+            ).cpu().numpy()
+        METRICS.add("nomax.seconds", time.perf_counter() - t)
+        METRICS.add("search.nomax_full")
+        _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+        parts = []
+        for qi in range(num_queries):
+            part = data.append_column(DIST_COL, pa.array(dists[qi].astype(value_dtype))).select(select)
+            if num_queries > 1:
+                part = part.append_column(QUERY_COL, pa.array(np.full(len(part), qi, dtype=np.int64)))
+            parts.append(part)
+        return pa.concat_tables(parts)
+
+    fmask = plan.mask() if plan.active else None
+    coded = cells_sorted = None
+    if coding_data is not None:
+        cells = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
+        # sorted per query for the searchsorted membership
+        cells_sorted = torch.from_numpy(np.sort(cells, axis=1).astype(np.int32)).to(cache.device)
+        coded_col = cache.coded_ids(req.coding, req.source, req.column)
+        if coded_col.rows_padded != n_pad:
+            raise _StaleRevision
+        coded = coded_col.data
+    if coded is not None:
+        counts = select_ops.count_selected_probed(fmask, coded, cells_sorted, rows, chunk=chunk)
+        chunk_max = counts.max(dim=1).values.cpu().numpy()
+    else:
+        chunk_max = select_ops.count_selected_mask(fmask, rows, chunk=chunk).cpu().numpy()
+
+    ids_parts: list[torch.Tensor] = []
+    dist_parts: list[torch.Tensor] = []
+    for ci in np.flatnonzero(chunk_max):
+        width = min(_canonical_k(int(chunk_max[ci])), chunk)
+        ids_c, d_c = select_ops.compact_chunk(
+            corpus.data, queries, fmask, coded, cells_sorted, int(ci) * chunk, rows,
+            metric=metric, chunk=chunk, width=width,
+        )
+        ids_parts.append(ids_c)
+        dist_parts.append(d_c)
+    if ids_parts:
+        # chunk-major: each query's rows stay in table order
+        ids_all = torch.cat(ids_parts, dim=1).cpu().numpy()
+        d_all = torch.cat(dist_parts, dim=1).cpu().numpy()
+    else:
+        ids_all = np.full((num_queries, 1), -1, np.int64)
+        d_all = np.full((num_queries, 1), np.inf, np.float32)
+    METRICS.add("nomax.seconds", time.perf_counter() - t)
+    METRICS.add("search.nomax_selected")
+    _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+    return gather_results(data, select, d_all, ids_all, value_dtype, views=views)
 
 
 def _scan_copies(cache: DeviceCache, req: SearchRequest) -> dict:
@@ -386,7 +527,7 @@ def _probed_topk(
 
     corpus_s, coded_s, orig_ids = cache.clustered(req.coding, req.source, req.column)
     aux_mul_s, aux_add_s = cache.clustered_aux(req.coding, req.source, req.column, metric)
-    aux_add_s = plan.overlay(aux_add_s, perm)
+    aux_add_s = plan.overlay(aux_add_s, req.coding)
     _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
     METRICS.add("search.ivf_clustered")
     # the gather rescores fp32-true: ``precision`` has no scan to quantize

@@ -22,17 +22,19 @@ first that fits ``FENIX_HBM_BUDGET`` (or the card's memory, see
 ``utils/hbm.py``); "dual" / "int8" / "stream" force one.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: probed (IVF) requests over a host corpus (``probed_topk``
-over ``session.host_clustered_int8`` and its IVF sidecar, queue 1 item
-8b, IVF past the budget), ``maxval=None`` over a host corpus
-(``execute_nomax_host``, item d), and the mesh-composed modes (item 11).
-``execute_many`` takes a list of compatible requests, but only
-``execute_solo`` calls it until micro-batching ports (item a).
+ROADMAP item: probed (IVF) requests over a host corpus, top-k or
+``maxval=None`` (``probed_topk`` over ``session.host_clustered_int8`` and
+its IVF sidecar, ``session.host_cell_meta``: queue 1 item 3, IVF past
+the budget), and the mesh-composed modes (item 10). ``execute_many``
+takes a list of compatible requests, but only ``execute_solo`` calls it
+until micro-batching ports (item 6). ``maxval=None`` over a host corpus
+is ``execute_nomax_host``.
 
 Counters (``stats``): ``search.residency_int8``,
-``search.residency_stream``, ``search.stream_chunks`` (the reference's
-names), and ``residency.phase_a_seconds`` (host wall time of the device
-calls, each ending in the device→host copy of its result) and
+``search.residency_stream``, ``search.stream_chunks``,
+``search.residency_host_nomax`` (the reference's names), and
+``residency.phase_a_seconds`` (host wall time of the device calls, each
+ending in the device→host copy of its result) and
 ``residency.rescore_seconds`` (host gather + exact rescore).
 """
 
@@ -66,6 +68,12 @@ _SAFETY = 0.9
 # default phase-A window per query (FENIX_RESCORE_WINDOW or the
 # request's extra {"window": ...} overrides it)
 _DEFAULT_WINDOW = 4096
+# float64 bytes of one block of gathered rows in the host l2 read
+_NOMAX_BLOCK_BYTES = 128 << 20
+_PROBED_TODO = (
+    "ROADMAP queue 1 item 3, IVF past the budget: residency.probed_topk, session.host_cell_meta, "
+    "session.host_clustered_int8 and its IVF sidecar"
+)
 
 
 def plan(cache, req) -> str:
@@ -356,11 +364,8 @@ def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
     precision) through a host-corpus mode as one device pass, retrying
     when a catalog mutation lands mid-request."""
     r0 = reqs[0]
-    if r0.coding is not None and r0.probes is not None:
-        raise NotImplementedError(
-            "probed search over a host-resident corpus (ROADMAP queue 1 item 8b, IVF past the "
-            "budget: residency.probed_topk, session.host_clustered_int8 and its IVF sidecar)"
-        )
+    if r0.coding and r0.probes:
+        raise NotImplementedError(f"probed search over a host-resident corpus ({_PROBED_TODO})")
     fn = int8_topk if mode == INT8 else stream_topk
     for _ in range(4):
         stamp = cache.snapshot_stamp(r0.source)
@@ -402,7 +407,84 @@ def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
 
 def execute_solo(cache, req, mode: str) -> pa.Table:
     if req.maxval is None:
-        raise NotImplementedError(
-            "maxval=None over a host-resident corpus (ROADMAP queue 1 item d: execute_nomax_host)"
-        )
+        return execute_nomax_host(cache, req)
     return execute_many(cache, [req], mode)[0]
+
+
+def execute_nomax_host(cache, req) -> pa.Table:
+    """No-top-k read over a host-resident corpus: every row that passes
+    the filter, with its exact fp32 distance, computed on the host (the
+    output is O(selected rows): no reason to stream the corpus through
+    the card for a host-delivered result). The reference's index.py:162,
+    as ``fenix_tpu/engine/residency.py:675-739`` serves it, with two
+    changes: the selection is the same for every query, so it is found
+    once; and an l2 distance is ``‖q − v‖`` of the selected row (the
+    port's l2 rule, :func:`_host_l2`), while cosine and dot come from
+    ``native.row_score``.
+    Counter: ``search.residency_host_nomax``. The probed read needs the
+    host cell layout, not ported yet."""
+    if req.coding and req.probes:
+        raise NotImplementedError(f"probed maxval=None over a host-resident corpus ({_PROBED_TODO})")
+    metric = distance_ops.canonical_metric(req.metric)
+    for _ in range(4):
+        stamp = cache.snapshot_stamp(req.source)
+        data = cache.host_table(req.source)
+        column_type = ingest.vector_field_type(data.schema.field(req.column))
+        value_dtype = column_type.value_type.to_pandas_dtype()
+        target = executor.normalize_target(req.target, column_type.list_size)
+        host = cache.host_matrix(req.source, req.column)
+        rows = host.shape[0]
+        sel = np.arange(rows)
+        if req.filter is not None:
+            mask = cache.host_filter_mask(req.source, req.filter)
+            if mask.shape[0] != rows:
+                continue  # the mask and the matrix span revisions
+            sel = np.flatnonzero(mask)
+        dist = _host_distances(cache, req, host, sel, target, metric)
+        if cache.snapshot_stamp(req.source) != stamp:
+            continue
+        qt = target.shape[0]
+        ids = np.broadcast_to(sel, (qt, sel.size))
+        if sel.size == 0:  # one dropped slot per query, as the device read
+            ids, dist = np.full((qt, 1), -1, np.int64), np.full((qt, 1), np.inf, np.float32)
+        select = [*req.select] if req.select is not None else data.column_names
+        METRICS.add("search.residency_host_nomax")
+        return executor.gather_results(
+            data, select + [executor.DIST_COL], dist, ids, value_dtype,
+            views=cache.host_column_views(req.source, data, stamp),
+        )
+    raise RuntimeError(f"table {req.source!r} kept changing during search")
+
+
+def _host_distances(
+    cache, req, host: np.ndarray, sel: np.ndarray, target: np.ndarray, metric: str
+) -> np.ndarray:
+    """``[Q, S]`` f32 distances of every query to the host rows ``sel``:
+    ``native.row_score`` for cosine and dot, :func:`_host_l2` for l2."""
+    if metric == "l2":
+        return _host_l2(host, sel, target)
+    hmul, hadd = cache.host_aux(req.source, req.column, metric)
+    qp = _prepare_queries_np(target, metric)
+    out = np.empty((target.shape[0], sel.size), np.float32)
+    for qi in range(target.shape[0]):
+        sc = native.row_score(host, sel, qp[qi], hmul, hadd)
+        out[qi] = _scores_to_distances_np(sc[None], target[qi : qi + 1], metric)[0]
+    return out
+
+
+def _host_l2(host: np.ndarray, sel: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """``[Q, S]`` f32 ``‖q − v‖`` of every query to the host rows ``sel``,
+    computed in float64 as ``sqrt(‖q‖² − 2q·v + ‖v‖²)``: one BLAS product
+    per block of ``_NOMAX_BLOCK_BYTES`` of gathered rows. In float64 the
+    expansion's cancellation stays near 1e-16·‖v‖², far below what fp32
+    resolves, where in fp32 it cancels for near rows; and it is several
+    times faster than a ``[Q, rows, D]`` difference."""
+    q64 = target.astype(np.float64)
+    qq = np.einsum("qd,qd->q", q64, q64)[:, None]
+    out = np.empty((target.shape[0], sel.size), np.float32)
+    step = max(1, _NOMAX_BLOCK_BYTES // (8 * host.shape[1]))
+    for start in range(0, sel.size, step):
+        block = native.gather_rows(host, sel[start : start + step]).astype(np.float64)
+        d2 = qq - 2.0 * (q64 @ block.T) + np.einsum("nd,nd->n", block, block)[None, :]
+        out[:, start : start + block.shape[0]] = np.sqrt(np.maximum(d2, 0.0))
+    return out

@@ -1,9 +1,10 @@
 """Wire config → engine dispatch — port of ``fenix_tpu/engine/service.py``.
 
-``run_search_config`` hands each request straight to
-``executor.execute_search``: micro-batching of concurrent requests
-(``engine/batching.py``), fused joins and repartitioned sources are not
-ported yet (ROADMAP queue 1).
+``run_search_config`` resolves a repartitioned name to its shard tables
+(``parallel/distributed.resolve_source``) and hands the request straight
+to ``executor.execute_search``: micro-batching of concurrent requests
+(``engine/batching.py``) and fused joins are not ported yet (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import pyarrow as pa
 from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch.engine import executor
 from fenix_tpu_torch.engine.session import DeviceCache
+from fenix_tpu_torch.parallel import distributed
 
 
 def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchRequest:
@@ -41,4 +43,5 @@ def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchR
 def run_search_config(cache: DeviceCache, config: dict[str, Any], target: Any) -> pa.Table:
     if config.get("join") is not None or config.get("aggregate") is not None:
         raise NotImplementedError("search joins and aggregates (ROADMAP queue 1: analytics port)")
+    config = {**config, "source": distributed.resolve_source(cache.root, config["source"])}
     return executor.execute_search(cache, request_from_config(config, target))

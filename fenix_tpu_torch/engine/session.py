@@ -14,8 +14,11 @@ views for the result gather, the LRU budget and ``invalidate``; and for
 the host-corpus residency modes (``engine/residency.py``) the host fp32
 matrix, the host int8 mirror with its on-disk sidecar, the host aux and
 filter masks, and the int8-resident device copy built without any fp32
-on the device. All tensors live on the one ``device`` the cache was made
-for; nothing moves to the CPU when a CUDA device was asked for.
+on the device. Device filters: the scalar columns (``scalar``, integers
+as int32) and ``device_filter_mask``, a predicate evaluated on the card
+and memoized per (predicate, revision) in the filter-mask LRU. All
+tensors live on the one ``device`` the cache was made for; nothing moves
+to the CPU when a CUDA device was asked for.
 
 IVF: the coder (``coding``), the coded host table with the
 ``__CODED_ID__`` join (``coded_table``, resynced when an index and its
@@ -23,18 +26,20 @@ table disagree on rows), the device cell-id column (``coded_ids``) and
 the clustered layout: ``clustered_meta`` (host permutation and cell
 offsets), ``clustered`` (the permuted fp32 copy, its cell ids and
 original row ids, counted in ``device_bytes`` and under the LRU) and
-``clustered_aux``. Entries derived from an index memoize under the table
-stamp plus the index files' mtimes.
+``clustered_aux``, and ``clustered_perm`` (the permutation on the card,
+for device filter masks). Entries derived from an index memoize under the
+table stamp plus the index files' mtimes.
 
 The incremental append / delete refreshes (device and host mirror), the
 host-resident IVF layouts (``host_clustered_int8`` and its sidecar) and
-the mesh-sharded layouts wait (ROADMAP queue 1 items c, e, 8b and 11).
+the mesh-sharded layouts wait (ROADMAP queue 1 items 5, 3 and 10).
 """
 
 from __future__ import annotations
 
 import collections
 import fcntl
+import functools
 import glob
 import hashlib
 import itertools
@@ -52,6 +57,7 @@ import pyarrow as pa
 import torch
 
 from fenix_tpu_torch import coder as coder_mod
+from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch.io import arrow, ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock, read_stable
@@ -64,12 +70,41 @@ LOGGER = logging.getLogger("fenix_tpu_torch")
 
 # Row-block granularity for padded device columns (the JAX package's).
 DEFAULT_BLOCK = 16384
-_MASK_CACHE_LIMIT = 128  # host filter masks kept per cache (LRU)
+# filter masks (host and device) kept per cache, per full predicate with
+# its literals: an LRU, since parametric literals would grow it forever
+_MASK_CACHE_LIMIT = 128
 _INT8_UPLOAD_BLOCKS = 32  # blocks per host→device copy of the int8 mirror
 
 
 def _source_key(source: str | Sequence[str]) -> tuple[str, ...]:
     return (source,) if isinstance(source, str) else tuple(source)
+
+
+def _require_int32(host: np.ndarray, column: str) -> np.ndarray:
+    """Integer host columns go to the device as int32, the type the device
+    expression evaluates them in (the JAX package's device has 32-bit
+    lanes). Values outside int32 raise ``ValueError`` instead of wrapping;
+    other columns pass through. The JAX package converts int64 only and
+    keeps narrower integers: the two differ only where column-by-column
+    arithmetic overflows a narrow type."""
+    if np.issubdtype(host.dtype, np.integer) and host.dtype != np.int32:
+        info = np.iinfo(np.int32)
+        if host.size and (host.max() > info.max or host.min() < info.min):
+            raise ValueError(
+                f"column {column!r} has values outside the device int32 range"
+            )
+        return host.astype(np.int32)
+    return host
+
+
+@functools.lru_cache(maxsize=256)
+def _mask_eval_fn(skeleton_json: str) -> "tuple[expr_mod.Expr, tuple[str, ...]]":
+    """The parsed skeleton of a predicate (literals slotted out by
+    ``expr.split_literals``) and its fields in order, memoized: requests
+    that differ only in literal values share one entry. The JAX package
+    keys its jit here; eager torch has nothing to compile."""
+    skeleton = expr_mod.Expr.from_json(skeleton_json)
+    return skeleton, tuple(sorted(skeleton.fields()))
 
 
 def _quantize_chunk_rows(dim: int, target_bytes: int = 256 << 20) -> int:
@@ -125,6 +160,7 @@ class DeviceCache:
         # in-flight builds outside the lock (ckey -> Event), _memo_unlocked
         self._builds: dict = {}
         self._masks: collections.OrderedDict = collections.OrderedDict()
+        self.device_mask_builds: int = 0  # device filter masks evaluated
 
     def _touch(self, ckey) -> None:
         self._recency[ckey] = next(self._access)
@@ -315,7 +351,7 @@ class DeviceCache:
         format, so a restart of either package memory-maps the codes
         instead of quantizing the corpus again. A sidecar of another
         revision is rebuilt in full (the JAX package's O(delta) refresh
-        waits for the mutation port, ROADMAP queue 1 item e). Counters:
+        waits for the mutation port, ROADMAP queue 1 item 5). Counters:
         ``cache.int8_sidecar_loads`` / ``cache.int8_sidecar_writes``, and
         ``cache.int8_mirror_build_seconds`` (quantize + write)."""
         key = _source_key(source)
@@ -456,6 +492,68 @@ class DeviceCache:
         return mask
 
     # -- device columns ---------------------------------------------------
+
+    def scalar(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
+        """Padded 1-D numeric column on the device (the filter columns):
+        integers as int32 (:func:`_require_int32`), float64 as float32,
+        bools unpacked from Arrow's bits (the JAX package's zero-copy read
+        refuses them, so its bool predicates take the host route), padding
+        0 with validity carried by ``rows``. A column with nulls raises
+        ``ValueError``: its values have no device form, and the host mask
+        answers for it."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build() -> ingest.DeviceColumn:
+            col = self.host_table(source).column(column)
+            if col.null_count:
+                raise ValueError(f"column {column!r} has nulls")
+            host = _require_int32(col.to_numpy(), column)
+            return ingest.to_device_vector(host, block=self.block, device=self.device)
+
+        return self._memo(self._device, (key, column, "scalar"), stamp, build)
+
+    def device_filter_mask(self, source: str | Sequence[str], filt) -> "torch.Tensor | None":
+        """Device ``[N_pad]`` bool mask of a device-evaluable predicate,
+        evaluated over the device scalar columns (:meth:`scalar`): a
+        filtered search moves no per-request mask to the card, and after
+        the first build of a (predicate, revision) nothing crosses at
+        all. Padding rows may come out True; the aux overlay already masks
+        them. Returns None when a referenced column has no device form
+        (values outside int32, nulls, a name the table lacks) or the
+        predicate references no column: the caller takes the host mask.
+        Memoized per full predicate and revision in the LRU of
+        ``_MASK_CACHE_LIMIT``; each evaluation counts in
+        ``device_mask_builds``."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+        ckey = (key, "device", filt.to_json())
+        with self._lock:
+            hit = self._masks.get(ckey)
+            if hit is not None and hit[0] == stamp:
+                self._masks.move_to_end(ckey)
+                return hit[1]
+        names = filt.fields()
+        if not names:
+            return None
+        try:
+            cols = {name: self.scalar(source, name).data for name in names}
+        except (KeyError, ValueError):
+            return None
+        skeleton, literals = filt.split_literals()
+        skeleton, order = _mask_eval_fn(skeleton.to_json())
+        # 0-dim int32 / float32 slots: the literals' types promote as the
+        # JAX package's traced slots do
+        mask = skeleton.device_mask({n: cols[n] for n in order}, [torch.tensor(v) for v in literals])
+        if mask.dtype != torch.bool:
+            mask = mask != 0
+        with self._lock:
+            self._masks[ckey] = (stamp, mask)
+            self._masks.move_to_end(ckey)
+            while len(self._masks) > _MASK_CACHE_LIMIT:
+                self._masks.popitem(last=False)
+            self.device_mask_builds += 1
+        return mask
 
     def matrix(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
         """Padded ``[N_pad, D]`` fp32 vector column on the device. A new
@@ -693,6 +791,20 @@ class DeviceCache:
 
         return self._memo(
             self._host, (key, column, "clustered_meta", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def clustered_perm(self, coding: str, source: str | Sequence[str], column: str) -> torch.Tensor:
+        """Device int64 copy of the clustered layout's permutation (sorted
+        position → original row): a device filter mask follows the rows
+        into the sorted order without a host round trip."""
+        key = _source_key(source)
+
+        def build() -> torch.Tensor:
+            perm, _ = self.clustered_meta(coding, source, column)
+            return torch.from_numpy(perm).to(self.device)
+
+        return self._memo(
+            self._device, (key, column, "clustered_perm", coding), self._coded_stamp(coding, key, column), build
         )
 
     def clustered(self, coding: str, source: str | Sequence[str], column: str):

@@ -1,9 +1,10 @@
 """Declarative, JSON-serializable predicate expressions.
 
-Port of ``fenix_tpu/expr.py`` (its host half, copied: the tree, the JSON
-wire form, the Arrow lowering and the host ``mask()``). Device-side
-evaluation is not ported yet: filters on the exact-search path take the
-host mask, which the executor folds into ``aux_add`` on the device.
+Port of ``fenix_tpu/expr.py``: the tree, the JSON wire form, the Arrow
+lowering and the host ``mask()`` are copied; the device half
+(``device_evaluable``, ``split_literals``, ``fields``, ``device_mask``)
+evaluates over torch tensors on the card, as the JAX package's does over
+``jax.numpy`` arrays.
 
 The reference ships filters as **pickled** ``pyarrow.compute.Expression``
 objects (upstream fenix/flight.py:266, io/index/index.py:89) —
@@ -12,8 +13,8 @@ small expression tree that:
 
 - serializes to/from plain JSON (safe on the wire),
 - lowers to ``pyarrow.compute`` kernels for host-side evaluation,
-- (in ``fenix_tpu``) lowers to device ops for pushdown below the
-  distance kernel; here :meth:`Expr.device_mask` raises.
+- lowers to device ops for pushdown below the distance kernel
+  (:meth:`Expr.device_mask`).
 
 Usage::
 
@@ -31,6 +32,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
+import torch
 
 _COMPARISONS = {"==", "!=", "<", "<=", ">", ">="}
 _BOOLEAN = {"and", "or", "not"}
@@ -306,13 +308,161 @@ class Expr:
             return _PC_STRING[self.op](ev(self.args[0]), self.args[1])
         raise ValueError(f"unknown op: {self.op}")
 
-    # -- evaluation: device ------------------------------------------------
+    # -- evaluation: device (torch) → bool mask ----------------------------
+
+    def device_evaluable(self, schema: pa.Schema) -> bool:
+        """Whether this predicate can be evaluated on the device with
+        host-parity results (the JAX package's rule, copied).
+
+        True when every op has a device lowering and every referenced
+        column is bool / integer / float32 (float64 columns would round
+        through the device's f32 and could flip boundary comparisons),
+        and every numeric literal is exactly representable on the device
+        (int32 range; f32-exact floats). ``/`` is excluded — true
+        division runs in f64 on the host and f32 on the device. String
+        predicates and ``is_null`` stay on the host path.
+        """
+
+        def lit_ok(v: Any) -> bool:
+            if isinstance(v, bool):
+                return True
+            if isinstance(v, (int, np.integer)):
+                return -(2**31) <= int(v) < 2**31
+            if isinstance(v, (float, np.floating)):
+                return float(np.float32(v)) == float(v)
+            return False
+
+        def ok(e: Any) -> bool:
+            if not isinstance(e, Expr):
+                return lit_ok(e)
+            if e.op == "field":
+                name = e.args[0]
+                if name not in schema.names:
+                    return False  # host path raises the proper error
+                t = schema.field(name).type
+                return pa.types.is_boolean(t) or pa.types.is_integer(t) or pa.types.is_float32(t)
+            if e.op == "lit":
+                return lit_ok(e.args[0])
+            if e.op == "isin":
+                return ok(e.args[0]) and all(lit_ok(v) for v in e.args[1])
+            if e.op in _COMPARISONS or e.op in _BOOLEAN or e.op in ("+", "-", "*", "%", "abs"):
+                return all(ok(a) for a in e.args)
+            return False
+
+        return ok(self)
+
+    def split_literals(self) -> "tuple[Expr, list]":
+        """Return ``(skeleton, literals)`` where numeric literals are
+        replaced by ``slot`` placeholders (``np.int32`` / ``np.float32``
+        values). The skeleton keys the memoized device evaluation, so
+        requests differing only in literal values share it. ``isin``
+        value sets stay inline. The literal's type is part of the
+        skeleton (an int and a float slot promote differently)."""
+        lits: list = []
+
+        def walk(e: Any) -> Any:
+            if not isinstance(e, Expr):
+                return e
+            if e.op == "lit":
+                v = e.args[0]
+                if isinstance(v, bool):
+                    return e
+                if isinstance(v, (int, np.integer)):
+                    lits.append(np.int32(v))
+                    return Expr("slot", (len(lits) - 1, "i"))
+                if isinstance(v, (float, np.floating)):
+                    lits.append(np.float32(v))
+                    return Expr("slot", (len(lits) - 1, "f"))
+                return e
+            if e.op == "isin":
+                return e
+            return Expr(e.op, tuple(walk(a) for a in e.args))
+
+        return walk(self), lits
+
+    def fields(self) -> set[str]:
+        """All column names referenced by this predicate."""
+        out: set[str] = set()
+
+        def walk(e: Any) -> None:
+            if isinstance(e, Expr):
+                if e.op == "field":
+                    out.add(e.args[0])
+                for a in e.args:
+                    walk(a)
+
+        walk(self)
+        return out
 
     def device_mask(self, columns: Mapping[str, Any], slots: Sequence[Any] = ()) -> Any:
-        raise NotImplementedError(
-            "device-side filter evaluation (ROADMAP queue 1: device-side expr); "
-            "use mask() on the host table"
-        )
+        """Evaluate over ``{name: torch.Tensor}`` device columns.
+
+        The types follow the JAX package's device path: integer columns
+        arrive as int32 (``session.DeviceCache.scalar``) and ``slots``
+        (the values :meth:`split_literals` took out) as 0-dim int32 /
+        float32 tensors, so an int column against a float literal
+        compares in float32 and ``+ - *`` wrap in int32; ``%`` takes the
+        divisor's sign (``torch.remainder``, Python's rule); ``isin`` is a
+        broadcast equality against the values cast to the column's type.
+        """
+        return self._eval_device(columns, slots)
+
+    def _eval_device(self, columns: Mapping[str, Any], slots: Sequence[Any] = ()) -> Any:
+        def ev(a: Any) -> Any:
+            if isinstance(a, Expr):
+                return a._eval_device(columns, slots)
+            return a
+
+        if self.op == "field":
+            return columns[self.args[0]]
+        if self.op == "lit":
+            return self.args[0]
+        if self.op == "slot":
+            return slots[self.args[0]]
+        if self.op in _COMPARISONS:
+            return _TORCH_COMPARE[self.op](*_tensor_first(ev(self.args[0]), ev(self.args[1])))
+        if self.op == "and":
+            return torch.logical_and(*_tensor_first(ev(self.args[0]), ev(self.args[1])))
+        if self.op == "or":
+            return torch.logical_or(*_tensor_first(ev(self.args[0]), ev(self.args[1])))
+        if self.op == "not":
+            return torch.logical_not(ev(self.args[0]))
+        if self.op == "isin":
+            col = ev(self.args[0])
+            values = torch.tensor(self.args[1], dtype=col.dtype, device=col.device)
+            return (col[:, None] == values[None, :]).any(dim=-1)
+        if self.op == "abs":
+            return torch.abs(ev(self.args[0]))
+        if self.op in _TORCH_ARITH:
+            return _TORCH_ARITH[self.op](*_tensor_first(ev(self.args[0]), ev(self.args[1])))
+        raise ValueError(f"op {self.op} not supported on device")
+
+
+_TORCH_COMPARE = {
+    "==": torch.eq,
+    "!=": torch.ne,
+    "<": torch.lt,
+    "<=": torch.le,
+    ">": torch.gt,
+    ">=": torch.ge,
+}
+_TORCH_ARITH = {
+    "+": torch.add,
+    "-": torch.sub,
+    "*": torch.mul,
+    "/": torch.true_divide,
+    "%": torch.remainder,
+}
+
+
+def _tensor_first(a: Any, b: Any) -> tuple[Any, Any]:
+    """Operands of a binary op, a Python scalar in the first place made a
+    0-dim CPU tensor (the torch functions take a Python scalar only as the
+    second operand; a 0-dim CPU tensor mixes with tensors of any device
+    and, being of the same kind, keeps the other operand's type)."""
+    if isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        return a, b
+    return torch.as_tensor(a), b
 
 
 def field(name: str) -> Expr:

@@ -13,11 +13,21 @@ IVF: ``make-coder`` trains a coder on the server's device,
 drops the coder and every index built from it, ``list-coders`` lists
 coders, and a read with ``coding`` and ``column`` joins the
 ``__CODED_ID__`` column on. The server's ``stats`` show the probed
-routes as ``search.ivf_clustered`` and ``search.ivf_scan``.
+routes as ``search.ivf_clustered`` and ``search.ivf_scan``, the filter
+routes as ``filter.device_pushdown`` and ``filter.host_upload`` (with
+``cache.device_mask_builds``), and the no-top-k reads (``maxval=None``)
+as ``search.nomax_full``, ``search.nomax_selected`` and
+``search.residency_host_nomax``.
+
+``repartition`` hash-partitions a table into shard tables
+(``parallel/distributed.py``); every verb resolves a repartitioned name
+to its shards, and ``drop-table`` and an overwrite put remove them.
+``fault-inject`` arms failure points when the server runs with
+``FENIX_ENABLE_FAULT_INJECTION=1``.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: append/upsert puts, row deletes, compaction and
-repartitioning.
+ROADMAP item: append/upsert puts, row deletes, compaction,
+``get_flight_info`` and ``list_flights``.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from fenix_tpu_torch.engine import executor, service
 from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock
 from fenix_tpu_torch.ops import kernels
+from fenix_tpu_torch.parallel import distributed
 from fenix_tpu_torch.utils.faults import GLOBAL as FAULTS
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -52,8 +63,8 @@ _MUTATIONS_TODO = "ROADMAP queue 1: append/upsert/delete in do_put/do_action"
 _NOT_PORTED = {
     "delete-rows": _MUTATIONS_TODO,
     "compact-table": _MUTATIONS_TODO,
-    "repartition": "ROADMAP queue 1: repartitioned (sharded) tables",
 }
+_CATALOG_INFO_TODO = "ROADMAP queue 1 item 11, remainder: get_flight_info and list_flights"
 
 
 # route counters, shown from the start: the JAX package's residency
@@ -61,6 +72,11 @@ _NOT_PORTED = {
 _ROUTE_COUNTERS = (
     "search.ivf_clustered",
     "search.ivf_scan",
+    "search.nomax_full",
+    "search.nomax_selected",
+    "search.residency_host_nomax",
+    "filter.device_pushdown",
+    "filter.host_upload",
     "search.residency_int8",
     "search.residency_stream",
     "search.stream_chunks",
@@ -79,11 +95,6 @@ def _loads(raw: bytes) -> Any:
 
 def _decode_filter(obj: Any) -> expr_mod.Expr | None:
     return None if obj is None else expr_mod.Expr.from_dict(obj)
-
-
-def _manifest_path(root: str, name: str) -> str:
-    # where the JAX package records a repartitioned table's shards
-    return os.path.join(root, table.LOCATION, name + ".manifest.json")
 
 
 class Server(fl.FlightServerBase):
@@ -113,18 +124,21 @@ class Server(fl.FlightServerBase):
         FAULTS.check("put")
         name = descriptor.path[0].decode()
         mode = descriptor.path[1].decode() if len(descriptor.path) > 1 else "overwrite"
+        if mode != "overwrite" and distributed.load_manifest(self.root, name):
+            raise ValueError(
+                f"table {name!r} is repartitioned; append/upsert are not "
+                "supported on a sharded name — overwrite it or re-ingest"
+            )
         if mode in ("append", "upsert"):
             raise NotImplementedError(f"put mode {mode!r} ({_MUTATIONS_TODO})")
         if mode != "overwrite":
             raise ValueError(f"unknown put mode {mode!r}")
-        if os.path.exists(_manifest_path(self.root, name)):
-            raise NotImplementedError(
-                f"table {name!r} is repartitioned ({_NOT_PORTED['repartition']})"
-            )
         with METRICS.timed("put", table=name, mode=mode):
             # One lock scope: the rewrite and the index drop form a
             # single catalog mutation.
             with catalog_lock(self.root):
+                # a fresh table replaces any previous sharded form
+                distributed.drop_repartition(self.root, name)
                 table.make(self.root, name, reader.to_reader())
                 # Existing indexes are no longer row-aligned; drop them so
                 # probed search fails loudly instead of returning rows
@@ -136,7 +150,7 @@ class Server(fl.FlightServerBase):
     def do_get(self, ctx: fl.ServerCallContext, ticket: fl.Ticket):
         FAULTS.check("get")
         req = _loads(ticket.ticket)
-        source = req["source"]
+        source = distributed.resolve_source(self.root, req["source"])
         coding, column = req.get("coding"), req.get("column")
         select = req.get("select")
         filter_ = _decode_filter(req.get("filter"))
@@ -191,11 +205,13 @@ class Server(fl.FlightServerBase):
 
         match action.type:
             case "make-coder":
+                config["source"] = distributed.resolve_source(self.root, config["source"])
                 with METRICS.timed("make-coder", coder=config.get("name")):
                     coder_mod.make(self.root, **config, device=self.device)
                 return iter([])
 
             case "make-index":
+                config["source"] = distributed.resolve_source(self.root, config["source"])
                 with METRICS.timed("make-index", coder=config.get("name")):
                     index_mod.make(self.root, **config, device=self.device)
                 self.cache.invalidate()
@@ -208,11 +224,23 @@ class Server(fl.FlightServerBase):
                 return iter([])
 
             case "drop-table":
-                # indexes first: attribution needs the table's schema
-                index_mod.drop_for_source(self.root, config["name"])
-                table.drop(self.root, **config)
+                # a repartitioned name drops its shard tables + manifest
+                if not distributed.drop_repartition(self.root, config["name"]):
+                    # indexes first: attribution needs the table's schema
+                    index_mod.drop_for_source(self.root, config["name"])
+                    table.drop(self.root, **config)
                 self.cache.invalidate()
                 return iter([])
+
+            case "repartition":
+                name = config["source"]
+                num_shards = int(config.get("num_shards") or 2)
+                with METRICS.timed("repartition", table=name, shards=num_shards):
+                    manifest = distributed.repartition(
+                        self.root, name, num_shards, key_column=config.get("key", "id")
+                    )
+                self.cache.invalidate()
+                return iter([fl.Result(manifest.to_json().encode())])
 
             case "remove":
                 shutil.rmtree(self.root, ignore_errors=True)
@@ -234,6 +262,7 @@ class Server(fl.FlightServerBase):
                     snap.setdefault(name, 0.0)
                 snap["cache.device_bytes"] = float(self.cache.device_bytes())
                 snap["cache.evictions"] = float(self.cache.evictions)
+                snap["cache.device_mask_builds"] = float(self.cache.device_mask_builds)
                 for kind, count in self.cache.device_entry_kinds().items():
                     snap[f"cache.device_entries.{kind}"] = float(count)
                 for name, count in kernels.LAUNCHES.items():
@@ -243,11 +272,29 @@ class Server(fl.FlightServerBase):
             case "health":
                 return iter([fl.Result(b'{"status":"ok"}')])
 
+            case "fault-inject":
+                # arm deterministic failure points — resilience testing
+                # only, and only when the operator opted in (any client
+                # could otherwise deny service with one request)
+                if os.environ.get("FENIX_ENABLE_FAULT_INJECTION") != "1":
+                    raise PermissionError(
+                        "fault injection disabled; set "
+                        "FENIX_ENABLE_FAULT_INJECTION=1 on the server"
+                    )
+                FAULTS.configure(config.get("spec", ""))
+                return iter([])
+
             case verb if verb in _NOT_PORTED:
                 raise NotImplementedError(f"action {verb!r} ({_NOT_PORTED[verb]})")
 
             case _:
                 raise ValueError(f"unknown action {action.type!r}")
+
+    def get_flight_info(self, ctx: fl.ServerCallContext, descriptor: fl.FlightDescriptor) -> fl.FlightInfo:
+        raise NotImplementedError(f"get_flight_info ({_CATALOG_INFO_TODO})")
+
+    def list_flights(self, ctx: fl.ServerCallContext, criteria: bytes):
+        raise NotImplementedError(f"list_flights ({_CATALOG_INFO_TODO})")
 
 
 class Flight:
@@ -334,6 +381,13 @@ class Flight:
     def drop_table(self, name: str) -> "Flight":
         self._action("drop-table", {"name": name})
         return self
+
+    def repartition(self, source: str, num_shards: int | None = None, key: str = "id") -> dict:
+        """Hash-partition ``source`` into ``num_shards`` shard tables (2 by
+        default) keyed by ``key``; the name then resolves to the shards on
+        every verb, and its indexes are dropped. Returns the manifest."""
+        results = self._action("repartition", {"source": source, "num_shards": num_shards, "key": key})
+        return _loads(results[0].body.to_pybytes())
 
     # -- index lifecycle --------------------------------------------------
 

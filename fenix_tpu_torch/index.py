@@ -14,7 +14,7 @@ argmin), or on the host through ``ops/cells.assign_cells_np`` when the
 table's fp32 form does not fit the device budget, or as ``FENIX_ASSIGN``
 (``auto`` | ``host`` | ``device``) says.
 
-Not ported yet (ROADMAP queue 1 item e, with the table mutations):
+Not ported yet (ROADMAP queue 1 item 5, with the table mutations):
 ``extend_for_source``, ``delete_rows`` and ``upsert_rows``.
 """
 

@@ -4,8 +4,8 @@ Arrow FixedSizeList columns are viewed as dense ``[rows, list_size]``
 numpy arrays without copying on the host, then copied into a padded
 device tensor (a block multiple of rows, with the valid row count kept
 alongside so kernels can mask the tail). ``vector_type``,
-``fixed_size_list_to_numpy``, ``numpy_to_fixed_size_list`` and
-``round_up`` are the reference's, minus the extension types
+``fixed_size_list_to_numpy``, ``numpy_to_fixed_size_list``,
+``to_device_vector`` and ``round_up`` are the reference's, minus the extension types
 (``fenix_tpu/types``), which are not ported yet and raise.
 """
 
@@ -123,6 +123,26 @@ def to_device_matrix(
         part = array[start : start + _UPLOAD_ROWS]
         data[start : start + part.shape[0]].copy_(host_tensor(part))
     data[rows:].zero_()
+    return DeviceColumn(data=data, rows=rows)
+
+
+def to_device_vector(
+    array: pa.Array | pa.ChunkedArray | np.ndarray,
+    *,
+    block: int = 1024,
+    device: str | torch.device,
+) -> DeviceColumn:
+    """Pad a 1-D host column to a block multiple of rows on ``device``
+    (the filter columns), zeros in the tail. A float64 column becomes
+    float32, as the JAX package's arrays do with 64-bit types off."""
+    if not isinstance(array, np.ndarray):
+        array = scalar_column_to_numpy(array)
+    rows = array.shape[0]
+    rows_padded = max(round_up(rows, block), block)
+    host = host_tensor(np.ascontiguousarray(array))
+    dtype = torch.float32 if host.dtype == torch.float64 else host.dtype
+    data = torch.zeros((rows_padded,), dtype=dtype, device=device)
+    data[:rows].copy_(host)
     return DeviceColumn(data=data, rows=rows)
 
 

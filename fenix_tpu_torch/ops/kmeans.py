@@ -10,23 +10,27 @@ the codebook axis; here the codebooks are one batched product
 segments.
 
 Random draws: ``train`` takes its initial rows and its per-epoch
-permutations from a CPU ``torch.Generator`` seeded with the seed
-(:func:`draw_indices`), so one seed trains the same coder on the CPU and
-on the card, up to fp32 summation order (``index_add_`` on the card sums
-in no fixed order, and a sample whose two nearest centroids are closer
-than fp32 resolves may be assigned either way). JAX's threefry stream
-cannot be matched: a coder trained here differs from one the JAX package
-trains with the same seed, and both are valid k-means coders.
+permutations from ``utils/threefry.py`` (:func:`draw_indices`), a numpy
+copy of the ``jax.random`` draws the JAX package's ``train`` makes, so a
+seed trains the JAX package's coder, on the CPU and on the card, up to
+fp32 summation order (``index_add_`` on the card sums in no fixed order,
+and a sample whose two nearest centroids are closer than fp32 resolves
+may be assigned either way).
 
-Not ported yet (ROADMAP queue 1 item 8b, IVF past the budget, and item
-11): ``train_streaming``, ``train_sharded``, ``sharded_lloyd_step``.
+Not ported yet (ROADMAP queue 1 item 3, IVF past the budget, and item
+10): ``train_streaming``, ``train_sharded``, ``sharded_lloyd_step``.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import torch
 
 from fenix_tpu_torch.ops.distance import canonical_metric, normalize, pairwise_distance
+from fenix_tpu_torch.utils import threefry
+
+_DRAW_THREADS = 4  # permutations drawn at once
 
 
 def lloyd_step_assign(
@@ -74,22 +78,29 @@ def draw_indices(
     """The rows :func:`train` reads, as CPU int64 tensors: the initial
     rows ``[n·K]`` (without replacement) and, per epoch, the permuted
     sample rows ``[steps, n, b]`` with ``steps = N // (n·b)`` (the
-    remainder of the permutation is dropped)."""
+    remainder of the permutation is dropped). These are the JAX package's
+    draws for the seed (``fenix_tpu/ops/kmeans.py:83-107``): ``PRNGKey``,
+    one split into the epoch key and the init key, ``choice(replace=False)``
+    for the init rows and one ``permutation`` per epoch key. The
+    permutations are independent, so they run in threads (numpy's sorts
+    and ufuncs release the interpreter lock)."""
     need = num_codebooks * codebook_size
     if need > n_rows:
         raise ValueError(
             f"{num_codebooks} x {codebook_size} initial centroids need that many rows; "
             f"the corpus has {n_rows}"
         )
-    g = torch.Generator().manual_seed(int(seed))
-    init = torch.randperm(n_rows, generator=g)[:need]
+    key, init_key = threefry.split(threefry.prng_key(seed))
+    keys = [init_key, *threefry.split(key, num_epochs)] if num_epochs else [init_key]
+    with ThreadPoolExecutor(max_workers=min(len(keys), _DRAW_THREADS)) as pool:
+        perms = [*pool.map(lambda k: threefry.permutation(k, n_rows), keys)]
     per_step = num_codebooks * batch_size
     steps = n_rows // per_step
     epochs = [
-        torch.randperm(n_rows, generator=g)[: steps * per_step].view(steps, num_codebooks, batch_size)
-        for _ in range(num_epochs)
+        torch.from_numpy(p[: steps * per_step]).view(steps, num_codebooks, batch_size)
+        for p in perms[1:]
     ]
-    return init, epochs
+    return torch.from_numpy(perms[0][:need]), epochs
 
 
 def train(

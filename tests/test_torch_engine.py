@@ -183,9 +183,10 @@ def test_budget_eviction_keeps_latest(root, monkeypatch):
 
 
 def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
-    """maxval=None and joins still raise, as do probed search and coder
-    training past the budget; IVF, the int8-resident and streaming modes
-    and requests over the budget are served."""
+    """Joins still raise, as do probed search (top-k or maxval=None) and
+    coder training past the budget; IVF, maxval=None on the device and
+    over the host corpus, the int8-resident and streaming modes and
+    requests over the budget are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -199,8 +200,8 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     index.make(root, "ivf", "items", "vector", device="cpu")
     probed = run(coding="ivf", probes=4, metric=None)  # the coder's metric
     assert probed.num_rows == 10 and "__CODED_ID__" in probed.column_names
-    with pytest.raises(NotImplementedError, match="_execute_nomax"):
-        run(maxval=None)
+    nomax = run(maxval=None)  # every row for each query, in table order
+    assert nomax.num_rows == 2 * N and nomax.column("id").to_numpy()[:N].tolist() == [*range(N)]
     dual = run()
     for mode in ("int8", "stream"):
         assert run(residency=mode).column("id").equals(dual.column("id"))
@@ -211,14 +212,15 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     monkeypatch.setenv("FENIX_HBM_BUDGET", "1000")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target, maxval=5)) == "stream"
     assert run().column("id").equals(dual.column("id"))
-    with pytest.raises(NotImplementedError, match="_execute_nomax"):
-        run(maxval=None)
-    with pytest.raises(NotImplementedError, match="execute_nomax_host"):
-        residency.execute_solo(
-            cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
-        )
+    assert run(maxval=None).column("id").equals(nomax.column("id"))  # the host-corpus read
+    host = residency.execute_solo(
+        cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
+    )
+    assert host.column("id").equals(nomax.column("id"))
     with pytest.raises(NotImplementedError, match="IVF past the budget.*probed_topk"):
         run(coding="ivf", probes=4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3.*host_cell_meta"):
+        run(coding="ivf", probes=4, maxval=None)
     with pytest.raises(NotImplementedError, match="IVF past the budget.*train_streaming"):
         coder.make(root, "big", "items", "vector", config, seed=0, device="cpu")
     monkeypatch.delenv("FENIX_HBM_BUDGET")
@@ -246,7 +248,9 @@ def test_extension_vector_column_raises(tmp_path, rng):
 
 def test_port_imports_without_jax():
     code = (
-        "import sys, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels; "
+        "import sys, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels, "
+        "fenix_tpu_torch.ops.select, fenix_tpu_torch.ops.relational, "
+        "fenix_tpu_torch.parallel.distributed, fenix_tpu_torch.utils.threefry; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'fenix_tpu' or m.startswith('fenix_tpu.')); "
         "assert not bad, bad"
@@ -379,14 +383,16 @@ def test_chip_smoke_kernel_entries():
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.tensor_int8": 4,
               "kernel.generic_int8": 0}
-    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}}
+    selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
+    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 8
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 9
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 1
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 2
+    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
     assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 4
@@ -395,6 +401,9 @@ def test_chip_smoke_kernel_entries():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
     by_path["residency"]["kernel.stream"] = 0
     with pytest.raises(AssertionError, match="stream was not launched on the residency path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["residency"]["kernel.stream"], selection["kernel.tiled"] = 2, 0
+    with pytest.raises(AssertionError, match="tiled was not launched on the selection path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -573,3 +582,75 @@ def test_chip_smoke_ivf_phase_on_the_cpu(tmp_path, monkeypatch):
         smoke.check_route("x", {"search.ivf_clustered": 3.0, "search.ivf_scan": 1.0},
                           {"search.ivf_clustered": 4.0, "search.ivf_scan": 2.0}, "clustered")
     assert kmeans.draw_indices(10, 0, 1, 2, 4, 1)[0].shape == (2,)
+
+
+def test_chip_smoke_selection_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 8 of chip_smoke.py rehearsed on the CPU at a small size, on
+    the port's server (CPU device) after phase 7: the filtered searches on
+    both filter routes with their counter checks, the three device
+    no-top-k reads, then (d) the host-corpus read under a low budget, and
+    every oracle check after the server."""
+    import threading
+
+    import fenix_tpu_torch
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    root = str(tmp_path)
+    t = pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "smoke/items", t.to_reader(max_chunksize=4096))
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "WARM_REPS": 1, "SEL_READ_REPS": 1,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        "IVF_SEARCHES": (("ivf_q8_p64_filtered", 8, 1, True, "fp32", "clustered", "l2"),),
+        "SEARCHES": tuple((s[0], min(s[1], 100), *s[2:]) for s in smoke.SEARCHES),
+        "SEL_READS": tuple((s[0], s[1], s[2], s[3], s[4] and 4) for s in smoke.SEL_READS),
+        "SEL_ORACLE_ROWS": 5000,
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    try:
+        queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+        results = []
+        for spec, qnp in zip(smoke.SEARCHES, queries):
+            name, qn, metric, k, precision, filtered, flat = spec
+            results.append(client.search(qnp[0] if flat else qnp, "smoke/items", "vector", metric=metric,
+                                         maxval=k, precision=precision,
+                                         filter=(expr.field("tag") < 50) if filtered else None))
+        ivf = smoke.phase_ivf_serve(client, expr, vectors, root, "cpu", "cpu")
+        sel = smoke.phase_selection_serve(client, expr, kernels, vectors, tags,
+                                          smoke.rerun_specs(queries, results, ivf), "cpu", "cpu")
+        monkeypatch.setenv("FENIX_HBM_BUDGET", str(1 << 20))  # the host corpus serves the read
+        spec = smoke.SEL_HOST_READ
+        host_queries = smoke.make_queries(vectors, spec[1], seed=400)
+        host_read, row = smoke.selection_read(client, expr, spec, "smoke/items", host_queries, "cpu", "cpu",
+                                              "search.residency_host_nomax", pushdown=False)
+        # the device read's counter does not move on the host route
+        with pytest.raises(AssertionError, match="search.nomax_selected rose by 0"):
+            smoke.selection_read(client, expr, spec, "smoke/items", host_queries, "cpu", "cpu",
+                                 "search.nomax_selected", pushdown=True)
+    finally:
+        client.close()
+        server.shutdown()
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
+    timed = smoke.selection_timings(vectors, tags, ivf, "cpu", "cpu")
+    assert set(timed) == {"mask_build", "permutation_take", "count_pass_mask", "compact_chunk",
+                          "count_pass_probed"}
+    host = smoke.host_read_timings(vectors, tags, host_queries, "cpu", "cpu")
+    assert host["host_l2_distances"]["shape"]["rows"] == int((tags == 7).sum())
+    assert [r["search"] for r in sel["pushdown"]] == [s[0] for s in smoke.SEL_PUSHDOWN]
+    assert not any(sel["launches"].values())  # CPU tensors launch nothing
+    oracle = smoke.Oracle(vectors, "cpu")
+    checks = smoke.phase_selection_checks(oracle, tags, ivf, sel)
+    assert [c["rows"] for c in checks][2] == SMOKE_ROWS  # the full read
+    assert 0 < checks[0]["rows_per_query"] < SMOKE_ROWS // 50
+    rows = np.flatnonzero(tags == 7)
+    checked = smoke.check_selection(oracle, spec[0], "l2", host_queries, host_read, lambda qi: rows)
+    assert checked["rows"] == 8 * rows.size
+    # the oracle refuses a read that drops a row or reorders a query's rows
+    one = pa.table({"id": pa.array(rows[::-1]), "__DISTANCE__": pa.array(np.zeros(rows.size, np.float32))})
+    with pytest.raises(AssertionError, match="selected rows in table order"):
+        smoke.check_selection(oracle, "x", "l2", host_queries[:1], one, lambda qi: rows)

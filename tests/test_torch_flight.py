@@ -170,8 +170,14 @@ def test_unported_verbs_raise(loaded):
         c.append_table("items", reader(1, rows=BATCH))
     with pytest.raises(pa.ArrowNotImplementedError, match="ROADMAP"):
         c.delete_rows("items", jexpr.field("id") < 3)
-    with pytest.raises(pa.ArrowNotImplementedError, match="_execute_nomax"):
-        c.search(np.zeros(DIM, np.float32), "items", "vector", metric="l2")  # maxval=None
+    # maxval=None, the client's default, is answered: every row that
+    # passes the filter, in table order, as the JAX server answers it
+    target = np.random.default_rng(3).standard_normal(DIM).astype(np.float32)
+    kw = dict(metric="l2", filter=jexpr.field("tag") == 2, select=["id", "tag"])
+    got = c.search(target, "items", "vector", **kw)
+    want = loaded["jax_client_on_jax"].search(target, "items", "vector", **kw)
+    assert got.num_rows == (pa.Table.from_batches([*batches(0)]).column("tag").to_numpy() == 2).sum()
+    assert got.column("id").equals(want.column("id")) and got.schema == want.schema
     with pytest.raises(pa.ArrowInvalid, match="unknown action"):
         c._action("no-such-verb", {})
 
@@ -250,3 +256,87 @@ def test_ivf_lifecycle_through_both_clients(loaded, q, probes):
     with pytest.raises(pa.ArrowException):
         jc.search(np.zeros(DIM, np.float32), "items", "vector", metric="cosine", maxval=5,
                   coding=name, probes=2)
+
+
+def test_repartitioned_names_resolve_on_every_verb(loaded, root):
+    """A table the JAX package repartitioned: the port's server resolves
+    its name to the shard tables for searches, reads and make-index as
+    the JAX server does, refuses an append on it, and drop-table removes
+    the shards and the manifest."""
+    from fenix_tpu.parallel import distributed as jdistributed
+
+    jc, pc, jj = loaded["jax_client_on_port"], loaded["port_client_on_port"], loaded["jax_client_on_jax"]
+    pc.make_table("sharded", reader(7, rows=3 * BATCH))
+    jdistributed.repartition(root, "sharded", 3)
+    tables = pc.list_tables()
+    assert "sharded" not in tables and {f"sharded@{s}" for s in range(3)} <= set(tables)
+    target = np.random.default_rng(8).standard_normal((4, DIM)).astype(np.float32)
+    for kw in (dict(metric="l2", maxval=7), dict(metric="cosine", filter=True, select=["id", "tag"])):
+        jkw, pkw = dict(kw), dict(kw)
+        if kw.pop("filter", None):
+            jkw["filter"], pkw["filter"] = jexpr.field("tag") == 1, expr.field("tag") == 1
+        want = jj.search(target, "sharded", "vector", **jkw)
+        assert_tables_match(jc.search(target, "sharded", "vector", **jkw), want)
+        assert_tables_match(pc.search(target, "sharded", "vector", **pkw), want)
+    assert pc.read_table("sharded").read_all().equals(jj.read_table("sharded").read_all())
+    jc.make_index("shardivf", "sharded", "vector", IVF_CONFIG)
+    assert {f"sharded@{s}/vector/shardivf" for s in range(3)} <= set(pc.list_indexes())
+    kw = dict(metric="cosine", maxval=5, coding="shardivf", probes=3)
+    assert_tables_match(jc.search(target, "sharded", "vector", **kw),
+                        jj.search(target, "sharded", "vector", **kw))
+    with pytest.raises(pa.ArrowInvalid, match="repartitioned"):
+        jc.append_table("sharded", reader(1, rows=BATCH))
+    jc.drop_table("sharded")
+    assert not any(t.startswith("sharded") for t in jj.list_tables())
+    assert jdistributed.load_manifest(root, "sharded") is None
+    jc.drop_index("shardivf")
+
+
+def test_port_repartition_places_rows_as_the_jax_package(loaded, root):
+    """The port's repartition action shards a table as the JAX package's
+    host path does, and an overwrite of the name replaces its shards."""
+    from fenix_tpu.parallel import distributed as jdistributed
+
+    pc, jj = loaded["port_client_on_port"], loaded["jax_client_on_jax"]
+    for name in ("by_port", "by_jax"):
+        pc.make_table(name, reader(9, rows=2 * BATCH))
+    assert pc.repartition("by_port", num_shards=2, key="id") == {"table": "by_port", "num_shards": 2}
+    jdistributed.repartition(root, "by_jax", 2)
+    for s in range(2):
+        assert jj.read_table(f"by_port@{s}").read_all().equals(jj.read_table(f"by_jax@{s}").read_all())
+    pc.make_table("by_port", reader(9, rows=BATCH))
+    assert not any(t.startswith("by_port@") for t in pc.list_tables())
+    assert pc.read_table("by_port").read_all().num_rows == BATCH
+    for name in ("by_port", "by_jax"):
+        pc.drop_table(name)
+    assert not any(t.startswith("by_") for t in jj.list_tables())
+
+
+def test_fault_inject_needs_its_environment_gate(loaded, monkeypatch):
+    c = loaded["port_client_on_port"]
+    monkeypatch.delenv("FENIX_ENABLE_FAULT_INJECTION", raising=False)
+    with pytest.raises(pa.ArrowException, match="fault injection disabled"):
+        c._action("fault-inject", {"spec": "search:1"})
+    monkeypatch.setenv("FENIX_ENABLE_FAULT_INJECTION", "1")
+    target = np.zeros(DIM, np.float32)
+    try:
+        c._action("fault-inject", {"spec": "search:1"})
+        with pytest.raises(pa.ArrowException, match="injected fault"):
+            c.search(target, "items", "vector", metric="l2", maxval=3)
+        assert c.search(target, "items", "vector", metric="l2", maxval=3).num_rows == 3
+        c._action("fault-inject", {"spec": "search:1"})  # a retrying client rides over it
+        retrying = fenix_tpu_torch.Flight(host="127.0.0.1", port=c.port, retries=2)
+        assert retrying.search(target, "items", "vector", metric="l2", maxval=3).num_rows == 3
+        retrying.close()
+    finally:
+        c._action("fault-inject", {"spec": ""})
+
+
+def test_catalog_discovery_names_its_roadmap_item(loaded):
+    import pyarrow.flight as fl
+
+    conn = loaded["port_client_on_port"].conn
+    with pytest.raises(pa.ArrowNotImplementedError, match="queue 1 item 11"):
+        conn.get_flight_info(fl.FlightDescriptor.for_path("items"))
+    with pytest.raises(pa.ArrowNotImplementedError, match="queue 1 item 11"):
+        [*conn.list_flights()]
