@@ -62,7 +62,7 @@ Phases, each printing one JSON line with its own timings:
    equal the dual ids; against the float64 oracle the fp32 routes follow
    phase 4's rule and the int8 routes reach recall@100 >= 0.99. Printed:
    the cold first call (mirror quantize, sidecar write, upload), warm
-   latency (median of 5) and a warm split from the server's counters
+   latency (median of RES_WARM_REPS = 2) and a warm split from the server's counters
    (device phase A, host gather + rescore, upload GB/s).
 
 7. IVF on the phase-3 server and table: make_index over Flight trains a
@@ -113,9 +113,48 @@ Phases, each printing one JSON line with its own timings:
    server, Q=8 l2 tag == 7 maxval=None over the host corpus must move
    search.residency_host_nomax and pass the same oracle.
 
+9. IVF past the budget, on the phase-6 server after 8 (d): make_index of
+   an IVF4096 l2 coder (batch 65,536, 2 epochs: 128 Lloyd steps) must
+   train by streaming the host corpus in fp32 transport
+   (train.stream_fp32, train.stream_steps) and assign every row on the
+   host (index.host_assigns); make-coder / make-index seconds and the cell
+   occupancy printed. Two probed l2 top-100 searches with residency auto,
+   Q=1 with 16 probes and Q=8 with 64 probes and tag < 50, each call
+   moving search.residency_probed_host by one and no kernel launch (the
+   first writing the IVF sidecar), one cold and two warm calls; then
+   Q=8 l2 maxval=None with 16 probes and tag == 7. After the server:
+   1,048,576 rows' cell ids against the float64 argmin (near ties
+   counted), one Lloyd step on the card against the CPU from the trained
+   codebooks, each search against the float64 oracle over its probe
+   cells' rows that pass the filter (recall@100 >= 0.99, distances within
+   1e-4 * max(1, d)), the read's rows exactly the probe cells' tag == 7
+   rows in table order; the host ops timed alone.
+10. mutations. (a) on the phase-3 server after phase 8, with a host copy
+   mutated alike as the oracle's input: append 65,536 rows (two copy
+   queries of later searches): the index holds every row, the Q=8 cosine
+   search grows the matrix (cache.incremental_refreshes +1, one stream
+   launch, under 4x the delta's bytes uploaded) and finds its copy first,
+   the Q=8 p64 clustered search finds its copy; delete tag == 7 (the
+   oracle's count): the Q=1024 l2 search refreshes by the lineage (one
+   tiled launch) and returns no deleted id; upsert 4,096 rows by id
+   ({"replaced": 2048, "inserted": 2048}; one lineage refresh, the keep
+   hop and the appended part together); compact (one lineage refresh,
+   nothing uploaded). Every search against the float64 oracle by phase
+   4's rule; mutation and first-search times beside phase 3's cold first
+   call. (b) on the phase-6 server after phase 9: append 65,536 x 768
+   rows; the auto Q=8 search quantizes exactly the delta
+   (cache.mirror_rows_quantized, cache.mirror_delta_refreshes +1), grows
+   the int8-resident copy (one incremental refresh, one tensor_int8
+   launch), keeps no fp32 matrix and stays within the budget, recall@100
+   >= 0.99 and its copy first; phase 9's Q=8 p64 search finds its copy.
+   (c) stream over the grown matrix, tiled over the shrunk one and
+   tensor_int8 over the grown int8 copy against their plain versions
+   (check_close), with the grow, the shrink and the delta quantize timed.
+
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
-each with its launches on every path: exact, residency, ivf, selection),
+each with its launches on every path: exact, residency, ivf, selection,
+mutation),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. The script takes no options: the card run at this size is its
@@ -144,6 +183,7 @@ BATCH_ROWS = 65_536
 NEAR_TIE = 1e-5  # relative float64 distance gap below which fp32 order is free
 TIMING_REPS = 3  # timed launches per kernel-vs-plain shape, after one warm-up
 WARM_REPS = 5  # warm repetitions per search
+RES_WARM_REPS = 2  # warm repetitions of a phase-6 search (several seconds each on the host)
 SEARCHES = (
     # name, queries, metric, k, precision, filtered, flat
     ("flat_cosine_k10", 1, "cosine", 10, "fp32", False, True),
@@ -160,11 +200,11 @@ KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "residency")),  # kernel_f32 of bucket_scores_pallas_bigq (:492)
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation")),  # kernel_f32 of bucket_scores_pallas_bigq
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "selection")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection")),  # kernel_int8 of the same
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation")),  # kernel_int8 of the same
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -254,6 +294,35 @@ SEL_READS = (
 SEL_READ_REPS = 3  # warm calls per read
 SEL_HOST_READ = ("read_host_q8_l2_tag_eq_7", 8, "l2", ("==", 7), None)  # (d), phase-6 server
 SEL_ORACLE_ROWS = 1 << 20  # rows per float64 distance check step
+ALL_LAUNCH_KEYS = (*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS))
+
+# phase 9: IVF past the budget on the phase-6 server (4,194,304 x 768 past
+# 6 GiB); the fp32 form (12.9 GB) passes 0.9 x the budget, so the coder
+# trains by streaming and the rows are assigned on the host. IVF4096 =
+# 2*sqrt(N): cut from IVF8192 = 4*sqrt(N), the lower edge of FAISS's
+# 4*sqrt(N) to 16*sqrt(N) (faiss wiki, "Guidelines to choose an index"),
+# because the host assignment at 8,192 cells took 602 s on the card's host
+IVFH_CODER = "ivf4k"
+IVFH_CELLS = 4096
+IVFH_CONFIG = {"metric": "l2", "codebook_size": IVFH_CELLS, "num_codebooks": 1,
+               "batch_size": 65_536, "num_epochs": 2}
+IVFH_K = 100
+IVFH_SEARCHES = (
+    # name, queries, probes, filtered (tag < 50); l2 top-100, residency auto
+    ("host_ivf_q1_p16", 1, 16, False),
+    ("host_ivf_q8_p64_filtered", 8, 64, True),
+)
+IVFH_READ = ("host_ivf_read_q8_l2_p16_tag_eq_7", 8, "l2", ("==", 7), 16)  # maxval=None
+IVFH_STEP_ROWS = 65_536  # rows of the Lloyd-step check: one step of a streamed chunk
+# the server's split of a probed host search: the int8 scan of the probe
+# cells and the exact rescore of the window
+IVFH_SPLIT_KEYS = ("residency.probed_score_seconds", "residency.rescore_seconds")
+
+# phase 10: mutations. (a) on the phase-3 server: append, delete tag == 7,
+# upsert by id, compact; (b) on the phase-6 server: append
+MUT_APPEND_ROWS = 65_536
+MUT_UPSERT = 2_048  # existing ids given new vectors, and as many new ids
+MUT_H2D_FACTOR = 4  # the append's refresh uploads under this many times its delta
 
 
 def emit(obj) -> None:
@@ -408,7 +477,8 @@ def check_kernel(kernels, q, v, mul, add, bucket, inv_sq, kernel):
 
     got = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=kernel)
     want = plain_chunked(kernels, q, v, mul, add, bucket, inv_sq)
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     return check_close(got, want, q, v, mul, add, inv_sq), got
 
 
@@ -425,7 +495,8 @@ def design_diff(kernels, got, q, v, mul, add, bucket, inv_sq, design) -> dict:
     if other == "tensor_int8" and v.shape[1] % 16:
         return {}
     theirs = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=other)
-    torch.cuda.synchronize()
+    if theirs.is_cuda:
+        torch.cuda.synchronize()
     diff = check_close(got, theirs, q, v, mul, add, inv_sq)
     equal = torch.equal(got, theirs)
     return {"other_design": other, "max_abs_diff_designs": diff, "designs_bit_equal": equal,
@@ -668,9 +739,17 @@ class Oracle:
     def __init__(self, vectors, device):
         import torch
 
-        # widened on the card: a float64 host copy would double host memory
-        self.v = torch.from_numpy(vectors).to(device).to(torch.float64)
-        self.sq = (self.v * self.v).sum(dim=1)
+        # widened on the card, part by part (``vectors`` may be a list of
+        # row blocks): a float64 host copy would double host memory
+        parts = list(vectors) if isinstance(vectors, (list, tuple)) else [vectors]
+        self.v = torch.empty((sum(p.shape[0] for p in parts), parts[0].shape[1]), dtype=torch.float64,
+                             device=device)
+        start = 0
+        for p in parts:
+            self.v[start : start + p.shape[0]] = torch.from_numpy(p).to(device)
+            start += p.shape[0]
+        # in row blocks: a whole [N, D] float64 temporary would double the memory
+        self.sq = torch.cat([(b * b).sum(dim=1) for b in self.v.split(1 << 20)])
         self.norm = self.sq.sqrt().clamp_min(1e-12)
         self.device = device
 
@@ -932,7 +1011,7 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
                               "cache.mirror_rows_quantized", "cache.int8_mirror_build_seconds",
                               "cache.int8_upload_seconds", "cache.evictions", *SPLIT_KEYS)}
             warm, splits = [], []
-            for _ in range(WARM_REPS):
+            for _ in range(RES_WARM_REPS):
                 a = client.stats()
                 t = time.perf_counter()
                 client.search(queries[qn], "smoke/wide", "vector", **kw)
@@ -964,6 +1043,16 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
         path_launches = launches(None, final)
         emit({"phase": "residency_done", "launches": path_launches,
               "device_entries": {k: v for k, v in final.items() if k.startswith("cache.device_")}})
+
+        # -- phase 9 (on the server) ------------------------------------------
+        t = time.perf_counter()
+        ivfh = phase_ivf_host_serve(client, expr, vectors, tags, os.path.join(work, "root"), smi, kind)
+        emit({"phase": "ivf_host_serve_done", "seconds": time.perf_counter() - t})
+
+        # -- phase 10 (b) (on the server) -------------------------------------
+        t = time.perf_counter()
+        wide = phase_mutations_wide(client, expr, vectors, ids_np, tags, queries, ivfh, smi, kind)
+        emit({"phase": "mutations_wide_done", "launches": wide["launches"], "seconds": time.perf_counter() - t})
     finally:
         client.close()
         proc.terminate()
@@ -994,10 +1083,20 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
     emit({"phase": "selection_oracle", **check_selection(
         oracle, SEL_HOST_READ[0], SEL_HOST_READ[2], host_read_queries, host_read, lambda qi: rows)})
     host_read_timings(vectors, tags, host_read_queries, smi, kind)
+    emit({"phase": "residency_oracle_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 9 (after the server) -------------------------------------------
+    t = time.perf_counter()
+    phase_ivf_host_checks(oracle, vectors, tags, ivfh, smi, kind)
     del oracle
     torch.cuda.empty_cache()
-    emit({"phase": "residency_oracle_done", "seconds": time.perf_counter() - t})
-    return {"checks": checks, "launches": path_launches}
+    emit({"phase": "ivf_host_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 10 (c), the int8-resident copy ---------------------------------
+    t = time.perf_counter()
+    checks += mutation_kernel_checks_wide(kernels, topk2, vectors, tags, queries, wide["append"], smi, kind)
+    emit({"phase": "mutation_kernels_wide_done", "seconds": time.perf_counter() - t})
+    return {"checks": checks, "launches": path_launches, "mutation_launches": wide["launches"]}
 
 
 # -- phase 7: IVF --------------------------------------------------------------
@@ -1101,7 +1200,8 @@ def ivf_assignment_check(codes, codebooks, vectors) -> dict:
     import numpy as np
     import torch
 
-    sample = np.sort(np.random.default_rng(7).choice(ROWS, IVF_SAMPLE_ROWS, replace=False))
+    rows = vectors.shape[0]
+    sample = np.sort(np.random.default_rng(7).choice(rows, min(IVF_SAMPLE_ROWS, rows), replace=False))
     cb = torch.from_numpy(codebooks[0]).to(DEVICE, torch.float64)
     cc = (cb * cb).sum(1)
     exceptions = 0
@@ -1182,14 +1282,15 @@ def lloyd_step_check(kmeans, cells, codebooks_np, rows_np, name: str) -> dict:
             "assign_near_tie_differences": int(moved.numel())}
 
 
-def probe_mask(codes_dev, cells_np, tags_dev):
-    """``mask(start, stop)`` for Oracle.topk: the rows whose cell is among
-    those queries' probe cells (and, given ``tags_dev``, with tag < 50)."""
+def probe_mask(codes_dev, cells_np, tags_dev, n_cells: "int | None" = None):
+    """``mask(start, stop)`` for Oracle.topk: the rows whose cell (of
+    ``n_cells``) is among those queries' probe cells (and, given
+    ``tags_dev``, with tag < 50)."""
     import torch
 
     def mask(start, stop):
         c = cells_np[start:stop]
-        table = torch.zeros((c.shape[0], IVF_CELLS), dtype=torch.bool, device=codes_dev.device)
+        table = torch.zeros((c.shape[0], n_cells or IVF_CELLS), dtype=torch.bool, device=codes_dev.device)
         table[torch.arange(c.shape[0], device=codes_dev.device)[:, None],
               torch.from_numpy(c.astype("int64")).to(codes_dev.device)] = True
         m = table[:, codes_dev]
@@ -1447,7 +1548,7 @@ def selection_pushdown(client, expr, kernels, vectors, tags, specs: dict, smi: s
 
 
 def selection_read(client, expr, spec, table_name: str, queries, smi: str, kind: str, counter: str,
-                   pushdown: bool) -> tuple:
+                   pushdown: bool, coding: str = IVF_CODER) -> tuple:
     """One no-top-k read of phase 8 (b) or (d): a cold call and
     SEL_READ_REPS warm ones, each moving ``counter`` by one and no kernel
     launch; a filter moves ``filter.device_pushdown`` by one where it runs
@@ -1459,11 +1560,10 @@ def selection_read(client, expr, spec, table_name: str, queries, smi: str, kind:
     name, qn, metric, pred, probes = spec
     kw = dict(metric=metric, maxval=None, select=["id"], filter=tag_filter(expr, pred))
     if probes is not None:
-        kw.update(coding=IVF_CODER, probes=probes)
+        kw.update(coding=coding, probes=probes)
     target = queries[0] if qn == 1 else queries
     rises = {counter: 1, "filter.device_pushdown": int(pred is not None and pushdown),
-             "filter.host_upload": 0,
-             **launch_rises((*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS)), 0)}
+             "filter.host_upload": 0, **launch_rises(ALL_LAUNCH_KEYS, 0)}
     client_ms, server_ms, device_ms = [], [], []
     result = None
     for _ in range(1 + SEL_READ_REPS):
@@ -1644,6 +1744,15 @@ def selection_timings(vectors, tags, ivf: dict, smi: str, kind: str) -> dict:
     return out
 
 
+def host_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Host clock, mean of ``reps`` calls after a warm-up."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
 def host_read_timings(vectors, tags, queries, smi: str, kind: str) -> dict:
     """Phase 8 (d)'s host work timed alone (host clock, mean of
     TIMING_REPS after a warm-up): native.row_score of one query over the
@@ -1656,14 +1765,6 @@ def host_read_timings(vectors, tags, queries, smi: str, kind: str) -> dict:
 
     sel = np.flatnonzero(tag_mask(tags, SEL_HOST_READ[3]))
     ones, zeros = np.ones(vectors.shape[0], np.float32), np.zeros(vectors.shape[0], np.float32)
-
-    def host_ms(fn) -> float:
-        fn()
-        t = time.perf_counter()
-        for _ in range(TIMING_REPS):
-            fn()
-        return (time.perf_counter() - t) / TIMING_REPS * 1e3
-
     out = {
         "host_row_score": {"shape": {"rows": int(sel.size), "d": vectors.shape[1]},
                            "launches_per_request": "1 per query of a cosine or dot host read",
@@ -1676,6 +1777,544 @@ def host_read_timings(vectors, tags, queries, smi: str, kind: str) -> dict:
         emit({"phase": "selection_timing", "op": name, **row, "clock": "host", "device": kind,
               "nvidia_smi": smi})
     return out
+
+
+# -- phase 9: IVF past the budget -----------------------------------------------
+
+
+def phase_ivf_host_serve(client, expr, vectors, tags, root: str, smi: str, kind: str) -> dict:
+    """Phase 9 on the phase-6 server (past its budget): make_index of the
+    IVF coder must train by streaming the host corpus in fp32 transport and
+    assign on the host; the coded read gives the cell occupancy; the two
+    probed searches run on the host (search.residency_probed_host, no
+    kernel launch; the first call writes the IVF sidecar), one cold and
+    RES_WARM_REPS warm calls each; then the probed no-top-k read. Returns what
+    the checks after the server need."""
+    import numpy as np
+
+    from fenix_tpu_torch import coder
+
+    rows = vectors.shape[0]
+    no_launch = launch_rises(ALL_LAUNCH_KEYS, 0)
+    steps = IVFH_CONFIG["num_epochs"] * (rows // (IVFH_CONFIG["num_codebooks"] * IVFH_CONFIG["batch_size"]))
+    before = client.stats()
+    t = time.perf_counter()
+    client.make_index(IVFH_CODER, "smoke/wide", "vector", IVFH_CONFIG)
+    client_s = time.perf_counter() - t
+    built = client.stats()
+    check_counter_rises("ivf_host_build", before, built, {
+        "train.stream_fp32": 1, "train.stream_steps": steps, "index.host_assigns": 1, **no_launch})
+    emit({"phase": "ivf_host_build", "client_s": client_s,
+          "make_coder_s": built["make-coder.seconds"] - before.get("make-coder.seconds", 0),
+          "make_index_s": built["make-index.seconds"] - before.get("make-index.seconds", 0),
+          "lloyd_steps": steps, "train_h2d_bytes": built.get("transfer.h2d_bytes", 0)
+          - before.get("transfer.h2d_bytes", 0), "config": IVFH_CONFIG, "device": kind, "nvidia_smi": smi})
+
+    coded = client.read_table("smoke/wide", select=["__CODED_ID__"], coding=IVFH_CODER, column="vector").read_all()
+    codes = np.array(coded.column(0).to_numpy())
+    if codes.shape[0] != rows or codes.min() < 0 or codes.max() >= IVFH_CELLS:
+        raise AssertionError(f"coded read: {codes.shape[0]} ids in [{codes.min()}, {codes.max()}]")
+    occupancy = np.bincount(codes, minlength=IVFH_CELLS)
+    emit({"phase": "ivf_host_cells", "cells": IVFH_CELLS, "rows_min": int(occupancy.min()),
+          "rows_median": float(np.median(occupancy)), "rows_max": int(occupancy.max()),
+          "empty_cells": int((occupancy == 0).sum())})
+
+    pool = np.flatnonzero(tags[:DUP] < 50)
+    searches = {}
+    for i, (name, qn, probes, filtered) in enumerate(IVFH_SEARCHES):
+        queries = make_queries(vectors, qn, seed=500 + i, src_pool=pool)
+        target = queries[0] if qn == 1 else queries
+        kw = dict(metric="l2", maxval=IVFH_K, coding=IVFH_CODER, probes=probes,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        calls, server, splits, result = [], [], [], None
+        for rep in range(1 + RES_WARM_REPS):
+            a = client.stats()
+            t = time.perf_counter()
+            got = client.search(target, "smoke/wide", "vector", **kw)
+            calls.append((time.perf_counter() - t) * 1e3)
+            b = client.stats()
+            check_counter_rises(name, a, b, {"search.residency_probed_host": 1,
+                                             "cache.ivf_sidecar_writes": int(i == 0 and rep == 0), **no_launch})
+            server.append((b["search.seconds"] - a.get("search.seconds", 0)) * 1e3)
+            splits.append({k: (b.get(k, 0) - a.get(k, 0)) * 1e3 for k in IVFH_SPLIT_KEYS})
+            result = got if result is None else result
+        emit({"phase": "ivf_host_search", "search": name, "q": qn, "probes": probes, "k": IVFH_K,
+              "filtered": filtered, "rows_returned": result.num_rows, "first_client_ms": calls[0],
+              "first_server_ms": server[0], "warm_client_median_ms": float(np.median(calls[1:])),
+              "warm_server_median_ms": float(np.median(server[1:])), "client_ms": calls, "server_ms": server,
+              "first_split_ms": splits[0],
+              "warm_split_median_ms": {k: float(np.median([x[k] for x in splits[1:]])) for k in IVFH_SPLIT_KEYS},
+              "device": kind, "nvidia_smi": smi})
+        searches[name] = (queries, kw, result)
+    read_queries = make_queries(vectors, IVFH_READ[1], seed=510)
+    read = selection_read(client, expr, IVFH_READ, "smoke/wide", read_queries, smi, kind,
+                          "search.residency_host_nomax", pushdown=False, coding=IVFH_CODER)[0]
+    return {"codes": codes, "codebooks": coder.load(root, IVFH_CODER)["tensor"], "searches": searches,
+            "read": (read_queries, read)}
+
+
+def phase_ivf_host_checks(oracle, vectors, tags, ivfh: dict, smi: str, kind: str) -> dict:
+    """Phase 9 after the server: IVF_SAMPLE_ROWS rows' cell ids against the
+    float64 argmin; one Lloyd step of a streamed chunk's shape on the card
+    against the CPU from the trained codebooks; each probed search against
+    the float64 oracle over its probe cells' rows (cells.topk_cells_np)
+    that pass the filter: recall@100 >= 0.99, every distance within
+    1e-4 * max(1, d); the probed read's rows exactly the probe cells' rows
+    with tag == 7, in table order; then the host hot ops timed alone."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.engine import residency
+    from fenix_tpu_torch.ops import cells, kmeans, topk2
+
+    codes, codebooks = ivfh["codes"], ivfh["codebooks"]
+    t = time.perf_counter()
+    out = {"assignment": ivf_assignment_check(codes, codebooks, vectors)}
+    emit({"phase": "ivf_host_assignment", **out["assignment"], "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    rng = np.random.default_rng(11)
+    rows_np = vectors[np.sort(rng.choice(vectors.shape[0], min(IVFH_STEP_ROWS, vectors.shape[0]), replace=False))]
+    out["device_step"] = lloyd_step_check(kmeans, cells, codebooks, rows_np, IVFH_CODER)
+    emit({"phase": "ivf_host_device_step", **out["device_step"], "seconds": time.perf_counter() - t})
+
+    codes_dev = torch.from_numpy(codes).to(oracle.device)
+    tags_dev = torch.from_numpy(tags).to(oracle.device)
+    out["oracle"] = []
+    for name, qn, probes, filtered in IVFH_SEARCHES:
+        queries, _, result = ivfh["searches"][name]
+        ids, dist = split_result(result, qn, IVFH_K)
+        probe = cells.topk_cells_np(queries, codebooks, "l2", probes)
+        mask = probe_mask(codes_dev, probe, tags_dev if filtered else None, IVFH_CELLS)
+        check = check_ids(oracle, name, "l2", IVFH_K, "int8", queries, ids, dist, mask, require_ties=False)
+        out["oracle"].append({"search": name, **check})
+        emit({"phase": "ivf_host_oracle", **out["oracle"][-1]})
+    read_queries, read = ivfh["read"]
+    name, _, metric, pred, probes = IVFH_READ
+    probe = cells.topk_cells_np(read_queries, codebooks, "l2", probes)
+    want = lambda qi: np.flatnonzero(np.isin(codes, probe[qi]) & tag_mask(tags, pred))  # noqa: E731
+    out["read"] = check_selection(oracle, name, metric, read_queries, read, want)
+    emit({"phase": "ivf_host_oracle", **out["read"]})
+
+    # the host hot ops alone: the probed int8 scan of one Q=8 p64 query
+    # (native.row_score over its probe cells' rows, held contiguous as the
+    # cell-sorted layout holds them) and one host assignment block
+    queries = ivfh["searches"][IVFH_SEARCHES[-1][0]][0]
+    probe = cells.topk_cells_np(queries[:1], codebooks, "l2", IVFH_SEARCHES[-1][2])[0]
+    sel = np.flatnonzero(np.isin(codes, probe))
+    c8, sv = topk2.quantize_rows_int8_np(vectors[sel])
+    pos = np.arange(sel.size)
+    mul, add = sv, -np.einsum("nd,nd->n", vectors[sel], vectors[sel])
+    qp = 2.0 * queries[0]
+    block = vectors[: min(IVFH_STEP_ROWS // 4, vectors.shape[0])]
+    out["timings"] = {
+        "host_probed_score": {"shape": {"rows": int(sel.size), "d": vectors.shape[1], "probes": int(probe.size)},
+                              "per_request": "1 per query of a probed host search",
+                              "ms": host_ms(lambda: native.row_score(c8, pos, qp, mul, add))},
+        "host_assign_block": {"shape": {"rows": int(block.shape[0]), "cells": IVFH_CELLS, "d": vectors.shape[1]},
+                              "per_request": f"{-(-vectors.shape[0] // block.shape[0])} per make-index",
+                              "ms": host_ms(lambda: cells.assign_cells_np(block, codebooks, "l2"), 1)},
+        "host_rescore_window": {"shape": {"q": 8, "window": residency._DEFAULT_WINDOW, "d": vectors.shape[1]},
+                                "per_request": "1 per probed host search",
+                                "ms": host_ms(lambda: residency._host_rescore_topk(
+                                    vectors, np.ones(vectors.shape[0], np.float32),
+                                    -np.ones(vectors.shape[0], np.float32), None, queries,
+                                    np.resize(sel, (queries.shape[0], residency._DEFAULT_WINDOW)).astype(np.int32),
+                                    vectors.shape[0], IVFH_K, "l2"))},
+    }
+    for op, row in out["timings"].items():
+        emit({"phase": "ivf_host_timing", "op": op, **row, "clock": "host", "device": kind, "nvidia_smi": smi})
+    return out
+
+
+# -- phase 10: mutations --------------------------------------------------------
+
+
+class Live:
+    """chip_smoke's host copy of a served table, mutated as the server's
+    is: the float64 oracle's input. The vectors are a list of row blocks
+    (an append adds one; no corpus-sized concatenation until a delete
+    needs one). ``pos(ids)`` maps row ids to positions (-1: not in the
+    table)."""
+
+    def __init__(self, vectors, ids, tags):
+        self.parts, self.ids, self.tags = [vectors], ids, tags
+
+    def append(self, vectors, ids, tags) -> None:
+        import numpy as np
+
+        self.parts.append(vectors)
+        self.ids = np.concatenate([self.ids, ids])
+        self.tags = np.concatenate([self.tags, tags])
+
+    def keep(self, mask) -> None:
+        import numpy as np
+
+        self.parts = [np.concatenate(self.parts)[mask] if len(self.parts) > 1 else self.parts[0][mask]]
+        self.ids, self.tags = self.ids[mask], self.tags[mask]
+
+    def pos(self, ids):
+        import numpy as np
+
+        top = int(self.ids.max())
+        lookup = np.full(top + 1, -1, np.int64)
+        lookup[self.ids] = np.arange(self.ids.shape[0])
+        return np.where(ids <= top, lookup[np.minimum(ids, top)], -1)
+
+
+def appended_rows(rows: int, dim: int, first_id: int, copies, seed: int):
+    """``rows`` new random rows (ids from ``first_id``, tags in [0, 100))
+    whose first rows are exact copies of the query vectors ``copies``,
+    tagged 0 (inside every filter of the phases)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vectors = rng.standard_normal((rows, dim), dtype=np.float32)
+    tags = rng.integers(0, 100, rows, dtype=np.int32)
+    for i, q in enumerate(copies):
+        vectors[i], tags[i] = q, 0
+    return vectors, np.arange(first_id, first_id + rows, dtype=np.int64), tags
+
+
+def to_reader(vectors, ids, tags):
+    """The rows as a one-batch reader of the smoke tables' schema."""
+    import pyarrow as pa
+
+    from fenix_tpu_torch.io import ingest
+
+    batch = pa.record_batch([pa.array(ids), ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                             pa.array(tags)], names=["id", "vector", "tag"])
+    return pa.RecordBatchReader.from_batches(batch.schema, iter([batch]))
+
+
+def mutation_call(client, name: str, fn, counter: str) -> dict:
+    """One mutation through the server: its client time and the server's
+    ``counter`` seconds."""
+    a = client.stats()
+    t = time.perf_counter()
+    value = fn()
+    took = time.perf_counter() - t
+    b = client.stats()
+    return {"mutation": name, "client_s": took, "server_s": b[counter] - a.get(counter, 0),
+            "value": value if isinstance(value, (int, dict)) else None}
+
+
+def mutation_search(client, name: str, table_name: str, target, kw: dict, rises: dict) -> tuple:
+    """The first search after a mutation: its counters must move by
+    ``rises``; returns the result and its printed row."""
+    a = client.stats()
+    t = time.perf_counter()
+    result = client.search(target, table_name, "vector", **kw)
+    took = time.perf_counter() - t
+    b = client.stats()
+    check_counter_rises(name, a, b, rises)
+    keys = ("search.seconds", "cache.refresh_seconds", "cache.host_load_seconds", "filter.seconds",
+            "transfer.h2d_bytes", "cache.incremental_refreshes", "cache.lineage_refreshes",
+            "cache.mirror_rows_quantized", "cache.mirror_delta_refreshes", *(f"kernel.bucket_scores.{k}.launches"
+                                                                              for k in ALL_LAUNCH_KEYS))
+    return result, {"search": name, "first_client_ms": took * 1e3,
+                    **{k: b.get(k, 0) - a.get(k, 0) for k in keys},
+                    **{f"route.{r}": b.get(c, 0) - a.get(c, 0) for r, c in IVF_ROUTES.items()}}
+
+
+def check_live(live: Live, name: str, metric: str, k: int, queries, result, precision="fp32",
+               mask_fn=None) -> dict:
+    """A search over a mutated table held to the float64 oracle over the
+    live copy (phase 4's rule; ``precision`` "int8" grades by recall):
+    result ids map to live positions, so a row the mutations removed
+    fails. ``mask_fn(oracle_device)`` gives the oracle's mask."""
+    import torch
+
+    qn = queries.shape[0]
+    ids, dist = split_result(result, qn, k)
+    pos = live.pos(ids)
+    if (pos < 0).any():
+        raise AssertionError(f"{name}: {int((pos < 0).sum())} returned ids are not in the table")
+    oracle = Oracle(live.parts, DEVICE)
+    mask = mask_fn(oracle.device) if mask_fn is not None else None
+    out = check_ids(oracle, name, metric, k, precision, queries, pos, dist, mask, require_ties=False)
+    del oracle, mask
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mutations_serve(client, expr, vectors, ids_np, tags, queries, ivf: dict, cold_s: float,
+                          smi: str, kind: str) -> dict:
+    """Phase 10 (a) on the phase-3 server after phase 8. (1) append
+    MUT_APPEND_ROWS rows (row 0 copies the Q=8 cosine search's query 0,
+    row 1 phase 7's Q=8 p64 search's query 0): the index extends, the Q=8
+    cosine search grows the matrix (one incremental refresh, one stream
+    launch, under MUT_H2D_FACTOR x the delta uploaded) and finds row 0
+    first, the Q=8 p64 search finds row 1 first; (2) delete tag == 7: the
+    Q=1024 filtered search refreshes by the lineage (one tiled launch) and
+    returns no deleted id; (3) upsert 2 x MUT_UPSERT rows by id; (4)
+    compact: the next search takes the lineage's identity hop and uploads
+    nothing. Every search is held to the float64 oracle over the live
+    copy. Returns the path's launches and what (c) needs."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import cells
+
+    start_launches = launches(client)
+    live = Live(vectors, ids_np, tags)
+    rows0 = vectors.shape[0]
+    cos = next(i for i, sp in enumerate(SEARCHES) if sp[0] == "q8_cosine_k10")
+    big = next(i for i, sp in enumerate(SEARCHES) if sp[0] == "q1024_l2_k100_filtered")
+    ivf_q, _ = ivf["searches"]["ivf_q8_p64_filtered"]
+    cos_kw = dict(metric="cosine", maxval=SEARCHES[cos][3])
+    big_kw = dict(metric="l2", maxval=SEARCHES[big][3], filter=expr.field("tag") < 50)
+    dim = vectors.shape[1]
+    rows, steps = [], {}
+
+    # (1) append
+    new = appended_rows(MUT_APPEND_ROWS, dim, rows0, (queries[cos][0], ivf_q[0]), seed=600)
+    live.append(*new)
+    rows.append(mutation_call(client, "append", lambda: client.append_table("smoke/items", to_reader(*new)),
+                              "put.seconds"))
+    coded = client.read_table("smoke/items", select=["__CODED_ID__"], coding=IVF_CODER, column="vector").read_all()
+    codes = np.array(coded.column(0).to_numpy())
+    if codes.shape[0] != live.ids.shape[0]:
+        raise AssertionError(f"the index holds {codes.shape[0]} rows, the table {live.ids.shape[0]}")
+    stream = f"kernel.{'stream'}"
+    result, row = mutation_search(client, "append_q8_cosine", "smoke/items", queries[cos], cos_kw, {
+        "cache.incremental_refreshes": 1, "cache.lineage_refreshes": 0, **launch_rises((stream,), 1)})
+    delta_bytes = MUT_APPEND_ROWS * dim * 4
+    if DEVICE == "cuda" and not 0 < row["transfer.h2d_bytes"] < MUT_H2D_FACTOR * delta_bytes:
+        raise AssertionError(f"append refresh uploaded {row['transfer.h2d_bytes']} bytes for a "
+                             f"{delta_bytes}-byte delta")
+    if split_result(result, 8, cos_kw["maxval"])[0][0, 0] != rows0:
+        raise AssertionError("the appended copy of query 0 is not its first result")
+    row["oracle"] = check_live(live, "append_q8_cosine", "cosine", cos_kw["maxval"], queries[cos], result)
+    steps["append"] = row
+    _, _, probes, _, precision, _, metric = next(sp for sp in IVF_SEARCHES if sp[0] == "ivf_q8_p64_filtered")
+    ivf_kw = dict(metric=metric, maxval=IVF_K, precision=precision, coding=IVF_CODER, probes=probes,
+                  filter=expr.field("tag") < 50)
+    result, row = mutation_search(client, "append_ivf_q8_p64", "smoke/items", ivf_q, ivf_kw, {})
+    if sum(row[f"route.{r}"] for r in IVF_ROUTES) != 1:
+        raise AssertionError(f"append_ivf_q8_p64 took no single IVF route: {row}")
+    if split_result(result, 8, IVF_K)[0][0, 0] != rows0 + 1:
+        raise AssertionError("the probed search does not find the appended copy of its query 0")
+    probe = cells.topk_cells_np(ivf_q, ivf["codebooks"], "l2", probes)
+    row["oracle"] = check_live(live, "append_ivf_q8_p64", "l2", IVF_K, ivf_q, result, mask_fn=lambda dev: probe_mask(
+        torch.from_numpy(codes).to(dev), probe, torch.from_numpy(live.tags).to(dev)))
+    steps["append_probed"] = row
+    grown_rows = live.ids.shape[0]
+
+    # (2) delete tag == 7
+    deleted_ids = live.ids[live.tags == 7]
+    rows.append(mutation_call(client, "delete_tag_eq_7",
+                              lambda: client.delete_rows("smoke/items", expr.field("tag") == 7), "delete-rows.seconds"))
+    if rows[-1]["value"] != deleted_ids.shape[0]:
+        raise AssertionError(f"deleted {rows[-1]['value']} rows, the copy {deleted_ids.shape[0]}")
+    keep = live.tags != 7
+    live.keep(keep)
+    tiled = f"kernel.{'tiled'}"
+    result, row = mutation_search(client, "delete_q1024_l2", "smoke/items", queries[big], big_kw, {
+        "cache.incremental_refreshes": 0, "cache.lineage_refreshes": 1, **launch_rises((tiled,), 1)})
+    if np.isin(np.asarray(result.column("id")), deleted_ids).any():
+        raise AssertionError("a deleted id was returned")
+    row["oracle"] = check_live(live, "delete_q1024_l2", "l2", big_kw["maxval"], queries[big], result,
+                               mask_fn=lambda dev: torch.from_numpy(live.tags < 50).to(dev))
+    steps["delete"] = row
+
+    # (3) upsert by id: MUT_UPSERT existing ids with new vectors, MUT_UPSERT new ids
+    rng = np.random.default_rng(601)
+    replaced = np.sort(rng.choice(live.ids, MUT_UPSERT, replace=False))
+    fresh_ids = np.arange(rows0 + MUT_APPEND_ROWS, rows0 + MUT_APPEND_ROWS + MUT_UPSERT, dtype=np.int64)
+    payload = (rng.standard_normal((2 * MUT_UPSERT, dim), dtype=np.float32),
+               np.concatenate([replaced, fresh_ids]), rng.integers(0, 100, 2 * MUT_UPSERT, dtype=np.int32))
+    rows.append(mutation_call(client, "upsert", lambda: client.upsert_rows("smoke/items", to_reader(*payload)),
+                              "put.seconds"))
+    if rows[-1]["value"] != {"replaced": MUT_UPSERT, "inserted": MUT_UPSERT}:
+        raise AssertionError(f"upsert answered {rows[-1]['value']}")
+    live.keep(~np.isin(live.ids, replaced))
+    live.append(*payload)
+    # the keep-mask hop and the appended part in one refresh, counted as
+    # one lineage refresh (the JAX package's count)
+    result, row = mutation_search(client, "upsert_q8_cosine", "smoke/items", queries[cos], cos_kw, {
+        "cache.incremental_refreshes": 0, "cache.lineage_refreshes": 1, **launch_rises((stream,), 1)})
+    row["oracle"] = check_live(live, "upsert_q8_cosine", "cosine", cos_kw["maxval"], queries[cos], result)
+    steps["upsert"] = row
+
+    # (4) compact: an identity hop, nothing uploaded
+    rows.append(mutation_call(client, "compact", lambda: client.compact_table("smoke/items"), "compact.seconds"))
+    result, row = mutation_search(client, "compact_q8_cosine", "smoke/items", queries[cos], cos_kw, {
+        "cache.incremental_refreshes": 0, "cache.lineage_refreshes": 1, "transfer.h2d_bytes": 0,
+        **launch_rises((stream,), 1)})
+    row["oracle"] = check_live(live, "compact_q8_cosine", "cosine", cos_kw["maxval"], queries[cos], result)
+    steps["compact"] = row
+
+    for r in rows:
+        emit({"phase": "mutation", **r, "device": kind, "nvidia_smi": smi})
+    for name, r in steps.items():
+        emit({"phase": "mutation_search", "after": name, **r, "cold_upload_first_call_s": cold_s,
+              "device": kind, "nvidia_smi": smi})
+    after = launches(client)
+    return {"launches": {k: v - start_launches[k] for k, v in after.items()}, "append": new,
+            "grown_rows": grown_rows, "keep_after_append": keep}
+
+
+def phase_mutations_wide(client, expr, vectors, ids_np, tags, res_queries, ivfh: dict, smi: str, kind: str) -> dict:
+    """Phase 10 (b) on the phase-6 server after phase 9: append
+    MUT_APPEND_ROWS x 768 rows (row 0 copies the auto Q=8 search's query 0,
+    row 1 phase 9's Q=8 p64 search's query 0); the auto Q=8 l2 top-100
+    search then quantizes exactly the delta (one mirror delta refresh),
+    grows the int8-resident copy (one incremental refresh, one tensor_int8
+    launch), keeps no fp32 matrix and stays within the budget, reaches
+    recall@100 >= 0.99 and finds row 0 first; phase 9's Q=8 p64 search
+    finds row 1 first, so the index was extended on the host."""
+    import numpy as np
+    import torch
+
+    live = Live(vectors, ids_np, tags)
+    rows0 = vectors.shape[0]
+    q8 = res_queries[8]
+    ivf_name = IVFH_SEARCHES[-1][0]
+    ivf_q, ivf_kw, _ = ivfh["searches"][ivf_name]
+    kw = dict(metric="l2", maxval=RES_K, filter=expr.field("tag") < 50)
+    # phase 9's make-index cleared the cache: the int8-resident copy is
+    # built again before the append, as a serving table's would be
+    client.search(q8, "smoke/wide", "vector", **kw)
+    start_launches = launches(client)
+    new = appended_rows(MUT_APPEND_ROWS, vectors.shape[1], rows0, (q8[0], ivf_q[0]), seed=602)
+    live.append(*new)
+    row = mutation_call(client, "append_wide", lambda: client.append_table("smoke/wide", to_reader(*new)),
+                        "put.seconds")
+    a = client.stats()
+    emit({"phase": "mutation", **row, "host_assigns": a.get("index.host_assigns", 0), "device": kind,
+          "nvidia_smi": smi})
+    result, srow = mutation_search(client, "append_auto_q8", "smoke/wide", q8, kw, {
+        "cache.mirror_rows_quantized": MUT_APPEND_ROWS, "cache.mirror_delta_refreshes": 1,
+        "cache.incremental_refreshes": 1, "search.residency_int8": 1, **launch_rises(("kernel.tensor_int8",), 1)})
+    st = client.stats()
+    if st.get("cache.device_entries.matrix", 0):
+        raise AssertionError("an fp32 device matrix exists after the int8-resident append")
+    if st["cache.device_bytes"] > RES_BUDGET:
+        raise AssertionError(f"cache.device_bytes {st['cache.device_bytes']} over the budget")
+    if split_result(result, 8, RES_K)[0][0, 0] != rows0:
+        raise AssertionError("the appended copy of query 0 is not its first result")
+    srow["device_bytes"] = st["cache.device_bytes"]
+    srow["oracle"] = check_live(live, "append_auto_q8", "l2", RES_K, q8, result, precision="int8",
+                                mask_fn=lambda dev: torch.from_numpy(live.tags < 50).to(dev))
+    emit({"phase": "mutation_search", "after": "append_wide", **srow, "device": kind, "nvidia_smi": smi})
+    result, prow = mutation_search(client, "append_host_ivf_q8_p64", "smoke/wide", ivf_q, ivf_kw,
+                                   {"search.residency_probed_host": 1, **launch_rises(ALL_LAUNCH_KEYS, 0)})
+    if split_result(result, 8, IVFH_K)[0][0, 0] != rows0 + 1:
+        raise AssertionError("the probed host search does not find the appended copy of its query 0")
+    emit({"phase": "mutation_search", "after": "append_wide_probed", **prow, "device": kind, "nvidia_smi": smi})
+    after = launches(client)
+    return {"launches": {k: v - start_launches[k] for k, v in after.items()}, "append": new}
+
+
+def mutation_kernel_checks(kernels, topk2, vectors, tags, queries, mut: dict, smi: str, kind: str) -> list[dict]:
+    """Phase 10 (c), the phase-3 table: the kernels against their plain
+    versions at the inputs (a)'s searches give them, the buffers built by
+    the cache's own grow and shrink: the stream kernel over the matrix
+    grown by the append (Q=8 cosine; padding rows zero), the tiled kernel
+    over the matrix shrunk by the delete (Q=1024 l2, tag < 50); then the
+    grow and the shrink timed alone."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.engine import session
+    from fenix_tpu_torch.io import ingest
+
+    out = []
+    rows0, dim = vectors.shape
+    new_v, _, new_t = mut["append"]
+    old = ingest.to_device_matrix(vectors, block=session.DEFAULT_BLOCK, device=DEVICE)
+    grown_rows = rows0 + new_v.shape[0]
+    pad = max(ingest.round_up(grown_rows, session.DEFAULT_BLOCK), session.DEFAULT_BLOCK, old.rows_padded)
+    grown = session._grown(old.data, new_v, rows0, pad, 0)
+    if grown[grown_rows:].any():
+        raise AssertionError("the grown matrix has nonzero padding rows")
+    qi = next(i for i, sp in enumerate(SEARCHES) if sp[0] == "q8_cosine_k10")
+    mul, add = topk2.prepare_aux(grown, torch.arange(pad, device=DEVICE) < grown_rows, "cosine")
+    qp = topk2.prepare_queries(torch.from_numpy(queries[qi]).to(DEVICE), "cosine").contiguous()
+    bucket = topk2.bucket_for(8, pad)
+    out.append({"search": "mutation_append_q8_cosine", "route": "f32", "q": 8, "n": pad, "bucket": bucket,
+                **compare(kernels, qp, grown, mul, add, bucket, None)})
+    grow_ms = time_ms(lambda: session._grown(old.data, new_v, rows0, pad, 0), TIMING_REPS)
+    del old, mul, add
+
+    keep = mut["keep_after_append"]
+    idx = np.flatnonzero(keep).astype(np.int32)
+    kept = int(idx.size)
+    kpad = max(ingest.round_up(kept, session.DEFAULT_BLOCK), session.DEFAULT_BLOCK)
+    idx_dev = torch.from_numpy(idx).to(DEVICE)
+
+    def shrink():  # session._shrink_matrix's gather
+        data = torch.zeros((kpad, dim), dtype=grown.dtype, device=DEVICE)
+        torch.index_select(grown, 0, idx_dev, out=data[:kept])
+        return data
+
+    shrunk = shrink()
+    qi = next(i for i, sp in enumerate(SEARCHES) if sp[0] == "q1024_l2_k100_filtered")
+    valid = torch.zeros(kpad, dtype=torch.bool, device=DEVICE)
+    valid[:kept] = torch.from_numpy(np.concatenate([tags, new_t])[keep] < 50).to(DEVICE)
+    mul, add = topk2.prepare_aux(shrunk, valid, "l2")
+    qp = topk2.prepare_queries(torch.from_numpy(queries[qi]).to(DEVICE), "l2").contiguous()
+    bucket = topk2.bucket_for(1024, kpad)
+    out.append({"search": "mutation_delete_q1024_l2", "route": "f32", "q": 1024, "n": kpad, "bucket": bucket,
+                **compare(kernels, qp, shrunk, mul, add, bucket, None)})
+    shrink_ms = time_ms(shrink, TIMING_REPS)
+    del grown, shrunk, mul, add, valid, idx_dev
+    for r in out:
+        emit({"phase": "kernel_vs_plain_mutation_path", **r})
+    timings = {
+        "grow": {"shape": {"rows": rows0, "delta": int(new_v.shape[0]), "d": dim, "pad": pad},
+                 "per_request": "1 per append hop", "ms": grow_ms},
+        "shrink": {"shape": {"rows": grown_rows, "kept": kept, "d": dim, "pad": kpad},
+                   "per_request": "1 per delete hop", "ms": shrink_ms},
+    }
+    for op, row in timings.items():
+        emit({"phase": "mutation_timing", "op": op, **row, "device": kind, "nvidia_smi": smi})
+    return out
+
+
+def mutation_kernel_checks_wide(kernels, topk2, vectors, tags, res_queries, append, smi: str, kind: str) -> list:
+    """Phase 10 (c), the phase-6 table: tensor_int8 against its plain
+    version over the int8 copy grown by (b)'s append as the cache grows
+    it (zero codes and scale 1e-30 on the padding rows), at the auto Q=8
+    l2 search's inputs (tag < 50); then the delta's host quantize timed
+    alone."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.engine import session
+    from fenix_tpu_torch.io import ingest
+
+    rows0, dim = vectors.shape
+    new_v, _, new_t = append
+    corpus = torch.from_numpy(vectors).to(DEVICE)
+    v8, sv = topk2.quantize_corpus_int8(corpus)
+    sq = (corpus * corpus).sum(dim=1)
+    del corpus
+    d8, dsv = topk2.quantize_rows_int8_np(new_v)
+    rows = rows0 + new_v.shape[0]
+    pad = max(ingest.round_up(rows, session.DEFAULT_BLOCK), session.DEFAULT_BLOCK, v8.shape[0])
+    g8 = session._grown(v8, d8, rows0, pad, 0)
+    gsv = session._grown(sv[:rows0], dsv, rows0, pad, 1e-30)
+    del v8, sv
+    add = torch.full((pad,), float("-inf"), device=DEVICE)
+    sq_all = torch.cat([sq[:rows0], torch.from_numpy(np.einsum("nd,nd->n", new_v, new_v)).to(DEVICE)])
+    ok = torch.from_numpy(np.concatenate([tags, new_t]) < 50).to(DEVICE)
+    add[:rows] = torch.where(ok, -sq_all, float("-inf"))
+    q8, inv_sq = topk2.quantize_queries_int8(
+        topk2.prepare_queries(torch.from_numpy(res_queries[8]).to(DEVICE), "l2").contiguous())
+    bucket = topk2.bucket_for(8, pad)
+    row = {"search": "mutation_append_auto_q8", "route": "int8", "q": 8, "n": pad, "d": dim, "bucket": bucket,
+           **compare(kernels, q8, g8, gsv, add, bucket, inv_sq)}
+    emit({"phase": "kernel_vs_plain_mutation_path", **row})
+    del g8, gsv, add, sq, sq_all, ok
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    emit({"phase": "mutation_timing", "op": "delta_quantize", "clock": "host",
+          "shape": {"rows": int(new_v.shape[0]), "d": dim}, "per_request": "1 per append hop of the int8 mirror",
+          "ms": host_ms(lambda: topk2.quantize_rows_int8_np(new_v)), "device": kind, "nvidia_smi": smi})
+    return [row]
 
 
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
@@ -1797,7 +2436,7 @@ def run() -> int:
         emit({"phase": "put", "rows": ROWS, "batch_rows": BATCH_ROWS,
               "seconds": time.perf_counter() - t})
 
-        results, latencies = [], {}
+        results, latencies, first_calls = [], {}, []
         for spec, qnp in zip(SEARCHES, queries):
             name, qn, metric, k, precision, filtered, flat = spec
             kw = dict(metric=metric, maxval=k, precision=precision)
@@ -1826,6 +2465,7 @@ def run() -> int:
                     if c1[key] <= c0[key]:
                         raise AssertionError(f"{name}: the {key} kernel count did not rise")
             latencies[name] = warm
+            first_calls.append((name, first))
             results.append(result)
             emit({"phase": "search", "search": name, "q": qn, "k": k, "metric": metric,
                   "precision": precision, "filtered": filtered, "rows_returned": result.num_rows,
@@ -1846,6 +2486,12 @@ def run() -> int:
                                     rerun_specs(queries, results, ivf), smi, kind)
         emit({"phase": "selection_serve_done", "launches": sel["launches"],
               "seconds": time.perf_counter() - t})
+
+        # -- phase 10 (a) (on the server) -------------------------------------
+        t = time.perf_counter()
+        cold_s = next(r for r in first_calls if r[0] == SEARCHES[0][0])[1]
+        mut = phase_mutations_serve(client, expr, vectors, ids_np, tags, queries, ivf, cold_s, smi, kind)
+        emit({"phase": "mutations_serve_done", "launches": mut["launches"], "seconds": time.perf_counter() - t})
     finally:
         client.close()
         proc.terminate()
@@ -1883,6 +2529,13 @@ def run() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "selection_done", "seconds": time.perf_counter() - t})
 
+    # -- phase 10 (c), the phase-3 table --------------------------------------
+    t = time.perf_counter()
+    mut_checks = mutation_kernel_checks(kernels, topk2, vectors, tags, queries, mut, smi, kind)
+    mut_launches = mut["launches"]
+    torch.cuda.empty_cache()
+    emit({"phase": "mutation_kernels_done", "seconds": time.perf_counter() - t})
+
     # -- phase 5 --------------------------------------------------------------
     for spec in SEARCHES:
         warm = latencies[spec[0]]
@@ -1891,13 +2544,14 @@ def run() -> int:
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
     ivf_launches, sel_launches = ivf["launches"], sel["launches"]
-    del vectors, ids_np, tags, queries, results, ivf, sel
+    del vectors, ids_np, tags, queries, results, ivf, sel, mut
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
-    compares = small + forced + wide + main_shapes + res["checks"]
+    compares = small + forced + wide + main_shapes + mut_checks + res["checks"]
+    mutation = {k: v + res["mutation_launches"][k] for k, v in mut_launches.items()}
     by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
-               "selection": sel_launches}
+               "selection": sel_launches, "mutation": mutation}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})

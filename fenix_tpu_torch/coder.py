@@ -2,7 +2,11 @@
 ``fenix_tpu/coder.py``.
 
 ``Config`` (metric, codebook_size, num_codebooks, batch_size,
-num_epochs); ``make`` trains on the device (``ops/kmeans.train``) and
+num_epochs, and optionally ``stream_precision``); ``make`` trains on the
+device (``ops/kmeans.train``), or, when the corpus's fp32 form passes 0.9
+× the device budget, streams it from the host (``kmeans.train_streaming``
+in the transport ``stream_precision`` or ``FENIX_TRAIN_STREAM_PRECISION``
+names, fp32 by default; int8 reuses the serving cache's int8 mirror) and
 persists; ``load`` / ``list`` / ``drop`` manage the artifacts; ``call``
 ranks composite cells for targets (``ops/cells``). Artifacts are the JAX
 package's ``codings/<name>.npz`` (codebooks + JSON config), so one root
@@ -10,10 +14,7 @@ serves both packages whichever trained the coder; a coder this package
 trains is the JAX package's coder of the same seed, up to fp32 summation
 order (the same draws, ``ops/kmeans.py``).
 
-Not ported yet (ROADMAP queue 1 item 3, IVF past the budget): training
-a corpus whose fp32 form does not fit the device budget
-(``kmeans.train_streaming``) raises; and the mesh-sharded training
-(item 11).
+Not ported yet: the mesh-sharded training (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from fenix_tpu_torch.ops import kmeans
 from fenix_tpu_torch.utils import hbm
 
 LOCATION: str = "codings"
-_PAST_BUDGET_TODO = "ROADMAP queue 1 item 3: IVF past the budget, kmeans.train_streaming"
 
 
 class Config(TypedDict):
@@ -82,14 +82,30 @@ def make(
     num_rows, dim = matrix.shape
     cells_ops.check_cell_space(k, n)
 
-    budget = hbm.budget_bytes(device)
-    if budget is not None and 4 * num_rows * dim > 0.9 * budget:
-        raise NotImplementedError(
-            f"training a coder over {num_rows} x {dim} fp32 rows past the device budget "
-            f"of {budget} bytes ({_PAST_BUDGET_TODO})"
-        )
     if seed is None:
         seed = int(np.random.default_rng().integers(1 << 31))
+    budget = hbm.budget_bytes(device)
+    if budget is not None and 4 * num_rows * dim > 0.9 * budget:
+        precision = str(config.get("stream_precision") or os.environ.get("FENIX_TRAIN_STREAM_PRECISION", "fp32"))
+        mirror = None
+        if precision == "int8" and isinstance(source, str):
+            # the engine imports this module: imported here, at call time
+            from fenix_tpu_torch.engine import executor
+
+            mirror = executor.get_cache(root, device).host_int8(source, column)
+        codebooks = kmeans.train_streaming(
+            matrix.astype(np.float32, copy=False),
+            seed,
+            num_codebooks=n,
+            codebook_size=k,
+            batch_size=config["batch_size"],
+            num_epochs=config["num_epochs"],
+            metric=config["metric"],
+            device=device,
+            precision=precision,
+            int8_mirror=mirror,
+        )
+        return _persist(root, name, config, column_type, codebooks.cpu().numpy())
     corpus = ingest.to_device_matrix(matrix, block=1, device=device).data
     codebooks = kmeans.train(
         corpus,

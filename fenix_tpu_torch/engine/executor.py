@@ -35,9 +35,8 @@ it is the wire and the result gather), and within it
 (the clustered layout's host metadata, the bucket lists and the route
 decision).
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: probed search past the device budget (queue 1 item 3) and
-multi-device meshes (item 10).
+Probed search past the device budget is ``residency.probed_topk`` on
+the host. Not ported yet: multi-device meshes (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ import torch
 
 from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch.engine import residency
-from fenix_tpu_torch.engine.session import DeviceCache
+from fenix_tpu_torch.engine.session import DeviceCache, _StaleRevision
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
@@ -150,11 +149,6 @@ def normalize_target(target: Any, dim: int) -> np.ndarray:
         target = target.reshape(-1, dim)
     assert target.ndim == 2 and target.shape[1] == dim, (target.shape, dim)
     return target
-
-
-class _StaleRevision(Exception):
-    """A concurrent catalog mutation landed mid-request: the device
-    entries read along the way span table revisions. Retried."""
 
 
 class _FilterPlan:

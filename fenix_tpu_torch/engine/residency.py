@@ -21,18 +21,19 @@
 first that fits ``FENIX_HBM_BUDGET`` (or the card's memory, see
 ``utils/hbm.py``); "dual" / "int8" / "stream" force one.
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: probed (IVF) requests over a host corpus, top-k or
-``maxval=None`` (``probed_topk`` over ``session.host_clustered_int8`` and
-its IVF sidecar, ``session.host_cell_meta``: queue 1 item 3, IVF past
-the budget), and the mesh-composed modes (item 10). ``execute_many``
-takes a list of compatible requests, but only ``execute_solo`` calls it
-until micro-batching ports (item 6). ``maxval=None`` over a host corpus
-is ``execute_nomax_host``.
+Probed (IVF) requests over a host corpus run on the host, no device
+involved (``probed_topk``, and the probed branch of
+``execute_nomax_host``): each probed cell is a contiguous slice of the
+cell-sorted host layouts (``session.host_clustered_int8`` and its IVF
+sidecar, ``session.host_cell_meta``). The mesh-composed modes wait (ROADMAP
+queue 1 item 10). ``execute_many`` takes a list of compatible requests,
+but only ``execute_solo`` calls it until micro-batching ports (item 6).
+``maxval=None`` over a host corpus is ``execute_nomax_host``.
 
 Counters (``stats``): ``search.residency_int8``,
 ``search.residency_stream``, ``search.stream_chunks``,
-``search.residency_host_nomax`` (the reference's names), and
+``search.residency_host_nomax``, ``search.residency_probed_host`` (the
+reference's names), and
 ``residency.phase_a_seconds`` (host wall time of the device calls, each
 ending in the device→host copy of its result) and
 ``residency.rescore_seconds`` (host gather + exact rescore).
@@ -70,10 +71,6 @@ _SAFETY = 0.9
 _DEFAULT_WINDOW = 4096
 # float64 bytes of one block of gathered rows in the host l2 read
 _NOMAX_BLOCK_BYTES = 128 << 20
-_PROBED_TODO = (
-    "ROADMAP queue 1 item 3, IVF past the budget: residency.probed_topk, session.host_cell_meta, "
-    "session.host_clustered_int8 and its IVF sidecar"
-)
 
 
 def plan(cache, req) -> str:
@@ -249,6 +246,69 @@ def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.n
     return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
 
 
+# -- probed (IVF) execution over the cell-sorted host layout ------------------
+
+
+def _ranges_to_positions(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """``concatenate([arange(s, e) for s, e in zip(starts, ends)])`` as
+    int64, without a loop over the ranges."""
+    lens = (ends - starts).astype(np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    cml = np.cumsum(lens)
+    idx = np.arange(total)
+    seg = np.searchsorted(cml, idx, side="right")
+    return idx - (cml[seg] - lens[seg]) + starts[seg].astype(np.int64)
+
+
+def _request_metric(cache, req) -> str:
+    """The request's metric, by default its coder's (as on the device
+    routes; the JAX package's host routes require one)."""
+    metric = req.metric if req.metric is not None else cache.coding(req.coding)["config"]["metric"]
+    return distance_ops.canonical_metric(metric)
+
+
+def probed_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """(dist [Q, k], ids [Q, k]) of a probed request over a host corpus,
+    on the host alone: the probe cells are ranked as on every probed route
+    (``executor._rank_cells``); each probed cell is a contiguous slice of
+    the cell-sorted int8 layout, scored by ``native.row_score`` (int8 rows,
+    fp32 query); the top ``window`` per query (``argpartition``) go to the
+    exact fp32 host rescore of the int8-resident mode. Work is O(probed
+    rows). The JAX package's function, its per-query loop kept."""
+    metric = _request_metric(cache, req)
+    cells = executor._rank_cells(stacked, cache.coding(req.coding), metric, int(req.probes), cache.device)
+    codes_s, _, orig, offsets = cache.host_clustered_int8(req.coding, req.source, req.column)
+    mul_s, add_s = cache.host_clustered_aux(req.coding, req.source, req.column, metric)
+    host = cache.host_matrix(req.source, req.column)
+    hmul, hadd = cache.host_aux(req.source, req.column, metric)
+    mask = _host_mask(cache, req)
+    rows = host.shape[0]
+    if orig.shape[0] != rows or (mask is not None and mask.shape[0] != rows):
+        raise executor._StaleRevision
+    qt = stacked.shape[0]
+    qp = _prepare_queries_np(stacked, metric)
+    w = _request_window(req, max(rows, 1), k_pad)
+
+    t = time.perf_counter()
+    win = np.full((qt, w), -1, np.int32)
+    for qi in range(qt):
+        pos = _ranges_to_positions(offsets[cells[qi]], offsets[cells[qi] + 1])
+        if pos.size == 0:
+            continue
+        sc = native.row_score(codes_s, pos, qp[qi], mul_s, add_s)
+        o = orig[pos]
+        if mask is not None:
+            sc = np.where(mask[o], sc, -np.inf)
+        ww = min(w, pos.size)
+        part = np.argpartition(-sc, ww - 1)[:ww] if ww < pos.size else np.arange(pos.size)
+        win[qi, :ww] = o[part]
+    METRICS.add("residency.probed_score_seconds", time.perf_counter() - t)
+    METRICS.add("search.residency_probed_host")
+    return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
+
+
 # -- streaming (larger than device memory) ----------------------------------
 
 
@@ -361,15 +421,20 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
 
 def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
     """Serve compatible requests (same source, column, metric, filter,
-    precision) through a host-corpus mode as one device pass, retrying
-    when a catalog mutation lands mid-request."""
+    precision, coder and probes) through a host-corpus mode as one pass,
+    retrying when a catalog mutation lands mid-request. A probed request
+    (a coder and nonzero probes) runs ``probed_topk`` over the coded
+    table, whatever the mode."""
     r0 = reqs[0]
-    if r0.coding and r0.probes:
-        raise NotImplementedError(f"probed search over a host-resident corpus ({_PROBED_TODO})")
-    fn = int8_topk if mode == INT8 else stream_topk
+    probed = bool(r0.coding) and bool(r0.probes)
+    coding = r0.coding if probed else None
+    if probed:
+        fn = probed_topk
+    else:
+        fn = int8_topk if mode == INT8 else stream_topk
     for _ in range(4):
-        stamp = cache.snapshot_stamp(r0.source)
-        data = cache.host_table(r0.source)
+        stamp = cache.snapshot_stamp(r0.source, r0.column, coding)
+        data = cache.coded_table(coding, r0.source, r0.column) if probed else cache.host_table(r0.source)
         column_type = ingest.vector_field_type(data.schema.field(r0.column))
         value_dtype = column_type.value_type.to_pandas_dtype()
         targets = [executor.normalize_target(r.target, column_type.list_size) for r in reqs]
@@ -381,10 +446,10 @@ def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
             dist, ids = fn(cache, r0, stacked, k, executor._canonical_k(k))
         except executor._StaleRevision:
             continue
-        if cache.snapshot_stamp(r0.source) != stamp:
+        if cache.snapshot_stamp(r0.source, r0.column, coding) != stamp:
             continue
 
-        views = cache.host_column_views(r0.source, data, stamp)
+        views = cache.host_column_views(r0.source, data, stamp, coding)
         out = []
         offset = 0
         for req, c in zip(reqs, counts):
@@ -413,45 +478,64 @@ def execute_solo(cache, req, mode: str) -> pa.Table:
 
 def execute_nomax_host(cache, req) -> pa.Table:
     """No-top-k read over a host-resident corpus: every row that passes
-    the filter, with its exact fp32 distance, computed on the host (the
+    the filter (and, probed, lies in one of the query's probe cells), in
+    table order, with its exact fp32 distance, computed on the host (the
     output is O(selected rows): no reason to stream the corpus through
     the card for a host-delivered result). The reference's index.py:162,
     as ``fenix_tpu/engine/residency.py:675-739`` serves it, with two
-    changes: the selection is the same for every query, so it is found
-    once; and an l2 distance is ``‖q − v‖`` of the selected row (the
+    changes: an unprobed selection is the same for every query, so it is
+    found once; and an l2 distance is ``‖q − v‖`` of the selected row (the
     port's l2 rule, :func:`_host_l2`), while cosine and dot come from
-    ``native.row_score``.
-    Counter: ``search.residency_host_nomax``. The probed read needs the
-    host cell layout, not ported yet."""
-    if req.coding and req.probes:
-        raise NotImplementedError(f"probed maxval=None over a host-resident corpus ({_PROBED_TODO})")
-    metric = distance_ops.canonical_metric(req.metric)
+    ``native.row_score``. A probed read finds each query's rows through
+    the cell-sorted order (``session.host_cell_meta``); its columns are
+    the table's, without ``__CODED_ID__``, as in the JAX package.
+    Counter: ``search.residency_host_nomax``."""
+    probed = bool(req.coding) and bool(req.probes)
+    metric = _request_metric(cache, req) if probed else distance_ops.canonical_metric(req.metric)
     for _ in range(4):
-        stamp = cache.snapshot_stamp(req.source)
+        table_stamp = cache.snapshot_stamp(req.source)
+        stamp = cache.snapshot_stamp(req.source, req.column, req.coding) if probed else table_stamp
         data = cache.host_table(req.source)
         column_type = ingest.vector_field_type(data.schema.field(req.column))
         value_dtype = column_type.value_type.to_pandas_dtype()
         target = executor.normalize_target(req.target, column_type.list_size)
         host = cache.host_matrix(req.source, req.column)
         rows = host.shape[0]
-        sel = np.arange(rows)
-        if req.filter is not None:
-            mask = cache.host_filter_mask(req.source, req.filter)
-            if mask.shape[0] != rows:
-                continue  # the mask and the matrix span revisions
-            sel = np.flatnonzero(mask)
-        dist = _host_distances(cache, req, host, sel, target, metric)
-        if cache.snapshot_stamp(req.source) != stamp:
-            continue
         qt = target.shape[0]
-        ids = np.broadcast_to(sel, (qt, sel.size))
-        if sel.size == 0:  # one dropped slot per query, as the device read
-            ids, dist = np.full((qt, 1), -1, np.int64), np.full((qt, 1), np.inf, np.float32)
+        mask = cache.host_filter_mask(req.source, req.filter) if req.filter is not None else None
+        if mask is not None and mask.shape[0] != rows:
+            continue  # the mask and the matrix span revisions
+        if probed:
+            cells = executor._rank_cells(target, cache.coding(req.coding), metric, int(req.probes), cache.device)
+            try:
+                orig, offsets = cache.host_cell_meta(req.coding, req.source, req.column)
+            except executor._StaleRevision:
+                continue
+            if orig.shape[0] != rows:
+                continue
+            sels = []
+            for qi in range(qt):
+                sel = np.sort(orig[_ranges_to_positions(offsets[cells[qi]], offsets[cells[qi] + 1])])
+                sels.append(sel if mask is None else sel[mask[sel]])
+            width = max(max(x.size for x in sels), 1)
+            ids = np.full((qt, width), -1, np.int64)
+            dist = np.full((qt, width), np.inf, np.float32)
+            for qi, sel in enumerate(sels):
+                ids[qi, : sel.size] = sel
+                dist[qi, : sel.size] = _host_distances(cache, req, host, sel, target[qi : qi + 1], metric)[0]
+        else:
+            sel = np.arange(rows) if mask is None else np.flatnonzero(mask)
+            dist = _host_distances(cache, req, host, sel, target, metric)
+            ids = np.broadcast_to(sel, (qt, sel.size))
+            if sel.size == 0:  # one dropped slot per query, as the device read
+                ids, dist = np.full((qt, 1), -1, np.int64), np.full((qt, 1), np.inf, np.float32)
+        if cache.snapshot_stamp(req.source, req.column, req.coding if probed else None) != stamp:
+            continue
         select = [*req.select] if req.select is not None else data.column_names
         METRICS.add("search.residency_host_nomax")
         return executor.gather_results(
             data, select + [executor.DIST_COL], dist, ids, value_dtype,
-            views=cache.host_column_views(req.source, data, stamp),
+            views=cache.host_column_views(req.source, data, table_stamp),
         )
     raise RuntimeError(f"table {req.source!r} kept changing during search")
 

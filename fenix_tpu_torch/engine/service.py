@@ -2,9 +2,11 @@
 
 ``run_search_config`` resolves a repartitioned name to its shard tables
 (``parallel/distributed.resolve_source``) and hands the request straight
-to ``executor.execute_search``: micro-batching of concurrent requests
-(``engine/batching.py``) and fused joins are not ported yet (ROADMAP
-queue 1).
+to ``executor.execute_search``. A config with an ``aggregate`` and no
+``join`` is the plain search, as in the JAX package, which reads the
+aggregate only inside a join. Fused joins (ROADMAP queue 1 item 9) and
+micro-batching of concurrent requests (``engine/batching.py``, item 6)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchR
 
 
 def run_search_config(cache: DeviceCache, config: dict[str, Any], target: Any) -> pa.Table:
-    if config.get("join") is not None or config.get("aggregate") is not None:
-        raise NotImplementedError("search joins and aggregates (ROADMAP queue 1: analytics port)")
+    if config.get("join") is not None:
+        raise NotImplementedError("search joins and aggregates (ROADMAP queue 1 item 9: analytics)")
     config = {**config, "source": distributed.resolve_source(cache.root, config["source"])}
     return executor.execute_search(cache, request_from_config(config, target))

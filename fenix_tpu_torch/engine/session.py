@@ -3,22 +3,33 @@
 
 A cache of device-resident padded column tensors keyed by (source,
 column): the first query against a table pays the host→device copy;
-later queries run out of device memory. Tables are immutable artifacts
-(rewritten atomically on ingest), so entries are keyed by the table's
-revision stamp and rebuilt when it moves.
+later queries run out of device memory. Entries are keyed by the table's
+revision stamp and refreshed when it moves.
 
 Ported: the host table, the snapshot (host table + device matrix of one
-revision), the fp32 matrix (a new revision rebuilds it in full), the
-metric aux vectors, the bf16 and int8 scan copies, zero-copy host column
-views for the result gather, the LRU budget and ``invalidate``; and for
-the host-corpus residency modes (``engine/residency.py``) the host fp32
-matrix, the host int8 mirror with its on-disk sidecar, the host aux and
-filter masks, and the int8-resident device copy built without any fp32
-on the device. Device filters: the scalar columns (``scalar``, integers
-as int32) and ``device_filter_mask``, a predicate evaluated on the card
-and memoized per (predicate, revision) in the filter-mask LRU. All
-tensors live on the one ``device`` the cache was made for; nothing moves
-to the CPU when a CUDA device was asked for.
+revision), the fp32 matrix, the metric aux vectors, the bf16 and int8
+scan copies, zero-copy host column views for the result gather, the LRU
+budget and ``invalidate``; and for the host-corpus residency modes
+(``engine/residency.py``) the host fp32 matrix, the host int8 mirror
+with its on-disk sidecar, the host aux and filter masks, and the
+int8-resident device copy built without any fp32 on the device. Device
+filters: the scalar columns (``scalar``, integers as int32) and
+``device_filter_mask``, a predicate evaluated on the card and memoized
+per (predicate, revision) in the filter-mask LRU. All tensors live on the
+one ``device`` the cache was made for; nothing moves to the CPU when a
+CUDA device was asked for.
+
+Mutations refresh across one recorded hop instead of re-reading the
+corpus: an append grows the fp32 matrix by the delta parts' rows alone
+(``_grow_matrix``) and the int8-resident copy by the delta's codes
+(``_grow_int8_solo``); a delete or compaction gathers the kept rows on
+the card by the keep-mask lineage (``_shrink_matrix``), an upsert does
+both. Counted in ``incremental_refreshes`` and ``lineage_refreshes``.
+The host int8 mirror quantizes only appended rows and appends them to
+its sidecar in place, and gathers kept rows across a delete
+(``_host_int8_incremental``). Everything else the device derives from
+the matrix (aux, scan copies, clustered layouts) rebuilds from it on the
+card under the new stamp.
 
 IVF: the coder (``coding``), the coded host table with the
 ``__CODED_ID__`` join (``coded_table``, resynced when an index and its
@@ -27,12 +38,13 @@ the clustered layout: ``clustered_meta`` (host permutation and cell
 offsets), ``clustered`` (the permuted fp32 copy, its cell ids and
 original row ids, counted in ``device_bytes`` and under the LRU) and
 ``clustered_aux``, and ``clustered_perm`` (the permutation on the card,
-for device filter masks). Entries derived from an index memoize under the
-table stamp plus the index files' mtimes.
+for device filter masks). Past the budget, the cell-sorted host layouts
+of the probed host search: ``host_cell_meta``, ``host_clustered_int8``
+with its IVF sidecar, and ``host_clustered_aux``. Entries derived from
+an index memoize under the table stamp plus the index files' mtimes.
 
-The incremental append / delete refreshes (device and host mirror), the
-host-resident IVF layouts (``host_clustered_int8`` and its sidecar) and
-the mesh-sharded layouts wait (ROADMAP queue 1 items 5, 3 and 10).
+The mesh-sharded layouts and their refreshes wait (ROADMAP queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import fcntl
 import functools
 import glob
 import hashlib
+import io
 import itertools
 import json
 import logging
@@ -55,6 +68,7 @@ from typing import Sequence
 import numpy as np
 import pyarrow as pa
 import torch
+from numpy.lib import format as npf
 
 from fenix_tpu_torch import coder as coder_mod
 from fenix_tpu_torch import expr as expr_mod
@@ -74,6 +88,13 @@ DEFAULT_BLOCK = 16384
 # its literals: an LRU, since parametric literals would grow it forever
 _MASK_CACHE_LIMIT = 128
 _INT8_UPLOAD_BLOCKS = 32  # blocks per host→device copy of the int8 mirror
+# device entries a new revision refreshes from, instead of dropping them
+_REFRESHED_KINDS = ("matrix", "int8_solo")
+
+
+class _StaleRevision(Exception):
+    """A concurrent catalog mutation landed mid-request: the entries read
+    along the way span table revisions. Retried by the executor."""
 
 
 def _source_key(source: str | Sequence[str]) -> tuple[str, ...]:
@@ -113,6 +134,28 @@ def _quantize_chunk_rows(dim: int, target_bytes: int = 256 << 20) -> int:
     return max(1, target_bytes // (4 * dim))
 
 
+def _quantize_np(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``topk2.quantize_rows_int8_np`` over ``rows`` in byte-sized slices,
+    counted in ``cache.mirror_rows_quantized``."""
+    n, d = rows.shape
+    codes = np.empty((n, d), np.int8)
+    scales = np.empty(n, np.float32)
+    step = _quantize_chunk_rows(d)
+    for s in range(0, n, step):
+        codes[s : s + step], scales[s : s + step] = topk2.quantize_rows_int8_np(rows[s : s + step])
+    METRICS.add("cache.mirror_rows_quantized", n)
+    return codes, scales
+
+
+def _write_meta(meta_path: str, stamp_s: str, column: str, shape) -> None:
+    """The int8 sidecar's ``meta.json`` (the JAX package's keys), through
+    a tmp file."""
+    tmp = meta_path + f".tmp-{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump({"stamp": stamp_s, "column": column, "rows": int(shape[0]), "dim": int(shape[1])}, fh)
+    os.replace(tmp, meta_path)
+
+
 def _sweep_dead_tmp(cdir: str) -> None:
     """Remove sidecar ``.tmp-<pid>-*`` files of writers that died (the
     names carry the writer's pid). A live writer's files stay: deleting
@@ -133,6 +176,60 @@ def _sweep_dead_tmp(cdir: str) -> None:
             os.unlink(orphan)
         except OSError:
             pass
+
+
+def _npy_append_rows(path: str, arr: np.ndarray, expect_rows: int) -> bool:
+    """Append ``arr``'s rows to a ``.npy`` file in place, rewriting the
+    header's shape: the O(delta) disk half of the mirror's append
+    refresh. False, with the file untouched, when the file does not hold
+    ``expect_rows`` rows (a concurrent writer won), the dtype or inner
+    shape differ, or the grown shape does not fit the fixed-size header;
+    the caller then rewrites in full. The data lands before the header
+    grows, so a torn write leaves a parseable old-shape file (and no meta:
+    readers rebuild). The JAX package's function."""
+    with open(path, "r+b") as fh:
+        version = npf.read_magic(fh)
+        if version == (1, 0):
+            shape, fortran, dtype = npf.read_array_header_1_0(fh)
+        elif version == (2, 0):
+            shape, fortran, dtype = npf.read_array_header_2_0(fh)
+        else:
+            return False
+        hdr_end = fh.tell()
+        if fortran or dtype != arr.dtype or shape[1:] != arr.shape[1:] or shape[0] != expect_rows:
+            return False
+        buf = io.BytesIO()
+        try:
+            npf.write_array_header_1_0(
+                buf,
+                {"descr": npf.dtype_to_descr(dtype), "fortran_order": False,
+                 "shape": (shape[0] + arr.shape[0],) + shape[1:]},
+            )
+        except ValueError:
+            return False
+        hdr = buf.getvalue()
+        if len(hdr) != hdr_end:
+            return False  # the shape's digits crossed the header padding
+        fh.seek(0, 2)
+        fh.write(np.ascontiguousarray(arr).tobytes())
+        fh.seek(0)
+        fh.write(hdr)
+        fh.flush()
+        os.fsync(fh.fileno())
+    return True
+
+
+def _grown(old: torch.Tensor, delta: np.ndarray, old_rows: int, new_pad: int, fill: float) -> torch.Tensor:
+    """A new ``[new_pad, ...]`` buffer holding ``old``'s first
+    ``old_rows`` rows (copied on the device), then the host rows
+    ``delta`` (the only upload), then ``fill`` to the end. The old buffer
+    is left as it is: a search in flight may still read it."""
+    new = torch.empty((new_pad, *old.shape[1:]), dtype=old.dtype, device=old.device)
+    new[:old_rows].copy_(old[:old_rows])
+    stop = old_rows + delta.shape[0]
+    ingest.upload(new[old_rows:stop], delta)
+    new[stop:].fill_(fill)
+    return new
 
 
 class DeviceCache:
@@ -161,6 +258,10 @@ class DeviceCache:
         self._builds: dict = {}
         self._masks: collections.OrderedDict = collections.OrderedDict()
         self.device_mask_builds: int = 0  # device filter masks evaluated
+        # revisions served by growing a device buffer by an append's rows,
+        # and by the keep-mask lineage (delete, compaction, upsert)
+        self.incremental_refreshes: int = 0
+        self.lineage_refreshes: int = 0
 
     def _touch(self, ckey) -> None:
         self._recency[ckey] = next(self._access)
@@ -273,15 +374,25 @@ class DeviceCache:
 
         def build() -> pa.Table:
             # A newer revision frees the superseded device entries of
-            # this table eagerly (scan copies hold corpus-sized memory).
-            # Mutate in place: concurrent _memo calls hold this dict.
+            # this table eagerly (scan copies and clustered layouts hold
+            # corpus-sized memory), except the fp32 matrix and the
+            # int8-resident copy, which the next refresh grows or
+            # shrinks. Entries of an index stamp the table stamp plus the
+            # index mtimes: compared by prefix, so a first host load at
+            # this revision keeps what this revision built. Mutate in
+            # place: concurrent _memo calls hold this dict.
             for stale in [
                 k
                 for k, (entry_stamp, _) in self._device.items()
-                if k[0] == key and entry_stamp != stamp
+                if k[0] == key
+                and entry_stamp[: len(stamp)] != stamp
+                and not (len(k) == 3 and k[2] in _REFRESHED_KINDS)
             ]:
                 del self._device[stale]
-            return table.load(self.root, key if len(key) > 1 else key[0])
+            t = time.perf_counter()
+            out = table.load(self.root, key if len(key) > 1 else key[0])
+            METRICS.add("cache.host_load_seconds", time.perf_counter() - t)
+            return out
 
         return self._memo(self._host, key, stamp, build)
 
@@ -349,10 +460,11 @@ class DeviceCache:
         (``table.int8cache_dir/<sha1(column)[:16]>/``: ``codes.npy``,
         ``scales.npy``, ``meta.json`` written last), in the JAX package's
         format, so a restart of either package memory-maps the codes
-        instead of quantizing the corpus again. A sidecar of another
-        revision is rebuilt in full (the JAX package's O(delta) refresh
-        waits for the mutation port, ROADMAP queue 1 item 5). Counters:
-        ``cache.int8_sidecar_loads`` / ``cache.int8_sidecar_writes``, and
+        instead of quantizing the corpus again. A sidecar one recorded hop
+        behind refreshes in O(delta) (``_host_int8_incremental``); any
+        other rebuilds in full. Counters: ``cache.int8_sidecar_loads`` /
+        ``cache.int8_sidecar_writes``, ``cache.mirror_rows_quantized``,
+        ``cache.mirror_delta_refreshes`` and
         ``cache.int8_mirror_build_seconds`` (quantize + write)."""
         key = _source_key(source)
         stamp = self._mtimes(key)
@@ -365,21 +477,136 @@ class DeviceCache:
                 METRICS.add("cache.int8_sidecar_loads")
                 return loaded[0], loaded[1]
             t = time.perf_counter()
+            refreshed = self._host_int8_incremental(key, column, stamp, cdir, stamp_s, loaded)
+            if refreshed is not None:
+                METRICS.add("cache.int8_mirror_build_seconds", time.perf_counter() - t)
+                return refreshed
             host = self.host_matrix(source, column)
-            rows, d = host.shape
-            codes = np.empty((rows, d), np.int8)
-            scales = np.empty(rows, np.float32)
-            step = _quantize_chunk_rows(d)
-            for s in range(0, rows, step):
-                codes[s : s + step], scales[s : s + step] = topk2.quantize_rows_int8_np(
-                    host[s : s + step]
-                )
-            METRICS.add("cache.mirror_rows_quantized", rows)
+            codes, scales = _quantize_np(host)
             out = self._write_int8_sidecar(cdir, codes, scales, stamp_s, column)
             METRICS.add("cache.int8_mirror_build_seconds", time.perf_counter() - t)
             return out
 
         return self._memo_unlocked(self._host, (key, column, "host_int8"), stamp, build)
+
+    def _host_int8_incremental(self, key: tuple, column: str, stamp, cdir, stamp_s: str, sidecar):
+        """The mirror refreshed across one recorded hop from the revision
+        it holds (in memory, else the sidecar's), or None for a full
+        rebuild. An append quantizes only the appended rows and, when the
+        sidecar holds the previous revision, appends them to its files in
+        place; a delete or compaction gathers the kept rows by the
+        keep-mask lineage, quantizing nothing. The JAX package's refresh."""
+        if len(key) != 1:
+            return None
+        name = key[0]
+        old = self._host.get((key, column, "host_int8"))
+        old_stamp = old_codes = old_scales = None
+        if old is not None:
+            old_stamp, (old_codes, old_scales) = old
+        sidecar_stamp = None
+        if sidecar is not None:
+            try:
+                sidecar_stamp = table.stamps_from_json(sidecar[2]["stamp"])
+            except (KeyError, TypeError, ValueError):
+                sidecar = None
+        if old_codes is None and sidecar is not None:
+            old_stamp = sidecar_stamp
+            old_codes, old_scales = sidecar[0], sidecar[1]
+        if old_codes is None or old_stamp is None:
+            return None
+
+        # one recorded hop from the old revision to this one: a pure
+        # append, or a lineage hop (delete, compaction) with parts on top
+        keep = None
+        delta_names = table.append_delta(old_stamp[0], stamp[0])
+        if delta_names is None:
+            lin = table.lineage(self.root, name)
+            if lin is None:
+                return None
+            lin_old, lin_new, keep = lin
+            if lin_old != old_stamp[0] or keep.shape[0] != old_codes.shape[0]:
+                return None
+            delta_names = [] if lin_new == stamp[0] else table.append_delta(lin_new, stamp[0])
+            if delta_names is None:
+                return None
+
+        dcodes = dscales = None
+        if delta_names:
+            try:
+                parts = table.load_parts(self.root, name, delta_names)
+                delta = ingest.fixed_size_list_to_numpy(parts.column(column)).astype(np.float32, copy=False)
+            except (FileNotFoundError, KeyError, TypeError):
+                return None  # a raced mutation or a schema change
+            # parts load by name, and a compaction followed by an append can
+            # reuse a name: rows read under a moved stamp must not be
+            # persisted as this revision's
+            if self._mtimes(key) != stamp:
+                return None
+            dcodes, dscales = _quantize_np(delta)
+
+        rows_same = keep is None or bool(keep.all())
+        sidecar_current = sidecar is not None and sidecar_stamp == old_stamp
+        if rows_same and dcodes is not None and sidecar_current:
+            appended = self._append_int8_sidecar(
+                cdir, dcodes, dscales, stamp_s, column, int(old_codes.shape[0])
+            )
+            if appended is not None:
+                METRICS.add("cache.mirror_delta_refreshes")
+                return appended
+            # a concurrent writer or a full header: rewrite below
+
+        base_c, base_s = old_codes, old_scales
+        if not rows_same:
+            idx = np.flatnonzero(keep)
+            base_c, base_s = np.asarray(old_codes)[idx], np.asarray(old_scales)[idx]
+        if dcodes is not None:
+            base_c = np.concatenate([np.asarray(base_c), dcodes])
+            base_s = np.concatenate([np.asarray(base_s), dscales])
+        elif rows_same and sidecar_current:
+            # a compaction: the sidecar's data is this revision's already,
+            # so only its meta is stamped anew
+            try:
+                _write_meta(os.path.join(cdir, "meta.json"), stamp_s, column, old_codes.shape)
+                METRICS.add("cache.mirror_delta_refreshes")
+                return old_codes, old_scales
+            except OSError:
+                pass
+        METRICS.add("cache.mirror_delta_refreshes")
+        return self._write_int8_sidecar(
+            cdir, np.ascontiguousarray(base_c), np.ascontiguousarray(base_s), stamp_s, column
+        )
+
+    @staticmethod
+    def _append_int8_sidecar(cdir, dcodes, dscales, stamp_s: str, column: str, old_rows: int):
+        """Grow the persisted sidecar in place by the delta's codes and
+        scales (O(delta) disk I/O) under the appenders' flock, meta
+        invalidated first and written last; the reloaded ``(codes,
+        scales)``, or None for a full rewrite."""
+        if cdir is None:
+            return None
+        meta_path = os.path.join(cdir, "meta.json")
+        try:
+            with open(os.path.join(cdir, ".append.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if os.path.exists(meta_path):
+                    os.unlink(meta_path)  # invalidate before touching data
+                codes_path = os.path.join(cdir, "codes.npy")
+                scales_path = os.path.join(cdir, "scales.npy")
+                if not _npy_append_rows(codes_path, dcodes, old_rows):
+                    return None
+                if not _npy_append_rows(scales_path, dscales, old_rows):
+                    return None
+                _write_meta(meta_path, stamp_s, column, (old_rows + dcodes.shape[0], dcodes.shape[1]))
+                # reload inside the flock: a writer in another process
+                # could otherwise pair codes and scales of two revisions
+                codes = np.load(codes_path, mmap_mode="r")
+                scales = np.load(scales_path)
+                if codes.shape[0] != scales.shape[0]:
+                    return None
+            METRICS.add("cache.int8_sidecar_writes")
+            return codes, scales
+        except (OSError, ValueError):
+            return None
 
     def _int8_cdir(self, key: tuple, column: str) -> "str | None":
         if len(key) != 1:
@@ -435,14 +662,7 @@ class DeviceCache:
                     with open(tmp, "wb") as fh:
                         np.save(fh, np.ascontiguousarray(arr))
                     os.replace(tmp, os.path.join(cdir, fname))
-                tmp = meta_path + f".tmp-{os.getpid()}"
-                with open(tmp, "w") as fh:
-                    json.dump(
-                        {"stamp": stamp_s, "column": column,
-                         "rows": int(codes.shape[0]), "dim": int(codes.shape[1])},
-                        fh,
-                    )
-                os.replace(tmp, meta_path)
+                _write_meta(meta_path, stamp_s, column, codes.shape)
                 # serve the page-cache-backed mapping, not the anonymous build array
                 codes = np.load(os.path.join(cdir, "codes.npy"), mmap_mode="r")
             METRICS.add("cache.int8_sidecar_writes")
@@ -556,8 +776,17 @@ class DeviceCache:
         return mask
 
     def matrix(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
-        """Padded ``[N_pad, D]`` fp32 vector column on the device. A new
-        table revision rebuilds it from the host in full."""
+        """Padded ``[N_pad, D]`` fp32 vector column on the device.
+
+        A revision one recorded hop from the cached one refreshes on the
+        card: an append uploads only its delta parts' rows
+        (``_grow_matrix``); a delete or compaction gathers the kept rows
+        by the keep-mask lineage (``_shrink_matrix``); an upsert does both.
+        Counted in ``incremental_refreshes`` and ``lineage_refreshes``. Any
+        other revision (an overwrite, an append that folded the parts into
+        a new base, a cache two hops behind, a corrupt lineage) rebuilds
+        from the host. Timers: ``cache.refresh_seconds`` (a refresh's host
+        time) and ``cache.host_load_seconds`` (host table loads)."""
         key = _source_key(source)
         stamp = self._mtimes(key)
         ckey = (key, column, "matrix")
@@ -571,9 +800,31 @@ class DeviceCache:
             hit = self._device.get(ckey)
             if hit is not None and hit[0] == stamp:
                 return hit[1]
+            if hit is not None and len(key) == 1:
+                t = time.perf_counter()
+                grown = self._grow_matrix(key[0], column, hit[0][0], hit[1], stamp[0])
+                refreshed = grown
+                if grown is None:
+                    refreshed = self._shrink_matrix(key[0], column, hit[0][0], hit[1], stamp[0])
+                # host time: the uploads end in a sync copy, a gather runs on
+                METRICS.add("cache.refresh_seconds", time.perf_counter() - t)
+                # a compaction between the stamp read and the part loads can
+                # fold the parts and reuse their names: the refreshed rows
+                # would be another revision's, so a moved stamp rebuilds
+                if refreshed is not None and self._mtimes(key) == stamp:
+                    self._device[ckey] = (stamp, refreshed)
+                    self._touch(ckey)
+                    self._maybe_evict(ckey)
+                    if grown is not None:
+                        self.incremental_refreshes += 1
+                    else:
+                        self.lineage_refreshes += 1
+                    return refreshed
+                del grown, refreshed
+            del hit
             self._device.pop(ckey, None)  # free the old revision first
             # the stamp stored with the entry must describe the revision
-            # the rows came from
+            # the rows came from: the next refresh trusts it
             value, s1 = read_stable(
                 lambda: self._mtimes(key),
                 lambda: ingest.to_device_matrix(
@@ -587,6 +838,60 @@ class DeviceCache:
             self._touch(ckey)
             self._maybe_evict(ckey)
             return value
+
+    def _grow_matrix(
+        self, source: str, column: str, old_stamp, old: ingest.DeviceColumn, new_stamp
+    ) -> "ingest.DeviceColumn | None":
+        """The cached matrix grown by the rows of the parts appended since
+        ``old_stamp``: only they cross the link. The new buffer has a cold
+        rebuild's capacity and zero padding rows; the old one stays whole
+        for searches in flight, so both are resident until the copy ends.
+        None when the hop is not an append."""
+        delta_names = table.append_delta(old_stamp, new_stamp)
+        if not delta_names:
+            return None
+        try:
+            parts = table.load_parts(self.root, source, delta_names)
+            delta = ingest.fixed_size_list_to_numpy(parts.column(column)).astype(np.float32, copy=False)
+        except (FileNotFoundError, KeyError, TypeError):
+            return None  # a raced mutation or a schema change: rebuild
+        new_rows = old.rows + delta.shape[0]
+        cold_pad = max(ingest.round_up(new_rows, self.block), self.block, old.rows_padded)
+        return ingest.DeviceColumn(
+            data=_grown(old.data, np.ascontiguousarray(delta), old.rows, cold_pad, 0), rows=new_rows
+        )
+
+    def _shrink_matrix(
+        self, source: str, column: str, old_stamp, old: ingest.DeviceColumn, new_stamp
+    ) -> "ingest.DeviceColumn | None":
+        """The cached matrix refreshed across a delete or compaction by the
+        recorded keep-mask lineage (``table.record_lineage``): the kept
+        rows are gathered on the card by one int32 index upload (4 B a
+        kept row), padding rows zeroed; a compaction (every row kept)
+        reuses the buffer. Parts appended on top of the hop grow it
+        (an upsert). None when the lineage is absent, corrupt or not this
+        hop (the caller rebuilds). The mesh-sharded shrink waits with
+        ROADMAP queue 1 item 10."""
+        lin = table.lineage(self.root, source)
+        if lin is None:
+            return None
+        lin_old, lin_new, keep = lin
+        if lin_old != old_stamp or keep.shape[0] != old.rows:
+            return None
+        if bool(keep.all()):
+            col = old  # a compaction: the same rows under a new base
+        else:
+            idx = np.flatnonzero(keep).astype(np.int32)
+            new_rows = int(idx.size)
+            new_pad = max(ingest.round_up(new_rows, self.block), self.block)
+            idx_dev = torch.empty(new_rows, dtype=torch.int32, device=self.device)
+            ingest.upload(idx_dev, idx)
+            data = torch.zeros((new_pad, old.data.shape[1]), dtype=old.data.dtype, device=self.device)
+            torch.index_select(old.data, 0, idx_dev, out=data[:new_rows])
+            col = ingest.DeviceColumn(data=data, rows=new_rows)
+        if new_stamp == lin_new:
+            return col
+        return self._grow_matrix(source, column, lin_new, col, new_stamp)
 
     def matrix_bf16(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
         """bf16 copy of the vector column for half-traffic phase-1 scans
@@ -622,7 +927,9 @@ class DeviceCache:
         without any fp32 on the device: the host mirror (:meth:`host_int8`)
         is uploaded in chunks into a preallocated int8 tensor, so the int8
         copy is the only corpus-sized device allocation. Padding rows are
-        zero codes with scale 1e-30. Timed as ``cache.int8_upload_seconds``."""
+        zero codes with scale 1e-30. An append grows it by the delta's
+        codes (``_grow_int8_solo``); other revisions upload the refreshed
+        mirror. Timed as ``cache.int8_upload_seconds``."""
         key = _source_key(source)
         stamp = self._mtimes(key)
         ckey = (key, column, "int8_solo")
@@ -630,11 +937,30 @@ class DeviceCache:
         if hit is not None and hit[0] == stamp:
             self._touch(ckey)
             return hit[1]
+        if hit is not None and len(key) == 1:
+            # grown outside the cache lock: the mirror's build publishes
+            # under it. The entry must still be the one grown from, and the
+            # table still at the stamp grown to, when it is published.
+            t = time.perf_counter()
+            grown = self._grow_int8_solo(key, column, hit[0], hit[1], stamp)
+            METRICS.add("cache.refresh_seconds", time.perf_counter() - t)  # the mirror's refresh included
+            if grown is not None:
+                with self._lock:
+                    cur = self._device.get(ckey)
+                    if cur is not None and cur[0] == hit[0] and self._mtimes(key) == stamp:
+                        self._device[ckey] = (stamp, grown)
+                        self._touch(ckey)
+                        self._maybe_evict(ckey)
+                        self.incremental_refreshes += 1
+                        return grown
+        del hit
         # the mirror builds outside the cache lock (_memo_unlocked): waiting
         # on its builder while holding the lock would stall the whole cache
         codes, scales = self.host_int8(source, column)
 
         def build():
+            stale = self._device.pop(ckey, None)  # free the old revision first
+            del stale
             t = time.perf_counter()
             rows, d = codes.shape
             n_pad = max(ingest.round_up(rows, self.block), self.block)
@@ -642,14 +968,39 @@ class DeviceCache:
             step = _INT8_UPLOAD_BLOCKS * self.block
             for s in range(0, rows, step):
                 part = np.asarray(codes[s : s + step])
-                v8[s : s + part.shape[0]].copy_(ingest.host_tensor(part))
+                ingest.upload(v8[s : s + part.shape[0]], part)
             v8[rows:].zero_()
             sv = torch.full((n_pad,), 1e-30, dtype=torch.float32, device=self.device)
-            sv[:rows].copy_(ingest.host_tensor(np.asarray(scales, np.float32)))
+            ingest.upload(sv[:rows], np.asarray(scales, np.float32))
             METRICS.add("cache.int8_upload_seconds", time.perf_counter() - t)  # ends in a sync copy
             return ingest.DeviceColumn(data=v8, rows=rows), ingest.DeviceColumn(data=sv, rows=rows)
 
         return self._memo(self._device, ckey, stamp, build)
+
+    def _grow_int8_solo(self, key: tuple, column: str, old_stamp, old, new_stamp):
+        """The int8-resident copy grown by an append's rows: their codes
+        come from the refreshed mirror (which quantized only them), so the
+        upload is the delta's. Capacity is a cold build's; padding rows
+        keep zero codes and scale 1e-30. None for any other hop (the
+        caller uploads the refreshed mirror)."""
+        if table.append_delta(old_stamp[0], new_stamp[0]) is None:
+            return None
+        v8, sv = old
+        codes, scales = self.host_int8(key[0], column)
+        # the mirror is stamped against the current table: if it moved
+        # again while the mirror built, its rows are not new_stamp's
+        if self._mtimes(key) != new_stamp:
+            return None
+        new_rows = codes.shape[0]
+        if new_rows <= v8.rows or codes.shape[1] != v8.data.shape[1]:
+            return None  # a raced mutation or a schema change
+        cold_pad = max(ingest.round_up(new_rows, self.block), self.block, v8.rows_padded)
+        delta_c = np.asarray(codes[v8.rows : new_rows])
+        delta_s = np.asarray(scales[v8.rows : new_rows], np.float32)
+        return (
+            ingest.DeviceColumn(data=_grown(v8.data, delta_c, v8.rows, cold_pad, 0), rows=new_rows),
+            ingest.DeviceColumn(data=_grown(sv.data, delta_s, v8.rows, cold_pad, 1e-30), rows=new_rows),
+        )
 
     def int8_solo_aux(self, source: str | Sequence[str], column: str, metric: str):
         """Device ``(aux_mul, aux_add)`` [N_pad] for the int8-resident
@@ -845,6 +1196,155 @@ class DeviceCache:
         return self._memo(
             self._device,
             (key, column, "clustered_aux", coding, canonical),
+            self._coded_stamp(coding, key, column),
+            build,
+        )
+
+    # -- IVF past the budget: cell-sorted host layouts ----------------------
+
+    def _n_cells(self, coding: str) -> int:
+        n_books, k_book, _ = self.coding(coding)["tensor"].shape
+        return int(k_book) ** int(n_books)
+
+    def host_cell_meta(self, coding: str, source: str | Sequence[str], column: str):
+        """``(orig [N] int32, offsets [n_cells + 1] int64)`` of the
+        cell-sorted host order: ``orig`` maps a sorted position to its row
+        (one stable argsort of the cell ids, so rows keep table order
+        within a cell), ``offsets[c]`` is cell ``c``'s first position. The
+        probed host read and :meth:`host_clustered_int8` hang off it.
+        Raises ``_StaleRevision`` when the table and the index span a
+        mutation."""
+        key = _source_key(source)
+
+        def build():
+            n_cells = self._n_cells(coding)
+            rows = self.host_table(source).num_rows
+            cell_ids = self._host_codes(coding, key, column) if rows else np.zeros(0, np.int64)
+            if cell_ids.shape[0] != rows:
+                raise _StaleRevision
+            perm = np.argsort(cell_ids.astype(np.int64), kind="stable")
+            offsets = np.searchsorted(cell_ids[perm], np.arange(n_cells + 1)).astype(np.int64)
+            return perm.astype(np.int32), offsets
+
+        return self._memo(
+            self._host, (key, column, "host_cell_meta", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def host_clustered_int8(self, coding: str, source: str | Sequence[str], column: str):
+        """Cell-sorted host int8 layout of the probed host search:
+        ``(codes_sorted [N, D] int8, scales_sorted [N] f32, orig [N] int32,
+        offsets [n_cells + 1] int64)``; each probed cell is one contiguous
+        slice. Built from the int8 mirror by :meth:`host_cell_meta`'s
+        order and persisted as a revision-stamped sidecar under
+        ``<int8cache>/<sha1(column)[:16]>/ivf-<sha1(coding)[:16]>/``
+        (``codes.npy``, ``scales.npy``, ``orig.npy``, ``offsets.npy``,
+        ``meta.json`` written last), in the JAX package's format, so
+        either package memory-maps the other's. Counters:
+        ``cache.ivf_sidecar_loads`` / ``cache.ivf_sidecar_writes``."""
+        key = _source_key(source)
+        stamp = self._coded_stamp(coding, key, column)
+
+        def build():
+            n_cells = self._n_cells(coding)
+            cdir = None
+            if len(key) == 1:
+                cdir = os.path.join(
+                    self._int8_cdir(key, column), "ivf-" + hashlib.sha1(coding.encode()).hexdigest()[:16]
+                )
+            stamp_s = json.dumps(stamp)
+            loaded = self._read_ivf_sidecar(cdir, stamp_s, column, n_cells)
+            if loaded is not None:
+                METRICS.add("cache.ivf_sidecar_loads")
+                return loaded
+
+            codes8, scales = self.host_int8(source, column)
+            rows, d = codes8.shape
+            orig, offsets = self.host_cell_meta(coding, source, column)
+            if orig.shape[0] != rows:
+                raise _StaleRevision
+            perm = orig.astype(np.int64)
+            scales_sorted = np.asarray(scales)[perm]
+            step = max(1, (256 << 20) // max(d, 1))  # int8: 1 B an element
+
+            def fill(dst) -> None:
+                for s in range(0, rows, step):
+                    dst[s : s + step] = codes8[perm[s : s + step]]
+
+            if cdir is not None:
+                meta_path = os.path.join(cdir, "meta.json")
+                try:
+                    os.makedirs(cdir, exist_ok=True)
+                    _sweep_dead_tmp(cdir)
+                    if os.path.exists(meta_path):
+                        os.unlink(meta_path)  # invalidate before the data
+                    tmp = os.path.join(cdir, f".tmp-{os.getpid()}-codes.npy")
+                    dst = npf.open_memmap(tmp, mode="w+", dtype=np.int8, shape=(rows, d))
+                    fill(dst)
+                    dst.flush()
+                    del dst
+                    os.replace(tmp, os.path.join(cdir, "codes.npy"))
+                    for arr, fname in ((scales_sorted, "scales.npy"), (orig, "orig.npy"), (offsets, "offsets.npy")):
+                        tmp = os.path.join(cdir, f".tmp-{os.getpid()}-{fname}")
+                        with open(tmp, "wb") as fh:
+                            np.save(fh, arr)
+                        os.replace(tmp, os.path.join(cdir, fname))
+                    tmp = meta_path + f".tmp-{os.getpid()}"
+                    with open(tmp, "w") as fh:
+                        json.dump({"stamp": stamp_s, "column": column, "coding": coding, "rows": rows,
+                                   "dim": d, "n_cells": n_cells}, fh)
+                    os.replace(tmp, meta_path)
+                    METRICS.add("cache.ivf_sidecar_writes")
+                    codes_sorted = np.load(os.path.join(cdir, "codes.npy"), mmap_mode="r")
+                    return codes_sorted, scales_sorted, orig, offsets
+                except OSError:
+                    shutil.rmtree(cdir, ignore_errors=True)  # serve from memory
+            codes_sorted = np.empty((rows, d), np.int8)
+            fill(codes_sorted)
+            return codes_sorted, scales_sorted, orig, offsets
+
+        return self._memo_unlocked(self._host, (key, column, "host_clustered_int8", coding), stamp, build)
+
+    @staticmethod
+    def _read_ivf_sidecar(cdir: "str | None", stamp_s: str, column: str, n_cells: int):
+        """The IVF sidecar's four arrays when it holds revision ``stamp_s``
+        whole, else None (absent, another revision, torn or corrupt)."""
+        if cdir is None or not os.path.isdir(cdir):
+            return None
+        meta_path = os.path.join(cdir, "meta.json")
+        try:
+            with open(meta_path) as fh:
+                meta = json.load(fh)
+            if meta.get("stamp") != stamp_s or meta.get("column") != column:
+                return None
+            codes = np.load(os.path.join(cdir, "codes.npy"), mmap_mode="r")
+            scales = np.load(os.path.join(cdir, "scales.npy"))
+            orig = np.load(os.path.join(cdir, "orig.npy"))
+            offsets = np.load(os.path.join(cdir, "offsets.npy"))
+            with open(meta_path) as fh:
+                if json.load(fh) != meta:
+                    return None  # replaced by another process meanwhile
+            if not (scales.shape[0] == codes.shape[0] == orig.shape[0] and offsets.shape[0] == n_cells + 1):
+                return None
+            return codes, scales, orig, offsets
+        except (OSError, ValueError, EOFError):
+            return None
+
+    def host_clustered_aux(self, coding: str, source: str | Sequence[str], column: str, metric: str):
+        """``(mul_s, add_s)`` [N] f32 in the cell-sorted host order: the
+        row factors ``aux_mul · scale`` and ``aux_add`` of the probed
+        host scan, permuted once per (revision, metric) so each probed
+        cell reads them as contiguous slices."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+
+        def build():
+            _, scales_sorted, orig, _ = self.host_clustered_int8(coding, source, column)
+            hmul, hadd = self.host_aux(source, column, canonical)
+            return (scales_sorted * hmul[orig]).astype(np.float32), hadd[orig].astype(np.float32)
+
+        return self._memo(
+            self._host,
+            (key, column, "host_clustered_aux", coding, canonical),
             self._coded_stamp(coding, key, column),
             build,
         )

@@ -19,15 +19,22 @@ routes as ``filter.device_pushdown`` and ``filter.host_upload`` (with
 as ``search.nomax_full``, ``search.nomax_selected`` and
 ``search.residency_host_nomax``.
 
+Mutations: ``do_put`` in mode ``append`` adds a delta part and assigns
+only its rows into every index, ``upsert`` replaces or inserts by a key
+column and writes ``{"replaced", "inserted"}`` as the put's metadata;
+``delete-rows`` filters a table and its indexes by one mask and
+``compact-table`` folds the delta parts into the base. Searches after a
+mutation refresh the device cache across the hop (``stats``:
+``cache.incremental_refreshes``, ``cache.lineage_refreshes``).
+
 ``repartition`` hash-partitions a table into shard tables
 (``parallel/distributed.py``); every verb resolves a repartitioned name
-to its shards, and ``drop-table`` and an overwrite put remove them.
-``fault-inject`` arms failure points when the server runs with
-``FENIX_ENABLE_FAULT_INJECTION=1``.
+to its shards (append and upsert refuse one), and ``drop-table`` and an
+overwrite put remove them. ``fault-inject`` arms failure points when the
+server runs with ``FENIX_ENABLE_FAULT_INJECTION=1``.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: append/upsert puts, row deletes, compaction,
-``get_flight_info`` and ``list_flights``.
+ROADMAP item: ``get_flight_info`` and ``list_flights``.
 """
 
 from __future__ import annotations
@@ -59,11 +66,6 @@ LOGGER = logging.getLogger("fenix_tpu_torch")
 
 METRICS_SET: set[str] = {"cosine", "dot", "inner_product", "l2", "euclidean"}
 
-_MUTATIONS_TODO = "ROADMAP queue 1: append/upsert/delete in do_put/do_action"
-_NOT_PORTED = {
-    "delete-rows": _MUTATIONS_TODO,
-    "compact-table": _MUTATIONS_TODO,
-}
 _CATALOG_INFO_TODO = "ROADMAP queue 1 item 11, remainder: get_flight_info and list_flights"
 
 
@@ -77,11 +79,17 @@ _ROUTE_COUNTERS = (
     "search.residency_host_nomax",
     "filter.device_pushdown",
     "filter.host_upload",
+    "search.residency_probed_host",
     "search.residency_int8",
     "search.residency_stream",
     "search.stream_chunks",
     "cache.int8_sidecar_loads",
     "cache.int8_sidecar_writes",
+    "cache.ivf_sidecar_loads",
+    "cache.ivf_sidecar_writes",
+    "cache.mirror_rows_quantized",
+    "cache.mirror_delta_refreshes",
+    "index.host_assigns",
 )
 
 
@@ -129,21 +137,39 @@ class Server(fl.FlightServerBase):
                 f"table {name!r} is repartitioned; append/upsert are not "
                 "supported on a sharded name — overwrite it or re-ingest"
             )
-        if mode in ("append", "upsert"):
-            raise NotImplementedError(f"put mode {mode!r} ({_MUTATIONS_TODO})")
-        if mode != "overwrite":
-            raise ValueError(f"unknown put mode {mode!r}")
         with METRICS.timed("put", table=name, mode=mode):
-            # One lock scope: the rewrite and the index drop form a
-            # single catalog mutation.
-            with catalog_lock(self.root):
-                # a fresh table replaces any previous sharded form
-                distributed.drop_repartition(self.root, name)
-                table.make(self.root, name, reader.to_reader())
-                # Existing indexes are no longer row-aligned; drop them so
-                # probed search fails loudly instead of returning rows
-                # assigned under the previous revision.
-                index_mod.drop_for_source(self.root, name)
+            match mode:
+                case "overwrite":
+                    # One lock scope: the rewrite and the index drop form a
+                    # single catalog mutation.
+                    with catalog_lock(self.root):
+                        # a fresh table replaces any previous sharded form
+                        distributed.drop_repartition(self.root, name)
+                        table.make(self.root, name, reader.to_reader())
+                        # Existing indexes are no longer row-aligned; drop
+                        # them so probed search fails loudly instead of
+                        # returning rows assigned under the previous revision.
+                        index_mod.drop_for_source(self.root, name)
+                case "append":
+                    new = reader.to_reader().read_all()
+                    # One lock scope: the table append and the index
+                    # extension form one catalog mutation
+                    with catalog_lock(self.root):
+                        fresh = not os.path.exists(table.path_of(self.root, name))
+                        table.append(self.root, name, new)
+                        if fresh:
+                            # a dropped-then-recreated table must not
+                            # inherit leftover index files
+                            index_mod.drop_for_source(self.root, name)
+                        else:
+                            index_mod.extend_for_source(self.root, name, new, self.device)
+                case "upsert":
+                    key = descriptor.path[2].decode() if len(descriptor.path) > 2 else "id"
+                    new = reader.to_reader().read_all()
+                    replaced, inserted = index_mod.upsert_rows(self.root, name, new, key=key, device=self.device)
+                    writer.write(pa.py_buffer(_dumps({"replaced": replaced, "inserted": inserted})))
+                case _:
+                    raise ValueError(f"unknown put mode {mode!r}")
 
     # -- table read -------------------------------------------------------
 
@@ -263,6 +289,8 @@ class Server(fl.FlightServerBase):
                 snap["cache.device_bytes"] = float(self.cache.device_bytes())
                 snap["cache.evictions"] = float(self.cache.evictions)
                 snap["cache.device_mask_builds"] = float(self.cache.device_mask_builds)
+                snap["cache.incremental_refreshes"] = float(self.cache.incremental_refreshes)
+                snap["cache.lineage_refreshes"] = float(self.cache.lineage_refreshes)
                 for kind, count in self.cache.device_entry_kinds().items():
                     snap[f"cache.device_entries.{kind}"] = float(count)
                 for name, count in kernels.LAUNCHES.items():
@@ -284,8 +312,22 @@ class Server(fl.FlightServerBase):
                 FAULTS.configure(config.get("spec", ""))
                 return iter([])
 
-            case verb if verb in _NOT_PORTED:
-                raise NotImplementedError(f"action {verb!r} ({_NOT_PORTED[verb]})")
+            case "compact-table":
+                # fold the delta parts into the base Arrow IPC file (the
+                # at-rest form the reference reads), e.g. before a backup
+                with METRICS.timed("compact", table=config["name"]):
+                    table.compact(self.root, config["name"])
+                return iter([])
+
+            case "delete-rows":
+                sources = distributed.resolve_source(self.root, config["source"])
+                if isinstance(sources, str):
+                    sources = [sources]
+                filt = _decode_filter(config["filter"])
+                with METRICS.timed("delete-rows", source=config["source"]):
+                    # each shard's mask is its own: the counts sum
+                    deleted = sum(index_mod.delete_rows(self.root, s, filt) for s in sources)
+                return iter([fl.Result(_dumps({"deleted": deleted}))])
 
             case _:
                 raise ValueError(f"unknown action {action.type!r}")
@@ -342,11 +384,49 @@ class Flight:
     # -- tables -----------------------------------------------------------
 
     def make_table(self, name: str, data: pa.RecordBatchReader) -> "Flight":
-        descriptor = fl.FlightDescriptor.for_path(name, "overwrite")
+        return self._put(name, data, "overwrite")
+
+    def append_table(self, name: str, data: pa.RecordBatchReader) -> "Flight":
+        """Append rows to ``name`` (created if absent); the indexes over
+        it assign only the appended rows."""
+        return self._put(name, data, "append")
+
+    def _put(self, name: str, data: pa.RecordBatchReader, mode: str) -> "Flight":
+        descriptor = fl.FlightDescriptor.for_path(name, mode)
         writer, _ = self.conn.do_put(descriptor, data.schema)
         with writer:
             for batch in data:
                 writer.write_batch(batch)
+        return self
+
+    def upsert_rows(self, name: str, data: pa.RecordBatchReader, key: str = "id") -> dict:
+        """Replace or insert by ``key`` (the table is created if absent):
+        rows whose key matches an incoming row are deleted, then the
+        incoming rows are appended, in one catalog mutation. Returns
+        ``{"replaced": n, "inserted": m}``. Not retried: the counts are
+        not idempotent."""
+        descriptor = fl.FlightDescriptor.for_path(name, "upsert", key)
+        writer, meta_reader = self.conn.do_put(descriptor, data.schema)
+        with writer:
+            for batch in data:
+                writer.write_batch(batch)
+            writer.done_writing()
+            buf = meta_reader.read()
+        return _loads(buf.to_pybytes()) if buf is not None else {}
+
+    def delete_rows(self, source: str, filter: expr_mod.Expr) -> int:
+        """Delete the rows matching ``filter``; returns their count. The
+        indexes over the table are filtered by the same mask. Not retried:
+        a retry after a lost response would report 0 for rows the first
+        attempt deleted."""
+        if not isinstance(filter, expr_mod.Expr):
+            raise TypeError("filter must be a fenix_tpu_torch.expr.Expr")
+        action = fl.Action("delete-rows", _dumps({"source": source, "filter": filter.to_dict()}))
+        return _loads([*self.conn.do_action(action)][0].body.to_pybytes())["deleted"]
+
+    def compact_table(self, name: str) -> "Flight":
+        """Fold the table's delta parts into its base file (idempotent)."""
+        self._action("compact-table", {"name": name})
         return self
 
     def read_table(

@@ -14,8 +14,12 @@ argmin), or on the host through ``ops/cells.assign_cells_np`` when the
 table's fp32 form does not fit the device budget, or as ``FENIX_ASSIGN``
 (``auto`` | ``host`` | ``device``) says.
 
-Not ported yet (ROADMAP queue 1 item 5, with the table mutations):
-``extend_for_source``, ``delete_rows`` and ``upsert_rows``.
+Table mutations keep every index over the table row-aligned:
+``extend_for_source`` assigns only appended rows, ``delete_rows``
+filters the table and its indexes by one keep-mask and records it as the
+revision's lineage (``io/table.record_lineage``: device caches then
+compact on the card), and ``upsert_rows`` is the two in one catalog-lock
+scope.
 """
 
 from __future__ import annotations
@@ -191,6 +195,71 @@ def drop_for_source(root: str, source: str) -> None:
         if any(rel.startswith(prefix) for prefix in siblings):
             continue
         os.unlink(path)
+
+
+def extend_for_source(
+    root: str, source: str, new_rows: pa.Table, device: "str | torch.device" = "cuda"
+) -> None:
+    """Append the cell ids of freshly appended ``new_rows`` to every index
+    over ``source``: only the new rows are assigned (on ``device`` or on
+    the host, :func:`_assign_codes`' route), so an append costs O(rows
+    appended). Serializes on the catalog lock."""
+    with catalog_lock(root):
+        for name, column in [*indexes_for_source(root, source)]:
+            path = path_of(root, name, source, column)
+            old = ingest.scalar_column_to_numpy(arrow.load(path).column(CODE_COL))
+            new = _assign_codes(root, name, new_rows.column(column), device)
+            _write_codes(path, np.concatenate([old.astype(np.int64), new]))
+
+
+def delete_rows(root: str, source: str, filter: expr_mod.Expr) -> int:
+    """Delete the rows of ``source`` matching ``filter``; returns their
+    count. Every index over the table is filtered by the same keep-mask
+    (assignments of kept rows are reused, nothing is assigned again), and
+    the mask is recorded as the revision's lineage. Raises ``RuntimeError``
+    when an index's row count differs from the table's. Both rewrites
+    publish atomically under the catalog lock; a reader between them sees
+    a row-count mismatch, which the device cache resyncs."""
+    with catalog_lock(root):
+        data = table.load(root, source)
+        delete = np.asarray(filter.mask(data), dtype=bool)
+        keep = pa.array(~delete)
+        indexes = [*indexes_for_source(root, source)]
+        for name, column in indexes:
+            rows = arrow.load(path_of(root, name, source, column)).num_rows
+            if rows != data.num_rows:
+                raise RuntimeError(
+                    f"index {name!r} over {source!r}/{column!r} has {rows} rows but the table has "
+                    f"{data.num_rows}; re-run sync_index before deleting"
+                )
+        old_stamp = table.stamp(root, source)
+        table.rewrite(root, source, data.filter(keep).to_reader())
+        for name, column in indexes:
+            idx_path = path_of(root, name, source, column)
+            arrow.make(idx_path, arrow.load(idx_path).filter(keep).to_reader())
+        table.record_lineage(root, source, old_stamp, table.stamp(root, source), ~delete)
+        return int(delete.sum())
+
+
+def upsert_rows(
+    root: str, source: str, data: pa.Table, key: str = "id", device: "str | torch.device" = "cuda"
+) -> tuple[int, int]:
+    """Replace or insert by ``key``: delete the rows whose key appears in
+    ``data``, then append ``data``, in one catalog-lock scope (a reader
+    sees the old or the new revision of every key; the indexes follow
+    both steps). Returns ``(replaced, inserted)``. Rows duplicated within
+    ``data`` are appended as they are. A table that does not exist is
+    created, and index files left from a dropped one go."""
+    with catalog_lock(root):
+        replaced = 0
+        if os.path.exists(table.path_of(root, source)):
+            replaced = delete_rows(root, source, expr_mod.field(key).isin(data.column(key).to_pylist()))
+            table.append(root, source, data)
+            extend_for_source(root, source, data, device)
+        else:
+            table.append(root, source, data)
+            drop_for_source(root, source)
+        return replaced, data.num_rows - replaced
 
 
 def call(

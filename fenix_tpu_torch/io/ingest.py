@@ -18,6 +18,8 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
 _EXTENSION_TODO = "extension-typed vector columns (ROADMAP queue 1: port types/)"
 _UPLOAD_ROWS = 1 << 18  # rows per host→device copy (bounds host-side casts)
 
@@ -104,6 +106,16 @@ def host_tensor(array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array)
 
 
+def upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Copy the host array ``src`` into the device tensor ``dst`` of its
+    shape; a CUDA destination counts the bytes in ``transfer.h2d_bytes``
+    (the device cache's uploads: matrices, grow deltas, shrink indices,
+    int8 copies, scalar columns)."""
+    dst.copy_(host_tensor(src))
+    if dst.device.type == "cuda":
+        METRICS.add("transfer.h2d_bytes", float(dst.numel() * dst.element_size()))
+
+
 def to_device_matrix(
     array: pa.Array | pa.ChunkedArray | np.ndarray,
     *,
@@ -121,7 +133,7 @@ def to_device_matrix(
     data = torch.empty((rows_padded, dim), dtype=torch.float32, device=device)
     for start in range(0, rows, _UPLOAD_ROWS):
         part = array[start : start + _UPLOAD_ROWS]
-        data[start : start + part.shape[0]].copy_(host_tensor(part))
+        upload(data[start : start + part.shape[0]], part)
     data[rows:].zero_()
     return DeviceColumn(data=data, rows=rows)
 
@@ -139,10 +151,10 @@ def to_device_vector(
         array = scalar_column_to_numpy(array)
     rows = array.shape[0]
     rows_padded = max(round_up(rows, block), block)
-    host = host_tensor(np.ascontiguousarray(array))
-    dtype = torch.float32 if host.dtype == torch.float64 else host.dtype
+    array = np.ascontiguousarray(array)
+    dtype = torch.float32 if array.dtype == np.float64 else host_tensor(array).dtype
     data = torch.zeros((rows_padded,), dtype=dtype, device=device)
-    data[:rows].copy_(host)
+    upload(data[:rows], array)
     return DeviceColumn(data=data, rows=rows)
 
 

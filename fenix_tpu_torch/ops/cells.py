@@ -12,8 +12,11 @@ from a bounded beam over the codebooks.
 Tie rule: the first minimum (``torch.argmin``, ``np.argmin``) and the
 earliest id among equal scores (a stable sort), as ``jnp.argmin`` and
 ``lax.top_k`` give them. ``assign_cells_np`` and ``topk_cells_np`` are
-copies of the JAX package's numpy functions, so host routes rank and
-assign with the same arithmetic whichever package serves.
+the JAX package's numpy functions, so host routes rank and assign with
+the same arithmetic whichever package serves: the product is numpy's,
+and the elementwise finish (the same IEEE operations in the same order)
+and the first-min argmin run as in-place torch CPU ops, on every core of
+the host, where numpy takes one.
 """
 
 from __future__ import annotations
@@ -141,16 +144,18 @@ def _host_codebook_distances(vectors, codebooks, metric: str) -> np.ndarray:
     n, k, d = cb.shape
     flat = cb.reshape(n * k, d)
     if metric == "l2":
-        uu = np.sum(np.square(v), axis=-1, keepdims=True)
-        vv = np.sum(np.square(flat), axis=-1, keepdims=True).T
-        dist = np.sqrt(np.maximum(uu - 2.0 * (v @ flat.T) + vv, 0.0))
+        uu = torch.from_numpy(np.sum(np.square(v), axis=-1, keepdims=True))
+        vv = torch.from_numpy(np.sum(np.square(flat), axis=-1, keepdims=True).T)
+        # sqrt(max(uu - 2 v·c + vv, 0)); 2·(v·c) is exact, so negating it
+        # first rounds as numpy's subtraction does
+        dist = torch.from_numpy(v @ flat.T).mul_(-2.0).add_(uu).add_(vv).clamp_min_(0.0).sqrt_()
     elif metric == "cosine":
         tn = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12)
         fn = flat / np.maximum(np.linalg.norm(flat, axis=-1, keepdims=True), 1e-12)
-        dist = 0.5 - 0.5 * (tn @ fn.T)
+        dist = torch.from_numpy(tn @ fn.T).mul_(-0.5).add_(0.5)  # 0.5 - 0.5·(t·f)
     else:
-        dist = -(v @ flat.T)
-    return dist.reshape(-1, n, k)
+        dist = torch.from_numpy(v @ flat.T).neg_()
+    return dist.numpy().reshape(-1, n, k)
 
 
 def assign_cells_np(vectors, codebooks, metric: str) -> np.ndarray:
@@ -158,7 +163,8 @@ def assign_cells_np(vectors, codebooks, metric: str) -> np.ndarray:
     distance, the l2 sqrt form included, and the same first-min rule.
     ``index.make`` assigns host-resident tables with it."""
     n, k, _ = np.shape(codebooks)
-    digits = np.argmin(_host_codebook_distances(vectors, codebooks, metric), axis=-1).astype(np.int64)
+    dist = torch.from_numpy(_host_codebook_distances(vectors, codebooks, metric))
+    digits = torch.argmin(dist, dim=-1).numpy()  # the first minimum, as np.argmin
     weights = (k ** np.arange(n - 1, -1, -1, dtype=np.int64))[None, :]
     return np.sum(digits * weights, axis=-1)
 

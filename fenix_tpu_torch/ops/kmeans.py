@@ -17,18 +17,29 @@ fp32 summation order (``index_add_`` on the card sums in no fixed order,
 and a sample whose two nearest centroids are closer than fp32 resolves
 may be assigned either way).
 
-Not ported yet (ROADMAP queue 1 item 3, IVF past the budget, and item
-10): ``train_streaming``, ``train_sharded``, ``sharded_lloyd_step``.
+``train_streaming`` trains over a host corpus past the device budget:
+permuted row chunks stream to the card through ``io/batch.prefetch_to_device``
+in fp32, bf16 or int8 transport, the Lloyd math in fp32; its draws are
+numpy's (``default_rng``), as in the JAX package's, so a seed gives that
+function's coder.
+
+Not ported yet (ROADMAP queue 1 item 10): ``train_sharded``,
+``sharded_lloyd_step``.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
+from fenix_tpu_torch import native
+from fenix_tpu_torch.io import batch as batch_io
+from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.ops.distance import canonical_metric, normalize, pairwise_distance
-from fenix_tpu_torch.utils import threefry
+from fenix_tpu_torch.utils import hbm, threefry
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 _DRAW_THREADS = 4  # permutations drawn at once
 
@@ -124,4 +135,113 @@ def train(
         idx = idx.to(corpus.device)
         for step in range(idx.shape[0]):
             codebooks = lloyd_step(codebooks, corpus[idx[step]], metric)
+    return codebooks
+
+
+TRANSPORTS = ("fp32", "bf16", "int8")
+
+
+def train_streaming(
+    matrix: np.ndarray,  # [N, D] fp32 host corpus
+    seed: int,
+    *,
+    num_codebooks: int,
+    codebook_size: int,
+    batch_size: int,
+    num_epochs: int,
+    metric: str,
+    device: "str | torch.device" = "cuda",
+    chunk_rows: "int | None" = None,
+    precision: str = "fp32",
+    int8_mirror=None,  # optional (codes [N, D] int8, scales [N] f32) of ``matrix``
+) -> torch.Tensor:  # [num_codebooks, codebook_size, D] on ``device``
+    """Multi-codebook training over a host corpus that never lands on the
+    device: per epoch a fresh ``np.random.default_rng(seed)`` permutation
+    (after the ``choice`` of the initial rows) is cut into
+    ``num_codebooks·batch_size`` batches; chunks of ``[steps, codebooks,
+    batch, D]`` rows are gathered on the host and uploaded double-buffered
+    (``io/batch.prefetch_to_device``) while the previous chunk runs its
+    Lloyd steps. The codebooks are the only lasting device state. The JAX
+    package's ``train_streaming``, step for step.
+
+    ``precision`` is the chunks' transport: "fp32"; "bf16" (rows rounded to
+    bfloat16 on the host, half the bytes); "int8" (per-row codes and
+    scales, a quarter: the mirror ``int8_mirror`` when its shape is the
+    corpus's, else the corpus quantized once here; the initial rows are
+    dequantized too, so the run is fp32 training over the dequantized
+    corpus). Every sample is widened to fp32 on the card, and the update
+    math stays fp32. ``chunk_rows`` defaults to a quarter of 0.9 × the
+    device budget at the transport's bytes per row (two chunks in flight),
+    at most 1,048,576. Counters: ``train.stream_<precision>`` (runs) and
+    ``train.stream_steps`` (Lloyd steps); the uploads count in
+    ``transfer.*``."""
+    if precision not in TRANSPORTS:
+        raise ValueError(f"precision must be one of {TRANSPORTS}, got {precision!r}")
+    n_rows, dim = matrix.shape
+    rng = np.random.default_rng(seed)
+    codes = scales = None
+    if precision == "int8":
+        if int8_mirror is not None and (
+            int8_mirror[0].shape == (n_rows, dim) and int8_mirror[1].shape[0] == n_rows
+        ):
+            codes, scales = int8_mirror
+        else:
+            # a mirror of another revision would train on other rows'
+            # codes: quantize the corpus once, in 256 MiB slices
+            codes, scales = np.empty((n_rows, dim), np.int8), np.empty(n_rows, np.float32)
+            step = max(1, (256 << 20) // (4 * dim))
+            for s in range(0, n_rows, step):
+                codes[s : s + step], scales[s : s + step] = topk2.quantize_rows_int8_np(matrix[s : s + step])
+
+    init_rows = rng.choice(n_rows, codebook_size * num_codebooks, replace=False).astype(np.int64)
+    if precision == "int8":
+        init = np.asarray(codes[init_rows], np.float32) * np.asarray(scales[init_rows])[:, None]
+    else:
+        init = native.gather_rows(matrix, init_rows)
+    codebooks = torch.from_numpy(np.ascontiguousarray(init, np.float32)).to(device)
+    codebooks = codebooks.view(num_codebooks, codebook_size, dim)
+
+    per_step = num_codebooks * batch_size
+    steps_total = n_rows // per_step
+    if chunk_rows is None:
+        budget = hbm.budget_bytes(device) or (2 << 30)
+        per_row = {"fp32": 4 * dim, "bf16": 2 * dim, "int8": dim + 4}[precision]
+        chunk_rows = min(1 << 20, max(int(0.9 * budget / 4 / per_row), 1))
+    steps_per_chunk = max(1, min(chunk_rows // per_step, steps_total))
+    shape = (steps_per_chunk, num_codebooks, batch_size, dim)
+
+    def chunks():
+        # every chunk has one shape (the double buffers are allocated
+        # from the first); an epoch's last, shorter chunk is zero-padded
+        # and only its valid steps run
+        for _ in range(num_epochs):
+            perm = rng.permutation(n_rows)[: steps_total * per_step]
+            for s0 in range(0, steps_total, steps_per_chunk):
+                idx = perm[s0 * per_step : (s0 + steps_per_chunk) * per_step].astype(np.int64)
+                if precision == "int8":
+                    c8 = np.zeros((steps_per_chunk * per_step, dim), np.int8)
+                    sv = np.zeros(steps_per_chunk * per_step, np.float32)
+                    c8[: idx.size] = codes[idx]
+                    sv[: idx.size] = scales[idx]
+                    yield c8.reshape(shape), sv.reshape(shape[:-1])
+                    continue
+                rows = np.zeros((steps_per_chunk * per_step, dim), np.float32)
+                rows[: idx.size] = native.gather_rows(matrix, idx)
+                if precision == "bf16":  # round to nearest even on the host, sent as raw bits
+                    rows = torch.from_numpy(rows).to(torch.bfloat16).view(torch.int16).numpy()
+                yield (rows.reshape(shape),)
+
+    METRICS.add(f"train.stream_{precision}")
+    valid = [min(steps_per_chunk, steps_total - s0) for s0 in range(0, steps_total, steps_per_chunk)]
+    for item, steps in zip(batch_io.prefetch_to_device(chunks(), device), valid * num_epochs):
+        if precision == "int8":
+            c8, sv = item
+            samples = c8[:steps].to(torch.float32) * sv[:steps, ..., None]
+        elif precision == "bf16":
+            samples = item[0][:steps].view(torch.bfloat16).to(torch.float32)
+        else:
+            samples = item[0][:steps]
+        for step in range(steps):
+            codebooks = lloyd_step(codebooks, samples[step], metric)
+        METRICS.add("train.stream_steps", steps)
     return codebooks

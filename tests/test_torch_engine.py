@@ -17,6 +17,7 @@ import torch
 
 from fenix_tpu import expr as jexpr
 from fenix_tpu.engine import executor as jexecutor
+from fenix_tpu.engine import service as jservice
 from fenix_tpu.engine.session import DeviceCache as JaxCache
 from fenix_tpu.io import table as jtable
 from fenix_tpu_torch import coder, expr, index
@@ -24,6 +25,7 @@ from fenix_tpu_torch.engine import executor, residency, service
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.ops import kernels, topk2
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 torch.set_num_threads(2)
 
@@ -183,10 +185,11 @@ def test_budget_eviction_keeps_latest(root, monkeypatch):
 
 
 def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
-    """Joins still raise, as do probed search (top-k or maxval=None) and
-    coder training past the budget; IVF, maxval=None on the device and
-    over the host corpus, the int8-resident and streaming modes and
-    requests over the budget are served."""
+    """Joins still raise (ROADMAP queue 1 item 9); IVF, maxval=None on the
+    device and over the host corpus, the int8-resident and streaming
+    modes, requests over the budget, probed search over the host corpus
+    (top-k and maxval=None), coder training past the budget and an
+    aggregate without a join are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -217,18 +220,37 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
         cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
     )
     assert host.column("id").equals(nomax.column("id"))
-    with pytest.raises(NotImplementedError, match="IVF past the budget.*probed_topk"):
-        run(coding="ivf", probes=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.*host_cell_meta"):
-        run(coding="ivf", probes=4, maxval=None)
-    with pytest.raises(NotImplementedError, match="IVF past the budget.*train_streaming"):
-        coder.make(root, "big", "items", "vector", config, seed=0, device="cpu")
+    before = METRICS.snapshot().get("search.residency_probed_host", 0)
+    host_probed = run(coding="ivf", probes=4, metric=None)  # on the host, the coder's metric
+    assert METRICS.snapshot()["search.residency_probed_host"] == before + 1
+    assert host_probed.column("id").equals(probed.column("id"))
+    host_nomax = run(coding="ivf", probes=4, maxval=None)
+    assert 0 < host_nomax.num_rows < 2 * N and "__CODED_ID__" not in host_nomax.column_names
+    big = coder.make(root, "big", "items", "vector", config, seed=0, device="cpu")  # train_streaming
+    assert big["tensor"].shape == (1, 8, DIM)
     monkeypatch.delenv("FENIX_HBM_BUDGET")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target)) == "dual"
-    with pytest.raises(NotImplementedError, match="joins"):
+    with pytest.raises(NotImplementedError, match="joins.*item 9"):
         service.run_search_config(
             cache, {"source": "items", "column": "vector", "join": {"source": "x"}}, target
         )
+    plain = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5}
+    aggregated = service.run_search_config(cache, {**plain, "aggregate": {"group_by": "id"}}, target)
+    assert aggregated.equals(service.run_search_config(cache, plain, target))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_aggregate_without_join_is_the_plain_search(root, rng, metric):
+    """A search config with an aggregate and no join is the plain search
+    in both packages (the JAX package reads an aggregate only inside a
+    join): the same ids and distances through each run_search_config."""
+    target = rng.standard_normal((3, DIM)).astype(np.float32)
+    config = {"source": "items", "column": "vector", "metric": metric, "maxval": 7, "select": ["id", "tag"],
+              "aggregate": {"group_by": "tag", "agg": "count", "max_groups": 16}}
+    got = service.run_search_config(DeviceCache(root, device="cpu"), config, target)
+    want = jservice.run_search_config(JaxCache(root, mesh=None), config, target)
+    assert_tables_match(got, want)
+    assert got.num_rows == 21 and got.column_names == ["id", "tag", "__DISTANCE__", "__QUERY_ID__"]
 
 
 def test_extension_vector_column_raises(tmp_path, rng):
@@ -384,18 +406,19 @@ def test_chip_smoke_kernel_entries():
     counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.tensor_int8": 4,
               "kernel.generic_int8": 0}
     selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
-    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection}
+    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection,
+               "mutation": {**selection, "kernel.stream": 1}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 9
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 10
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 2
-    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1}
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 3
+    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 4
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 5
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -404,6 +427,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["residency"]["kernel.stream"], selection["kernel.tiled"] = 2, 0
     with pytest.raises(AssertionError, match="tiled was not launched on the selection path"):
+        smoke.kernel_entries(rows, by_path)
+    selection["kernel.tiled"], by_path["mutation"]["kernel.tensor_int8"] = 1, 0
+    with pytest.raises(AssertionError, match="tensor_int8 was not launched on the mutation path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -654,3 +680,114 @@ def test_chip_smoke_selection_phase_on_the_cpu(tmp_path, monkeypatch):
     one = pa.table({"id": pa.array(rows[::-1]), "__DISTANCE__": pa.array(np.zeros(rows.size, np.float32))})
     with pytest.raises(AssertionError, match="selected rows in table order"):
         smoke.check_selection(oracle, "x", "l2", host_queries[:1], one, lambda qi: rows)
+
+
+def test_chip_smoke_mutation_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 10 (a) and (c) of chip_smoke.py rehearsed on the CPU at a small
+    size, on the port's server (CPU device) after phase 7's index: append
+    (the index extends, the matrix grows, the copies come back first),
+    delete, upsert and compact, each search held to the float64 oracle
+    over the script's live copy and its refresh counters; then the
+    kernels against their plain versions over the grown and shrunk
+    buffers."""
+    import threading
+
+    import fenix_tpu_torch
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    root = str(tmp_path)
+    t = pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "smoke/items", t.to_reader(max_chunksize=4096))
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "WARM_REPS": 1, "MUT_APPEND_ROWS": 1024,
+        "MUT_UPSERT": 64,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        # 4 probes: every query's probe cells hold 10 rows with tag < 50 (the
+        # Q=8 search may take either route here; the phase accepts either)
+        "IVF_SEARCHES": (("ivf_q8_p64_filtered", 8, 4, True, "fp32", "scan", "l2"),),
+        "SEARCHES": tuple((s[0], min(s[1], 100), *s[2:]) for s in smoke.SEARCHES),
+        "time_ms": lambda fn, reps: (fn(), 1.0)[1],
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    try:
+        queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+        ivf = smoke.phase_ivf_serve(client, expr, vectors, root, "cpu", "cpu")
+        # the matrix is resident before the mutations, as phase 8 leaves it
+        client.search(queries[1], "smoke/items", "vector", metric="cosine", maxval=10)
+        mut = smoke.phase_mutations_serve(client, expr, vectors, ids, tags, queries, ivf, 1.0, "cpu", "cpu")
+        stats = client.stats()
+    finally:
+        client.close()
+        server.shutdown()
+    assert stats["cache.incremental_refreshes"] == 1 and stats["cache.lineage_refreshes"] == 3
+    assert not any(mut["launches"].values())  # CPU tensors launch nothing
+    final = table.load(root, "smoke/items")
+    assert final.num_rows == SMOKE_ROWS + 1024 - int(mut["keep_after_append"].size - mut["keep_after_append"].sum()) + 64
+    assert not (final.column("tag").to_numpy()[: SMOKE_ROWS] == 7).any()
+    rows = smoke.mutation_kernel_checks(kernels, topk2, vectors, tags, queries, mut, "cpu", "cpu")
+    assert [r["kernel"] for r in rows] == ["stream", "tiled"]
+    assert rows[0]["n"] == rows[1]["n"] == 32768  # 17,408 rows grown, 17,2xx kept
+    # the live copy maps ids to positions, a removed id to -1
+    live = smoke.Live(vectors[:4], np.array([5, 9, 2, 7]), tags[:4])
+    live.append(vectors[4:6], np.array([11, 12]), tags[4:6])
+    live.keep(np.array([True, False, True, True, False, True]))
+    assert live.pos(np.array([2, 9, 7, 11, 12])).tolist() == [1, -1, 2, -1, 3]
+    np.testing.assert_array_equal(live.parts[0], vectors[[0, 2, 3, 5]])
+
+
+def test_chip_smoke_ivf_host_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phases 9 and 10 (b) of chip_smoke.py rehearsed on the CPU at a small
+    size, past a budget the fp32 form does not fit: make_index trains by
+    streaming and assigns on the host, the probed searches and the probed
+    read run on the host (the first call writes the IVF sidecar), every
+    check after the server passes; then the append: the mirror quantizes
+    the delta alone, the int8-resident copy grows, both copies come back
+    first; and tensor_int8's plain version over the grown int8 copy."""
+    import threading
+
+    import fenix_tpu_torch
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=1, dim=64)
+    root = str(tmp_path)
+    t = pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "smoke/wide", t.to_reader(max_chunksize=4096))
+    # dual 4.5 MB; int8 1.3 MB, 2.6 MB after the append (a 32,768-row pad)
+    monkeypatch.setenv("FENIX_HBM_BUDGET", str(4 << 20))
+    for name, value in {
+        "DEVICE": "cpu", "WARM_REPS": 1, "IVFH_CELLS": 64, "IVF_SAMPLE_ROWS": 4096, "IVFH_STEP_ROWS": 2048,
+        "MUT_APPEND_ROWS": 512,
+        "IVFH_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                        "num_epochs": 2},
+        "IVFH_SEARCHES": (("host_ivf_q1_p16", 1, 4, False), ("host_ivf_q8_p64_filtered", 8, 8, True)),
+        "IVFH_READ": ("host_ivf_read_q8_l2_p16_tag_eq_7", 8, "l2", ("==", 7), 4),
+        "time_ms": lambda fn, reps: (fn(), 1.0)[1],
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    pool = np.flatnonzero((tags[: smoke.DUP] < 50) & (tags[smoke.DUP : 2 * smoke.DUP] < 50))
+    res_queries = {8: smoke.make_queries(vectors, 8, seed=108, src_pool=pool)}
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    before = METRICS.snapshot().get("search.residency_probed_host", 0)
+    try:
+        ivfh = smoke.phase_ivf_host_serve(client, expr, vectors, tags, root, "cpu", "cpu")
+        wide = smoke.phase_mutations_wide(client, expr, vectors, ids, tags, res_queries, ivfh, "cpu", "cpu")
+        stats = client.stats()
+    finally:
+        client.close()
+        server.shutdown()
+    assert ivfh["codebooks"].shape == (1, 64, 64) and not any(wide["launches"].values())
+    assert stats["search.residency_probed_host"] - before == 2 * (1 + smoke.RES_WARM_REPS) + 1
+    out = smoke.phase_ivf_host_checks(smoke.Oracle(vectors, "cpu"), vectors, tags, ivfh, "cpu", "cpu")
+    assert [c["recall"] for c in out["oracle"]] == [1.0, 1.0]
+    assert out["read"]["rows"] > 0 and out["device_step"]["rows"] == 2048
+    assert set(out["timings"]) == {"host_probed_score", "host_assign_block", "host_rescore_window"}
+    rows = smoke.mutation_kernel_checks_wide(kernels, topk2, vectors, tags, res_queries, wide["append"],
+                                             "cpu", "cpu")
+    assert rows[0]["kernel"] == "tensor_int8" and rows[0]["n"] == 32768

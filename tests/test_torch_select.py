@@ -322,7 +322,7 @@ def test_nomax_empty_selection(root):
 def test_nomax_over_the_host_corpus(root, monkeypatch):
     """Under a budget the fp32 matrix does not fit, maxval=None reads the
     host corpus (counted as search.residency_host_nomax) and answers as
-    the device read does; the probed host read waits for queue 1 item 3."""
+    the device read does, probed or not."""
     cache = DeviceCache(root, block=BLOCK, device="cpu")
     target = np.random.default_rng(8).standard_normal((3, DIM)).astype(np.float32)
     for metric, filt in (("l2", f("tag") == 4), ("cosine", f("name").starts_with("row-2")), ("dot", None)):
@@ -336,9 +336,15 @@ def test_nomax_over_the_host_corpus(root, monkeypatch):
         assert host.schema == dual.schema and host.column("id").equals(dual.column("id"))
         np.testing.assert_allclose(host.column("__DISTANCE__").to_numpy(),
                                    dual.column("__DISTANCE__").to_numpy(), rtol=1e-5, atol=1e-5)
+    # the probed host read: the probe cells' rows that pass the filter
+    req = executor.SearchRequest("t", "vector", target, metric="l2", coding="c", probes=2,
+                                 filter=f("tag") == 4, select=["id", "tag"])
+    device = executor.execute_search(cache, req)
     monkeypatch.setenv("FENIX_HBM_BUDGET", str(1 << 16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        executor.execute_search(cache, executor.SearchRequest("t", "vector", target, coding="c", probes=2))
+    host = executor.execute_search(cache, req)
+    assert host.column("id").equals(device.column("id")) and 0 < host.num_rows < device.num_rows + 1
+    np.testing.assert_allclose(host.column("__DISTANCE__").to_numpy(),
+                               device.column("__DISTANCE__").to_numpy(), rtol=1e-5, atol=1e-5)
 
 
 # -- filter pushdown -----------------------------------------------------------------
