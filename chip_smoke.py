@@ -151,10 +151,55 @@ Phases, each printing one JSON line with its own timings:
    tensor_int8 over the grown int8 copy against their plain versions
    (check_close), with the grow, the shrink and the delta quantize timed.
 
+11. analytics (BASELINE config 3), on the phase-3 server after phase 8:
+   attrs, built as benchmarks/config3_join_aggregate.py builds it at scale
+   1 (10,000,000 rows, key a permutation, grp = key % 100, a float64
+   weight: every search id matches once), and attrs_dup (1,048,576 rows,
+   key = i // 4, grp = i % 16, an int val) go over Flight; then each
+   request of AN_REQUESTS without its join (the plain search) and with
+   it, one cold and WARM_REPS warm calls each: config 3 itself (Q=1
+   cosine k=128, sum(weight) by grp; fused, stream), Q=1024 l2 k=100
+   tag < 50 count by grp (fused, exact int64, tiled), a Q=8 cosine
+   lookup of [grp, weight] (fused, stream), Q=256 int8 mean(__DISTANCE__)
+   (two-step, tensor_int8), Q=8 with phase 7's coder at 64 probes
+   max(weight) (two-step, probed), and a Q=8 cosine k=100 inner join to
+   attrs_dup, its rows and count by grp. Each join call moves its route's
+   join.* counter by one and its kernel's launches by one. Printed: the
+   first call's cache.sorted_key_seconds, each request's warm client and
+   server times beside its plain search's. After the server, each plain
+   search against the float64 oracle by phase 4's rule (the probed one
+   over its probe cells), then its join and aggregate in numpy on the
+   host copy of the attrs: integer aggregates equal and int64, float sums
+   and means within 1e-5 * sum |v| of their group, min and max equal
+   (of the float32 values the card holds), lookup rows the plain rows
+   with the attrs gathered, inner rows in (left row, right row) order.
+12. micro-batching: each case first one request at a time (a batch of
+   one each: the solo answers), then from client threads, each concurrent
+   table equal to its solo one; printed: the batch.* counters, requests
+   and queries per dispatch, launches per request, queries/s and client
+   p50 / p99 both ways. On the phase-3 server after phase 11: (a) 512
+   Q=1 cosine k=10 from 32 threads (coalesced: more than one request per
+   dispatch, fewer stream launches than requests); (b) the same with the
+   predicates tag < 30, 30 <= tag < 70 and none by thread
+   (benchmarks/config5_batched_mixed.py's rotation; at most one dispatch
+   per predicate per drain); (c) Q=1024 l2 k=16 from 4 threads x 4
+   requests, the predicate by round (more than 1,024 queries per
+   dispatch; tiled launches and device.max_memory_allocated printed);
+   (d) Q=1 l2 k=10 at 16 probes of phase 7's coder from 16 threads x 8
+   requests (one probed route per dispatch). (e) on the phase-6 server
+   after phase 6's searches: Q=8 auto (int8-resident) from 8 threads x 2
+   requests, one residency.execute_many pass per dispatch, held to the
+   solo answers by the graded rule (recall >= 0.99, equal distances on
+   shared ids). After the servers: the result gather's vector rows of
+   phase 3's Q=1024 filtered search, numpy indexing against
+   native.gather_rows (host clock). Phase 2 (b) also holds the kernels at
+   the largest coalesced shapes (BATCH_SHAPES: stream at Q=32, tiled at
+   Q=4096) against their plain versions.
+
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation),
+mutation, analytics, batching),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. The script takes no options: the card run at this size is its
@@ -200,11 +245,11 @@ KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation")),  # kernel_f32 of bucket_scores_pallas_bigq
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching")),  # kernel_f32
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation")),  # kernel_int8 of the same
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics")),  # kernel_int8
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -323,6 +368,48 @@ IVFH_SPLIT_KEYS = ("residency.probed_score_seconds", "residency.rescore_seconds"
 MUT_APPEND_ROWS = 65_536
 MUT_UPSERT = 2_048  # existing ids given new vectors, and as many new ids
 MUT_H2D_FACTOR = 4  # the append's refresh uploads under this many times its delta
+
+# phase 11: analytics on the phase-3 server, BASELINE config 3 ("kNN over
+# embeddings joined to a 10M-row attributes table, hash aggregate over
+# match groups"), attrs built as benchmarks/config3_join_aggregate.py
+# builds it at scale 1; attrs_dup for the inner join
+AN_ATTRS_ROWS = 10_000_000
+AN_DUP_ROWS = 1_048_576
+AN_BATCH_ROWS = 1 << 20  # rows per ingest batch
+AN_JOIN = {"source": "attrs", "right_on": "key"}
+AN_DUP_JOIN = {"source": "attrs_dup", "right_on": "key", "how": "inner"}
+AN_REQUESTS = (
+    # name, queries, metric, k, precision, filtered (tag < 50), probes of
+    # phase 7's coder, join, aggregate, route counter, query seed
+    ("config3_q1_cosine_k128_sum_weight", 1, "cosine", 128, "fp32", False, None, AN_JOIN,
+     {"group_by": "grp", "value": "weight", "agg": "sum", "max_groups": 128}, "join.fused", 500),
+    ("q1024_l2_k100_tag_lt_50_count", 1024, "l2", 100, "fp32", True, None, AN_JOIN,
+     {"group_by": "grp", "agg": "count", "max_groups": 128}, "join.fused", 501),
+    ("q8_cosine_k10_lookup", 8, "cosine", 10, "fp32", False, None, {**AN_JOIN, "columns": ["grp", "weight"]},
+     None, "join.fused", 502),
+    ("q256_int8_l2_k10_mean_distance", 256, "l2", 10, "int8", False, None, AN_JOIN,
+     {"group_by": "grp", "value": "__DISTANCE__", "agg": "mean", "max_groups": 128}, "join.two_step", 503),
+    ("q8_l2_k10_p64_max_weight", 8, "l2", 10, "fp32", False, 64, AN_JOIN,
+     {"group_by": "grp", "value": "weight", "agg": "max", "max_groups": 128}, "join.two_step", 504),
+    ("q8_cosine_k100_inner_dup", 8, "cosine", 100, "fp32", False, None, AN_DUP_JOIN, None, "join.inner", 505),
+    ("q8_cosine_k100_inner_dup_count", 8, "cosine", 100, "fp32", False, None, AN_DUP_JOIN,
+     {"group_by": "grp", "agg": "count", "max_groups": 16}, "join.inner", 505),
+)
+
+# phase 12: micro-batching, (a)-(d) on the phase-3 server, (e) on the
+# phase-6 server. Predicates by thread, as benchmarks/config5_batched_mixed.py
+# rotates three classes: tag < 30, 30 <= tag < 70, none
+MB_THREADS = 32
+MB_Q1_REQUESTS = 512
+MB_PREDICATES = (("<", 30), ("range", 30, 70), None)
+MB_BIG = (4, 4, 1024, 16)  # (c): threads, requests per thread, queries, k (config 5's batch and k)
+MB_PROBED = (16, 8, 16)  # (d): threads, requests per thread, probes of phase 7's coder
+MB_RES = (8, 2, 8)  # (e): threads, requests per thread, queries
+# phase 2 (b): the kernels at the largest coalesced shapes of phase 12
+BATCH_SHAPES = (
+    ("batch_q32_cosine_k10", MB_THREADS, "cosine", 10, "fp32", False, False),
+    ("batch_q4096_l2_k16_filtered", 4096, "l2", 16, "fp32", True, False),
+)
 
 
 def emit(obj) -> None:
@@ -1044,6 +1131,12 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
         emit({"phase": "residency_done", "launches": path_launches,
               "device_entries": {k: v for k, v in final.items() if k.startswith("cache.device_")}})
 
+        # -- phase 12 (e) (on the server) -------------------------------------
+        t = time.perf_counter()
+        mb_res = phase_batching_residency(client, Flight, port, vectors, smi, kind)
+        emit({"phase": "batching_residency_done", "launches": mb_res["launches"],
+              "seconds": time.perf_counter() - t})
+
         # -- phase 9 (on the server) ------------------------------------------
         t = time.perf_counter()
         ivfh = phase_ivf_host_serve(client, expr, vectors, tags, os.path.join(work, "root"), smi, kind)
@@ -1096,7 +1189,8 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
     t = time.perf_counter()
     checks += mutation_kernel_checks_wide(kernels, topk2, vectors, tags, queries, wide["append"], smi, kind)
     emit({"phase": "mutation_kernels_wide_done", "seconds": time.perf_counter() - t})
-    return {"checks": checks, "launches": path_launches, "mutation_launches": wide["launches"]}
+    return {"checks": checks, "launches": path_launches, "mutation_launches": wide["launches"],
+            "batching_launches": mb_res["launches"]}
 
 
 # -- phase 7: IVF --------------------------------------------------------------
@@ -2317,6 +2411,432 @@ def mutation_kernel_checks_wide(kernels, topk2, vectors, tags, res_queries, appe
     return [row]
 
 
+# -- phase 11: analytics (BASELINE config 3) ------------------------------------
+
+
+def analytics_tables():
+    """BASELINE config 3's attribute table as benchmarks/config3_join_aggregate.py
+    builds it at scale 1 (a key per search-table id and more, grp = key % 100,
+    a float64 weight), and attrs_dup: AN_DUP_ROWS rows, four per key, for the
+    inner join."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    key = rng.permutation(AN_ATTRS_ROWS)
+    attrs = {"key": key, "grp": key % 100, "weight": rng.standard_normal(AN_ATTRS_ROWS)}
+    i = np.arange(AN_DUP_ROWS, dtype=np.int64)
+    dup = {"key": i // 4, "grp": i % 16, "val": (i * 7919) % 1000 - 500}
+    return attrs, dup
+
+
+def put_columns(client, name: str, cols: dict) -> float:
+    """Ingest numpy columns as a table over Flight in AN_BATCH_ROWS batches;
+    returns the client seconds."""
+    import pyarrow as pa
+
+    rows = len(next(iter(cols.values())))
+    schema = pa.schema({k: pa.from_numpy_dtype(v.dtype) for k, v in cols.items()})
+
+    def batches():
+        for s in range(0, rows, AN_BATCH_ROWS):
+            yield pa.record_batch([pa.array(v[s : s + AN_BATCH_ROWS]) for v in cols.values()], schema=schema)
+
+    t = time.perf_counter()
+    client.make_table(name, pa.RecordBatchReader.from_batches(schema, batches()))
+    return time.perf_counter() - t
+
+
+def timed_search(client, name: str, target, kw: dict, rises: dict, reps: int) -> tuple:
+    """One cold call and ``reps`` warm ones of a search, each moving the
+    counters of ``rises`` by their amounts. Returns the first result, the
+    client and server milliseconds of every call, the launches summed over
+    the calls, and the stats around the first call."""
+    result, client_ms, server_ms, total, first = None, [], [], {}, None
+    for _ in range(1 + reps):
+        a = client.stats()
+        t = time.perf_counter()
+        got = client.search(target, "smoke/items", "vector", **kw)
+        client_ms.append((time.perf_counter() - t) * 1e3)
+        b = client.stats()
+        check_counter_rises(name, a, b, rises)
+        server_ms.append((b["search.seconds"] - a.get("search.seconds", 0)) * 1e3)
+        la, lb = launches(None, a), launches(None, b)
+        for k in lb:
+            total[k] = total.get(k, 0) + lb[k] - la[k]
+        if result is None:
+            result, first = got, (a, b)
+    return result, client_ms, server_ms, total, first
+
+
+def phase_analytics_serve(client, expr, kernels, vectors, smi: str, kind: str) -> dict:
+    """Phase 11 on the phase-3 server after phase 8: ingest attrs and
+    attrs_dup, then each request of AN_REQUESTS without its join (the plain
+    search the oracle holds) and with it, one cold and WARM_REPS warm calls
+    each. A join call moves its route's join counter by one, the others by
+    none, and its kernel's launches by one (none on the probed route).
+    Returns the results and the join calls' launches (the analytics path)."""
+    import numpy as np
+    import torch
+
+    attrs, dup = analytics_tables()
+    emit({"phase": "analytics_put", "table": "attrs", "rows": AN_ATTRS_ROWS,
+          "client_s": put_columns(client, "attrs", attrs)})
+    emit({"phase": "analytics_put", "table": "attrs_dup", "rows": AN_DUP_ROWS,
+          "client_s": put_columns(client, "attrs_dup", dup)})
+    scan_dtypes = {"fp32": torch.float32, "int8": torch.int8}
+    routes = ("join.fused", "join.two_step", "join.inner")
+    results, path = {}, {}
+    for name, qn, metric, k, precision, filtered, probes, join, aggregate, route, seed in AN_REQUESTS:
+        queries = make_queries(vectors, qn, seed=seed)
+        target = queries[0] if qn == 1 else queries
+        kw = dict(metric=metric, maxval=k, precision=precision,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        if probes is not None:
+            kw.update(coding=IVF_CODER, probes=probes)
+            keys, design = (), None
+        else:
+            design = kernels.kernel_for(scan_dtypes[precision], qn, D)
+            keys = (ROUTES[precision], f"kernel.{design}")
+        plain, plain_ms, plain_server, _, _ = timed_search(
+            client, name + " (plain)", target, kw, launch_rises(keys, 1), WARM_REPS)
+        rises = {**{r: int(r == route) for r in routes}, **launch_rises(keys or ALL_LAUNCH_KEYS, int(bool(keys)))}
+        joined, join_ms, join_server, total, (a, b) = timed_search(
+            client, name, target, {**kw, "join": join, "aggregate": aggregate}, rises, WARM_REPS)
+        for key, v in total.items():
+            path[key] = path.get(key, 0) + v
+        calls = 1 + WARM_REPS
+        emit({"phase": "analytics_search", "search": name, "q": qn, "metric": metric, "k": k,
+              "precision": precision, "filtered": filtered, "probes": probes, "route": route,
+              "kernel": design, "rows_returned": joined.num_rows,
+              "sorted_key_build_s": b.get("cache.sorted_key_seconds", 0) - a.get("cache.sorted_key_seconds", 0),
+              "first_client_ms": join_ms[0], "first_server_ms": join_server[0],
+              "warm_client_median_ms": float(np.median(join_ms[1:])),
+              "warm_server_median_ms": float(np.median(join_server[1:])),
+              "plain_first_client_ms": plain_ms[0],
+              "plain_warm_client_median_ms": float(np.median(plain_ms[1:])),
+              "plain_warm_server_median_ms": float(np.median(plain_server[1:])),
+              "join_cost_warm_server_ms": float(np.median(join_server[1:]) - np.median(plain_server[1:])),
+              "launches_per_call": {k: v / calls for k, v in total.items() if v},
+              "device": kind, "nvidia_smi": smi})
+        results[name] = (queries, plain, joined)
+    emit({"phase": "analytics_served", "launches": path})
+    return {"results": results, "launches": path, "attrs": attrs, "dup": dup}
+
+
+def check_groups(name: str, got, groups, values, agg: str, int_lane: bool) -> dict:
+    """An aggregate table held to numpy over the joined rows' group keys and
+    values: the groups in ascending order; integer aggregates equal and
+    typed int64; float sums and means within 1e-5 * sum |v| of their group;
+    min and max equal (of the values as the card holds them, float32)."""
+    import numpy as np
+    import pyarrow as pa
+
+    uniq, inv = np.unique(groups, return_inverse=True)
+    if got.column("__GROUP__").to_pylist() != uniq.tolist():
+        raise AssertionError(f"{name}: groups {got.column('__GROUP__').to_pylist()[:8]}... "
+                             f"differ from the oracle's {uniq.tolist()[:8]}...")
+    agg_col = got.column("__AGG__")
+    vals = agg_col.to_numpy()
+    worst = 0.0
+    for slot in range(uniq.size):
+        v = values[inv == slot]
+        if agg in ("min", "max"):
+            want = float(getattr(np, agg)(v.astype(np.float32)))
+            if vals[slot] != want:
+                raise AssertionError(f"{name}: group {uniq[slot]} {agg} {vals[slot]} != {want}")
+            continue
+        want = v.sum() if agg in ("sum", "count") else v.sum() / v.size
+        if int_lane and agg != "mean":
+            if vals[slot] != want:
+                raise AssertionError(f"{name}: group {uniq[slot]} {agg} {vals[slot]} != {want}")
+            continue
+        err = abs(float(vals[slot]) - float(want))
+        if err > 1e-5 * float(np.abs(v).sum()):
+            raise AssertionError(f"{name}: group {uniq[slot]} {agg} off by {err}")
+        worst = max(worst, err / max(float(np.abs(v).sum()), 1e-30))
+    if int_lane and agg != "mean" and agg_col.type != pa.int64():
+        raise AssertionError(f"{name}: integer aggregate typed {agg_col.type}")
+    return {"groups": int(uniq.size), "max_rel_err_of_sum_abs": worst}
+
+
+def phase_analytics_checks(oracle, tags, ivf: dict, an: dict) -> list[dict]:
+    """Phase 11 after the server: each plain search against the float64
+    oracle by phase 4's rule (the probed one over its probe cells, as
+    phase 7), then its join and aggregate in numpy on the host copy of
+    the attribute tables."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch.ops import cells
+
+    attrs, dup = an["attrs"], an["dup"]
+    row_of_key = np.empty(AN_ATTRS_ROWS, np.int64)
+    row_of_key[attrs["key"]] = np.arange(AN_ATTRS_ROWS)
+    codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
+    tag_mask_dev = torch.from_numpy(tags < 50).to(oracle.device)
+    out = []
+    for name, qn, metric, k, precision, filtered, probes, join, aggregate, route, _ in AN_REQUESTS:
+        queries, plain, joined = an["results"][name]
+        ids, dist = split_result(plain, qn, k)
+        if probes is not None:
+            mask = probe_mask(codes_dev, cells.topk_cells_np(queries, ivf["codebooks"], metric, probes), None)
+        else:
+            mask = tag_mask_dev if filtered else None
+        row = {"search": name, **check_ids(oracle, name, metric, k, precision, queries, ids, dist, mask,
+                                           require_ties=False)}
+        flat_ids, flat_d = ids.ravel(), dist.ravel().astype(np.float64)
+        if join["source"] == "attrs":  # every search id matches exactly one attrs row
+            rows = row_of_key[flat_ids]
+            groups, weights = attrs["grp"][rows], attrs["weight"][rows]
+            if aggregate is None:
+                want = plain.append_column("grp", pa.array(groups)).append_column("weight", pa.array(weights))
+                if not joined.equals(want):
+                    raise AssertionError(f"{name}: lookup rows differ from the oracle's rows with attrs gathered")
+                row["rows"] = joined.num_rows
+            else:
+                value = aggregate.get("value")
+                values = {"weight": weights, "__DISTANCE__": flat_d, None: np.ones(rows.size, np.int64)}[value]
+                row.update(check_groups(name, joined, groups, values, aggregate["agg"], value is None))
+        else:  # attrs_dup: id i < AN_DUP_ROWS / 4 matches rows 4i .. 4i+3, in row order
+            hit = flat_ids < AN_DUP_ROWS // 4
+            left = np.repeat(np.flatnonzero(hit), 4)
+            right = (4 * flat_ids[hit][:, None] + np.arange(4)).ravel()
+            if aggregate is None:
+                want = plain.take(pa.array(left))
+                for col in ("grp", "val"):
+                    want = want.append_column(col, pa.array(dup[col][right]))
+                if not joined.equals(want):
+                    raise AssertionError(f"{name}: inner rows differ from (left row, right row) order")
+                row["rows"] = joined.num_rows
+            else:
+                row.update(check_groups(name, joined, dup["grp"][right], np.ones(right.size, np.int64),
+                                        aggregate["agg"], True))
+        out.append(row)
+        emit({"phase": "analytics_oracle", **row})
+    return out
+
+
+# -- phase 12: micro-batching ----------------------------------------------------
+
+
+def mb_filter(expr, pred):
+    """A phase-12 predicate: None, ("<", v) or ("range", lo, hi)."""
+    if pred is None:
+        return None
+    if pred[0] == "<":
+        return expr.field("tag") < pred[1]
+    return (expr.field("tag") >= pred[1]) & (expr.field("tag") < pred[2])
+
+
+def run_jobs(Flight, port: int, table_name: str, jobs: list, threads: int) -> tuple:
+    """Each job ``(target, kw)`` as one search: with ``threads`` 0 one after
+    the other on one client, else job i on thread i % threads, each thread
+    with its own client, all started together. Returns the results in job
+    order, each job's client milliseconds and the wall seconds."""
+    import threading
+
+    results, lat, errors = [None] * len(jobs), [0.0] * len(jobs), []
+
+    def worker(w: int, step: int) -> None:
+        client = Flight(host="127.0.0.1", port=port)
+        try:
+            for i in range(w, len(jobs), step):
+                t = time.perf_counter()
+                results[i] = client.search(jobs[i][0], table_name, "vector", **jobs[i][1])
+                lat[i] = (time.perf_counter() - t) * 1e3
+        except Exception as exc:  # noqa: BLE001 — raised below, on the main thread
+            errors.append(exc)
+        finally:
+            client.close()
+
+    t = time.perf_counter()
+    if threads == 0:
+        worker(0, 1)
+    else:
+        pool = [threading.Thread(target=worker, args=(w, threads)) for w in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+    wall = time.perf_counter() - t
+    if errors:
+        raise errors[0]
+    return results, lat, wall
+
+
+MB_COUNTERS = ("batch.dispatches", "batch.requests", "batch.queries", "batch.drains", "search.ivf_clustered",
+               "search.ivf_scan", "search.residency_int8")
+
+
+def batching_case(client, Flight, port: int, table_name: str, name: str, jobs: list, threads: int,
+                  graded: bool, smi: str, kind: str) -> dict:
+    """One case of phase 12: the jobs one at a time (each a batch of one:
+    the solo answers), then from ``threads`` client threads. Every
+    concurrent table must equal its solo one (``graded``: int8 phase 1,
+    recall >= 0.99 of the solo ids, equal distances on shared ids). Returns
+    the printed row with the concurrent part's counters and launches."""
+    import numpy as np
+
+    solo, solo_ms, solo_wall = run_jobs(Flight, port, table_name, jobs, 0)
+    a = client.stats()
+    got, conc_ms, conc_wall = run_jobs(Flight, port, table_name, jobs, threads)
+    b = client.stats()
+    equal = 0
+    for i, (g, s) in enumerate(zip(got, solo)):
+        if g.equals(s):
+            equal += 1
+        elif not graded:
+            raise AssertionError(f"{name}: concurrent request {i} differs from its solo answer")
+        else:
+            check_graded(f"{name}[{i}]", g, s)
+    la, lb = launches(None, a), launches(None, b)
+    counters = {k: b.get(k, 0) - a.get(k, 0) for k in MB_COUNTERS}
+    used = {k: lb[k] - la[k] for k in lb if lb[k] != la[k]}
+    queries = counters["batch.queries"]
+    row = {"phase": "batching", "case": name, "requests": len(jobs), "threads": threads,
+           "queries_per_request": queries / max(counters["batch.requests"], 1), **counters,
+           "requests_per_dispatch": counters["batch.requests"] / max(counters["batch.dispatches"], 1),
+           "queries_per_dispatch": queries / max(counters["batch.dispatches"], 1),
+           "equal_to_solo": equal, "launches": used,
+           "launches_per_request": {k: v / len(jobs) for k, v in used.items()},
+           "solo_qps": len(jobs) / solo_wall, "concurrent_qps": len(jobs) / conc_wall,
+           "solo_p50_ms": float(np.percentile(solo_ms, 50)), "solo_p99_ms": float(np.percentile(solo_ms, 99)),
+           "concurrent_p50_ms": float(np.percentile(conc_ms, 50)),
+           "concurrent_p99_ms": float(np.percentile(conc_ms, 99)),
+           "max_memory_allocated": b.get("device.max_memory_allocated"), "device": kind, "nvidia_smi": smi}
+    if counters["batch.requests"] != len(jobs):
+        raise AssertionError(f"{name}: {counters['batch.requests']} batched requests, expected {len(jobs)}")
+    emit(row)
+    return row
+
+
+def check_graded(name: str, got, solo) -> None:
+    """The parity contract's graded-selection rule against the solo answer:
+    recall >= 0.99 of its ids per table, the same distance on every id both
+    return (the rescore is exact fp32)."""
+    import numpy as np
+
+    def per_query(t):
+        qid = t.column("__QUERY_ID__").to_numpy() if "__QUERY_ID__" in t.column_names else np.zeros(t.num_rows)
+        return qid, t.column("id").to_numpy(), t.column("__DISTANCE__").to_numpy()
+
+    gq, gi, gd = per_query(got)
+    sq, si, sd = per_query(solo)
+    hits = 0
+    for q in np.unique(sq):
+        g = dict(zip(gi[gq == q].tolist(), gd[gq == q].tolist()))
+        s = dict(zip(si[sq == q].tolist(), sd[sq == q].tolist()))
+        shared = g.keys() & s.keys()
+        hits += len(shared)
+        if any(g[i] != s[i] for i in shared):
+            raise AssertionError(f"{name}: a shared id has another distance than alone")
+    if hits < 0.99 * si.size:
+        raise AssertionError(f"{name}: recall {hits / si.size} of the solo ids < 0.99")
+
+
+def phase_batching_serve(client, Flight, port: int, expr, vectors, smi: str, kind: str) -> dict:
+    """Phase 12 (a)-(d) on the phase-3 server after phase 11. Returns each
+    case's row and the phase's launches (the batching path)."""
+    c0 = launches(client)
+    cases = {}
+    q1 = make_queries(vectors, MB_Q1_REQUESTS, seed=600)
+    cos = dict(metric="cosine", maxval=10)
+    # (a) Q=1 from MB_THREADS threads
+    jobs = [(q1[i], cos) for i in range(MB_Q1_REQUESTS)]
+    cases["a"] = batching_case(client, Flight, port, "smoke/items", "q1_cosine_k10", jobs, MB_THREADS,
+                               False, smi, kind)
+    # (b) the same with three predicates by thread (config 5's rotation)
+    jobs = [(q1[i], {**cos, "filter": mb_filter(expr, MB_PREDICATES[(i % MB_THREADS) % 3])})
+            for i in range(MB_Q1_REQUESTS)]
+    cases["b"] = batching_case(client, Flight, port, "smoke/items", "q1_cosine_k10_three_predicates", jobs,
+                               MB_THREADS, False, smi, kind)
+    if cases["b"]["batch.dispatches"] > 3 * cases["b"]["batch.drains"]:
+        raise AssertionError("(b): more than one dispatch per predicate per drain")
+    # (c) config 5's batch and k from a few threads, the predicate by round
+    threads, per, qn, k = MB_BIG
+    big = make_queries(vectors, qn * threads * per, seed=601).reshape(threads * per, qn, D)
+    jobs = [(big[i], dict(metric="l2", maxval=k, filter=mb_filter(expr, MB_PREDICATES[(i // threads) % 3])))
+            for i in range(threads * per)]
+    cases["c"] = batching_case(client, Flight, port, "smoke/items", f"q{qn}_l2_k{k}_rotating", jobs, threads,
+                               False, smi, kind)
+    if cases["c"]["queries_per_dispatch"] <= qn:
+        raise AssertionError(f"(c): {cases['c']['queries_per_dispatch']} queries per dispatch, not past {qn}")
+    # (d) probed Q=1 on phase 7's coder
+    threads, per, probes = MB_PROBED
+    qp = make_queries(vectors, threads * per, seed=602)
+    jobs = [(qp[i], dict(metric="l2", maxval=10, coding=IVF_CODER, probes=probes)) for i in range(threads * per)]
+    cases["d"] = batching_case(client, Flight, port, "smoke/items", f"q1_l2_k10_p{probes}", jobs, threads,
+                               False, smi, kind)
+    d = cases["d"]
+    if d["search.ivf_clustered"] + d["search.ivf_scan"] != d["batch.dispatches"]:
+        raise AssertionError("(d): not one probed route per dispatch")
+    for c in ("a", "b", "c"):
+        if cases[c]["requests_per_dispatch"] <= 1:
+            raise AssertionError(f"({c}): {cases[c]['requests_per_dispatch']} requests per dispatch, none coalesced")
+    if DEVICE == "cuda" and cases["a"]["launches"].get("kernel.stream", 0) >= MB_Q1_REQUESTS:
+        raise AssertionError("(a): no fewer stream launches than requests")
+    c1 = launches(client)
+    path = {k: c1[k] - c0[k] for k in c1}
+    emit({"phase": "batching_served", "launches": path})
+    return {"cases": cases, "launches": path}
+
+
+def phase_batching_residency(client, Flight, port: int, vectors, smi: str, kind: str) -> dict:
+    """Phase 12 (e) on the phase-6 server: Q=8 auto (int8-resident) from a
+    few threads through residency.execute_many, one int8-resident pass per
+    dispatch; each answer held to its solo one by the graded rule."""
+    c0 = launches(client)
+    threads, per, qn = MB_RES
+    qs = make_queries(vectors, qn * threads * per, seed=603).reshape(threads * per, qn, RES_D)
+    jobs = [(qs[i], dict(metric="l2", maxval=RES_K, residency="auto")) for i in range(threads * per)]
+    row = batching_case(client, Flight, port, "smoke/wide", f"q{qn}_auto_int8_resident", jobs, threads, True,
+                        smi, kind)
+    if row["search.residency_int8"] != row["batch.dispatches"]:
+        raise AssertionError("(e): not one int8-resident pass per dispatch")
+    c1 = launches(client)
+    return {"case": row, "launches": {k: c1[k] - c0[k] for k in c1}}
+
+
+def gather_chunked_numpy(chunks, row_ids):
+    """The result gather's vector rows by numpy indexing chunk by chunk,
+    as executor._gather_chunked did before it called native.gather_rows:
+    the timing's baseline."""
+    import numpy as np
+
+    starts = np.cumsum([0] + [c.shape[0] for c in chunks])
+    which = np.searchsorted(starts, row_ids, side="right") - 1
+    order = np.argsort(which, kind="stable")
+    bounds = np.searchsorted(which[order], np.arange(len(chunks) + 1))
+    out = np.empty((row_ids.shape[0], *chunks[0].shape[1:]), chunks[0].dtype)
+    for c in np.flatnonzero(np.diff(bounds)):
+        idx = order[bounds[c] : bounds[c + 1]]
+        out[idx] = chunks[c][row_ids[idx] - starts[c]]
+    return out
+
+
+def gather_timing(vectors, result, smi: str, kind: str) -> dict:
+    """The vector gather of phase 3's Q=1024 filtered result over the
+    table's 65,536-row chunks (as the server holds it), on the host:
+    numpy indexing (before) against native.gather_rows (after), equal."""
+    import numpy as np
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.engine import executor
+
+    chunks = [vectors[s : s + BATCH_ROWS] for s in range(0, vectors.shape[0], BATCH_ROWS)]
+    row_ids = np.asarray(result.column("id")).astype(np.int64)
+    if not np.array_equal(executor._gather_chunked(chunks, row_ids), gather_chunked_numpy(chunks, row_ids)):
+        raise AssertionError("native gather differs from numpy indexing")
+    row = {"phase": "gather_timing", "rows": int(row_ids.size), "chunks": len(chunks),
+           "native_available": native.available(),
+           "numpy_ms": host_ms(lambda: gather_chunked_numpy(chunks, row_ids), 5),
+           "native_ms": host_ms(lambda: executor._gather_chunked(chunks, row_ids), 5),
+           "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -2395,6 +2915,14 @@ def run() -> int:
         main_shapes.append({"search": spec[0], "route": ROUTES[spec[4]], "q": spec[1],
                             "n": ROWS, "bucket": inputs[4], **r})
         emit({"phase": "kernel_vs_plain_main_path", **main_shapes[-1]})
+        del inputs
+        torch.cuda.empty_cache()
+    for i, spec in enumerate(BATCH_SHAPES):
+        inputs = main_path_inputs(topk2, vectors, tags, spec, make_queries(vectors, spec[1], seed=700 + i), device)
+        r = compare(kernels, *inputs)
+        main_shapes.append({"search": spec[0], "route": ROUTES[spec[4]], "q": spec[1],
+                            "n": ROWS, "bucket": inputs[4], **r})
+        emit({"phase": "kernel_vs_plain_batching_path", **main_shapes[-1]})
         del inputs
         torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain_done", "seconds": time.perf_counter() - t})
@@ -2487,6 +3015,16 @@ def run() -> int:
         emit({"phase": "selection_serve_done", "launches": sel["launches"],
               "seconds": time.perf_counter() - t})
 
+        # -- phase 11 (on the server) -----------------------------------------
+        t = time.perf_counter()
+        an = phase_analytics_serve(client, expr, kernels, vectors, smi, kind)
+        emit({"phase": "analytics_serve_done", "launches": an["launches"], "seconds": time.perf_counter() - t})
+
+        # -- phase 12 (a)-(d) (on the server) ---------------------------------
+        t = time.perf_counter()
+        mb = phase_batching_serve(client, Flight, port, expr, vectors, smi, kind)
+        emit({"phase": "batching_serve_done", "launches": mb["launches"], "seconds": time.perf_counter() - t})
+
         # -- phase 10 (a) (on the server) -------------------------------------
         t = time.perf_counter()
         cold_s = next(r for r in first_calls if r[0] == SEARCHES[0][0])[1]
@@ -2523,11 +3061,21 @@ def run() -> int:
     # -- phase 8 (after the server) -------------------------------------------
     t = time.perf_counter()
     phase_selection_checks(oracle, tags, ivf, sel)
+    emit({"phase": "selection_oracle_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 11 (after the server) ------------------------------------------
+    t = time.perf_counter()
+    phase_analytics_checks(oracle, tags, ivf, an)
+    emit({"phase": "analytics_done", "seconds": time.perf_counter() - t})
     del oracle
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     selection_timings(vectors, tags, ivf, smi, kind)
     torch.cuda.empty_cache()
     emit({"phase": "selection_done", "seconds": time.perf_counter() - t})
+
+    # -- phase 12 (after the server): the result gather before and after ------
+    gather_timing(vectors, results[[s[0] for s in SEARCHES].index("q1024_l2_k100_filtered")], smi, kind)
 
     # -- phase 10 (c), the phase-3 table --------------------------------------
     t = time.perf_counter()
@@ -2543,15 +3091,17 @@ def run() -> int:
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
-    ivf_launches, sel_launches = ivf["launches"], sel["launches"]
-    del vectors, ids_np, tags, queries, results, ivf, sel, mut
+    ivf_launches, sel_launches, an_launches = ivf["launches"], sel["launches"], an["launches"]
+    del vectors, ids_np, tags, queries, results, ivf, sel, mut, an
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
     compares = small + forced + wide + main_shapes + mut_checks + res["checks"]
     mutation = {k: v + res["mutation_launches"][k] for k, v in mut_launches.items()}
+    batching = {k: v + res["batching_launches"][k] for k, v in mb["launches"].items()}
     by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
-               "selection": sel_launches, "mutation": mutation}
+               "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
+               "batching": batching}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})

@@ -1,0 +1,231 @@
+"""Work-conserving search micro-batching — port of
+``fenix_tpu/engine/batching.py``.
+
+Concurrent small searches are bound by the host (a Q=1 request costs
+about ten times its phase-1 kernel), so N of them issued one by one
+serialize into N × (host overhead + scan). A per-cache dispatcher thread
+drains every queued request at once, groups them by
+``executor.batch_key`` (one dispatch per distinct source, column,
+metric, precision, residency, coder with probes, and predicate) and runs
+each group as ONE device search (``executor.execute_search_batched``).
+When the server is idle a lone request is dispatched at once, so
+batching adds no latency; under load batches form as fast as the card
+drains them.
+
+A request that cannot join a batch (``executor.batchable``: no-top-k
+reads, no metric, ``extra`` knobs), whose table or column is missing,
+whose metric is bad, or with more than ``max_queries // 2`` queries runs
+solo on the caller's thread. A batch that fails is retried member by
+member, so only a faulty request gets its error; no waiter is left
+hanging. Counters: ``batch.dispatches``, ``batch.requests``,
+``batch.queries`` and ``batch.drains`` (queue drains, each giving one
+dispatch per distinct key).
+
+``FENIX_PIPELINE_DEPTH > 0`` adds a completion thread that waits for
+each batch's results while the dispatcher launches the next (at most
+that many batches in flight); the default 0 finishes each batch on the
+dispatcher thread, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from collections import deque
+
+import numpy as np
+import pyarrow as pa
+
+from fenix_tpu_torch.engine import executor
+from fenix_tpu_torch.engine.session import DeviceCache
+from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+# Upper bound on coalesced queries per dispatch: bounds the [Q, N/bucket]
+# phase-1 output and the rescore's staging.
+MAX_BATCH_QUERIES = 4096
+
+
+class _Item:
+    __slots__ = ("req", "queries", "key", "result", "error", "done", "inflight")
+
+    def __init__(self, req: executor.SearchRequest, queries: int, key: tuple) -> None:
+        self.req = req
+        self.queries = queries
+        self.key = key
+        self.result: pa.Table | None = None
+        self.error: BaseException | None = None
+        self.done = threading.Event()
+        self.inflight = False
+
+
+class SearchBatcher:
+    """Queue and two-stage pipeline (dispatch / completion) for one
+    ``DeviceCache``."""
+
+    def __init__(self, cache: DeviceCache, max_queries: int = MAX_BATCH_QUERIES) -> None:
+        self.cache = cache
+        self.max_queries = max_queries
+        self._queue: deque[_Item] = deque()
+        self._cv = threading.Condition()
+        self._thread: threading.Thread | None = None
+        self.pipeline_depth = int(os.environ.get("FENIX_PIPELINE_DEPTH", "0"))
+        # (group, finish) pairs in flight; bounded for backpressure
+        self._inflight: queue.Queue = queue.Queue(maxsize=max(self.pipeline_depth, 1))
+        self._completer: threading.Thread | None = None
+
+    # -- public -----------------------------------------------------------
+
+    def submit(self, req: executor.SearchRequest) -> pa.Table:
+        if not executor.batchable(req):
+            return executor.execute_search(self.cache, req)
+        try:
+            field = self.cache.host_table(req.source).schema.field(req.column)
+            dim = ingest.vector_field_type(field).list_size
+        except Exception:
+            # missing table or column: fail on the caller's thread
+            return executor.execute_search(self.cache, req)
+        queries = _query_count(req.target, dim)
+        if queries is None or queries > self.max_queries // 2:
+            return executor.execute_search(self.cache, req)
+        try:
+            # the key validates the metric: a bad request fails on the
+            # caller's thread instead of reaching the dispatcher
+            key = executor.batch_key(req)
+        except Exception:
+            return executor.execute_search(self.cache, req)
+
+        item = _Item(req, queries, key)
+        with self._cv:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._run, name="fenix-search-batcher", daemon=True)
+                self._thread.start()
+            if self.pipeline_depth > 0 and (self._completer is None or not self._completer.is_alive()):
+                self._completer = threading.Thread(
+                    target=self._complete, name="fenix-search-completer", daemon=True
+                )
+                self._completer.start()
+            self._queue.append(item)
+            self._cv.notify()
+        item.done.wait()
+        if item.error is not None:
+            raise item.error
+        return item.result
+
+    # -- dispatcher ---------------------------------------------------------
+
+    def _drain(self) -> list[_Item]:
+        """Everything queued, up to ``max_queries`` queries; waits while the
+        queue is empty."""
+        with self._cv:
+            while not self._queue:
+                self._cv.wait()
+            items: list[_Item] = []
+            total = 0
+            while self._queue and total + self._queue[0].queries <= self.max_queries:
+                item = self._queue.popleft()
+                items.append(item)
+                total += item.queries
+            return items
+
+    def _run(self) -> None:
+        while True:
+            items = self._drain()
+            METRICS.add("batch.drains")
+            try:
+                groups: dict[tuple, list[_Item]] = {}
+                for item in items:
+                    groups.setdefault(item.key, []).append(item)
+                for group in groups.values():
+                    self._dispatch(group)
+            except Exception:  # noqa: BLE001 — the dispatcher must not die
+                pass
+            finally:
+                # never hang a waiter: whatever is neither in flight nor
+                # resolved gets an error now
+                for item in items:
+                    if not item.done.is_set() and not item.inflight:
+                        if item.error is None and item.result is None:
+                            item.error = RuntimeError("batch dispatcher error")
+                        item.done.set()
+
+    def _dispatch(self, group: list[_Item]) -> None:
+        METRICS.add("batch.dispatches")
+        METRICS.add("batch.requests", len(group))
+        METRICS.add("batch.queries", sum(item.queries for item in group))
+        try:
+            finish = executor.execute_search_batched(self.cache, [item.req for item in group], defer=True)
+        except Exception as exc:  # noqa: BLE001 — delivered to the callers
+            self._fallback_solo(group, exc)
+            return
+        if self.pipeline_depth <= 0:
+            self._finish_group(group, finish)
+            return
+        for item in group:
+            item.inflight = True
+        self._inflight.put((group, finish))  # bounded: backpressure
+
+    def _complete(self) -> None:
+        while True:
+            group, finish = self._inflight.get()
+            self._finish_group(group, finish)
+
+    def _finish_group(self, group: list[_Item], finish) -> None:
+        try:
+            results = finish()
+            for item, result in zip(group, results):
+                item.result = result
+            for item in group:
+                item.done.set()
+        except Exception as exc:  # noqa: BLE001
+            self._fallback_solo(group, exc)
+
+    def _fallback_solo(self, group: list[_Item], exc: BaseException) -> None:
+        """Deliver a failed batch: a poisoned group (one bad target dim, say)
+        must not fail innocent members, so each is retried solo."""
+        if len(group) > 1:
+            for item in group:
+                try:
+                    item.result = executor.execute_search(self.cache, item.req)
+                except Exception as solo_exc:  # noqa: BLE001
+                    item.error = solo_exc
+        else:
+            group[0].error = exc
+        for item in group:
+            item.done.set()
+
+
+def _query_count(target, dim: int) -> int | None:
+    """Number of queries in a target (a flat array holds Q·dim scalars, as
+    ``executor.normalize_target`` reads it), or None when unknown (solo)."""
+    if isinstance(target, (pa.Table, pa.ChunkedArray)):
+        return len(target)
+    if isinstance(target, pa.Array):
+        if pa.types.is_fixed_size_list(target.type):
+            return len(target)
+        return len(target) // dim if len(target) % dim == 0 else None
+    try:
+        arr = np.asarray(target)
+    except Exception:
+        return None
+    if arr.ndim == 1:
+        return int(arr.size) // dim if arr.size % dim == 0 else None
+    if arr.ndim == 2:
+        return int(arr.shape[0])
+    return None
+
+
+_BATCHERS: dict[int, SearchBatcher] = {}
+_BATCHERS_LOCK = threading.Lock()
+
+
+def get_batcher(cache: DeviceCache) -> SearchBatcher:
+    """The batcher of ``cache`` (one per cache, made on first use)."""
+    key = id(cache)
+    with _BATCHERS_LOCK:
+        batcher = _BATCHERS.get(key)
+        if batcher is None or batcher.cache is not cache:
+            batcher = SearchBatcher(cache)
+            _BATCHERS[key] = batcher
+        return batcher

@@ -36,7 +36,17 @@ it is the wire and the result gather), and within it
 decision).
 
 Probed search past the device budget is ``residency.probed_topk`` on
-the host. Not ported yet: multi-device meshes (ROADMAP queue 1 item 10).
+the host.
+
+Micro-batching (``engine/batching.py``): ``batchable`` and ``batch_key``
+decide which requests may share a dispatch, and
+``execute_search_batched`` runs them as one search over their stacked
+queries (DUAL exact at every scan precision, both probed routes chosen
+over the stacked batch, the host-corpus modes through
+``residency.execute_many``), with one filter overlay for the batch. A
+top-k request alone is a batch of one, so both paths share every route
+and counter. Not ported yet: multi-device meshes (ROADMAP queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -44,14 +54,16 @@ from __future__ import annotations
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import pyarrow as pa
 import torch
 
 from fenix_tpu_torch import expr as expr_mod
+from fenix_tpu_torch import native
 from fenix_tpu_torch.engine import residency
 from fenix_tpu_torch.engine.session import DeviceCache, _StaleRevision
 from fenix_tpu_torch.io import ingest
@@ -310,14 +322,30 @@ def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     raise RuntimeError(f"table {req.source!r} kept changing during search")
 
 
-def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
+def _validate(req: SearchRequest) -> bool:
+    """Refuse a bad precision or a missing metric; return whether the
+    request probes an IVF coder (the reference's rule: a coder and a
+    nonzero probe count; ``probes=0`` answers the exact search over the
+    coded table)."""
     if req.precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {req.precision!r}")
-    # the reference's rule: probe only with a coder and a nonzero probe
-    # count; probes=0 answers the exact search over the coded table
     probed = bool(req.coding) and bool(req.probes)
     if req.metric is None and not probed:
         raise ValueError("metric is required when no coder supplies one")
+    return probed
+
+
+def _request_metric(req: SearchRequest, coding_data) -> str:
+    """The request's metric, or the coder's (the reference's
+    index.py:116-117)."""
+    metric = req.metric if req.metric is not None else coding_data["config"]["metric"]
+    return distance_ops.canonical_metric(metric)
+
+
+def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
+    if req.maxval is not None:  # top-k: a batch of one
+        return _execute_batch_once(cache, [req], defer=False)[0]
+    probed = _validate(req)
     # corpora past the budget serve through the host-corpus modes,
     # before any device fp32 is built
     mode = residency.plan(cache, req)
@@ -327,52 +355,167 @@ def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     # host table (with the __CODED_ID__ join under a coder) + device
     # matrix of the same revision
     data, corpus, snap_stamp = cache.snapshot(req.source, req.column, req.coding)
-
     column_type = ingest.vector_field_type(data.schema.field(req.column))
     value_dtype = column_type.value_type.to_pandas_dtype()
     target = normalize_target(req.target, column_type.list_size)
-
     coding_data = cache.coding(req.coding) if probed else None
-    # the reference's index.py:116-117: the coder's metric by default
-    metric = req.metric if req.metric is not None else coding_data["config"]["metric"]
-    metric = distance_ops.canonical_metric(metric)
+    metric = _request_metric(req, coding_data)
+    views = cache.host_column_views(req.source, data, snap_stamp, req.coding)
+    plan = _FilterPlan(cache, req.source, req.column, req.filter, data, corpus.rows_padded, corpus.rows)
+    select = [*req.select] if req.select is not None else data.column_names
+    queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
+    return _execute_nomax(
+        cache, req, data, corpus, plan, coding_data, metric, target, queries,
+        value_dtype, select + [DIST_COL], snap_stamp, views,
+    )
+
+
+def batchable(req: SearchRequest) -> bool:
+    """Whether a request can join a coalesced dispatch: a top-k search with
+    a metric, probed only with an explicit probe count, and no per-request
+    ``extra`` knob (a window is one request's; the JAX package batches
+    such requests and gives every member the first one's window). Members
+    of a batch share one filter overlay, one coder and probe count (the
+    batch key carries them); ``maxval`` may differ, since each member's
+    top-m is a prefix of the batch's top-k."""
+    return (
+        req.maxval is not None
+        and req.metric is not None
+        and (req.coding is None or req.probes is not None)
+        and not req.extra
+    )
+
+
+def batch_key(req: SearchRequest) -> tuple:
+    """The requests that may share a dispatch: one source, column,
+    metric (validated here), precision, residency, coder, probe count and
+    predicate (its wire form)."""
+    source = (req.source,) if isinstance(req.source, str) else tuple(req.source)
+    return (
+        source,
+        req.column,
+        distance_ops.canonical_metric(req.metric),
+        req.precision,
+        req.residency,
+        req.coding,
+        req.probes,
+        expr_mod.dumps(req.filter),
+    )
+
+
+def execute_search_batched(
+    cache: DeviceCache, reqs: Sequence[SearchRequest], defer: bool = False
+) -> "list[pa.Table] | Callable[[], list[pa.Table]]":
+    """Run compatible top-k requests (one ``batch_key``, all ``batchable``)
+    as ONE device search over their stacked queries; a lone request is a
+    batch of one, so every route counter and kernel launch moves as on the
+    solo path, once per batch.
+
+    With ``defer=True`` the device work is enqueued and a ``finish()``
+    closure returned: it waits for this batch's results alone (their copy
+    to pinned host memory is enqueued right behind the search, with an
+    event) and gathers each member's table. Retried when a catalog
+    mutation lands mid-request."""
+    for _ in range(4):
+        try:
+            return _execute_batch_once(cache, reqs, defer)
+        except _StaleRevision:
+            continue
+    raise RuntimeError(f"table {reqs[0].source!r} kept changing during search")
+
+
+def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
+    """Start copying small device results to the host and return the wait
+    that gives them as numpy arrays. On a CUDA device the copies go into
+    pinned buffers behind an event, so the wait does not also wait for
+    work enqueued after them (a later batch's search)."""
+    if tensors[0].device.type != "cuda":
+        arrays = [t.numpy() for t in tensors]
+        return lambda: arrays
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for host, t in zip(hosts, tensors):
+        host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> list[np.ndarray]:
+        done.synchronize()
+        return [host.numpy() for host in hosts]
+
+    return wait
+
+
+def _execute_batch_once(
+    cache: DeviceCache, reqs: Sequence[SearchRequest], defer: bool
+) -> "list[pa.Table] | Callable[[], list[pa.Table]]":
+    r0 = reqs[0]
+    probed = _validate(r0)
+    mode = residency.plan(cache, r0)
+    if mode != residency.DUAL:
+        # host-corpus modes: one stacked pass, split per request (the
+        # batch key carries the residency, so the group is uniform)
+        tables = residency.execute_many(cache, reqs, mode)
+        return (lambda: tables) if defer else tables
+
+    data, corpus, snap_stamp = cache.snapshot(r0.source, r0.column, r0.coding)
+    column_type = ingest.vector_field_type(data.schema.field(r0.column))
+    value_dtype = column_type.value_type.to_pandas_dtype()
+    targets = [normalize_target(r.target, column_type.list_size) for r in reqs]
+    counts = [t.shape[0] for t in targets]
+    stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
+    coding_data = cache.coding(r0.coding) if probed else None
+    metric = _request_metric(r0, coding_data)
 
     n_pad, rows = corpus.rows_padded, corpus.rows
-    views = cache.host_column_views(req.source, data, snap_stamp, req.coding)
-    plan = _FilterPlan(cache, req.source, req.column, req.filter, data, n_pad, rows)
+    views = cache.host_column_views(r0.source, data, snap_stamp, r0.coding)
+    # members share one predicate (the batch key carries its wire form),
+    # so one overlay serves the whole batch
+    plan = _FilterPlan(cache, r0.source, r0.column, r0.filter, data, n_pad, rows)
 
-    select = [*req.select] if req.select is not None else data.column_names
-    select = select + [DIST_COL]
-
-    queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
-    if req.maxval is None:  # every selected row, before any top-k work
-        return _execute_nomax(
-            cache, req, data, corpus, plan, coding_data, metric, target, queries,
-            value_dtype, select, snap_stamp, views,
-        )
-
-    k = int(min(req.maxval, rows))
+    k = int(min(max(r.maxval for r in reqs), rows))
     k_pad = min(_canonical_k(k), n_pad)
+    queries = torch.tensor(stacked, device=cache.device)  # a target may view Arrow memory
     t = time.perf_counter()
     if probed:
         dists, ids = _probed_topk(
-            cache, req, coding_data, corpus, queries, target, metric, plan, k_pad, snap_stamp
+            cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
         )
     else:
-        aux_mul, aux_add = cache.metric_aux(req.source, req.column, metric)
+        aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
         aux_add = plan.overlay(aux_add)
-        scan = _scan_copies(cache, req)
-        _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+        scan = _scan_copies(cache, r0)
+        _check_revision(cache, r0.source, r0.column, r0.coding, snap_stamp)
         dists, ids = topk2.topk_two_phase(
             corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
         )
     # one device→host copy of the small [Q, k] results
-    dists = dists[:, :k].cpu().numpy()
-    ids = ids[:, :k].cpu().numpy()
-    if probed:
-        METRICS.add("ivf.seconds", time.perf_counter() - t)
-    return gather_results(data, select, dists, ids, value_dtype, views=views)
+    fetch = _fetch_async(dists[:, :k], ids[:, :k])
 
+    def finish() -> list[pa.Table]:
+        dists_np, ids_np = fetch()
+        if probed:
+            METRICS.add("ivf.seconds", time.perf_counter() - t)
+        out = []
+        offset = 0
+        for req, c in zip(reqs, counts):
+            m = int(min(req.maxval, rows))
+            select = [*req.select] if req.select is not None else data.column_names
+            out.append(
+                gather_results(
+                    data, select + [DIST_COL], dists_np[offset : offset + c, :m],
+                    ids_np[offset : offset + c, :m], value_dtype, views=views,
+                )
+            )
+            offset += c
+        return out
+
+    return finish if defer else finish()
+
+
+# result rows from which the chunked vector gather spreads over threads
+_THREADED_GATHER_ROWS = 8192
+_GATHER_POOL: "ThreadPoolExecutor | None" = None
+_GATHER_POOL_LOCK = threading.Lock()
 
 # rows per chunk of a no-top-k read, before chunk_for's cap on the
 # [Q, chunk] distance tile
@@ -531,18 +674,48 @@ def _probed_topk(
     )
 
 
+def _gather_pool() -> ThreadPoolExecutor:
+    """The process's threads for the chunked vector gather, made on first
+    use (a pool made per request costs about as much as it saves)."""
+    global _GATHER_POOL
+    with _GATHER_POOL_LOCK:
+        if _GATHER_POOL is None:
+            _GATHER_POOL = ThreadPoolExecutor(max_workers=os.cpu_count() or 1, thread_name_prefix="fenix-gather")
+        return _GATHER_POOL
+
+
 def _gather_chunked(chunks: list[np.ndarray], row_ids: np.ndarray) -> np.ndarray:
     """Rows ``row_ids`` of the concatenation of ``chunks``, without
-    concatenating them."""
+    concatenating them, through ``native.gather_rows`` (the JAX package
+    gathers its one view so). A table streamed in over Flight has one
+    chunk per batch, and a request's rows fall a few hundred to a chunk,
+    under the native gather's own thread grain: so each chunk's rows are
+    gathered into a contiguous block of a chunk-grouped buffer, the
+    chunks spread over threads when there are many rows, and one threaded
+    native gather puts the buffer in request order."""
+    if len(chunks) == 1:
+        return native.gather_rows(chunks[0], row_ids)
     starts = np.cumsum([0] + [c.shape[0] for c in chunks])
     which = np.searchsorted(starts, row_ids, side="right") - 1
-    order = np.argsort(which, kind="stable")  # group the ids by chunk
-    bounds = np.searchsorted(which[order], np.arange(len(chunks) + 1))
-    out = np.empty((row_ids.shape[0], *chunks[0].shape[1:]), chunks[0].dtype)
-    for c in np.flatnonzero(np.diff(bounds)):  # only the chunks holding ids
-        idx = order[bounds[c] : bounds[c + 1]]
-        out[idx] = chunks[c][row_ids[idx] - starts[c]]
-    return out
+    # numpy sorts 16-bit integers stably by radix
+    order = np.argsort(which.astype(np.uint16) if len(chunks) <= 1 << 16 else which, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(which, minlength=len(chunks)))])
+    local = row_ids[order] - starts[which[order]]
+    grouped = np.empty((row_ids.shape[0], *chunks[0].shape[1:]), chunks[0].dtype)
+
+    def gather(c: int) -> None:
+        lo, hi = bounds[c], bounds[c + 1]
+        native.gather_rows(chunks[c], local[lo:hi], out=grouped[lo:hi])
+
+    held = np.flatnonzero(np.diff(bounds))  # only the chunks holding ids
+    if row_ids.shape[0] >= _THREADED_GATHER_ROWS:
+        list(_gather_pool().map(gather, held))  # ctypes calls release the GIL
+    else:
+        for c in held:
+            gather(c)
+    position = np.empty_like(order)
+    position[order] = np.arange(order.shape[0])
+    return native.gather_rows(grouped, position)
 
 
 def gather_results(
@@ -556,9 +729,9 @@ def gather_results(
     """Host-side result materialization: take the winning rows, append
     the distance column, add ``__QUERY_ID__`` for multi-query batches.
 
-    Columns with a numpy view (session.host_column_views) gather with
-    numpy indexing — vectors chunk by chunk — into single-chunk Arrow
-    arrays; the rest (strings, extension types, nullable columns) take a
+    Columns with a numpy view (session.host_column_views) gather into
+    single-chunk Arrow arrays — vectors chunk by chunk through
+    ``native.gather_rows``, scalars with numpy indexing; the rest (strings, extension types, nullable columns) take a
     per-column Arrow ``take``, keeping their exact result types."""
     num_queries, k = ids.shape
     valid = ids >= 0  # [Q, k]

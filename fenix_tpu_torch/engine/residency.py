@@ -26,9 +26,10 @@ involved (``probed_topk``, and the probed branch of
 ``execute_nomax_host``): each probed cell is a contiguous slice of the
 cell-sorted host layouts (``session.host_clustered_int8`` and its IVF
 sidecar, ``session.host_cell_meta``). The mesh-composed modes wait (ROADMAP
-queue 1 item 10). ``execute_many`` takes a list of compatible requests,
-but only ``execute_solo`` calls it until micro-batching ports (item 6).
-``maxval=None`` over a host corpus is ``execute_nomax_host``.
+queue 1 item 10). ``execute_many`` serves a list of compatible top-k requests
+in one pass: a micro-batch (``executor.execute_search_batched``), a
+lone request being a batch of one. ``maxval=None`` over a host corpus is
+``execute_nomax_host``.
 
 Counters (``stats``): ``search.residency_int8``,
 ``search.residency_stream``, ``search.stream_chunks``,

@@ -1,12 +1,14 @@
 """Wire config → engine dispatch — port of ``fenix_tpu/engine/service.py``.
 
 ``run_search_config`` resolves a repartitioned name to its shard tables
-(``parallel/distributed.resolve_source``) and hands the request straight
-to ``executor.execute_search``. A config with an ``aggregate`` and no
-``join`` is the plain search, as in the JAX package, which reads the
-aggregate only inside a join. Fused joins (ROADMAP queue 1 item 9) and
-micro-batching of concurrent requests (``engine/batching.py``, item 6)
-are not ported yet.
+(``parallel/distributed.resolve_source``), for the search table and for a
+join's attribute table. A request with a ``join`` goes to
+``analytics.execute_search_join`` (with its ``aggregate``, if any); every
+other request goes to the cache's micro-batcher
+(``batching.get_batcher(cache).submit``), which coalesces concurrent
+compatible searches into one device search and runs the rest solo. A
+config with an ``aggregate`` and no ``join`` is the plain search, as in
+the JAX package, which reads the aggregate only inside a join.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any
 import pyarrow as pa
 
 from fenix_tpu_torch import expr as expr_mod
-from fenix_tpu_torch.engine import executor
+from fenix_tpu_torch.engine import analytics, batching, executor
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.parallel import distributed
 
@@ -43,7 +45,16 @@ def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchR
 
 
 def run_search_config(cache: DeviceCache, config: dict[str, Any], target: Any) -> pa.Table:
-    if config.get("join") is not None:
-        raise NotImplementedError("search joins and aggregates (ROADMAP queue 1 item 9: analytics)")
     config = {**config, "source": distributed.resolve_source(cache.root, config["source"])}
-    return executor.execute_search(cache, request_from_config(config, target))
+    req = request_from_config(config, target)
+    join = config.get("join")
+    if join is None:
+        return batching.get_batcher(cache).submit(req)
+    join = {**join, "source": distributed.resolve_source(cache.root, join["source"])}
+    aggregate = config.get("aggregate")
+    return analytics.execute_search_join(
+        cache,
+        req,
+        analytics.JoinSpec.from_dict(join),
+        analytics.AggregateSpec.from_dict(aggregate) if aggregate is not None else None,
+    )

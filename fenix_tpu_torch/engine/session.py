@@ -15,7 +15,8 @@ with its on-disk sidecar, the host aux and filter masks, and the
 int8-resident device copy built without any fp32 on the device. Device
 filters: the scalar columns (``scalar``, integers as int32) and
 ``device_filter_mask``, a predicate evaluated on the card and memoized
-per (predicate, revision) in the filter-mask LRU. All tensors live on the
+per (predicate, revision) in the filter-mask LRU. Joins: the sorted build
+side of a join key column (``sorted_key``). All tensors live on the
 one ``device`` the cache was made for; nothing moves to the CPU when a
 CUDA device was asked for.
 
@@ -76,7 +77,7 @@ from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch.io import arrow, ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock, read_stable
 from fenix_tpu_torch.ops import distance as distance_ops
-from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.ops import relational, topk2
 from fenix_tpu_torch.utils import hbm
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -1035,6 +1036,30 @@ class DeviceCache:
             return topk2.prepare_aux(col.data, valid, canonical)
 
         return self._memo(self._device, (key, column, "aux", canonical), stamp, build)
+
+    def sorted_key(self, source: str | Sequence[str], column: str):
+        """``(sorted keys, original positions, valid rows)`` of a join key
+        column: the build side of the lookup and inner joins
+        (``ops.relational.join_lookup_sorted`` / ``join_inner_sorted``),
+        built once per revision of the attribute table. Keys are int32
+        (:meth:`scalar` guards the range); padding rows take ``INT32_MAX``
+        and sort after every real key of that value. Timer
+        ``cache.sorted_key_seconds`` (the column's upload and the sort)."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            t = time.perf_counter()
+            col = self.scalar(source, column)
+            valid = torch.arange(col.rows_padded, device=self.device) < col.rows
+            keys = torch.where(valid, col.data.to(torch.int32), relational.INT32_MAX)
+            sk, si = relational.sort_with_index(keys)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # once per revision: time the sort itself
+            METRICS.add("cache.sorted_key_seconds", time.perf_counter() - t)
+            return sk, si, col.rows
+
+        return self._memo(self._device, (key, column, "sorted_key"), stamp, build)
 
     # -- IVF: coders, indexes and the clustered layout ----------------------
 

@@ -19,6 +19,15 @@ routes as ``filter.device_pushdown`` and ``filter.host_upload`` (with
 as ``search.nomax_full``, ``search.nomax_selected`` and
 ``search.residency_host_nomax``.
 
+A search config with a ``join`` (and optionally an ``aggregate``) joins
+its winners to an attribute table (``engine/analytics.py``; ``stats``:
+``join.fused``, ``join.two_step``, ``join.inner``,
+``join.partitioned_downgraded``, ``cache.sorted_key_seconds``); every
+other search goes through the micro-batcher (``engine/batching.py``;
+``batch.dispatches``, ``batch.requests``, ``batch.queries``,
+``batch.drains``). On a card, ``stats`` also carries
+``device.max_memory_allocated``.
+
 Mutations: ``do_put`` in mode ``append`` adds a delta part and assigns
 only its rows into every index, ``upsert`` replaces or inserts by a key
 column and writes ``{"replaced", "inserted"}`` as the put's metadata;
@@ -50,6 +59,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 import pyarrow.flight as fl
+import torch
 
 from fenix_tpu_torch import coder as coder_mod
 from fenix_tpu_torch import expr as expr_mod
@@ -90,6 +100,14 @@ _ROUTE_COUNTERS = (
     "cache.mirror_rows_quantized",
     "cache.mirror_delta_refreshes",
     "index.host_assigns",
+    "batch.dispatches",
+    "batch.requests",
+    "batch.queries",
+    "batch.drains",
+    "join.fused",
+    "join.two_step",
+    "join.inner",
+    "join.partitioned_downgraded",
 )
 
 
@@ -295,6 +313,8 @@ class Server(fl.FlightServerBase):
                     snap[f"cache.device_entries.{kind}"] = float(count)
                 for name, count in kernels.LAUNCHES.items():
                     snap[f"kernel.{name}.launches"] = float(count)
+                if self.cache.device.type == "cuda":
+                    snap["device.max_memory_allocated"] = float(torch.cuda.max_memory_allocated(self.cache.device))
                 return iter([fl.Result(_dumps(snap))])
 
             case "health":
@@ -506,10 +526,16 @@ class Flight:
         extra: dict | None = None,
         coding: str | None = None,
         probes: int | None = None,
+        join: dict | None = None,
+        aggregate: dict | None = None,
     ) -> pa.Table:
         """k-NN search; with ``coding`` and ``probes`` an IVF search over
         the coder's ``probes`` nearest cells, whose metric is the
-        default."""
+        default. ``join`` (the wire form of ``analytics.JoinSpec``: source,
+        right_on, left_on, columns, how, max_matches, partitioned) joins
+        each result row to an attribute table; with ``aggregate``
+        (``analytics.AggregateSpec``: group_by, value, agg, max_groups) the
+        answer is the group table (``__GROUP__``, ``__AGG__``)."""
         assert metric is None or metric in METRICS_SET, f"metric must be one of {sorted(METRICS_SET)}"
         assert precision in ("fp32", "bf16", "int8"), precision
         assert residency in ("auto", "dual", "int8", "stream"), residency
@@ -528,6 +554,8 @@ class Flight:
                     "filter": filter.to_dict() if filter is not None else None,
                     "maxval": maxval,
                     "probes": probes,
+                    "join": join,
+                    "aggregate": aggregate,
                     "precision": precision,
                     "residency": residency,
                     # per-request knobs, e.g. {"window": ...} for the

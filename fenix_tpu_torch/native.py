@@ -85,14 +85,19 @@ def pack_rows(src: np.ndarray, rows_pad: int, fill_byte: int = 0) -> np.ndarray:
     return out
 
 
-def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    """Threaded ``src[idx]`` for row-major 2-D arrays."""
+def gather_rows(src: np.ndarray, idx: np.ndarray, out: "np.ndarray | None" = None) -> np.ndarray:
+    """Threaded ``src[idx]`` for row-major 2-D arrays, into ``out`` when
+    given (C-contiguous, ``src``'s dtype, ``len(idx)`` rows)."""
     src = np.ascontiguousarray(src)
     idx = np.ascontiguousarray(idx, dtype=np.int64)
+    shape = (idx.shape[0], *src.shape[1:])
+    if out is None:
+        out = np.empty(shape, dtype=src.dtype)
+    elif out.shape != shape or out.dtype != src.dtype or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous {src.dtype} array of shape {shape}")
     lib = _load()
     if lib is None:
-        return src[idx]
-    out = np.empty((idx.shape[0], *src.shape[1:]), dtype=src.dtype)
+        return np.take(src, idx, axis=0, out=out)
     lib.fenix_gather_rows(
         src.ctypes.data, idx.ctypes.data, out.ctypes.data, idx.shape[0], src.strides[0]
     )

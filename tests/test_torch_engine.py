@@ -185,11 +185,11 @@ def test_budget_eviction_keeps_latest(root, monkeypatch):
 
 
 def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
-    """Joins still raise (ROADMAP queue 1 item 9); IVF, maxval=None on the
+    """Bad precisions and missing metrics raise; IVF, maxval=None on the
     device and over the host corpus, the int8-resident and streaming
     modes, requests over the budget, probed search over the host corpus
-    (top-k and maxval=None), coder training past the budget and an
-    aggregate without a join are served."""
+    (top-k and maxval=None), coder training past the budget, joins (the
+    JAX package's answer) and an aggregate without a join are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -230,10 +230,14 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     assert big["tensor"].shape == (1, 8, DIM)
     monkeypatch.delenv("FENIX_HBM_BUDGET")
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target)) == "dual"
-    with pytest.raises(NotImplementedError, match="joins.*item 9"):
-        service.run_search_config(
-            cache, {"source": "items", "column": "vector", "join": {"source": "x"}}, target
-        )
+    table.make(root, "attrs", pa.table({"key": pa.array(np.arange(0, N, 3, dtype=np.int64)),
+                                        "grp": pa.array(np.arange(0, N, 3) % 4)}).to_reader())
+    joined = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5,
+              "join": {"source": "attrs", "right_on": "key"}}
+    for config in (joined, {**joined, "aggregate": {"group_by": "grp", "max_groups": 8}}):
+        got = service.run_search_config(cache, config, target)
+        want = jservice.run_search_config(JaxCache(root, mesh=None), config, target)
+        assert_tables_match(got, want)
     plain = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5}
     aggregated = service.run_search_config(cache, {**plain, "aggregate": {"group_by": "id"}}, target)
     assert aggregated.equals(service.run_search_config(cache, plain, target))
@@ -407,18 +411,20 @@ def test_chip_smoke_kernel_entries():
               "kernel.generic_int8": 0}
     selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
     by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection,
-               "mutation": {**selection, "kernel.stream": 1}}
+               "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
+               "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 10
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 11
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 3
-    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1}
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 5
+    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
+                                         "analytics": 1, "batching": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 5
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 15
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -430,6 +436,12 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     selection["kernel.tiled"], by_path["mutation"]["kernel.tensor_int8"] = 1, 0
     with pytest.raises(AssertionError, match="tensor_int8 was not launched on the mutation path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["mutation"]["kernel.tensor_int8"], by_path["batching"]["kernel.stream"] = 1, 0
+    with pytest.raises(AssertionError, match="stream was not launched on the batching path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["batching"]["kernel.stream"], by_path["analytics"]["kernel.tensor_int8"] = 7, 0
+    with pytest.raises(AssertionError, match="tensor_int8 was not launched on the analytics path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -500,11 +512,26 @@ def test_chip_smoke_oracle_refuses_wrong_order(smoke_root):
         smoke.check_search(oracle, spec, queries, _with_ids(result, swapped, dist), mask)
 
 
-def test_gather_chunked_matches_concatenation(rng):
-    chunks = [rng.standard_normal((n, 3)).astype(np.float32) for n in (4, 0, 7, 1, 0, 5)]
+@pytest.mark.parametrize("sizes,n_ids", [((4, 0, 7, 1, 0, 5), 50), ((9,), 20),
+                                         ((700,) * 30 + (0, 13), 3 * executor._THREADED_GATHER_ROWS)],
+                         ids=["few", "one_chunk", "threaded"])
+def test_gather_chunked_matches_concatenation(rng, sizes, n_ids):
+    chunks = [rng.standard_normal((n, 3)).astype(np.float32) for n in sizes]
     whole = np.concatenate(chunks)
-    ids = rng.integers(0, whole.shape[0], 50)
+    ids = rng.integers(0, whole.shape[0], n_ids)
     np.testing.assert_array_equal(executor._gather_chunked(chunks, ids), whole[ids])
+
+
+def test_native_gather_rows_into_a_buffer(rng):
+    from fenix_tpu_torch import native
+
+    x = rng.standard_normal((100, 8)).astype(np.float32)
+    idx = rng.integers(0, 100, 30)
+    out = np.empty((30, 8), np.float32)
+    assert native.gather_rows(x, idx, out=out) is out
+    np.testing.assert_array_equal(out, x[idx])
+    with pytest.raises(ValueError, match="C-contiguous"):
+        native.gather_rows(x, idx, out=np.empty((30, 8), np.float64))
 
 
 def test_chip_smoke_check_rises():
@@ -791,3 +818,70 @@ def test_chip_smoke_ivf_host_phase_on_the_cpu(tmp_path, monkeypatch):
     rows = smoke.mutation_kernel_checks_wide(kernels, topk2, vectors, tags, res_queries, wide["append"],
                                              "cpu", "cpu")
     assert rows[0]["kernel"] == "tensor_int8" and rows[0]["n"] == 32768
+
+
+def test_chip_smoke_analytics_and_batching_phases_on_the_cpu(tmp_path, monkeypatch):
+    """Phases 11 and 12 of chip_smoke.py rehearsed on the CPU at a small
+    size on the port's server (CPU device) after phase 7: the attribute
+    tables over Flight, every join request on its route beside its plain
+    search, every oracle check after the server; the micro-batching cases
+    (a)-(d) equal to their solo answers and coalesced, and (e) through the
+    host-corpus residency under a low budget; the result gather timing."""
+    import threading
+
+    import fenix_tpu_torch
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    root = str(tmp_path)
+    t = pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+                  "tag": pa.array(tags)})
+    table.make(root, "smoke/items", t.to_reader(max_chunksize=4096))
+    requests = tuple((r[0], min(r[1], 100), *r[2:6], r[6] and 2, *r[7:]) for r in smoke.AN_REQUESTS)
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "WARM_REPS": 1, "BATCH_ROWS": 4096,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        "IVF_SEARCHES": (("ivf_q8_p64_filtered", 8, 1, True, "fp32", "clustered", "l2"),),
+        "AN_ATTRS_ROWS": 20_000, "AN_DUP_ROWS": 8192, "AN_BATCH_ROWS": 5000, "AN_REQUESTS": requests,
+        "MB_THREADS": 8, "MB_Q1_REQUESTS": 48, "MB_BIG": (4, 3, 100, 16), "MB_PROBED": (4, 2, 2),
+        "MB_RES": (4, 2, 8),
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    try:
+        ivf = smoke.phase_ivf_serve(client, expr, vectors, root, "cpu", "cpu")
+        an = smoke.phase_analytics_serve(client, expr, kernels, vectors, "cpu", "cpu")
+        mb = smoke.phase_batching_serve(client, fenix_tpu_torch.Flight, server.port, expr, vectors, "cpu", "cpu")
+        stats = client.stats()
+        q1024 = client.search(smoke.make_queries(vectors, 100, seed=12), "smoke/items", "vector", metric="l2",
+                              maxval=100, filter=expr.field("tag") < 50)
+        monkeypatch.setenv("FENIX_HBM_BUDGET", str(4 << 20))  # (e): dual 8.4 MB does not fit, int8 does
+        monkeypatch.setattr(smoke, "RES_D", smoke.D)
+        monkeypatch.setattr(smoke, "RES_K", 10)
+        wide = pa.table({"id": pa.array(ids), "vector": t.column("vector"), "tag": pa.array(tags)})
+        client.make_table("smoke/wide", wide.to_reader(max_chunksize=4096))
+        res = smoke.phase_batching_residency(client, fenix_tpu_torch.Flight, server.port, vectors, "cpu", "cpu")
+    finally:
+        client.close()
+        server.shutdown()
+    assert stats["join.fused"] >= 3 * 2 and stats["join.inner"] >= 2 * 2
+    assert stats["cache.sorted_key_seconds"] > 0 and not any(an["launches"].values())
+    assert {c: mb["cases"][c]["requests"] for c in "abcd"} == {"a": 48, "b": 48, "c": 12, "d": 8}
+    assert mb["cases"]["c"]["queries_per_dispatch"] > 100
+    assert res["case"]["search.residency_int8"] == res["case"]["batch.dispatches"] >= 1
+    out = smoke.phase_analytics_checks(smoke.Oracle(vectors, "cpu"), tags, ivf, an)
+    assert [r["search"] for r in out] == [r[0] for r in requests]
+    assert out[2]["rows"] == 8 * 10 and out[5]["rows"] > 0
+    assert smoke.gather_timing(vectors, q1024, "cpu", "cpu")["rows"] == 100 * 100
+    # the group check refuses a wrong aggregate
+    groups = np.array([3, 1, 3])
+    good = pa.table({"__GROUP__": pa.array([1, 3]), "__AGG__": pa.array([1, 2])})
+    assert smoke.check_groups("x", good, groups, np.ones(3, np.int64), "sum", True)["groups"] == 2
+    with pytest.raises(AssertionError, match="group 3 sum"):
+        bad = pa.table({"__GROUP__": pa.array([1, 3]), "__AGG__": pa.array([1, 3])})
+        smoke.check_groups("x", bad, groups, np.ones(3, np.int64), "sum", True)
+    solo = pa.table({"id": pa.array([1, 2]), "__DISTANCE__": pa.array([0.5, 0.7], pa.float32())})
+    with pytest.raises(AssertionError, match="recall"):
+        smoke.check_graded("x", pa.table({"id": pa.array([1, 9]), "__DISTANCE__": solo.column(1)}), solo)

@@ -346,3 +346,76 @@ def test_catalog_discovery_names_its_roadmap_item(loaded):
         conn.get_flight_info(fl.FlightDescriptor.for_path("items"))
     with pytest.raises(pa.ArrowNotImplementedError, match="queue 1 item 11"):
         [*conn.list_flights()]
+
+
+JOINS = [
+    ("lookup", dict(metric="l2", maxval=6, join={"source": "attrs", "right_on": "key"})),
+    ("sum-weight", dict(metric="cosine", maxval=40, join={"source": "attrs", "right_on": "key"},
+                        aggregate={"group_by": "grp", "value": "weight", "agg": "sum", "max_groups": 16})),
+    ("inner-count", dict(metric="l2", maxval=30, join={"source": "attrs", "right_on": "key", "how": "inner"},
+                         aggregate={"group_by": "grp", "agg": "count", "max_groups": 16})),
+    ("int8-mean-distance", dict(metric="l2", maxval=20, precision="int8",
+                                join={"source": "attrs", "right_on": "key", "columns": ["grp"]},
+                                aggregate={"group_by": "grp", "value": "__DISTANCE__", "agg": "mean"})),
+]
+
+
+@pytest.fixture(scope="module")
+def with_attrs(loaded):
+    """An attribute table with duplicate keys over a third of the ids."""
+    keys = np.repeat(np.arange(0, NUM_ROWS, 3, dtype=np.int64), 2)[: NUM_ROWS // 2]
+    attrs = pa.table({"key": pa.array(keys), "grp": pa.array(keys % 7),
+                      "weight": pa.array(keys.astype(np.float64) * 0.25)})
+    loaded["port_client_on_port"].make_table("attrs", attrs.to_reader())
+    return loaded
+
+
+@pytest.mark.parametrize("case", JOINS, ids=[c[0] for c in JOINS])
+def test_join_and_aggregate_through_both_clients(with_attrs, case):
+    kw = case[1]
+    target = np.random.default_rng(len(case[0])).standard_normal((3, DIM)).astype(np.float32)
+    want = with_attrs["jax_client_on_jax"].search(target, "items", "vector", **kw)
+    assert want.num_rows > 0
+    for name in ("jax_client_on_port", "port_client_on_port"):
+        got = with_attrs[name].search(target, "items", "vector", **kw)
+        assert got.schema == want.schema
+        for col in want.column_names:
+            if col in ("__DISTANCE__", "__AGG__") and pa.types.is_floating(want.schema.field(col).type):
+                w = want.column(col).to_numpy()
+                np.testing.assert_allclose(got.column(col).to_numpy(), w, rtol=1e-5,
+                                           atol=1e-5 * max(1.0, float(np.abs(w).max())))
+            else:
+                assert got.column(col).equals(want.column(col)), col
+    stats = with_attrs["port_client_on_port"].stats()
+    assert stats["join.fused"] + stats["join.two_step"] + stats["join.inner"] >= 1
+
+
+def test_concurrent_searches_coalesce_through_the_server(loaded):
+    """Concurrent clients: every answer equals its sequential one and the
+    server's batch counters account for each request."""
+    port = loaded["port_client_on_port"]
+    rng = np.random.default_rng(21)
+    targets = [rng.standard_normal(DIM).astype(np.float32) for _ in range(24)]
+    kw = dict(metric="cosine", maxval=4)
+    want = [port.search(t, "items", "vector", **kw) for t in targets]
+    before = port.stats()
+    got = [None] * len(targets)
+
+    def worker(i):
+        client = fenix_tpu_torch.Flight(host=port.host, port=port.port)
+        for j in range(i, len(targets), 8):
+            got[j] = client.search(targets[j], "items", "vector", **kw)
+        client.close()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    after = port.stats()
+    assert after["batch.requests"] - before["batch.requests"] == len(targets)
+    assert after["batch.queries"] - before["batch.queries"] == len(targets)
+    assert 1 <= after["batch.dispatches"] - before["batch.dispatches"] <= len(targets)
+    for g, w in zip(got, want):
+        assert g.equals(w)
