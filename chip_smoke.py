@@ -196,10 +196,47 @@ Phases, each printing one JSON line with its own timings:
    the largest coalesced shapes (BATCH_SHAPES: stream at Q=32, tiled at
    Q=4096) against their plain versions.
 
+13. typed vector columns, on the phase-3 server after phase 12: items_q8,
+   the phase-3 rows as a quint8 column (fenix_tpu_torch.types; its
+   parameters those of one dynamic quantization of the whole matrix, the
+   rows quantized batch by batch with like=), and items_t, the same fp32
+   rows as a TensorType column, go over Flight. On items_q8: phase 3's
+   five searches (one cold call, the table's load: codes up, dequantized
+   on the card, and TY_WARM_REPS warm calls each, every call moving its
+   kernel design's launches by one), the Q=8 one selecting the vector
+   column, which must come back quint8 with the table's parameters and
+   codes; phase 8's Q=8 cosine tag == 7 maxval=None read; make_index of
+   an IVF4096 l2 coder (its column the dequantized list<float32>) and a
+   Q=8 16-probe search; an append of 65,536 rows quantized with like= the
+   table's type, after which a Q=8 cosine search grows the matrix (one
+   incremental refresh, one stream launch) and finds 8 appended rows
+   first. Distances come back float32. On items_t: phase 3's Q=8 cosine
+   and Q=1024 l2 tag < 50 searches equal the same searches on items bit
+   for bit (ids, distances, vectors). After the server, every items_q8
+   answer against the float64 oracle over the numpy-dequantized rows by
+   phase 4's rule (the probed one over its probe cells), and the card's
+   dequantization of the 8,388,608 x 128 codes against numpy's, bit for
+   bit, timed beside an fp32 upload of the same matrix.
+14. tracing, replay and the catalog, after phase 10 (a): the phase-3
+   server stops and a new one starts on the same root with
+   FENIX_TRACE_DIR and FENIX_QUERY_LOG set. list_flights must name every
+   table and get_flight_info give items' schema and the row count a read
+   gives. Five request kinds (Q=1 cosine; Q=1024 l2 tag < 50; phase 7's
+   Q=1024 64-probe IVF search; phase 8's Q=8 cosine read, at tag == 8
+   since phase 10 (a) deleted the tag == 7 rows;
+   BASELINE config 3's join), each once to warm up and once traced; each
+   trace (a torch.profiler Chrome trace) gives the wall time of its
+   fenix.rpc.search span, the union of the card's kernel, copy and memset
+   intervals inside it, the idle share 1 - busy / wall, the other spans'
+   times and the top device operations; a trace without kernel events
+   fails. Then, with the server gone, the query log replays in this
+   process on the card, every logged search matching its digest, and
+   python -m fenix_tpu_torch.examples.quickstart runs on the card.
+
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation, analytics, batching),
+mutation, analytics, batching, types),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. The script takes no options: the card run at this size is its
@@ -245,11 +282,11 @@ KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching")),  # kernel_f32
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types")),  # kernel_f32
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics")),  # kernel_int8
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -406,6 +443,29 @@ MB_BIG = (4, 4, 1024, 16)  # (c): threads, requests per thread, queries, k (conf
 MB_PROBED = (16, 8, 16)  # (d): threads, requests per thread, probes of phase 7's coder
 MB_RES = (8, 2, 8)  # (e): threads, requests per thread, queries
 # phase 2 (b): the kernels at the largest coalesced shapes of phase 12
+# phase 13: typed vector columns, on the phase-3 server after phase 12
+TY_Q8 = "smoke/items_q8"  # the phase-3 rows as a quint8 column: 1 GiB of codes at rest
+TY_T = "smoke/items_t"  # the same fp32 rows as a TensorType column
+TY_CODER = "ivf4k_q8"
+TY_CELLS = 4096  # 1.4·√N: cut from FAISS's 4·√N–16·√N for the run's time
+TY_CONFIG = {"metric": "l2", "codebook_size": TY_CELLS, "num_codebooks": 1, "batch_size": 65_536,
+             "num_epochs": 2}
+TY_WARM_REPS = 3  # warm calls per search
+TY_SELECT = "q8_cosine_k10"  # the phase-3 search that also selects the quint8 vector column
+TY_READ = ("q8_read_q8_cosine_tag_eq_7", 8, "cosine", ("==", 7), None)  # maxval=None, as phase 8's first read
+TY_PROBED = ("q8_ivf4k_q8_l2_p16", 8, 16)  # name, queries, probes (k = IVF_K)
+TY_APPEND_ROWS = 65_536
+TY_T_SEARCHES = ("q8_cosine_k10", "q1024_l2_k100_filtered")  # held bit-equal on items_t and items
+
+# phase 14: tracing, replay and the catalog, on a new server over the same
+# root after phase 10 (a): one warm-up and one traced call per kind
+# phase 8's first read with another tag: phase 10 (a) deleted the tag == 7 rows
+TR_READ = ("read_q8_cosine_tag_eq_8", 8, "cosine", ("==", 8), None)
+TR_SPANS = ("fenix.rpc.search", "fenix.snapshot", "fenix.fetch", "fenix.rank_cells", "fenix.mask_build",
+            "fenix.result_gather")
+TR_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device activity in a torch.profiler trace
+TR_TOP_OPS = 5
+
 BATCH_SHAPES = (
     ("batch_q32_cosine_k10", MB_THREADS, "cosine", 10, "fp32", False, False),
     ("batch_q4096_l2_k16_filtered", 4096, "l2", 16, "fp32", True, False),
@@ -972,6 +1032,21 @@ def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, r
             raise AssertionError(f"{name}: recall@{k} {recall} < 0.99")
         out["recall"] = recall
     return out
+
+
+def stop_server(client, proc, log, log_path: str) -> None:
+    """Close the client, end the server process and print its log's tail."""
+    client.close()
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.close()
+    with open(log_path) as fh:
+        tail = fh.read().splitlines()[-20:]
+    print("server log (last lines):", *tail, sep="\n", file=sys.stderr)
 
 
 def start_server(root: str, port: int, log_path: str, env_extra: "dict | None" = None):
@@ -2446,7 +2521,8 @@ def put_columns(client, name: str, cols: dict) -> float:
     return time.perf_counter() - t
 
 
-def timed_search(client, name: str, target, kw: dict, rises: dict, reps: int) -> tuple:
+def timed_search(client, name: str, target, kw: dict, rises: dict, reps: int,
+                 table_name: str = "smoke/items") -> tuple:
     """One cold call and ``reps`` warm ones of a search, each moving the
     counters of ``rises`` by their amounts. Returns the first result, the
     client and server milliseconds of every call, the launches summed over
@@ -2455,7 +2531,7 @@ def timed_search(client, name: str, target, kw: dict, rises: dict, reps: int) ->
     for _ in range(1 + reps):
         a = client.stats()
         t = time.perf_counter()
-        got = client.search(target, "smoke/items", "vector", **kw)
+        got = client.search(target, table_name, "vector", **kw)
         client_ms.append((time.perf_counter() - t) * 1e3)
         b = client.stats()
         check_counter_rises(name, a, b, rises)
@@ -2837,6 +2913,402 @@ def gather_timing(vectors, result, smi: str, kind: str) -> dict:
     return row
 
 
+# -- phase 13: typed vector columns -------------------------------------------
+
+
+def quint8_type(vectors):
+    """The quint8 type dynamic quantization gives ``vectors`` (its
+    parameters depend on their smallest and largest value only), so the
+    rows quantize batch by batch with ``like=`` into the codes of one
+    whole-matrix quantization."""
+    import numpy as np
+
+    from fenix_tpu_torch import types
+
+    _, scale, shift = types.quint8.dynamic_quantize(np.array([vectors.min(), vectors.max()], np.float32))
+    return types.QUInt8TensorType((vectors.shape[1],), scale, shift)
+
+
+def typed_reader(ids_np, tags, column_of):
+    """The rows as a reader of BATCH_ROWS batches whose vector column is
+    ``column_of(start, stop)``, a typed array of those rows."""
+    import pyarrow as pa
+
+    rows = ids_np.shape[0]
+    schema = pa.schema([pa.field("id", pa.int64()), pa.field("vector", column_of(0, 1).type),
+                        pa.field("tag", pa.int32())])
+
+    def batches():
+        for s in range(0, rows, BATCH_ROWS):
+            e = min(s + BATCH_ROWS, rows)
+            yield pa.record_batch([pa.array(ids_np[s:e]), column_of(s, e), pa.array(tags[s:e])], schema=schema)
+
+    return pa.RecordBatchReader.from_batches(schema, batches())
+
+
+def stats_delta(a: dict, b: dict, keys) -> dict:
+    return {k: b.get(k, 0) - a.get(k, 0) for k in keys}
+
+
+COLD_KEYS = ("search.seconds", "cache.host_load_seconds", "transfer.h2d_bytes", "cache.device_bytes")
+
+
+def phase_typed_serve(client, expr, kernels, vectors, ids_np, tags, queries, root: str, smi: str,
+                      kind: str) -> dict:
+    """Phase 13 on the phase-3 server after phase 12: ingest items_q8 and
+    items_t, then on items_q8 the five phase-3 searches, a maxval=None
+    read, make_index of an IVF4096 coder and a probed search, an append
+    quantized with ``like=`` the table's type and a search finding its
+    rows; on items_t two phase-3 searches, bit-equal to items. Every call
+    moves its kernel design's launches by one (none for the read and the
+    probed search). Returns what the checks after the server need and the
+    path's launches."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch import coder, types
+    from fenix_tpu_torch.io import ingest
+
+    scan_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    start = launches(client)
+    typ = quint8_type(vectors)
+    codes = np.empty(vectors.shape, np.uint8)
+
+    def q8_column(s, e):
+        col = types.QUInt8TensorArray.from_numpy(vectors[s:e], like=typ)
+        codes[s:e] = ingest.fixed_size_list_to_numpy(col.storage)
+        return col
+
+    t = time.perf_counter()
+    client.make_table(TY_Q8, typed_reader(ids_np, tags, q8_column))
+    put_q8 = time.perf_counter() - t
+    t = time.perf_counter()
+    client.make_table(TY_T, typed_reader(ids_np, tags, lambda s, e: types.TensorArray.from_numpy(vectors[s:e])))
+    put_t = time.perf_counter() - t
+    deq = types.quint8.dequantize_np(codes, typ.scale, typ.shift)
+    emit({"phase": "typed_put", "rows": ROWS, "q8_client_s": put_q8, "tensor_client_s": put_t,
+          "q8_codes_bytes": int(codes.nbytes), "tensor_bytes": int(vectors.nbytes), "scale": typ.scale,
+          "shift": typ.shift, "max_abs_quantization_error": float(np.abs(deq - vectors).max())})
+
+    # (a) the phase-3 searches on items_q8 (the first call of the first one
+    # is the table's cold load: codes up, dequantized on the card)
+    results = {}
+    for spec, qnp in zip(SEARCHES, queries):
+        name, qn, metric, k, precision, filtered, flat = spec
+        kw = dict(metric=metric, maxval=k, precision=precision,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        if name == TY_SELECT:
+            kw["select"] = ["id", "vector"]
+        design = kernels.kernel_for(scan_dtypes[precision], qn, D)
+        result, client_ms, server_ms, total, (a, b) = timed_search(
+            client, "q8_" + name, qnp[0] if flat else qnp, kw,
+            launch_rises((ROUTES[precision], f"kernel.{design}"), 1), TY_WARM_REPS, TY_Q8)
+        if result.schema.field("__DISTANCE__").type != pa.float32():
+            raise AssertionError(f"q8_{name}: distances typed {result.schema.field('__DISTANCE__').type}")
+        emit({"phase": "typed_search", "table": TY_Q8, "search": name, "q": qn, "k": k, "metric": metric,
+              "precision": precision, "filtered": filtered, "kernel": design, "rows_returned": result.num_rows,
+              "first_call": stats_delta(a, b, COLD_KEYS), "first_client_ms": client_ms[0],
+              "launches_before": launches(None, a), "launches_after": launches(None, b),
+              "warm_client_median_ms": float(np.median(client_ms[1:])),
+              "warm_server_median_ms": float(np.median(server_ms[1:])),
+              "launches_per_call": {k: v / (1 + TY_WARM_REPS) for k, v in total.items() if v},
+              "device": kind, "nvidia_smi": smi})
+        results[name] = result
+    # the selected vector column keeps its quint8 type and codes
+    sel = results[TY_SELECT]
+    lv = types.logical_vector(sel.schema.field("vector"))
+    if lv.kind != "quint8" or lv.params != types.logical_vector(typ).params:
+        raise AssertionError(f"the selected vector column came back as {sel.schema.field('vector')}")
+    got_codes = ingest.fixed_size_list_to_numpy(types.typed_column(sel, "vector").combine_chunks().storage)
+    if not np.array_equal(got_codes, codes[np.asarray(sel.column("id"))]):
+        raise AssertionError("the selected vector column's codes are not the table's")
+
+    # (b) a maxval=None read over the dequantized column
+    read_queries = make_queries(vectors, TY_READ[1], seed=300)
+    read = selection_read(client, expr, TY_READ, TY_Q8, read_queries, smi, kind, "search.nomax_selected",
+                          pushdown=True)[0]
+
+    # (c) IVF over the dequantized rows
+    a = client.stats()
+    t = time.perf_counter()
+    client.make_index(TY_CODER, TY_Q8, "vector", TY_CONFIG)
+    build_s = time.perf_counter() - t
+    b = client.stats()
+    coding = coder.load(root, TY_CODER)
+    if coding["column"] != pa.list_(pa.float32(), D):
+        raise AssertionError(f"the coder reports the column {coding['column']}, not the dequantized view")
+    cells_read = client.read_table(TY_Q8, select=["__CODED_ID__"], coding=TY_CODER, column="vector").read_all()
+    cell_ids = np.array(cells_read.column(0).to_numpy())
+    if cell_ids.shape[0] != ROWS or cell_ids.min() < 0 or cell_ids.max() >= TY_CELLS:
+        raise AssertionError(f"coded read: {cell_ids.shape[0]} ids in [{cell_ids.min()}, {cell_ids.max()}]")
+    name, qn, probes = TY_PROBED
+    probed_queries = make_queries(vectors, qn, seed=1301)
+    kw = dict(metric="l2", maxval=IVF_K, coding=TY_CODER, probes=probes)
+    probed, client_ms, server_ms, _, _ = timed_search(client, name, probed_queries, kw,
+                                                      launch_rises(ALL_LAUNCH_KEYS, 0), TY_WARM_REPS, TY_Q8)
+    c = client.stats()
+    routes = stats_delta(b, c, IVF_ROUTES.values())
+    if sum(routes.values()) != 1 + TY_WARM_REPS:
+        raise AssertionError(f"{name}: the probed routes moved by {routes}")
+    emit({"phase": "typed_ivf", "table": TY_Q8, "client_s": build_s,
+          "make_coder_s": b["make-coder.seconds"] - a.get("make-coder.seconds", 0),
+          "make_index_s": b["make-index.seconds"] - a.get("make-index.seconds", 0), "config": TY_CONFIG,
+          "search": name, "q": qn, "probes": probes, "routes": routes, "first_client_ms": client_ms[0],
+          "warm_client_median_ms": float(np.median(client_ms[1:])),
+          "warm_server_median_ms": float(np.median(server_ms[1:])), "device": kind, "nvidia_smi": smi})
+
+    # (d) an append quantized with the table's type; a search finds its rows
+    new_vecs, new_ids, new_tags = appended_rows(TY_APPEND_ROWS, D, ROWS, [], seed=1302)
+    new_col = types.QUInt8TensorArray.from_numpy(new_vecs, like=typ)
+    new_codes = ingest.fixed_size_list_to_numpy(new_col.storage)
+    batch = pa.record_batch([pa.array(new_ids), new_col, pa.array(new_tags)],
+                            schema=pa.schema([pa.field("id", pa.int64()), pa.field("vector", typ),
+                                              pa.field("tag", pa.int32())]))
+    a = client.stats()
+    client.append_table(TY_Q8, pa.RecordBatchReader.from_batches(batch.schema, iter([batch])))
+    deq_new = types.quint8.dequantize_np(new_codes, typ.scale, typ.shift)
+    picked = np.linspace(0, TY_APPEND_ROWS - 1, 8).astype(np.int64)
+    rng = np.random.default_rng(1303)
+    append_queries = deq_new[picked] + 0.01 * rng.standard_normal((8, D), dtype=np.float32)
+    b = client.stats()
+    appended, row = mutation_search(client, "q8_append_q8_cosine", TY_Q8, append_queries,
+                                    dict(metric="cosine", maxval=10),
+                                    {"cache.incremental_refreshes": 1, **launch_rises(("kernel.stream",), 1)})
+    found = np.asarray(appended.column("id")).reshape(8, 10)[:, 0]
+    if not np.array_equal(found, new_ids[picked]):
+        raise AssertionError(f"the appended rows were not found first: {found} vs {new_ids[picked]}")
+    emit({"phase": "typed_append", "rows": TY_APPEND_ROWS, "put_s": b.get("put.seconds", 0) - a.get("put.seconds", 0),
+          **row, "device": kind, "nvidia_smi": smi})
+
+    # (e) items_t against items: the same fp32 bytes, the same answer
+    for spec, qnp in zip(SEARCHES, queries):
+        name, qn, metric, k, precision, filtered, flat = spec
+        if name not in TY_T_SEARCHES:
+            continue
+        kw = dict(metric=metric, maxval=k, precision=precision,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        rises = launch_rises((ROUTES[precision], f"kernel.{kernels.kernel_for(scan_dtypes[precision], qn, D)}"), 1)
+        got, t_ms, t_server, _, _ = timed_search(client, "t_" + name, qnp, kw, rises, TY_WARM_REPS, TY_T)
+        want = timed_search(client, name, qnp, kw, rises, 0)[0]
+        same_ids = got.column("id").equals(want.column("id"))
+        same_d = np.array_equal(np.asarray(got.column("__DISTANCE__")).view(np.uint32),
+                                np.asarray(want.column("__DISTANCE__")).view(np.uint32))
+        same_v = np.array_equal(ingest.fixed_size_list_to_numpy(types.typed_column(got, "vector")),
+                                ingest.fixed_size_list_to_numpy(want.column("vector")))
+        if not (same_ids and same_d and same_v):
+            raise AssertionError(f"t_{name}: items_t differs from items (ids {same_ids}, distances {same_d}, "
+                                 f"vectors {same_v})")
+        if types.logical_vector(got.schema.field("vector")).kind != "tensor":
+            raise AssertionError(f"t_{name}: the vector column came back as {got.schema.field('vector')}")
+        emit({"phase": "typed_search", "table": TY_T, "search": name, "q": qn, "k": k, "bit_equal_to_items": True,
+              "first_client_ms": t_ms[0], "warm_client_median_ms": float(np.median(t_ms[1:])),
+              "warm_server_median_ms": float(np.median(t_server[1:])), "device": kind, "nvidia_smi": smi})
+    after = launches(client)
+    path = {k: v - start[k] for k, v in after.items()}
+    emit({"phase": "typed_served", "launches": path})
+    return {"type": typ, "codes": codes, "deq": deq, "results": results, "read": (read_queries, read),
+            "probed": (probed_queries, probed, cell_ids, coding["tensor"]),
+            "append": (new_ids, new_tags, deq_new, append_queries, appended), "launches": path}
+
+
+def phase_typed_checks(ty: dict, queries, tags, smi: str, kind: str) -> list[dict]:
+    """Phase 13 after the server: every items_q8 answer against the float64
+    oracle over the numpy-dequantized rows (the appended ones included,
+    masked out before the append), by phase 4's rule; then the card's
+    dequantization (codes up, ``quint8.dequantize_torch``) against numpy,
+    bit for bit, timed beside an upload of the fp32 matrix."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch import types
+    from fenix_tpu_torch.io import ingest
+    from fenix_tpu_torch.ops import cells
+
+    new_ids, new_tags, deq_new, append_queries, appended = ty["append"]
+    oracle = Oracle([ty["deq"], deq_new], DEVICE)
+    total = ROWS + TY_APPEND_ROWS
+    before_append = torch.zeros(total, dtype=torch.bool, device=DEVICE)
+    before_append[:ROWS] = True
+    tags_dev = torch.from_numpy(np.concatenate([tags, new_tags])).to(DEVICE)
+    out = []
+    for spec, qnp in zip(SEARCHES, queries):
+        mask = before_append & (tags_dev < 50) if spec[5] else before_append
+        out.append({"search": "q8_" + spec[0], **check_search(oracle, spec, qnp, ty["results"][spec[0]], mask)})
+    read_queries, read = ty["read"]
+    want_rows = np.flatnonzero(tags == TY_READ[3][1])
+    out.append(check_selection(oracle, "q8_" + TY_READ[0], TY_READ[2], read_queries, read, lambda qi: want_rows))
+    probed_queries, probed, cell_ids, codebooks = ty["probed"]
+    name, qn, probes = TY_PROBED
+    probe_cells = cells.topk_cells_np(probed_queries, codebooks, "l2", probes)
+    in_cells = probe_mask(torch.from_numpy(cell_ids).to(DEVICE), probe_cells, None, TY_CELLS)
+
+    def probed_mask(s, e):  # the appended rows came after the search
+        m = in_cells(s, e)
+        return torch.cat([m, m.new_zeros((m.shape[0], TY_APPEND_ROWS))], dim=1)
+
+    ids, dist = split_result(probed, qn, IVF_K)
+    out.append({"search": name, **check_ids(oracle, name, "l2", IVF_K, "fp32", probed_queries, ids, dist,
+                                            probed_mask, require_ties=False)})
+    ids, dist = split_result(appended, 8, 10)
+    out.append({"search": "q8_append_q8_cosine", **check_ids(oracle, "q8_append_q8_cosine", "cosine", 10, "fp32",
+                                                             append_queries, ids, dist, None, require_ties=False)})
+    for r in out:
+        emit({"phase": "typed_oracle", **r})
+    del oracle
+    torch.cuda.empty_cache()
+
+    # the card's dequantization: the same bits as numpy's
+    typ, codes = ty["type"], ty["codes"]
+    col = pa.chunked_array([pa.ExtensionArray.from_storage(typ, pa.FixedSizeListArray.from_arrays(
+        pa.array(codes[s : s + BATCH_ROWS].reshape(-1)), D)) for s in range(0, ROWS, BATCH_ROWS)], type=typ)
+    times = {}
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    for how, src in (("codes_dequantized_on_card", col), ("fp32_upload", ty["deq"])):
+        sync()
+        t = time.perf_counter()
+        m = ingest.to_device_matrix(src, block=1024, device=DEVICE)
+        sync()
+        times[how] = (time.perf_counter() - t) * 1e3
+        if how == "codes_dequantized_on_card":
+            on_card = m
+        else:
+            equal = bool(torch.equal(on_card.data[:ROWS].view(torch.int32), m.data[:ROWS].view(torch.int32)))
+        del m
+    del on_card
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("the card's dequantization differs from numpy's")
+    row = {"phase": "typed_dequantize", "rows": ROWS, "bit_equal": equal, "codes_bytes": int(codes.nbytes),
+           "fp32_bytes": int(ty["deq"].nbytes), **{f"{k}_ms": v for k, v in times.items()},
+           "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return out
+
+
+# -- phase 14: tracing, replay and the catalog --------------------------------
+
+
+def trace_summary(path: str) -> dict:
+    """One request's torch.profiler Chrome trace: the wall time of its
+    fenix.rpc.search span, the union of the device's kernel, copy and
+    memset intervals inside it, the idle share 1 - busy / wall, the other
+    spans' summed durations and the device operations taking most time.
+    A trace without kernel events on a card is refused."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", []) if isinstance(e, dict) and e.get("ph") == "X"]
+    rpc = [e for e in events if e.get("name") == "fenix.rpc.search" and e.get("cat") == "user_annotation"]
+    if len(rpc) != 1:
+        raise AssertionError(f"{path}: {len(rpc)} fenix.rpc.search spans")
+    lo = float(rpc[0]["ts"])
+    hi = lo + float(rpc[0]["dur"])
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in TR_SPANS[1:]:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    device = sorted((max(lo, float(e["ts"])), min(hi, float(e["ts"]) + float(e["dur"])), e)
+                    for e in events if e.get("cat") in TR_DEVICE_CATS)
+    if DEVICE == "cuda" and not any(e.get("cat") == "kernel" for _, _, e in device):
+        raise AssertionError(f"{path}: no CUDA kernel events in the trace")
+    busy, end, by_op = 0.0, lo, {}
+    for s, e, ev in device:
+        if e > s:
+            busy += max(0.0, e - max(s, end))
+            end = max(end, e)
+        by_op[ev["name"]] = by_op.get(ev["name"], 0.0) + float(ev["dur"]) / 1e3
+    wall = hi - lo
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:TR_TOP_OPS]
+    return {"wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall if wall else None,
+            "device_events": len(device), "kernels": sum(e.get("cat") == "kernel" for _, _, e in device),
+            "spans_ms": spans, "top_device_ops_ms": [[n, v] for n, v in top]}
+
+
+def tracing_requests(expr, vectors, queries) -> list:
+    """(name, target, search options) of each request kind phase 14
+    traces, with the queries of the phase each comes from."""
+    flat = queries[0][0]
+    q1024 = queries[[s[0] for s in SEARCHES].index("q1024_l2_k100_filtered")]
+    ivf_i = [s[0] for s in IVF_SEARCHES].index("ivf_q1024_p64")
+    ivf_q = make_queries(vectors, IVF_SEARCHES[ivf_i][1], seed=200 + ivf_i)
+    read_q = make_queries(vectors, TR_READ[1], seed=300)
+    config3 = AN_REQUESTS[0]
+    c3_q = make_queries(vectors, config3[1], seed=config3[10])
+    return [
+        ("q1_cosine_k10", flat, dict(metric="cosine", maxval=10)),
+        ("q1024_l2_k100_filtered", q1024, dict(metric="l2", maxval=100, filter=expr.field("tag") < 50)),
+        ("ivf_q1024_p64", ivf_q, dict(maxval=IVF_K, coding=IVF_CODER, probes=64)),
+        (TR_READ[0], read_q, dict(metric=TR_READ[2], maxval=None, select=["id"], filter=tag_filter(expr, TR_READ[3]))),
+        ("config3_join_sum_weight", c3_q[0], dict(metric=config3[2], maxval=config3[3], join=config3[7],
+                                                  aggregate=config3[8])),
+    ]
+
+
+def phase_tracing_serve(client, expr, vectors, queries, trace_dir: str, smi: str, kind: str) -> dict:
+    """Phase 14 on a server started with FENIX_TRACE_DIR and
+    FENIX_QUERY_LOG: the catalog (list_flights names every table,
+    get_flight_info gives items' schema and the row count a read gives),
+    then each request kind once to warm up and once traced, its trace
+    parsed (trace_summary). Returns the printed rows."""
+    import pyarrow as pa
+    import pyarrow.flight as fl
+
+    names = sorted(i.descriptor.path[0].decode() for i in client.conn.list_flights())
+    if names != sorted(client.list_tables()):
+        raise AssertionError(f"list_flights gave {names}, list-tables {sorted(client.list_tables())}")
+    info = client.conn.get_flight_info(fl.FlightDescriptor.for_path("smoke/items"))
+    rows = client.read_table("smoke/items", select=["id"]).read_all().num_rows
+    schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), D), "tag": pa.int32()})
+    if info.total_records != rows or info.schema != schema:
+        raise AssertionError(f"get_flight_info: {info.total_records} rows, {info.schema}; a read gives {rows}")
+    emit({"phase": "catalog", "tables": names, "items_rows": rows, "items_schema": str(info.schema)})
+
+    out = {}
+    for name, target, kw in tracing_requests(expr, vectors, queries):
+        client.search(target, "smoke/items", "vector", **kw)  # warm-up (traced too; its trace is not read)
+        seen = set(os.listdir(trace_dir))
+        t = time.perf_counter()
+        client.search(target, "smoke/items", "vector", **kw)
+        client_ms = (time.perf_counter() - t) * 1e3
+        new = sorted(set(os.listdir(trace_dir)) - seen)
+        if len(new) != 1:
+            raise AssertionError(f"{name}: {len(new)} new traces")
+        row = {"phase": "trace", "request": name, "client_ms": client_ms, "trace": new[0],
+               "trace_bytes": os.path.getsize(os.path.join(trace_dir, new[0])),
+               **trace_summary(os.path.join(trace_dir, new[0])), "device": kind, "nvidia_smi": smi}
+        emit(row)
+        out[name] = row
+    return out
+
+
+def phase_tracing_after(root: str, log_path: str, smi: str, kind: str) -> dict:
+    """Phase 14 after its server: the query log replayed in this process on
+    DEVICE (every logged search must match its digest), then the
+    quickstart as a subprocess."""
+    from fenix_tpu_torch.engine import executor
+    from fenix_tpu_torch.utils import replay
+
+    t = time.perf_counter()
+    stats = replay.replay(log_path, root, device=DEVICE)
+    replay_s = time.perf_counter() - t
+    logged = sum(1 for _ in replay.load(log_path))
+    if stats != {"total": logged, "matched": logged, "mismatched": 0} or not logged:
+        raise AssertionError(f"replay of {logged} logged searches: {stats}")
+    executor.get_cache(root, DEVICE).invalidate()  # free the card for the quickstart
+    emit({"phase": "replay", **stats, "seconds": replay_s})
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fenix_tpu_torch.examples.quickstart", "--device", DEVICE],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
+    row = {"phase": "quickstart", "rc": proc.returncode, "seconds": time.perf_counter() - t,
+           "stdout": proc.stdout.splitlines()[:4], "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return {"replay": stats, "quickstart": row}
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -3025,23 +3497,38 @@ def run() -> int:
         mb = phase_batching_serve(client, Flight, port, expr, vectors, smi, kind)
         emit({"phase": "batching_serve_done", "launches": mb["launches"], "seconds": time.perf_counter() - t})
 
+        # -- phase 13 (on the server) -----------------------------------------
+        t = time.perf_counter()
+        ty = phase_typed_serve(client, expr, kernels, vectors, ids_np, tags, queries, root, smi, kind)
+        emit({"phase": "typed_serve_done", "launches": ty["launches"], "seconds": time.perf_counter() - t})
+
         # -- phase 10 (a) (on the server) -------------------------------------
         t = time.perf_counter()
         cold_s = next(r for r in first_calls if r[0] == SEARCHES[0][0])[1]
         mut = phase_mutations_serve(client, expr, vectors, ids_np, tags, queries, ivf, cold_s, smi, kind)
         emit({"phase": "mutations_serve_done", "launches": mut["launches"], "seconds": time.perf_counter() - t})
     finally:
-        client.close()
-        proc.terminate()
+        stop_server(client, proc, log, os.path.join(work, "server.log"))
+        if sys.exc_info()[0] is not None:  # failing: phase 14 will not read the root
+            shutil.rmtree(work, ignore_errors=True)
+
+    # -- phase 14: a traced server on the same root, then the replay ----------
+    try:
+        t = time.perf_counter()
+        trace_dir, query_log = os.path.join(work, "traces"), os.path.join(work, "queries.jsonl")
+        port = free_port()
+        proc, log = start_server(root, port, os.path.join(work, "server14.log"),
+                                 {"FENIX_TRACE_DIR": trace_dir, "FENIX_QUERY_LOG": query_log})
+        client = Flight(host="127.0.0.1", port=port)
         try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        log.close()
-        with open(os.path.join(work, "server.log")) as fh:
-            tail = fh.read().splitlines()[-20:]
-        print("server log (last lines):", *tail, sep="\n", file=sys.stderr)
+            wait_healthy(client, proc)
+            phase_tracing_serve(client, expr, vectors, queries, trace_dir, smi, kind)
+        finally:
+            stop_server(client, proc, log, os.path.join(work, "server14.log"))
+        phase_tracing_after(root, query_log, smi, kind)
+        torch.cuda.empty_cache()
+        emit({"phase": "tracing_done", "seconds": time.perf_counter() - t})
+    finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 4 --------------------------------------------------------------
@@ -3069,6 +3556,14 @@ def run() -> int:
     emit({"phase": "analytics_done", "seconds": time.perf_counter() - t})
     del oracle
     torch.cuda.empty_cache()
+
+    # -- phase 13 (after the server) ------------------------------------------
+    t = time.perf_counter()
+    phase_typed_checks(ty, queries, tags, smi, kind)
+    ty_launches = ty["launches"]
+    del ty
+    torch.cuda.empty_cache()
+    emit({"phase": "typed_done", "seconds": time.perf_counter() - t})
     t = time.perf_counter()
     selection_timings(vectors, tags, ivf, smi, kind)
     torch.cuda.empty_cache()
@@ -3101,7 +3596,7 @@ def run() -> int:
     batching = {k: v + res["batching_launches"][k] for k, v in mb["launches"].items()}
     by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
                "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
-               "batching": batching}
+               "batching": batching, "types": ty_launches}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})

@@ -28,6 +28,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from fenix_tpu_torch import types
 from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
@@ -77,7 +78,7 @@ def make(
     permuted ``num_codebooks·batch_size`` batches, one Lloyd step each."""
     data = table.load(root, source)
     column_type = ingest.vector_field_type(data.schema.field(column))
-    matrix = ingest.fixed_size_list_to_numpy(data.column(column))
+    matrix = ingest.vector_matrix(data, column)
     n, k = config["num_codebooks"], config["codebook_size"]
     num_rows, dim = matrix.shape
     cells_ops.check_cell_space(k, n)
@@ -173,7 +174,7 @@ def call(
     codebooks = torch.tensor(coding["tensor"], device=device)
 
     if isinstance(target, pa.Table):
-        target = target.column("target")
+        target = types.typed_column(target, "target")
     if isinstance(target, (pa.Array, pa.ChunkedArray)):
         target = ingest.fixed_size_list_to_numpy(target)
     target = np.asarray(target, dtype=np.float32)

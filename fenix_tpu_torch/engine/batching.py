@@ -202,7 +202,7 @@ def _query_count(target, dim: int) -> int | None:
     if isinstance(target, (pa.Table, pa.ChunkedArray)):
         return len(target)
     if isinstance(target, pa.Array):
-        if pa.types.is_fixed_size_list(target.type):
+        if pa.types.is_fixed_size_list(target.type) or isinstance(target, pa.ExtensionArray):
             return len(target)
         return len(target) // dim if len(target) % dim == 0 else None
     try:

@@ -63,18 +63,18 @@ import pyarrow as pa
 import torch
 
 from fenix_tpu_torch import expr as expr_mod
-from fenix_tpu_torch import native
+from fenix_tpu_torch import native, types
 from fenix_tpu_torch.engine import residency
 from fenix_tpu_torch.engine.session import DeviceCache, _StaleRevision
+from fenix_tpu_torch.index import DIST_COL, QUERY_COL  # the result's column names
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import select as select_ops
 from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.utils import profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
-DIST_COL: str = "__DISTANCE__"
-QUERY_COL: str = "__QUERY_ID__"
 
 _PRECISIONS = ("fp32", "bf16", "int8")
 
@@ -138,9 +138,11 @@ class SearchRequest:
 
 def normalize_target(target: Any, dim: int) -> np.ndarray:
     """Accept ndarray / tensor / Arrow fixed-size-list / flat arrays;
-    return ``[Q, dim]`` fp32."""
+    return ``[Q, dim]`` fp32. Extension targets (tensor, quint8) view
+    through their storage, a quint8 one dequantized as its column would
+    be; a table's target field gives the unregistered form its type."""
     if isinstance(target, pa.Table):
-        target = target.column("target")
+        target = types.typed_column(target, "target")
     if isinstance(target, pa.ChunkedArray):
         target = target.combine_chunks()
     if isinstance(target, pa.Array):
@@ -202,9 +204,10 @@ class _FilterPlan:
         """``[n_pad]`` bool mask via Arrow kernels (padding rows False),
         built once per request."""
         if self._host is None:
-            m = np.zeros(self.n_pad, dtype=bool)
-            m[: self.rows] = self.filt.mask(self.data)
-            self._host = m
+            with profiling.annotate("fenix.mask_build"):
+                m = np.zeros(self.n_pad, dtype=bool)
+                m[: self.rows] = self.filt.mask(self.data)
+                self._host = m
         return self._host
 
     def mask(self, coding: "str | None" = None) -> torch.Tensor:
@@ -258,11 +261,12 @@ def _rank_cells(target: np.ndarray, coding_data, metric: str, probes: int, devic
     codebooks = coding_data["tensor"]
     n_books, k_book, _ = codebooks.shape
     probes = int(min(probes, k_book**n_books))
-    if k_book**n_books > cells_ops.DENSE_CELL_LIMIT:
-        return cells_ops.topk_cells_bounded(
-            torch.tensor(target, device=device), torch.tensor(codebooks, device=device), metric, probes
-        ).cpu().numpy()
-    return cells_ops.topk_cells_np(target, codebooks, metric, probes)
+    with profiling.annotate("fenix.rank_cells"):
+        if k_book**n_books > cells_ops.DENSE_CELL_LIMIT:
+            return cells_ops.topk_cells_bounded(
+                torch.tensor(target, device=device), torch.tensor(codebooks, device=device), metric, probes
+            ).cpu().numpy()
+        return cells_ops.topk_cells_np(target, codebooks, metric, probes)
 
 
 def _clustered_eligible(coding_data) -> bool:
@@ -428,10 +432,16 @@ def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
     """Start copying small device results to the host and return the wait
     that gives them as numpy arrays. On a CUDA device the copies go into
     pinned buffers behind an event, so the wait does not also wait for
-    work enqueued after them (a later batch's search)."""
+    work enqueued after them (a later batch's search). The wait is the
+    ``fenix.fetch`` span: the device→host readback."""
     if tensors[0].device.type != "cuda":
         arrays = [t.numpy() for t in tensors]
-        return lambda: arrays
+
+        def ready() -> list[np.ndarray]:
+            with profiling.annotate("fenix.fetch"):
+                return arrays
+
+        return ready
     hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
     for host, t in zip(hosts, tensors):
         host.copy_(t, non_blocking=True)
@@ -439,8 +449,9 @@ def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
     done.record()
 
     def wait() -> list[np.ndarray]:
-        done.synchronize()
-        return [host.numpy() for host in hosts]
+        with profiling.annotate("fenix.fetch"):
+            done.synchronize()
+            return [host.numpy() for host in hosts]
 
     return wait
 
@@ -730,41 +741,51 @@ def gather_results(
     the distance column, add ``__QUERY_ID__`` for multi-query batches.
 
     Columns with a numpy view (session.host_column_views) gather into
-    single-chunk Arrow arrays — vectors chunk by chunk through
-    ``native.gather_rows``, scalars with numpy indexing; the rest (strings, extension types, nullable columns) take a
-    per-column Arrow ``take``, keeping their exact result types."""
-    num_queries, k = ids.shape
-    valid = ids >= 0  # [Q, k]
-    row_ids = ids[valid].astype(np.int64)
+    single-chunk Arrow arrays — vectors and typed columns' storage chunk
+    by chunk through ``native.gather_rows`` (a typed column wrapped back
+    in its type), scalars with numpy indexing; the rest (strings, nested
+    columns, nullable columns) take a per-column Arrow ``take``, keeping
+    their exact result types. An extension column read without its type
+    registered keeps its ``ARROW:extension:*`` field metadata, so the
+    result's IPC form is the typed column's."""
+    with profiling.annotate("fenix.result_gather"):
+        num_queries, k = ids.shape
+        valid = ids >= 0  # [Q, k]
+        row_ids = ids[valid].astype(np.int64)
 
-    names: list[str] = []
-    arrays: list[pa.Array | pa.ChunkedArray] = []
-    ids_arr: pa.Array | None = None
-    for name in select:
-        if name == DIST_COL:
-            names.append(DIST_COL)
-            arrays.append(pa.array(dists[valid].astype(value_dtype)))
-            continue
-        view = views.get(name) if views is not None else None
-        if view is not None:
-            v, value_type = view
-            if isinstance(v, list):  # per-chunk [rows, D] vector views
-                arr = ingest.numpy_to_fixed_size_list(_gather_chunked(v, row_ids), value_type)
+        fields: list[pa.Field] = []
+        arrays: list[pa.Array | pa.ChunkedArray] = []
+        ids_arr: pa.Array | None = None
+        for name in select:
+            if any(f.name == name for f in fields):
+                continue  # a repeated name is one column, as in a dict
+            if name == DIST_COL:
+                arr = pa.array(dists[valid].astype(value_dtype))
+                fields.append(pa.field(DIST_COL, arr.type))
+                arrays.append(arr)
+                continue
+            view = views.get(name) if views is not None else None
+            if view is not None:
+                v, value_type, ext = view
+                if isinstance(v, list):  # per-chunk [rows, D] vector (or typed storage) views
+                    arr = ingest.numpy_to_fixed_size_list(_gather_chunked(v, row_ids), value_type)
+                    if ext is not None:
+                        arr = pa.ExtensionArray.from_storage(ext, arr)
+                else:
+                    arr = pa.array(v[row_ids])
             else:
-                arr = pa.array(v[row_ids])
-        else:
-            if ids_arr is None:
-                ids_arr = pa.array(row_ids)
-            arr = data.column(name).take(ids_arr)
-            if isinstance(arr, pa.ChunkedArray):
-                arr = arr.combine_chunks()  # result-sized, cheap
-        names.append(name)
-        arrays.append(arr)
+                if ids_arr is None:
+                    ids_arr = pa.array(row_ids)
+                arr = data.column(name).take(ids_arr)
+                if isinstance(arr, pa.ChunkedArray):
+                    arr = arr.combine_chunks()  # result-sized, cheap
+            fields.append(pa.field(name, arr.type, metadata=types.extension_metadata(data.schema.field(name))))
+            arrays.append(arr)
 
-    if num_queries > 1:
-        qids = np.broadcast_to(
-            np.arange(num_queries, dtype=np.int64)[:, None], (num_queries, k)
-        )[valid]
-        names.append(QUERY_COL)
-        arrays.append(pa.array(qids))
-    return pa.table(dict(zip(names, arrays)))
+        if num_queries > 1:
+            qids = np.broadcast_to(
+                np.arange(num_queries, dtype=np.int64)[:, None], (num_queries, k)
+            )[valid]
+            fields.append(pa.field(QUERY_COL, pa.int64()))
+            arrays.append(pa.array(qids))
+        return pa.Table.from_arrays(arrays, schema=pa.schema(fields))

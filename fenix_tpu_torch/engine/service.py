@@ -7,6 +7,9 @@ join's attribute table. A request with a ``join`` goes to
 other request goes to the cache's micro-batcher
 (``batching.get_batcher(cache).submit``), which coalesces concurrent
 compatible searches into one device search and runs the rest solo. A
+request captured by a trace (``profiling.tracing()``) runs on its own
+thread instead (a batch of one, the batcher's path for a lone request),
+since torch's profiler records only the thread that started it. A
 config with an ``aggregate`` and no ``join`` is the plain search, as in
 the JAX package, which reads the aggregate only inside a join.
 """
@@ -21,6 +24,7 @@ from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch.engine import analytics, batching, executor
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.parallel import distributed
+from fenix_tpu_torch.utils import profiling
 
 
 def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchRequest:
@@ -49,6 +53,8 @@ def run_search_config(cache: DeviceCache, config: dict[str, Any], target: Any) -
     req = request_from_config(config, target)
     join = config.get("join")
     if join is None:
+        if profiling.tracing():
+            return executor.execute_search(cache, req)
         return batching.get_batcher(cache).submit(req)
     join = {**join, "source": distributed.resolve_source(cache.root, join["source"])}
     aggregate = config.get("aggregate")

@@ -74,11 +74,12 @@ from numpy.lib import format as npf
 from fenix_tpu_torch import coder as coder_mod
 from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch import index as index_mod
+from fenix_tpu_torch import types
 from fenix_tpu_torch.io import arrow, ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock, read_stable
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import relational, topk2
-from fenix_tpu_torch.utils import hbm
+from fenix_tpu_torch.utils import hbm, profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 LOGGER = logging.getLogger("fenix_tpu_torch")
@@ -400,35 +401,42 @@ class DeviceCache:
     def host_column_views(
         self, source: str | Sequence[str], data: pa.Table, token, variant: "str | None" = None
     ) -> dict:
-        """Numpy views of the result-gatherable columns of ``data``:
-        null-free int/float/bool primitives (1-D) and float FixedSizeList
-        vectors, the latter as a list of zero-copy ``[rows, D]`` views, one
-        per Arrow chunk (a table streamed in over Flight has one chunk per
+        """Numpy views of the result-gatherable columns of ``data``, as
+        ``(view, value type, extension type or None)``: null-free
+        int/float/bool primitives (1-D), float FixedSizeList vectors and
+        the tensor and quint8 columns' FixedSizeList storage (raw codes),
+        the latter as a list of zero-copy ``[rows, D]`` views, one per
+        Arrow chunk (a table streamed in over Flight has one chunk per
         batch; Arrow ``take`` on such a column concatenates every chunk,
-        a corpus-sized copy per request). Other columns are absent and the
-        executor takes them with Arrow ``take``. Memoized under the
-        caller's snapshot revision ``token``; ``variant`` (the coder of a
-        coded table) keeps the plain and coded table shapes apart."""
+        a corpus-sized copy per request). A typed column's gathered
+        storage is wrapped back in its registered type, or keeps its
+        field metadata when unregistered (``executor.gather_results``).
+        Other columns are absent and the executor takes them with Arrow
+        ``take``. Memoized under the caller's snapshot revision ``token``;
+        ``variant`` (the coder of a coded table) keeps the plain and coded
+        table shapes apart."""
         key = _source_key(source)
 
         def build() -> dict:
             views: dict = {}
             for name in data.column_names:
                 col = data.column(name)
-                t = col.type
+                lv = types.logical_vector(data.schema.field(name))
+                t = lv.storage
                 try:
-                    if col.null_count or isinstance(t, pa.ExtensionType):
+                    if col.null_count or lv.kind not in (None, "tensor", "quint8"):
                         continue
-                    if pa.types.is_fixed_size_list(t) and pa.types.is_floating(t.value_type):
+                    if pa.types.is_fixed_size_list(t) and (lv.kind is not None or pa.types.is_floating(t.value_type)):
                         if col.num_chunks:
-                            chunks = [ingest.fixed_size_list_to_numpy(c) for c in col.chunks]
-                            views[name] = (chunks, t.value_type)
-                    elif (
+                            chunks = [ingest.storage_view(c) for c in col.chunks]
+                            ext = col.type if isinstance(col.type, pa.ExtensionType) else None
+                            views[name] = (chunks, t.value_type, ext)
+                    elif lv.kind is None and (
                         pa.types.is_integer(t)
                         or pa.types.is_floating(t)
                         or pa.types.is_boolean(t)
                     ):
-                        views[name] = (ingest.scalar_column_to_numpy(col), None)
+                        views[name] = (ingest.scalar_column_to_numpy(col), None, None)
                 except (pa.ArrowInvalid, ValueError):
                     continue  # non-viewable layout: Arrow take
             return views
@@ -446,7 +454,7 @@ class DeviceCache:
         stamp = self._mtimes(key)
 
         def build() -> np.ndarray:
-            host = ingest.fixed_size_list_to_numpy(self.host_table(source).column(column))
+            host = ingest.vector_matrix(self.host_table(source), column)
             return np.ascontiguousarray(host, dtype=np.float32)
 
         return self._memo(self._host, (key, column, "host_matrix"), stamp, build)
@@ -535,7 +543,7 @@ class DeviceCache:
         if delta_names:
             try:
                 parts = table.load_parts(self.root, name, delta_names)
-                delta = ingest.fixed_size_list_to_numpy(parts.column(column)).astype(np.float32, copy=False)
+                delta = ingest.vector_matrix(parts, column).astype(np.float32, copy=False)
             except (FileNotFoundError, KeyError, TypeError):
                 return None  # a raced mutation or a schema change
             # parts load by name, and a compaction followed by an append can
@@ -826,15 +834,11 @@ class DeviceCache:
             self._device.pop(ckey, None)  # free the old revision first
             # the stamp stored with the entry must describe the revision
             # the rows came from: the next refresh trusts it
-            value, s1 = read_stable(
-                lambda: self._mtimes(key),
-                lambda: ingest.to_device_matrix(
-                    table.load(self.root, key if len(key) > 1 else key[0]).column(column),
-                    block=self.block,
-                    device=self.device,
-                ),
-                f"table {source!r}",
-            )
+            def build() -> ingest.DeviceColumn:
+                data = table.load(self.root, key if len(key) > 1 else key[0])
+                return ingest.to_device_matrix(types.typed_column(data, column), block=self.block, device=self.device)
+
+            value, s1 = read_stable(lambda: self._mtimes(key), build, f"table {source!r}")
             self._device[ckey] = (s1, value)
             self._touch(ckey)
             self._maybe_evict(ckey)
@@ -853,7 +857,7 @@ class DeviceCache:
             return None
         try:
             parts = table.load_parts(self.root, source, delta_names)
-            delta = ingest.fixed_size_list_to_numpy(parts.column(column)).astype(np.float32, copy=False)
+            delta = ingest.vector_matrix(parts, column).astype(np.float32, copy=False)
         except (FileNotFoundError, KeyError, TypeError):
             return None  # a raced mutation or a schema change: rebuild
         new_rows = old.rows + delta.shape[0]
@@ -1390,9 +1394,10 @@ class DeviceCache:
             )
             return data, self.matrix(source, column)
 
-        (data, matrix), stamp = read_stable(
-            lambda: self.snapshot_stamp(source, column, coding), read, f"table {source!r}"
-        )
+        with profiling.annotate("fenix.snapshot"):
+            (data, matrix), stamp = read_stable(
+                lambda: self.snapshot_stamp(source, column, coding), read, f"table {source!r}"
+            )
         return data, matrix, stamp
 
     def snapshot_stamp(

@@ -42,8 +42,19 @@ to its shards (append and upsert refuse one), and ``drop-table`` and an
 overwrite put remove them. ``fault-inject`` arms failure points when the
 server runs with ``FENIX_ENABLE_FAULT_INJECTION=1``.
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item: ``get_flight_info`` and ``list_flights``.
+Catalog discovery: ``list_flights`` lists every table of the root and
+``get_flight_info`` gives one table's schema, its path descriptor, one
+endpoint (a ``do_get`` ticket) and its row count.
+
+Typed vector columns (``fenix_tpu_torch.types``: tensor, nested leaves,
+quint8) are searched and returned as in the JAX package; the server
+registers no extension type and reads them by name.
+
+Diagnostics: with ``$FENIX_TRACE_DIR`` set, each search is captured by
+``utils/profiling.trace`` into a Chrome trace under ``fenix.rpc.search``
+(one capture at a time; a traced search runs on its handler's thread, so
+its spans land in the capture); with ``$FENIX_QUERY_LOG`` set, each
+search is appended to that query log (``utils/replay.py``).
 """
 
 from __future__ import annotations
@@ -64,20 +75,19 @@ import torch
 from fenix_tpu_torch import coder as coder_mod
 from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch import index as index_mod
+from fenix_tpu_torch import types
 from fenix_tpu_torch.engine import executor, service
 from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock
 from fenix_tpu_torch.ops import kernels
 from fenix_tpu_torch.parallel import distributed
+from fenix_tpu_torch.utils import profiling, replay
 from fenix_tpu_torch.utils.faults import GLOBAL as FAULTS
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 LOGGER = logging.getLogger("fenix_tpu_torch")
 
 METRICS_SET: set[str] = {"cosine", "dot", "inner_product", "l2", "euclidean"}
-
-_CATALOG_INFO_TODO = "ROADMAP queue 1 item 11, remainder: get_flight_info and list_flights"
-
 
 # route counters, shown from the start: the JAX package's residency
 # counters under its names, and the two IVF routes
@@ -224,19 +234,26 @@ class Server(fl.FlightServerBase):
     ) -> None:
         FAULTS.check("search")
         config = _loads(descriptor.command)
-        target = reader.read_all().column("target").combine_chunks()
+        target_table = reader.read_all()
+        # a typed target (tensor, quint8) arrives in its unregistered form
+        target = types.typed_column(target_table, "target").combine_chunks()
 
-        with METRICS.timed(
-            "search", source=config["source"], metric=config.get("metric")
-        ) as record:
+        # a trace per request behind $FENIX_TRACE_DIR (a no-op when unset;
+        # requests during an active capture run untraced)
+        with profiling.trace(cuda=self.cache.device.type == "cuda"), profiling.annotate(
+            "fenix.rpc.search"
+        ), METRICS.timed("search", source=config["source"], metric=config.get("metric")) as record:
             data = service.run_search_config(self.cache, config, target)
             record["rows_returned"] = data.num_rows
             # flat value column = one query (reference wire shape);
-            # FixedSizeList column = one query per row
-            record["queries"] = len(target) if pa.types.is_fixed_size_list(target.type) else 1
+            # FixedSizeList (or typed) column = one query per row
+            typed = isinstance(target, pa.ExtensionArray)
+            record["queries"] = len(target) if typed or pa.types.is_fixed_size_list(target.type) else 1
             record["maxval"] = config.get("maxval")
             record["probes"] = config.get("probes")
             record["precision"] = config.get("precision") or "fp32"
+
+        replay.record(config, target_table, data)
 
         writer.begin(data.schema)
         writer.write_table(data)
@@ -352,11 +369,24 @@ class Server(fl.FlightServerBase):
             case _:
                 raise ValueError(f"unknown action {action.type!r}")
 
+    # -- catalog discovery ------------------------------------------------
+
+    def _flight_info(self, name: str) -> fl.FlightInfo:
+        data = table.load(self.root, name)
+        return fl.FlightInfo(
+            data.schema,
+            fl.FlightDescriptor.for_path(name),
+            [fl.FlightEndpoint(_dumps({"source": name}), [])],
+            data.num_rows,
+            -1,
+        )
+
     def get_flight_info(self, ctx: fl.ServerCallContext, descriptor: fl.FlightDescriptor) -> fl.FlightInfo:
-        raise NotImplementedError(f"get_flight_info ({_CATALOG_INFO_TODO})")
+        return self._flight_info(descriptor.path[0].decode())
 
     def list_flights(self, ctx: fl.ServerCallContext, criteria: bytes):
-        raise NotImplementedError(f"list_flights ({_CATALOG_INFO_TODO})")
+        for name in table.list(self.root):
+            yield self._flight_info(name)
 
 
 class Flight:

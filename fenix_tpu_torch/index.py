@@ -43,6 +43,8 @@ from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 LOCATION: str = "indexes"
 CODE_COL: str = "__CODED_ID__"
+DIST_COL: str = "__DISTANCE__"  # the result's distance column
+QUERY_COL: str = "__QUERY_ID__"  # the result's query column of a batch
 ASSIGN_BLOCK: int = 1 << 16  # rows per device assignment block
 
 
@@ -72,19 +74,16 @@ def make(
         return table.join(*[make(root, name, s, column, device) for s in source])
     with catalog_lock(root):
         data = table.load(root, source)
-        codes = _assign_codes(root, name, data.column(column), device)
+        codes = _assign_codes(root, name, ingest.vector_matrix(data, column), device)
         _write_codes(path_of(root, name, source, column), codes)
         return load(root, name, source, column)
 
 
-def _assign_codes(
-    root: str, name: str, column: pa.ChunkedArray, device: "str | torch.device"
-) -> np.ndarray:
-    """Nearest composite cell per row (int64), on the device or on the
-    host (see the module docstring for the route)."""
+def _assign_codes(root: str, name: str, matrix: np.ndarray, device: "str | torch.device") -> np.ndarray:
+    """Nearest composite cell per row (int64) of the vector ``matrix``, on
+    the device or on the host (see the module docstring for the route)."""
     coding = coder_mod.load(root, name)
     metric = coding["config"]["metric"]
-    matrix = ingest.fixed_size_list_to_numpy(column)
     num_rows, dim = matrix.shape
 
     route = os.environ.get("FENIX_ASSIGN", "auto").lower()
@@ -208,7 +207,7 @@ def extend_for_source(
         for name, column in [*indexes_for_source(root, source)]:
             path = path_of(root, name, source, column)
             old = ingest.scalar_column_to_numpy(arrow.load(path).column(CODE_COL))
-            new = _assign_codes(root, name, new_rows.column(column), device)
+            new = _assign_codes(root, name, ingest.vector_matrix(new_rows, column), device)
             _write_codes(path, np.concatenate([old.astype(np.int64), new]))
 
 

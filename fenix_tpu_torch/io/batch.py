@@ -76,7 +76,7 @@ class RandomBatchIterator:
 
     def __iter__(self) -> Iterator[np.ndarray]:
         data = table.load(self.root, self.name)
-        matrix = ingest.fixed_size_list_to_numpy(data.column(self.column))
+        matrix = ingest.vector_matrix(data, self.column)
         num_rows = matrix.shape[0]
         perm = self.rng.permutation(num_rows)
         perm = perm[: num_rows // self.size * self.size]

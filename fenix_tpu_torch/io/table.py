@@ -2,7 +2,10 @@
 
 Copied from ``fenix_tpu/io/table.py`` (it is JAX-free); only the package
 paths in imports and the logger name differ, so both packages share
-one on-disk format.
+one on-disk format, and typed columns (``fenix_tpu_torch.types``, read
+by this package unregistered, by their ``ARROW:extension:*`` field
+metadata) keep that metadata through ``join`` along columns, and
+``append`` compares schemas in their IPC form (``types.storage_schema``).
 
 Role parity: upstream fenix/io/table/table.py:12-56 — tables
 live at ``<root>/sources/<name>.arrow``; multi-name loads concatenate;
@@ -38,6 +41,7 @@ from typing import Iterator, Literal, Sequence
 import numpy as np
 import pyarrow as pa
 
+from fenix_tpu_torch import types
 from fenix_tpu_torch.io import arrow
 
 LOCATION: str = "sources"
@@ -379,7 +383,7 @@ def append(root: str, name: str, data: pa.Table) -> pa.Table:
 
         _warn_device_range(data, name)  # only the appended rows need a scan
         base = arrow.load(base_path)
-        if base.schema != data.schema:
+        if types.storage_schema(base.schema) != types.storage_schema(data.schema):
             raise ValueError(
                 f"append schema mismatch for table {name!r}:\n"
                 f"existing: {base.schema}\nappended: {data.schema}"
@@ -439,7 +443,13 @@ def join(*data: pa.Table, axis: Literal[0, 1] = 0) -> pa.Table:
         case 0:
             return pa.concat_tables(data)
         case 1:
-            return pa.table({c: t.column(c) for t in data for c in t.column_names})
+            fields = {
+                c: pa.field(c, t.column(c).type, metadata=types.extension_metadata(t.schema.field(c)))
+                for t in data
+                for c in t.column_names
+            }
+            columns = {c: t.column(c) for t in data for c in t.column_names}
+            return pa.Table.from_arrays([*columns.values()], schema=pa.schema([*fields.values()]))
         case _:
             raise ValueError(f"axis must be 0 or 1, got {axis}")
 

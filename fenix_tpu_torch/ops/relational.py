@@ -195,11 +195,15 @@ def _group_keys_count(sk, gid, new_group, max_groups: int, dropped):
 
 def _segment(values: torch.Tensor, gid: torch.Tensor, max_groups: int, reduce: str) -> torch.Tensor:
     """Per-group reduction of ``values`` over ``gid``; groups at or past
-    ``max_groups`` are dropped. Empty groups read 0."""
+    ``max_groups`` are dropped. Empty groups read 0. A sum adds each
+    group's values in row order, on the CPU and the card alike (an
+    accumulating ``index_put_`` sorts the slots stably; ``index_add_``
+    adds floats by atomics on a card, in an order that varies from run to
+    run), so a replayed aggregate has the same bits."""
     slot = gid.clamp_max(max_groups)  # a spare slot swallows the overflow
     out = values.new_zeros(max_groups + 1)
     if reduce == "sum":
-        out.index_add_(0, slot, values)
+        out.index_put_((slot,), values, accumulate=True)
     else:
         out.scatter_reduce_(0, slot, values, reduce, include_self=False)
     return out[:max_groups]

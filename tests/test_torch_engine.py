@@ -257,29 +257,50 @@ def test_aggregate_without_join_is_the_plain_search(root, rng, metric):
     assert got.num_rows == 21 and got.column_names == ["id", "tag", "__DISTANCE__", "__QUERY_ID__"]
 
 
-def test_extension_vector_column_raises(tmp_path, rng):
+def test_extension_vector_column_searches_as_jax(tmp_path, rng):
+    """A tensor column the JAX package wrote is searched through its
+    storage: the JAX package's answer, the typed column returned typed."""
     from fenix_tpu.types import tensor as jtensor
 
     root = str(tmp_path)
     vectors = rng.standard_normal((64, 4)).astype(np.float32)
     arr = jtensor.TensorArray.from_numpy(vectors)
     jtable.make(root, "typed", pa.table({"vector": arr}).to_reader())
-    cache = DeviceCache(root, device="cpu")
-    with pytest.raises(NotImplementedError, match="types/"):
-        executor.execute_search(
-            cache,
-            executor.SearchRequest("typed", "vector", vectors[:1], metric="l2", maxval=3),
-        )
+    req = dict(source="typed", column="vector", target=vectors[:2] + 0.01, metric="cosine", maxval=3)
+    got = executor.execute_search(DeviceCache(root, device="cpu"), executor.SearchRequest(**req))
+    want = jexecutor.execute_search(JaxCache(root, mesh=None), jexecutor.SearchRequest(**req))
+    assert_tables_match(got, want)
+    assert isinstance(got.column("vector").type, jtensor.TensorType)
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax(tmp_path):
+    """Importing every module of the port loads no JAX and no module of
+    the JAX package, and registers no extension type: a typed file reads
+    back in its storage form."""
+    import pyarrow as pa_
+
+    from fenix_tpu.types import quint8 as jquint8
+
+    path = str(tmp_path / "q.arrow")
+    arr = jquint8.from_numpy(np.ones((4, 8), np.float32))
+    with pa_.OSFile(path, "wb") as sink, pa_.ipc.new_stream(sink, pa_.schema({"q": arr.type})) as w:
+        w.write_table(pa_.table({"q": arr}))
     code = (
-        "import sys, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels, "
+        "import sys, pyarrow as pa, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels, "
         "fenix_tpu_torch.ops.select, fenix_tpu_torch.ops.relational, "
-        "fenix_tpu_torch.parallel.distributed, fenix_tpu_torch.utils.threefry; "
+        "fenix_tpu_torch.parallel.distributed, fenix_tpu_torch.utils.threefry, "
+        "fenix_tpu_torch.types, fenix_tpu_torch.utils.profiling, fenix_tpu_torch.utils.replay, "
+        "fenix_tpu_torch.examples.quickstart; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'fenix_tpu' or m.startswith('fenix_tpu.')); "
-        "assert not bad, bad"
+        "assert not bad, bad; "
+        f"field = pa.ipc.open_stream({path!r}).read_all().schema.field('q'); "
+        "assert not isinstance(field.type, pa.BaseExtensionType), field; "
+        "assert field.metadata[b'ARROW:extension:name'] == b'fenix_tpu.quint8', field; "
+        # the three names are free: the port's own registration succeeds
+        "fenix_tpu_torch.types.register_all(); "
+        f"assert isinstance(pa.ipc.open_stream({path!r}).read_all().column('q').type, "
+        "fenix_tpu_torch.types.QUInt8TensorType)"
     )
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -412,19 +433,20 @@ def test_chip_smoke_kernel_entries():
     selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
     by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection,
                "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
-               "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0}}
+               "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
+               "types": {**selection, "kernel.stream": 2}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 11
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 12
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 5
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 6
     assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
-                                         "analytics": 1, "batching": 1}
+                                         "analytics": 1, "batching": 1, "types": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 15
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 17
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -442,6 +464,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["batching"]["kernel.stream"], by_path["analytics"]["kernel.tensor_int8"] = 7, 0
     with pytest.raises(AssertionError, match="tensor_int8 was not launched on the analytics path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["analytics"]["kernel.tensor_int8"], by_path["types"]["kernel.stream"] = 1, 0
+    with pytest.raises(AssertionError, match="stream was not launched on the types path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -885,3 +910,122 @@ def test_chip_smoke_analytics_and_batching_phases_on_the_cpu(tmp_path, monkeypat
     solo = pa.table({"id": pa.array([1, 2]), "__DISTANCE__": pa.array([0.5, 0.7], pa.float32())})
     with pytest.raises(AssertionError, match="recall"):
         smoke.check_graded("x", pa.table({"id": pa.array([1, 9]), "__DISTANCE__": solo.column(1)}), solo)
+
+
+def _rehearsal_server(root):
+    import threading
+
+    import fenix_tpu_torch
+
+    server = fenix_tpu_torch.Server(root, host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    return server, fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+
+
+def _small_searches():
+    """chip_smoke's SEARCHES with the Q=1024 search cut to Q=100."""
+    return tuple((s[0], min(s[1], 100), *s[2:]) for s in smoke.SEARCHES)
+
+
+@pytest.fixture
+def port_only_types():
+    """The extension names unregistered, as in a port-only process (the
+    server, chip_smoke.py); the JAX package's classes come back after."""
+    from fenix_tpu import types as jtypes
+
+    for name in ("fenix_tpu.tensor", "fenix_tpu.nested", "fenix_tpu.quint8"):
+        try:
+            pa.unregister_extension_type(name)
+        except KeyError:
+            pass
+    yield
+    jtypes.register_all()
+
+
+def test_chip_smoke_typed_phase_on_the_cpu(tmp_path, monkeypatch, port_only_types):
+    """Phase 13 of chip_smoke.py rehearsed on the CPU at 16,384 rows on the
+    port's server (CPU device), no extension type registered as in the
+    card run: items_q8 and items_t over Flight, phase 3's searches on the
+    quint8 column, the read, the IVF index and its probed search, the
+    append found, items_t bit-equal to items; then every oracle check and
+    the dequantization (CPU twin of the card's) against numpy, bit for
+    bit."""
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "BATCH_ROWS": 4096, "SEARCHES": _small_searches(), "TY_CELLS": 64,
+        "TY_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024, "num_epochs": 2},
+        "TY_WARM_REPS": 1, "TY_APPEND_ROWS": 2048,
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+    root = str(tmp_path)
+    table.make(root, "smoke/items", pa.table({
+        "id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+        "tag": pa.array(tags)}).to_reader(max_chunksize=4096))
+    server, client = _rehearsal_server(root)
+    try:
+        before = client.stats()  # the counters are the process's
+        ty = smoke.phase_typed_serve(client, expr, kernels, vectors, ids, tags, queries, root, "cpu", "cpu")
+        stats = smoke.stats_delta(before, client.stats(), ("cache.incremental_refreshes", "search.nomax_selected"))
+    finally:
+        client.close()
+        server.shutdown()
+    assert stats == {"cache.incremental_refreshes": 1, "search.nomax_selected": 1 + smoke.SEL_READ_REPS}
+    assert not any(ty["launches"].values())  # CPU tensors take the plain versions
+    out = smoke.phase_typed_checks(ty, queries, tags, "cpu", "cpu")
+    assert [r["search"] for r in out][:5] == ["q8_" + s[0] for s in smoke.SEARCHES]
+    assert out[5]["rows"] == 8 * int((tags == 7).sum())
+    # the oracle refuses the answer of an engine that searched the raw codes
+    spec = smoke.SEARCHES[1]
+    table.make(root, "raw", pa.table({"id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(
+        ty["codes"].astype(np.float32), pa.float32())}).to_reader())
+    wrong = executor.execute_search(DeviceCache(root, device="cpu"), executor.SearchRequest(
+        "raw", "vector", queries[1], metric=spec[2], maxval=spec[3]))
+    oracle = smoke.Oracle(ty["deq"], "cpu")
+    with pytest.raises(AssertionError):
+        smoke.check_search(oracle, spec, queries[1], wrong, None)
+
+
+def test_chip_smoke_tracing_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 14 of chip_smoke.py rehearsed on the CPU at 16,384 rows: a
+    server with FENIX_TRACE_DIR and FENIX_QUERY_LOG over a root holding
+    items, phase 7's coder and the attrs table; the catalog calls; each
+    request kind warmed up and traced, its trace parsed (no card: no
+    kernel events required); the log replayed, every search matched; the
+    quickstart on the CPU."""
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "SEARCHES": _small_searches(), "IVF_CELLS": 64, "BATCH_ROWS": 4096,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        "IVF_SEARCHES": tuple((s[0], min(s[1], 100), *s[2:]) for s in smoke.IVF_SEARCHES),
+        "AN_ATTRS_ROWS": 20_000, "AN_BATCH_ROWS": 5000,
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+    root = str(tmp_path / "root")
+    table.make(root, "smoke/items", pa.table({
+        "id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+        "tag": pa.array(tags)}).to_reader(max_chunksize=4096))
+    trace_dir, log = str(tmp_path / "traces"), str(tmp_path / "queries.jsonl")
+    server, client = _rehearsal_server(root)
+    try:
+        client.make_index(smoke.IVF_CODER, "smoke/items", "vector", smoke.IVF_CONFIG)
+        smoke.put_columns(client, "attrs", smoke.analytics_tables()[0])
+        monkeypatch.setenv("FENIX_TRACE_DIR", trace_dir)
+        monkeypatch.setenv("FENIX_QUERY_LOG", log)
+        rows = smoke.phase_tracing_serve(client, expr, vectors, queries, trace_dir, "cpu", "cpu")
+    finally:
+        client.close()
+        server.shutdown()
+    assert list(rows) == [r[0] for r in smoke.tracing_requests(expr, vectors, queries)]
+    for name, row in rows.items():
+        assert row["wall_ms"] > 0 and row["idle_share"] == 1.0, (name, row)
+        assert {"fenix.snapshot", "fenix.result_gather"} <= set(row["spans_ms"]) or name.startswith("config3"), row
+    assert "fenix.rank_cells" in rows["ivf_q1024_p64"]["spans_ms"]
+    out = smoke.phase_tracing_after(root, log, "cpu", "cpu")
+    assert out["replay"] == {"total": 10, "matched": 10, "mismatched": 0}
+    # a trace of a card run without kernel events is refused
+    monkeypatch.setattr(smoke, "DEVICE", "cuda")
+    with pytest.raises(AssertionError, match="no CUDA kernel events"):
+        smoke.trace_summary(os.path.join(trace_dir, sorted(os.listdir(trace_dir))[-1]))

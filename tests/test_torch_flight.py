@@ -338,14 +338,24 @@ def test_fault_inject_needs_its_environment_gate(loaded, monkeypatch):
         c._action("fault-inject", {"spec": ""})
 
 
-def test_catalog_discovery_names_its_roadmap_item(loaded):
+def test_catalog_discovery_matches_the_jax_server(loaded):
+    """list_flights and get_flight_info: both servers on one root list the
+    same tables, each with the same schema, descriptor, endpoint ticket
+    and row count (the twin of tests/test_flight.py::test_list_flights_and_info)."""
     import pyarrow.flight as fl
 
-    conn = loaded["port_client_on_port"].conn
-    with pytest.raises(pa.ArrowNotImplementedError, match="queue 1 item 11"):
-        conn.get_flight_info(fl.FlightDescriptor.for_path("items"))
-    with pytest.raises(pa.ArrowNotImplementedError, match="queue 1 item 11"):
-        [*conn.list_flights()]
+    got, want = loaded["port_client_on_port"].conn, loaded["jax_client_on_jax"].conn
+    names = sorted(i.descriptor.path[0].decode() for i in got.list_flights())
+    assert names == sorted(i.descriptor.path[0].decode() for i in want.list_flights())
+    assert "items" in names
+    for name in names:
+        g, w = (c.get_flight_info(fl.FlightDescriptor.for_path(name)) for c in (got, want))
+        assert g.schema == w.schema and g.total_records == w.total_records
+        assert g.descriptor.path == w.descriptor.path == [name.encode()]
+        assert [e.ticket for e in g.endpoints] == [e.ticket for e in w.endpoints]
+    info = got.get_flight_info(fl.FlightDescriptor.for_path("items"))
+    source = loaded["port_client_on_port"].read_table("items").read_all()
+    assert info.total_records == source.num_rows and info.schema == source.schema
 
 
 JOINS = [

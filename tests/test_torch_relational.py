@@ -161,3 +161,17 @@ def test_group_overflow_reports_the_true_count(rng):
     np.testing.assert_array_equal(gv.numpy(), np.asarray(jgv))
     with pytest.raises(ValueError, match="unknown agg"):
         relational.group_aggregate(t(keys), t(np.ones(100, np.float32)), 16, agg="median")
+
+
+def test_group_float_sums_add_in_row_order(rng):
+    """A float group sum adds each group's values in row order (the
+    stable sort's), so a replayed aggregate has the same bits: equal, bit
+    for bit, to a float32 sum left to right over the group's rows."""
+    keys, mask = _group_inputs(rng)
+    values = (rng.standard_normal(keys.shape[0]) * 10.0 ** rng.integers(-3, 4, keys.shape[0])).astype(np.float32)
+    gk, gv, n = relational.group_aggregate(t(keys), t(values), 64, agg="sum", mask=t(mask))
+    for slot, key in enumerate(gk.numpy()[: int(n)]):
+        acc = np.float32(0)
+        for v in values[(keys == key) & mask]:
+            acc = np.float32(acc + v)
+        assert gv.numpy()[slot].view(np.uint32) == acc.view(np.uint32), key
