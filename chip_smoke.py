@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (fenix_tpu_torch) on one CUDA card, end to end.
 
-    python3 chip_smoke.py               # needs one card; ~20 minutes at most
+    python3 chip_smoke.py               # one card or several; ~20 minutes at most
 
 Phases, each printing one JSON line with its own timings:
 
@@ -233,14 +233,55 @@ Phases, each printing one JSON line with its own timings:
    process on the card, every logged search matching its digest, and
    python -m fenix_tpu_torch.examples.quickstart runs on the card.
 
+15. the serving mesh (fenix_tpu_torch/parallel): every card when the
+   machine has two or more, else MESH_SHARDS = 4 shards on the one card
+   (printed as "mesh": {"cards", "shards"}). (a) after phase 5, in this
+   process, over a root of phase 3's rows: make-coder on the mesh
+   (kmeans.train_sharded, IVF16384's config, seed 0) and make-index; then
+   one device and the mesh answer, through executor.execute_search (the
+   entry Flight calls), phase 3's five searches (Q=1024 on the ring, and
+   again with FENIX_RING=off on the all-gather route, the two answers
+   equal), MESH_READ (maxval=None, tag == 8) and MESH_IVF (phase 7's Q=8
+   p64 tag < 50 and Q=1024 p64); then MESH_BATCH Q=1 requests through
+   execute_search_batched, each equal to its solo answer. Every count is
+   0 before the mesh path and read after it; each mesh call moves its
+   route counter (search.mesh_ring / search.mesh_gather /
+   search.nomax_selected / one of the search.ivf_* routes). Each mesh
+   answer equals one device's, ids per query with fp32 distance ties in
+   id order (the mesh merges by (distance, id), one device orders by
+   score), distances within 1e-5 * max(1, d), and is held to the float64
+   oracle as phases 4, 7 and 8 hold theirs. Printed: each request's time
+   on the mesh beside one device's (host clock, in process) and phase 3's
+   client time, the merge alone at Q=1024 k=100, ring against
+   all-gather, the kernels against their plain versions at the shard
+   shapes (a ring block of Q/S at Q=1024), train_sharded's seconds and
+   train_sharded held to the same function over S CPU shards at
+   MESH_TRAIN_CHECK's size (IVF16384 is beyond the CPU) within 1e-5 of
+   the largest entry; then an append of MUT_APPEND_ROWS rows and a
+   delete of tag == 9, each search after it moving the refresh counter by
+   one and equal to a cold mesh cache's. (c) with two or more cards:
+   each design on each card against its plain version, then a Flight
+   server started with FENIX_MESH=auto answers (a)'s requests as the
+   in-process mesh did, and every card launched stream, tiled and
+   tensor_int8 (the per-card launch counts). (b) on the phase-6 root
+   after its server, a mesh cache and one device in process under a
+   per-device MESH_BUDGET of 2 GiB (a shard's fp32 copy past it, its int8
+   copy inside): MESH_RES_SEARCHES (auto must plan int8, forced int8
+   Q=1024, fp32 and int8 stream Q=8, forced dual), the counters moving as
+   the JAX package's mesh tests expect; fp32 answers equal one device's,
+   int8 ones hold the graded rule against it, all held to the float64
+   oracle over the live rows.
+
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation, analytics, batching, types),
+mutation, analytics, batching, types, mesh),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
-result. The script takes no options: the card run at this size is its
-only path.
+result. With no arguments it runs every phase on one card (a machine with
+several runs them on the first, and phase 15 over all of them);
+``--mesh-only`` runs phase 1's build and phase 15 alone ((b) on phase
+6's rows put in process), the run for a machine with several cards.
 """
 
 from __future__ import annotations
@@ -282,16 +323,16 @@ KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types")),  # kernel_f32
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types", "mesh")),
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types")),
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
     ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:357", ("exact", "residency")),  # bucket_scores_pallas (K3)
+     "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh")),  # bucket_scores_pallas (K3)
 )
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
@@ -465,6 +506,35 @@ TR_SPANS = ("fenix.rpc.search", "fenix.snapshot", "fenix.fetch", "fenix.rank_cel
             "fenix.result_gather")
 TR_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device activity in a torch.profiler trace
 TR_TOP_OPS = 5
+
+# phase 15: the serving mesh: every card when there are several, else
+# MESH_SHARDS shards on the one card. (a) on a root of phase 3's rows
+MESH_SHARDS = 4
+MESH_WARM_REPS = 3  # warm calls per request, on the mesh and on one device
+MESH_READ = ("mesh_read_q8_cosine_tag_eq_8", 8, "cosine", ("==", 8), None)  # maxval=None
+MESH_IVF = (
+    # name, queries, probes of phase 7's coder, filtered (tag < 50), route expected
+    ("ivf_q8_p64_filtered", 8, 64, True, "clustered"),
+    ("ivf_q1024_p64", 1024, 64, False, "scan"),
+)
+MESH_BATCH = 32  # Q=1 cosine k=10 requests through execute_search_batched
+# train_sharded on the card against the CPU: IVF16384 is beyond the CPU,
+# so the held run is 131,072 of the rows at 1,024 cells (8 Lloyd steps)
+MESH_TRAIN_CHECK = {"rows": 131_072, "config": {"metric": "l2", "codebook_size": 1024, "num_codebooks": 1,
+                                                "batch_size": 16_384, "num_epochs": 1}}
+# (b) on the phase-6 root, a per-device budget at which a shard's fp32 copy
+# does not fit (3.2 GiB at 4 shards) and its int8 copy does (0.8 GiB)
+MESH_BUDGET = 2 << 30
+MESH_RES_SEARCHES = (
+    # name, queries, residency, precision, counter (one rise a call; a chunk's
+    # for the stream), the window (None: the default): the mesh rescores S
+    # windows a query, so Q=1024 runs at a quarter of the default
+    ("mesh_auto_q8", 8, "auto", "fp32", "search.residency_int8", None),
+    ("mesh_int8_q1024", 1024, "int8", "fp32", "search.residency_int8", 1024),
+    ("mesh_stream_q8", 8, "stream", "fp32", "search.stream_chunks", None),
+    ("mesh_stream_int8_q8", 8, "stream", "int8", "search.stream_chunks", None),
+    ("mesh_dual_q8", 8, "dual", "fp32", None, None),
+)
 
 BATCH_SHAPES = (
     ("batch_q32_cosine_k10", MB_THREADS, "cosine", 10, "fp32", False, False),
@@ -1233,6 +1303,18 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
         with open(os.path.join(work, "server.log")) as fh:
             tail = fh.read().splitlines()[-20:]
         print("residency server log (last lines):", *tail, sep="\n", file=sys.stderr)
+        if sys.exc_info()[0] is not None:  # failing: phase 15 (b) will not read the root
+            shutil.rmtree(work, ignore_errors=True)
+
+    # -- phase 15 (b): the mesh-composed residency modes on the same root ---
+    try:
+        t = time.perf_counter()
+        live = Live(vectors, ids_np, tags)
+        live.append(*wide["append"])
+        mesh_res = phase_mesh_residency(os.path.join(work, "root"), live, queries, smi, kind)
+        del live
+        emit({"phase": "mesh_residency_done", "mesh": mesh_res["mesh"], "seconds": time.perf_counter() - t})
+    finally:
         shutil.rmtree(work, ignore_errors=True)
 
     stream_ids = split_result(results["stream_q8"], 8, RES_K)[0]
@@ -3309,6 +3391,586 @@ def phase_tracing_after(root: str, log_path: str, smi: str, kind: str) -> dict:
     return {"replay": stats, "quickstart": row}
 
 
+# -- phase 15: the serving mesh ------------------------------------------------
+
+
+def mesh_for_run():
+    """The phase's mesh: every card when there are two or more (the
+    serving mesh), else MESH_SHARDS shards on the one card. Returns the
+    mesh and its ``{"cards", "shards"}``."""
+    import torch
+
+    from fenix_tpu_torch.parallel.mesh import make_mesh
+
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if cards >= 2:
+        return make_mesh(cards), {"cards": cards, "shards": cards}
+    device = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    return make_mesh(devices=[device] * MESH_SHARDS), {"cards": 1 if DEVICE == "cuda" else 0, "shards": MESH_SHARDS}
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def in_process(fn, reps: int) -> tuple:
+    """``fn()`` once (the first call) and ``reps`` times more, each on the
+    host clock up to the result on the host: ``(result, first_s, warm_ms)``."""
+    t = time.perf_counter()
+    result = fn()
+    sync()
+    first = time.perf_counter() - t
+    warm = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        sync()
+        warm.append((time.perf_counter() - t) * 1e3)
+    return result, first, warm
+
+
+def tie_canonical(result, qn: int, k: "int | None" = None):
+    """``(ids, dist)`` of a result in (query, distance, id) order: rows of
+    one query whose fp32 distances tie put in id order (the mesh merges by
+    (distance, id), one device orders by score)."""
+    import numpy as np
+
+    ids = np.asarray(result.column("id"))
+    dist = np.asarray(result.column("__DISTANCE__"))
+    qid = (result.column("__QUERY_ID__").to_numpy() if "__QUERY_ID__" in result.column_names
+           else np.zeros(ids.shape[0], np.int64))
+    order = np.lexsort((ids, dist, qid))
+    return ids[order], dist[order], qid[order]
+
+
+def check_mesh_vs_single(name: str, got, want, qn: int) -> dict:
+    """The mesh's answer against the single device's on the same table:
+    the same ids per query with fp32 distance ties in id order, every
+    distance within 1e-5 * max(1, d)."""
+    import numpy as np
+
+    gi, gd, gq = tie_canonical(got, qn)
+    wi, wd, wq = tie_canonical(want, qn)
+    if not (np.array_equal(gq, wq) and np.array_equal(gi, wi)):
+        bad = int((gi != wi).sum()) if gi.shape == wi.shape else -1
+        raise AssertionError(f"{name}: mesh ids differ from the single device's at {bad} positions")
+    err = np.abs(gd - wd) / np.maximum(1.0, np.abs(wd))
+    if err.size and err.max() > 1e-5:
+        raise AssertionError(f"{name}: mesh distances off the single device's by {err.max()} relative")
+    raw = np.asarray(got.column("id")), np.asarray(want.column("id"))
+    return {"ids_equal": True, "ids_equal_unsorted": bool(np.array_equal(*raw)),
+            "max_rel_dist_diff": float(err.max()) if err.size else 0.0}
+
+
+def mesh_requests(expr, vectors, queries) -> list[dict]:
+    """Phase 15 (a)'s requests: phase 3's five searches, the Q=1024 one
+    again on the all-gather route, MESH_READ, and MESH_IVF on phase 7's
+    coder. Each: name, queries, target, the search's keywords, the
+    FENIX_RING value, the route counter a call must move, and its check."""
+    reqs = []
+    for spec, qnp in zip(SEARCHES, queries):
+        name, qn, metric, k, precision, filtered, flat = spec
+        kw = dict(metric=metric, maxval=k, precision=precision,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        ring = "auto"
+        counter = "search.mesh_ring" if qn >= 512 else "search.mesh_gather"
+        reqs.append({"name": name, "q": qn, "queries": qnp, "target": qnp[0] if flat else qnp, "kw": kw,
+                     "ring": ring, "counter": counter, "check": ("search", spec)})
+        if qn >= 512:
+            reqs.append({**reqs[-1], "name": f"{name}_gather", "ring": "off", "counter": "search.mesh_gather"})
+    name, qn, metric, pred, _ = MESH_READ
+    qnp = make_queries(vectors, qn, seed=1500)
+    reqs.append({"name": name, "q": qn, "queries": qnp, "target": qnp, "ring": "auto", "counter": "search.nomax_selected",
+                 "kw": dict(metric=metric, maxval=None, select=["id"], filter=tag_filter(expr, pred)),
+                 "check": ("read", pred)})
+    for i, (name, qn, probes, filtered, route) in enumerate(MESH_IVF):
+        qnp = make_queries(vectors, qn, seed=1510 + i)
+        reqs.append({"name": name, "q": qn, "queries": qnp, "target": qnp, "ring": "auto",
+                     "counter": tuple(IVF_ROUTES.values()), "route": route, "check": ("ivf", probes, filtered),
+                     "kw": dict(metric="l2", maxval=IVF_K, coding=IVF_CODER, probes=probes,
+                                filter=(expr.field("tag") < 50) if filtered else None)})
+    return reqs
+
+
+def run_requests(executor, cache, reqs, reps: int) -> tuple[dict, dict]:
+    """Each request through ``executor.execute_search`` (the entry Flight
+    calls): ``{name: (result, first_s, warm_ms)}``, and per request the
+    rise of each of its route counters (an IVF request names both IVF
+    routes; every call moves one of them)."""
+    from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+    out, routes = {}, {}
+    for r in reqs:
+        os.environ["FENIX_RING"] = r["ring"]
+        req = executor.SearchRequest(source="smoke/items", column="vector", target=r["target"], **r["kw"])
+        counters = r["counter"] if isinstance(r["counter"], tuple) else (r["counter"],)
+        before = METRICS.snapshot()
+        out[r["name"]] = in_process(lambda: executor.execute_search(cache, req), reps)
+        after = METRICS.snapshot()
+        routes[r["name"]] = {c: after.get(c, 0) - before.get(c, 0) for c in counters}
+    os.environ.pop("FENIX_RING", None)
+    return out, routes
+
+
+def mesh_oracle_checks(oracle, r: dict, result, codes, codebooks, tags) -> dict:
+    """A phase-15 answer against the float64 oracle, as phases 4, 7 and 8
+    hold theirs."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import cells
+
+    kind = r["check"][0]
+    if kind == "search":
+        spec = r["check"][1]
+        mask = torch.from_numpy(tags < 50).to(oracle.device) if spec[5] else None
+        return check_search(oracle, (r["name"], *spec[1:]), r["queries"], result, mask)
+    if kind == "read":
+        rows = np.flatnonzero(tag_mask(tags, r["check"][1]))
+        return check_selection(oracle, r["name"], r["kw"]["metric"], r["queries"], result, lambda qi: rows)
+    _, probes, filtered = r["check"]
+    qn = r["q"]
+    ids, dist = split_result(result, qn, IVF_K)
+    sel = np.arange(qn) if qn <= IVF_CHECKED else np.linspace(0, qn - 1, IVF_CHECKED).astype(np.int64)
+    probe_cells = cells.topk_cells_np(r["queries"], codebooks, "l2", probes)
+    codes_dev = torch.from_numpy(codes).to(oracle.device)
+    tags_dev = torch.from_numpy(tags).to(oracle.device) if filtered else None
+    return check_ids(oracle, r["name"], "l2", IVF_K, "fp32", np.ascontiguousarray(r["queries"][sel]), ids[sel],
+                     dist[sel], probe_mask(codes_dev, probe_cells[sel], tags_dev), require_ties=False)
+
+
+def mesh_shard_inputs(topk2, cache, r: dict, n_shards: int):
+    """The phase-1 kernel's inputs as shard 0 of the mesh gets them for
+    request ``r``: its rows of the sharded matrix (or scan copy) and aux,
+    the filter folded in, and its queries (a ring block of Q / S at the
+    ring's sizes)."""
+    import torch
+
+    from fenix_tpu_torch.ops.distance import NEG_INF
+
+    kw = r["kw"]
+    metric, precision = kw["metric"], kw["precision"]
+    col = cache.sharded_matrix("smoke/items", "vector")
+    v = col.data.shards[0]
+    mul, add = (a.shards[0] for a in cache.sharded_aux("smoke/items", "vector", metric))
+    if kw["filter"] is not None:
+        add = torch.where(cache.device_filter_mask("smoke/items", kw["filter"], sharded=True).shards[0], add, NEG_INF)
+    q = r["target"].reshape(-1, v.shape[1])
+    if r["ring"] == "auto" and q.shape[0] >= 512:
+        q = q[: -(-q.shape[0] // n_shards)]  # a ring block
+    qp = topk2.prepare_queries(torch.from_numpy(q).to(v.device), metric).contiguous()
+    bucket = topk2.bucket_for(qp.shape[0], v.shape[0])
+    if precision == "int8":
+        v8, sv = (a.data.shards[0] for a in cache.matrix_int8("smoke/items", "vector", sharded=True))
+        q8, inv_sq = topk2.quantize_queries_int8(qp)
+        return (q8, v8, mul * sv, add, bucket, inv_sq)
+    if precision == "bf16":
+        v16 = cache.matrix_bf16("smoke/items", "vector", sharded=True).data.shards[0]
+        return (qp.to(torch.bfloat16), v16, mul, add, bucket, None)
+    return (qp, v, mul, add, bucket, None)
+
+
+def train_sharded_check(kmeans, psearch, mesh, vectors) -> dict:
+    """kmeans.train_sharded on the mesh against the same function over S
+    CPU shards, same seed, at MESH_TRAIN_CHECK's size (the CPU cannot run
+    IVF16384's): codebooks within 1e-5 of the largest entry (fp32 sums in
+    another order; the card's index_add_ order is not fixed)."""
+    import numpy as np
+
+    from fenix_tpu_torch.parallel.mesh import make_mesh
+
+    rows, cfg = MESH_TRAIN_CHECK["rows"], MESH_TRAIN_CHECK["config"]
+    data = np.ascontiguousarray(vectors[:rows])
+    kw = dict(num_codebooks=cfg["num_codebooks"], codebook_size=cfg["codebook_size"], batch_size=cfg["batch_size"],
+              num_epochs=cfg["num_epochs"], metric=cfg["metric"])
+    corpus, _ = psearch.shard_corpus(mesh, data)
+    t = time.perf_counter()
+    got = kmeans.train_sharded(mesh, corpus, rows, 0, **kw).cpu().numpy()
+    card_s = time.perf_counter() - t
+    cpu_mesh = make_mesh(devices=["cpu"] * mesh.size)
+    t = time.perf_counter()
+    want = kmeans.train_sharded(cpu_mesh, psearch.shard_corpus(cpu_mesh, data)[0], rows, 0, **kw).numpy()
+    cpu_s = time.perf_counter() - t
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if err > 1e-5:
+        raise AssertionError(f"train_sharded on the mesh off the CPU's by {err} of the largest entry")
+    return {"rows": rows, "config": cfg, "shards": mesh.size, "max_err_of_largest": err, "card_s": card_s,
+            "cpu_s": cpu_s}
+
+
+def merge_timing(psearch, mesh, q: int, k: int) -> float:
+    """The all-gather merge alone at ``[Q, k]`` candidates a shard (card
+    clock)."""
+    import torch
+
+    dists = [torch.sort(torch.rand((q, k), device=d), dim=1).values for d in mesh.devices]
+    ids = [torch.randint(0, 1 << 30, (q, k), device=d) for d in mesh.devices]
+    return time_ms(lambda: psearch.merge_candidates(mesh, dists, ids, k), TIMING_REPS)
+
+
+def per_card_designs(kernels, topk2) -> list[dict]:
+    """Each kernel design launched on each card against its plain version
+    (the launch shape and shared-memory cap are kept per card)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(15)
+    out = []
+    for card in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", card)
+        for d, designs in ((128, ("stream", "tiled", "tensor_int8", "generic_int8")), (100, ("generic_int8",))):
+            v = torch.from_numpy(rng.standard_normal((1 << 16, d), dtype=np.float32)).to(dev)
+            mul = torch.ones(v.shape[0], device=dev)
+            add = torch.from_numpy(rng.standard_normal(v.shape[0]).astype(np.float32)).to(dev)
+            q = torch.from_numpy(rng.standard_normal((64, d), dtype=np.float32)).to(dev)
+            v8, sv = topk2.quantize_corpus_int8(v)
+            q8, inv_sq = topk2.quantize_queries_int8(q)
+            for design in designs:
+                args = (q8, v8, mul * sv, add, 32, inv_sq) if "int8" in design else (q, v, mul, add, 32, None)
+                err, _ = check_kernel(kernels, *args, design)
+                out.append({"card": card, "d": d, "kernel": design, "max_abs_err": err})
+    return out
+
+
+def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi: str, kind: str) -> dict:
+    """Phase 15 (a) and (c): the serving mesh over its own root of phase
+    3's rows (see the module docstring). Returns the mesh path's launches
+    and the kernel rows at the shard shapes."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch import coder
+    from fenix_tpu_torch import index as index_mod
+    from fenix_tpu_torch.engine import executor
+    from fenix_tpu_torch.engine.session import DeviceCache
+    from fenix_tpu_torch.io import arrow, ingest, table
+    from fenix_tpu_torch.ops import kmeans
+    from fenix_tpu_torch.parallel import search as psearch
+
+    mesh, shape = mesh_for_run()
+    emit({"phase": "mesh", "mesh": shape, "devices": [str(d) for d in mesh.devices], "device": kind,
+          "nvidia_smi": smi})
+    work = os.path.join(HERE, "build", "chip_smoke", f"mesh-{os.getpid()}")
+    root = os.path.join(work, "root")
+    os.makedirs(work, exist_ok=True)
+    try:
+        t = time.perf_counter()
+        schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), vectors.shape[1]), "tag": pa.int32()})
+        table.make(root, "smoke/items", pa.RecordBatchReader.from_batches(schema, (
+            pa.record_batch([pa.array(ids_np[s : s + BATCH_ROWS]),
+                             ingest.numpy_to_fixed_size_list(vectors[s : s + BATCH_ROWS], pa.float32()),
+                             pa.array(tags[s : s + BATCH_ROWS])], schema=schema)
+            for s in range(0, vectors.shape[0], BATCH_ROWS))))
+        put_s = time.perf_counter() - t
+        # make-coder on the mesh: kmeans.train_sharded, IVF16384's config, seed 0
+        t = time.perf_counter()
+        coder.make(root, IVF_CODER, "smoke/items", "vector", IVF_CONFIG, seed=0, device=DEVICE, mesh=mesh)
+        sync()
+        train_s = time.perf_counter() - t
+        t = time.perf_counter()
+        index_mod.make(root, IVF_CODER, "smoke/items", "vector", device=DEVICE)
+        index_s = time.perf_counter() - t
+        codes = np.array(arrow.load(index_mod.path_of(root, IVF_CODER, "smoke/items", "vector"))
+                         .column(index_mod.CODE_COL).to_numpy())
+        codebooks = coder.load(root, IVF_CODER)["tensor"]
+        emit({"phase": "mesh_root", "rows": int(vectors.shape[0]), "put_s": put_s, "train_sharded_s": train_s,
+              "make_index_s": index_s, "coder": IVF_CONFIG, "seed": 0, "mesh": shape, "device": kind,
+              "nvidia_smi": smi})
+
+        reqs = mesh_requests(expr, vectors, queries)
+        batch_q = make_queries(vectors, MESH_BATCH, seed=1520)
+        batch_reqs = [executor.SearchRequest("smoke/items", "vector", batch_q[i], metric="cosine", maxval=10)
+                      for i in range(MESH_BATCH)]
+
+        # the single device first, on the same root
+        single = DeviceCache(root, device=DEVICE, mesh=None)
+        solo, _ = run_requests(executor, single, reqs, MESH_WARM_REPS)
+        solo_batch = [executor.execute_search(single, r) for r in batch_reqs]
+        del single
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+        # the mesh path: every launch count 0 just before it, read just after
+        for counts in (kernels.LAUNCHES, kernels.DEVICE_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        meshed = DeviceCache(root, device=DEVICE, mesh=mesh)
+        got, routes = run_requests(executor, meshed, reqs, MESH_WARM_REPS)
+        t = time.perf_counter()
+        batched = executor.execute_search_batched(meshed, batch_reqs)
+        batch_ms = (time.perf_counter() - t) * 1e3
+        alone = [executor.execute_search(meshed, r) for r in batch_reqs]
+        sync()
+        mesh_launches = {k.removeprefix("bucket_scores."): v for k, v in kernels.LAUNCHES.items()}
+        card_launches = dict(kernels.DEVICE_LAUNCHES)
+
+        rows = {}
+        for r in reqs:
+            if sum(routes[r["name"]].values()) != MESH_WARM_REPS + 1 or (
+                    not isinstance(r["counter"], tuple) and routes[r["name"]][r["counter"]] != MESH_WARM_REPS + 1):
+                raise AssertionError(f"{r['name']}: route counters moved {routes[r['name']]} in "
+                                     f"{MESH_WARM_REPS + 1} calls")
+            result, first, warm = got[r["name"]]
+            s_result, s_first, s_warm = solo[r["name"]]
+            row = {"phase": "mesh_search", "search": r["name"], "q": r["q"], "ring": r["ring"],
+                   "mesh_first_s": first, "mesh_warm_median_ms": float(np.median(warm)), "mesh_warm_ms": warm,
+                   "single_first_s": s_first, "single_warm_median_ms": float(np.median(s_warm)),
+                   "phase3_client_median_ms": float(np.median(latencies[r["name"]])) if r["name"] in latencies
+                   else None, "routes": routes[r["name"]], "clock": "host, in process", "mesh": shape,
+                   "device": kind, "nvidia_smi": smi}
+            row.update(check_mesh_vs_single(r["name"], result, s_result, r["q"]))
+            rows[r["name"]] = row
+        ring, gather = (got[f"{SEARCHES[2][0]}{s}"][0] for s in ("", "_gather"))
+        if not (ring.column("id").equals(gather.column("id")) and ring.column("__DISTANCE__").equals(
+                gather.column("__DISTANCE__"))):
+            raise AssertionError("the ring and the all-gather route answer differently at Q=1024")
+        for i, (b, a, s) in enumerate(zip(batched, alone, solo_batch)):
+            if not b.equals(a):
+                raise AssertionError(f"batched request {i} differs from its solo mesh answer")
+            check_mesh_vs_single(f"batched_{i}", b, s, 1)
+        emit({"phase": "mesh_batched", "requests": MESH_BATCH, "batch_ms": batch_ms, "mesh": shape,
+              "device": kind, "nvidia_smi": smi})
+
+        # (c) several cards: a Flight server with FENIX_MESH=auto, each card's launches
+        served = None
+        if shape["cards"] >= 2:
+            served = mesh_server_checks(kernels, topk2, expr, root, reqs, got, smi, kind)
+
+        # the kernels at the shard shapes, the merge, ring against all-gather
+        compares = []
+        for r in reqs:
+            if r["check"][0] != "search":
+                continue
+            inputs = mesh_shard_inputs(topk2, meshed, r, mesh.size)
+            c = compare(kernels, *inputs)
+            compares.append({"search": f"mesh_{r['name']}", "route": ROUTES[r["kw"]["precision"]],
+                             "q": int(inputs[0].shape[0]), "n": int(inputs[1].shape[0]), "d": int(inputs[1].shape[1]),
+                             "bucket": inputs[4], "shard_of": shape, **c})
+            emit({"phase": "kernel_vs_plain_mesh_path", **compares[-1], "device": kind, "nvidia_smi": smi})
+            del inputs
+        timing = {"phase": "mesh_timing", "merge_ms_q1024_k100": merge_timing(psearch, mesh, 1024, 100),
+                  "ring_warm_median_ms": rows[SEARCHES[2][0]]["mesh_warm_median_ms"],
+                  "gather_warm_median_ms": rows[f"{SEARCHES[2][0]}_gather"]["mesh_warm_median_ms"],
+                  "clock": "card events (merge), host",
+                  "mesh": shape, "device": kind, "nvidia_smi": smi}
+        emit(timing)
+        for row in rows.values():
+            emit(row)
+
+        # the mutations: an append and a delete, each refreshed on the mesh
+        live = Live(vectors, ids_np, tags)
+        mutations = mesh_mutations(expr, executor, index_mod, table, DeviceCache, meshed, mesh, root, live, reqs,
+                                   smi, kind)
+        del meshed
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+        train_check = train_sharded_check(kmeans, psearch, mesh, vectors)
+        emit({"phase": "mesh_train_sharded", "ivf16384_s": train_s, **train_check, "device": kind, "nvidia_smi": smi})
+
+        oracle = Oracle(vectors, DEVICE)
+        for r in reqs:
+            emit({"phase": "mesh_oracle", "search": r["name"],
+                  **mesh_oracle_checks(oracle, r, got[r["name"]][0], codes, codebooks, tags)})
+        del oracle
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": mesh_launches, "card_launches": card_launches, "checks": compares, "mesh": shape,
+            "served": served, "mutations": mutations}
+
+
+def mesh_mutations(expr, executor, index_mod, table, DeviceCache, meshed, mesh, root, live, reqs,
+                   smi: str, kind: str) -> dict:
+    """An append of MUT_APPEND_ROWS rows (row 0 a copy of the Q=8 cosine
+    query 0) and a delete of tag == 9, in process as the Flight verbs make
+    them: the next mesh search grows the sharded matrix (one incremental
+    refresh), then shrinks it by the lineage (one lineage refresh), each
+    answer equal to a cold mesh cache's and held to the float64 oracle
+    over the live copy."""
+    import torch
+
+    cos = next(r for r in reqs if r["name"] == "q8_cosine_k10")
+    big = next(r for r in reqs if r["name"] == SEARCHES[2][0])
+    rows0 = live.ids.shape[0]
+    out = {}
+    new = appended_rows(MUT_APPEND_ROWS, live.parts[0].shape[1], rows0, (cos["queries"][0],), seed=650)
+    for step, r, rises in (("append", cos, (1, 0)), ("delete_tag_eq_9", big, (0, 1))):
+        before = (meshed.incremental_refreshes, meshed.lineage_refreshes)
+        t = time.perf_counter()
+        if step == "append":
+            appended = to_reader(*new).read_all()
+            table.append(root, "smoke/items", appended)
+            index_mod.extend_for_source(root, "smoke/items", appended, DEVICE)
+            live.append(*new)
+        else:
+            deleted = index_mod.delete_rows(root, "smoke/items", expr.field("tag") == 9)
+            if deleted != int((live.tags == 9).sum()):
+                raise AssertionError(f"deleted {deleted} rows, the copy {int((live.tags == 9).sum())}")
+            live.keep(live.tags != 9)
+        mutate_s = time.perf_counter() - t
+        os.environ["FENIX_RING"] = "auto"
+        req = executor.SearchRequest(source="smoke/items", column="vector", target=r["target"], **r["kw"])
+        t = time.perf_counter()
+        result = executor.execute_search(meshed, req)
+        search_s = time.perf_counter() - t
+        moved = (meshed.incremental_refreshes - before[0], meshed.lineage_refreshes - before[1])
+        if moved != rises:
+            raise AssertionError(f"mesh {step}: refreshes moved by {moved}, expected {rises}")
+        cold = executor.execute_search(DeviceCache(root, device=DEVICE, mesh=mesh), req)
+        if not result.equals(cold):
+            raise AssertionError(f"mesh {step}: the refreshed answer differs from a cold mesh cache's")
+        if step == "append" and split_result(result, cos["q"], cos["kw"]["maxval"])[0][0, 0] != rows0:
+            raise AssertionError("the appended copy of query 0 is not its first result")
+        spec = r["check"][1]
+        mask_fn = (lambda dev: torch.from_numpy(live.tags < 50).to(dev)) if spec[5] else None
+        out[step] = {"mutate_s": mutate_s, "first_search_s": search_s, "refreshes": moved,
+                     "oracle": check_live(live, f"mesh_{step}", spec[2], spec[3], r["queries"], result, mask_fn=mask_fn)}
+        emit({"phase": "mesh_mutation", "mutation": step, **out[step], "mesh": mesh.size, "device": kind,
+              "nvidia_smi": smi})
+    os.environ.pop("FENIX_RING", None)
+    return {**out, "rows": int(live.ids.shape[0])}
+
+
+def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, smi: str, kind: str) -> dict:
+    """Phase 15 (c), on several cards: each design on each card against its
+    plain version, then a Flight server started with FENIX_MESH=auto over
+    the phase's root answers its requests as the in-process mesh did, and
+    every card launched the stream, tiled and tensor_int8 designs."""
+    from fenix_tpu_torch.flight import Flight
+
+    designs = per_card_designs(kernels, topk2)
+    emit({"phase": "mesh_designs_per_card", "checks": designs, "device": kind, "nvidia_smi": smi})
+    port = free_port()
+    log_path = os.path.join(os.path.dirname(root), "server15.log")
+    proc, log = start_server(root, port, log_path, {"FENIX_MESH": "auto"})
+    client = Flight(host="127.0.0.1", port=port)
+    times = {}
+    try:
+        wait_healthy(client, proc)
+        for r in reqs:
+            if r["ring"] != "auto":
+                continue
+            kw = {k: v for k, v in r["kw"].items() if v is not None or k == "maxval"}
+            client.search(r["target"], "smoke/items", "vector", **kw)  # warm
+            t = time.perf_counter()
+            result = client.search(r["target"], "smoke/items", "vector", **kw)
+            times[r["name"]] = (time.perf_counter() - t) * 1e3
+            if not result.select(["id", "__DISTANCE__"]).equals(got[r["name"]][0].select(["id", "__DISTANCE__"])):
+                raise AssertionError(f"{r['name']}: the mesh server answers differently from the in-process mesh")
+        stats = client.stats()
+    finally:
+        stop_server(client, proc, log, log_path)
+    import torch
+
+    per_card = {}
+    for card in range(torch.cuda.device_count()):
+        per_card[card] = {d: stats.get(f"kernel.bucket_scores.kernel.{d}.cuda{card}.launches", 0)
+                          for d in DESIGNS}
+        for d in ("stream", "tiled", "tensor_int8"):
+            if not per_card[card][d]:
+                raise AssertionError(f"card {card} launched no {d} kernel under the mesh server")
+    row = {"phase": "mesh_server", "launches_per_card": per_card, "client_ms": times, "device": kind,
+           "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
+def phase_mesh_residency(root: str, live, queries, smi: str, kind: str) -> dict:
+    """Phase 15 (b) on the phase-6 root after its server: a mesh cache and
+    a single-device cache in process under a per-device budget of
+    MESH_BUDGET, where a shard's fp32 copy does not fit and its int8 copy
+    does. Each of MESH_RES_SEARCHES moves its counter as the JAX package's
+    tests expect; one device answers each in the mode the mesh planned
+    (at this budget its own auto plans the stream); fp32 answers equal
+    the single device's (ties in id order), int8 answers hold the graded
+    rule against it; every answer is held to the float64 oracle over the
+    live rows."""
+    import torch
+
+    from fenix_tpu_torch import expr
+    from fenix_tpu_torch.engine import executor, residency
+    from fenix_tpu_torch.engine.session import DeviceCache
+    from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+    mesh, shape = mesh_for_run()
+    old = os.environ.get("FENIX_HBM_BUDGET")
+    os.environ["FENIX_HBM_BUDGET"] = str(MESH_BUDGET)
+    results: dict = {"mesh": {}, "single": {}}
+    rows, mesh_modes = [], {}
+    try:
+        for which, cache in (("mesh", DeviceCache(root, device=DEVICE, mesh=mesh)),
+                             ("single", DeviceCache(root, device=DEVICE, mesh=None))):
+            for name, qn, mode, precision, counter, window in MESH_RES_SEARCHES:
+                req = executor.SearchRequest(source="smoke/wide", column="vector", target=queries[qn], metric="l2",
+                                             maxval=RES_K, precision=precision, residency=mode,
+                                             filter=expr.field("tag") < 50,
+                                             extra={"window": window} if window else {})
+                planned = residency.plan(cache, req)
+                if which == "mesh":
+                    mesh_modes[name] = planned
+                else:  # one device answers in the mode the mesh planned (its own auto may differ)
+                    req.residency = mesh_modes[name]
+                before = METRICS.snapshot().get(counter, 0) if counter else 0
+                t = time.perf_counter()
+                results[which][name] = executor.execute_search(cache, req)
+                took = time.perf_counter() - t
+                rose = METRICS.snapshot().get(counter, 0) - before if counter else 0
+                if which == "mesh":
+                    want = 1
+                    if counter == "search.stream_chunks":  # the per-device chunk, S of them a chunk
+                        n_rows, step = live.ids.shape[0], cache.block * mesh.size
+                        chunk = min(residency._stream_chunk_rows(MESH_BUDGET, queries[qn].shape[1], cache.block,
+                                                                 1 if precision == "int8" else 4) * mesh.size,
+                                    max(-(-n_rows // step) * step, step))
+                        want = -(-n_rows // chunk)
+                    if counter and rose != want:
+                        raise AssertionError(f"mesh {name}: {counter} rose by {rose}, expected {want}")
+                    if name == "mesh_auto_q8" and planned != residency.INT8:
+                        raise AssertionError(f"mesh {name}: auto planned {planned}, not int8")
+                rows.append({"cache": which, "search": name, "q": qn, "residency": req.residency, "planned": planned,
+                             "precision": precision, "first_s": took, "counter": counter, "counter_rose": rose})
+                emit({"phase": "mesh_residency_search", **rows[-1], "budget_per_device": MESH_BUDGET,
+                      "mesh": shape, "device": kind, "nvidia_smi": smi})
+            del cache
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("FENIX_HBM_BUDGET", None)
+        else:
+            os.environ["FENIX_HBM_BUDGET"] = old
+    checks = {}
+    oracle = Oracle(live.parts, DEVICE)
+    mask = torch.from_numpy(live.tags < 50).to(oracle.device)
+    for name, qn, mode, precision, *_ in MESH_RES_SEARCHES:
+        got, want = results["mesh"][name], results["single"][name]
+        graded = precision == "int8" or mode in ("auto", "int8")
+        if graded:
+            check_graded(f"mesh_{name}", got, want)
+            checks[name] = {"graded": True}
+        else:
+            checks[name] = check_mesh_vs_single(f"mesh_{name}", got, want, qn)
+        ids, dist = split_result(got, qn, RES_K)
+        pos = live.pos(ids)
+        if (pos < 0).any():
+            raise AssertionError(f"mesh_{name}: returned ids that are not in the table")
+        checks[name]["oracle"] = check_ids(oracle, f"mesh_{name}", "l2", RES_K, "int8" if graded else "fp32",
+                                           queries[qn], pos, dist, mask, require_ties=False)
+    del oracle, mask
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    for name, check in checks.items():
+        emit({"phase": "mesh_residency_check", "search": name, **check})
+    return {"rows": rows, "mesh": shape}
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -3347,6 +4009,9 @@ def run() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    # phases 2-14 run on one card (the first) however many the machine has;
+    # phase 15 builds its meshes itself and starts its server with auto
+    os.environ["FENIX_MESH"] = "off"
     from fenix_tpu_torch import expr
     from fenix_tpu_torch.flight import Flight
     from fenix_tpu_torch.ops import kernels, topk2
@@ -3586,17 +4251,24 @@ def run() -> int:
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
 
+    # -- phase 15 (a) and (c): the serving mesh --------------------------------
     ivf_launches, sel_launches, an_launches = ivf["launches"], sel["launches"], an["launches"]
-    del vectors, ids_np, tags, queries, results, ivf, sel, mut, an
+    del results, ivf, sel, mut, an
+    t = time.perf_counter()
+    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi, kind)
+    emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
+          "mesh": mesh["mesh"], "seconds": time.perf_counter() - t})
+    del vectors, ids_np, tags, queries
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
     # -- the kernels line ------------------------------------------------------
-    compares = small + forced + wide + main_shapes + mut_checks + res["checks"]
+    compares = small + forced + wide + main_shapes + mut_checks + res["checks"] + mesh["checks"]
     mutation = {k: v + res["mutation_launches"][k] for k, v in mut_launches.items()}
     batching = {k: v + res["batching_launches"][k] for k, v in mb["launches"].items()}
     by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
                "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
-               "batching": batching, "types": ty_launches}
+               "batching": batching, "types": ty_launches,
+               "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})
@@ -3607,10 +4279,70 @@ def run() -> int:
     return 0
 
 
-def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+def run_mesh_only() -> int:
+    """Phase 1's build and phase 15 alone: (a) and (c) on phase 3's rows,
+    (b) on phase 6's rows put in process: the run for a machine with
+    several cards, where the serving mesh spans them (the whole script
+    there would repeat phases 2-14 on one card)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from fenix_tpu_torch import expr
+    from fenix_tpu_torch.ops import kernels, topk2
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    print(smi, flush=True)
+    t = time.perf_counter()
+    emit({"phase": "device_build", "device": kind, "nvidia_smi": smi, "cards": torch.cuda.device_count(),
+          "library": str(kernels.build()), "seconds": time.perf_counter() - t})
+    vectors, ids_np, tags = make_data(ROWS, seed=0)
+    queries = [make_queries(vectors, spec[1], seed=10 + i) for i, spec in enumerate(SEARCHES)]
+    t = time.perf_counter()
+    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, {}, smi, kind)
+    emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
+          "mesh": mesh["mesh"], "seconds": time.perf_counter() - t})
+    for name, key, *_ in KERNELS:
+        if "mesh" in _[-1] and not mesh["launches"].get(key):
+            raise AssertionError(f"{name} was not launched on the mesh path")
+    del vectors, ids_np, tags, queries
+
+    import pyarrow as pa
+
+    from fenix_tpu_torch.io import ingest, table
+
+    t = time.perf_counter()
+    vectors, ids_np, tags = make_data(RES_ROWS, seed=1, dim=RES_D)
+    pool = np.flatnonzero((tags[:DUP] < 50) & (tags[DUP : 2 * DUP] < 50))
+    queries = {q: make_queries(vectors, q, seed=100 + q, src_pool=pool) for q in (8, 1024)}
+    work = os.path.join(HERE, "build", "chip_smoke", f"residency-{os.getpid()}")
     try:
-        return run()
+        schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), RES_D), "tag": pa.int32()})
+        table.make(os.path.join(work, "root"), "smoke/wide", pa.RecordBatchReader.from_batches(schema, (
+            pa.record_batch([pa.array(ids_np[s : s + BATCH_ROWS]),
+                             ingest.numpy_to_fixed_size_list(vectors[s : s + BATCH_ROWS], pa.float32()),
+                             pa.array(tags[s : s + BATCH_ROWS])], schema=schema)
+            for s in range(0, RES_ROWS, BATCH_ROWS))))
+        res = phase_mesh_residency(os.path.join(work, "root"), Live(vectors, ids_np, tags), queries, smi, kind)
+        emit({"phase": "mesh_residency_done", "mesh": res["mesh"], "seconds": time.perf_counter() - t})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="phase 1's build and phase 15 alone (a machine with several cards)")
+    args = parser.parse_args()
+    try:
+        return run_mesh_only() if args.mesh_only else run()
     except Exception:
         traceback.print_exc()
         return 1

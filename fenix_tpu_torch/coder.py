@@ -14,7 +14,10 @@ serves both packages whichever trained the coder; a coder this package
 trains is the JAX package's coder of the same seed, up to fp32 summation
 order (the same draws, ``ops/kmeans.py``).
 
-Not ported yet: the mesh-sharded training (ROADMAP queue 1 item 10).
+Over a mesh (``mesh``: ``"auto"`` is the serving mesh of a CUDA
+``device``) a corpus that fits the device trains row-sharded with
+``kmeans.train_sharded``, the JAX package's coder of the same seed and
+shard count.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import kmeans
+from fenix_tpu_torch.parallel import mesh as mesh_mod
+from fenix_tpu_torch.parallel import search as psearch
 from fenix_tpu_torch.utils import hbm
 
 LOCATION: str = "codings"
@@ -72,10 +77,14 @@ def make(
     config: Config,
     seed: int | None = None,
     device: "str | torch.device" = "cuda",
+    mesh="auto",
 ) -> Coding:
     """Train a coder over ``<source>.<column>`` on ``device`` and persist
     it: init from a random row subset, then ``num_epochs`` passes of
-    permuted ``num_codebooks·batch_size`` batches, one Lloyd step each."""
+    permuted ``num_codebooks·batch_size`` batches, one Lloyd step each.
+    With a ``mesh`` (``parallel/mesh.py``; ``"auto"`` resolves as the
+    device cache does) the rows shard over it and ``kmeans.train_sharded``
+    trains, sampling each shard's rows."""
     data = table.load(root, source)
     column_type = ingest.vector_field_type(data.schema.field(column))
     matrix = ingest.vector_matrix(data, column)
@@ -106,6 +115,23 @@ def make(
             precision=precision,
             int8_mirror=mirror,
         )
+        return _persist(root, name, config, column_type, codebooks.cpu().numpy())
+    if isinstance(mesh, str):
+        mesh = mesh_mod.serving_mesh() if torch.device(device).type == "cuda" else None
+    if mesh is not None:
+        corpus, _ = psearch.shard_corpus(mesh, matrix.astype(np.float32, copy=False))
+        codebooks = kmeans.train_sharded(
+            mesh,
+            corpus,
+            num_rows,
+            seed,
+            num_codebooks=n,
+            codebook_size=k,
+            batch_size=config["batch_size"],
+            num_epochs=config["num_epochs"],
+            metric=config["metric"],
+        )
+        del corpus
         return _persist(root, name, config, column_type, codebooks.cpu().numpy())
     corpus = ingest.to_device_matrix(matrix, block=1, device=device).data
     codebooks = kmeans.train(

@@ -593,9 +593,10 @@ int launch_bn(const void* q, const void* v, const float* aux_mul, const float* a
               const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d, int bucket_log2,
               cudaStream_t stream) {
   auto kernel = tensor_int8_kernel<BN>;
-  static const int per_sm = blocks_per_sm(kernel, kThreads, Ring<BN>::kBytes);
-  static const int sms = sm_count();
-  if (per_sm <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static Occupancy occ;
+  int per_sm = 0, sms = 0;
+  if (!launch_shape(occ, kernel, kThreads, Ring<BN>::kBytes, &per_sm, &sms))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap tm_v, tm_q, tm_mul, tm_add, tm_isq;
   if (!encode_rows(&tm_v, v, n, d, kRows) || !encode_rows(&tm_q, q, qt, d, BN) ||
       !encode_vector(&tm_mul, aux_mul, n, kRows) || !encode_vector(&tm_add, aux_add, n, kRows) ||

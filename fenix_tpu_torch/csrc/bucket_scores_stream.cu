@@ -266,9 +266,10 @@ template <typename T, int QB, bool kAsync>
 int launch_qb(const Args& a) {
   using M = Smem<T, QB>;
   auto kernel = stream_kernel<T, QB, kAsync>;
-  static const int per_sm = blocks_per_sm(kernel, kRows, M::kBytes);
-  static const int sms = sm_count();
-  if (per_sm <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static Occupancy occ;
+  int per_sm = 0, sms = 0;
+  if (!launch_shape(occ, kernel, kRows, M::kBytes, &per_sm, &sms))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t work = ((a.qt + QB - 1) / QB) * ((a.n + kRows - 1) / kRows);
   const int64_t blocks = std::min(work, static_cast<int64_t>(per_sm) * sms);
   kernel<<<static_cast<unsigned>(blocks), kRows, M::kBytes, a.stream>>>(

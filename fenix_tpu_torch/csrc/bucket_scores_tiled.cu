@@ -289,9 +289,10 @@ template <typename T, int TN, bool kAsync>
 int launch_tn(const Args& a) {
   using S = Shape<T, TN>;
   auto kernel = tiled_kernel<T, TN, kAsync>;
-  static const int per_sm = blocks_per_sm(kernel, kThreads, S::kBytes);
-  static const int sms = sm_count();
-  if (per_sm <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static Occupancy occ;
+  int per_sm = 0, sms = 0;
+  if (!launch_shape(occ, kernel, kThreads, S::kBytes, &per_sm, &sms))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t work = ((a.qt + S::kBq - 1) / S::kBq) * ((a.n + kRows - 1) / kRows);
   const int64_t blocks = std::min(work, static_cast<int64_t>(per_sm) * sms);
   kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, a.stream>>>(

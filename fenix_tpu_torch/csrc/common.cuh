@@ -9,6 +9,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace fenix {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -92,11 +94,38 @@ int blocks_per_sm(Kernel kernel, int threads, int smem) {
   return blocks;
 }
 
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+inline int sm_count(int dev) {
+  int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
   return sms;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The launch shape of one kernel instantiation, kept per device: the
+// shared-memory cap that `blocks_per_sm` raises holds for the current
+// device's context only, so each card raises it on its own first launch
+// (a cap raised on the first card alone would refuse the launch on the
+// next one).
+struct Occupancy {
+  std::once_flag once[kMaxDevices];
+  int per_sm[kMaxDevices] = {};
+  int sms[kMaxDevices] = {};
+};
+
+// Blocks per SM and SM count of `kernel` on the current device, computed
+// on the first launch there. False if the kernel cannot run on it.
+template <typename Kernel>
+bool launch_shape(Occupancy& occ, Kernel kernel, int threads, int smem, int* per_sm, int* sms) {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return false;
+  std::call_once(occ.once[dev], [&] {
+    occ.per_sm[dev] = blocks_per_sm(kernel, threads, smem);
+    occ.sms[dev] = sm_count(dev);
+  });
+  *per_sm = occ.per_sm[dev];
+  *sms = occ.sms[dev];
+  return *per_sm > 0 && *sms > 0;
 }
 
 // Entry points of the two f32/bf16 designs (q is f32 in both: the

@@ -30,8 +30,9 @@ Integer value columns and counts aggregate exactly in int64
 (``group_aggregate_int``), others in float32. Group keys are int32 on
 the card. ``partitioned=True`` needs a mesh; with one device it is
 downgraded loudly (a warning and ``join.partitioned_downgraded``), as in
-the JAX package. The partitioned and mesh-sharded routes wait for
-ROADMAP queue 1 item 10.
+the JAX package. Over a mesh every join and aggregate (``partitioned``
+or not) raises ``NotImplementedError``: the partitioned and mesh-sharded
+routes are ROADMAP queue 1 item 10 (c).
 """
 
 from __future__ import annotations
@@ -68,8 +69,8 @@ class JoinSpec:
     row (first match wins; misses become nulls). ``how="inner"``: general
     inner join — result rows repeat per matching attribute row, unmatched
     result rows drop, bounded by ``max_matches``. ``partitioned`` shards
-    the attribute side over a mesh (ROADMAP queue 1 item 10); on one
-    device it is downgraded with a warning."""
+    the attribute side over a mesh (ROADMAP queue 1 item 10 (c): raises);
+    on one device it is downgraded with a warning."""
 
     source: str | Sequence[str]
     right_on: str
@@ -333,6 +334,10 @@ def execute_search_join(
 ) -> pa.Table:
     """Search, join each result row to the attribute table, and return
     either the enriched rows or the aggregate over the match groups."""
+    if cache.mesh is not None:
+        raise NotImplementedError(
+            "joins and aggregates over a mesh are not ported (ROADMAP queue 1 item 10 (c))"
+        )
     if req.maxval is None:
         raise ValueError("join/aggregate queries require maxval (top-k)")
     if join.how == "inner":

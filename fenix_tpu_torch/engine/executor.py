@@ -45,8 +45,22 @@ queries (DUAL exact at every scan precision, both probed routes chosen
 over the stacked batch, the host-corpus modes through
 ``residency.execute_many``), with one filter overlay for the batch. A
 top-k request alone is a batch of one, so both paths share every route
-and counter. Not ported yet: multi-device meshes (ROADMAP queue 1 item
-10).
+and counter.
+
+Meshes (a cache with a ``mesh``, ``parallel/mesh.py``): the snapshot's
+matrix is the row-sharded one and every route runs over row-sharded
+entries (``parallel/search.py``), as the JAX package's mesh branches do.
+Exact top-k (``_mesh_exact``): below the ring threshold the queries are
+replicated to every shard and the shards' ``[Q, k]`` candidates merge on
+the mesh's first device; from ``FENIX_RING`` queries (``auto``: 512, by
+the JAX package's padded count; ``off`` disables it) they take the ring,
+padded to a multiple of the shard count with zero queries. IVF
+(``_mesh_probed``): the per-shard clustered gather when each shard's
+gather moves at most one local corpus pass (``search.ivf_clustered``),
+else the masked scan on the all-gather route or the ring
+(``search.ivf_scan``). Filters fold into the sharded aux in row order or
+each shard's clustered order (``_FilterPlan``). The no-top-k read runs
+shard by shard and concatenates in shard order, which is table order.
 """
 
 from __future__ import annotations
@@ -72,6 +86,7 @@ from fenix_tpu_torch.ops import cells as cells_ops
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import select as select_ops
 from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.parallel import search as psearch
 from fenix_tpu_torch.utils import profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -165,9 +180,19 @@ def normalize_target(target: Any, dim: int) -> np.ndarray:
     return target
 
 
+def _ring_threshold() -> "int | None":
+    """The padded query count from which a mesh's exact and masked-scan
+    searches take the ring: ``FENIX_RING`` ``auto`` (512), ``off``, or a
+    number (the tests force the ring at small Q with it)."""
+    env = os.environ.get("FENIX_RING", "auto").lower()
+    if env in ("off", "0", "none"):
+        return None
+    return 512 if env == "auto" else max(1, int(env))
+
+
 class _FilterPlan:
-    """Per-request filter handling (the JAX package's ``_FilterPlan``, its
-    "flat" and "clustered" layouts).
+    """Per-request filter handling (the JAX package's ``_FilterPlan``: the
+    "flat", "clustered", "sharded" and "sharded_clustered" layouts).
 
     Device pushdown: a device-evaluable predicate (``expr.device_evaluable``:
     bool / integer / float32 columns, exactly representable literals) is
@@ -179,9 +204,10 @@ class _FilterPlan:
     mask is copied to the card; counted as ``filter.host_upload``. Either
     mask folds into the cached ``aux_add`` as −inf, in row order or, for
     the clustered layout, permuted into its sorted order (on the card for
-    a device mask). A length mismatch means the mask and the layout span
-    table revisions → _StaleRevision retry. ``filter.seconds`` times the
-    host side of both routes."""
+    a device mask); over a mesh the mask is row-sharded and a clustered
+    one permuted within each shard. A length mismatch means the mask and
+    the layout span table revisions → _StaleRevision retry.
+    ``filter.seconds`` times the host side of both routes."""
 
     def __init__(
         self, cache: DeviceCache, source, column: str, filt, data: pa.Table, n_pad: int, rows: int
@@ -210,38 +236,56 @@ class _FilterPlan:
                 self._host = m
         return self._host
 
-    def mask(self, coding: "str | None" = None) -> torch.Tensor:
+    def mask(self, coding: "str | None" = None, sharded: bool = False) -> "torch.Tensor | psearch.Sharded":
         """The request's ``[n_pad]`` device mask, in row order, or in the
-        clustered layout's sorted order of ``coding``."""
+        clustered layout's sorted order of ``coding``; row-sharded over the
+        mesh with ``sharded``."""
         t = time.perf_counter()
-        mask = self.cache.device_filter_mask(self.source, self.filt) if self.pushdown else None
+        cache = self.cache
+        mask = cache.device_filter_mask(self.source, self.filt, sharded=sharded) if self.pushdown else None
         if mask is not None:
             if mask.shape[0] != self.n_pad:
                 raise _StaleRevision
             if coding is not None:
-                perm = self.cache.clustered_perm(coding, self.source, self.column)
+                if sharded:
+                    perm = cache.sharded_clustered_perm(coding, self.source, self.column)
+                else:
+                    perm = cache.clustered_perm(coding, self.source, self.column)
                 if perm.shape[0] != self.n_pad:
                     raise _StaleRevision
-                mask = mask[perm]
+                mask = psearch.permute_rows_sharded(cache.mesh, mask, perm) if sharded else mask[perm]
             METRICS.add("filter.device_pushdown")
         else:
             m = self.host_mask()
             if coding is not None:
-                perm, _ = self.cache.clustered_meta(coding, self.source, self.column)
+                if sharded:
+                    perm_local, _, _ = cache.sharded_clustered_meta(coding, self.source, self.column)
+                    per = perm_local.shape[0] // cache.mesh.size
+                    perm = np.arange(perm_local.shape[0]) // per * per + perm_local
+                else:
+                    perm, _ = cache.clustered_meta(coding, self.source, self.column)
                 if perm.shape[0] != self.n_pad:
                     raise _StaleRevision
                 m = m[perm]
             METRICS.add("filter.host_upload")
-            mask = torch.from_numpy(m).to(self.cache.device)
+            if sharded:
+                mask = psearch.put_rows(cache.mesh, m, m.shape[0])
+            else:
+                mask = torch.from_numpy(m).to(cache.device)
         METRICS.add("filter.seconds", time.perf_counter() - t)
         return mask
 
-    def overlay(self, aux_add: torch.Tensor, coding: "str | None" = None) -> torch.Tensor:
+    def overlay(self, aux_add, coding: "str | None" = None):
+        """``aux_add`` with the filter folded in as −inf; a row-sharded
+        ``aux_add`` takes the sharded mask."""
         if not self.active:
             return aux_add
-        mask = self.mask(coding)
+        sharded = isinstance(aux_add, psearch.Sharded)
+        mask = self.mask(coding, sharded)
         if mask.shape[0] != aux_add.shape[0]:
             raise _StaleRevision
+        if sharded:
+            return aux_add.map(lambda a, m: torch.where(m, a, distance_ops.NEG_INF), mask)
         return torch.where(mask, aux_add, distance_ops.NEG_INF)
 
 
@@ -491,6 +535,8 @@ def _execute_batch_once(
         dists, ids = _probed_topk(
             cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
         )
+    elif cache.mesh is not None:
+        dists, ids = _mesh_exact(cache, r0, corpus, queries, metric, plan, k_pad, snap_stamp)
     else:
         aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
         aux_add = plan.overlay(aux_add)
@@ -563,16 +609,25 @@ def _execute_nomax(
     query, which ``gather_results`` drops."""
     rows, n_pad = corpus.rows, corpus.rows_padded
     num_queries = target.shape[0]
-    chunk = select_ops.chunk_for(n_pad, num_queries, _NOMAX_BLOCK)
+    # (offset, rows, tensor) per shard; one device is one shard
+    sharded = isinstance(corpus.data, psearch.Sharded)
+    if sharded:
+        per = corpus.data.rows_local
+        pieces = [(s * per, min(max(rows - s * per, 0), per), x) for s, x in enumerate(corpus.data.shards)]
+        q_on = psearch.replicate(cache.mesh, queries)
+    else:
+        pieces, q_on = [(0, rows, corpus.data)], [queries]
+    chunk = select_ops.chunk_for(pieces[0][2].shape[0], num_queries, _NOMAX_BLOCK)
     t = time.perf_counter()
 
     if not plan.active and coding_data is None:
         dists = np.empty((num_queries, rows), np.float32)
-        for start in range(0, rows, chunk):
-            stop = min(start + chunk, rows)
-            dists[:, start:stop] = select_ops.distances(
-                queries, corpus.data[start:stop], metric
-            ).cpu().numpy()
+        for (offset, valid, x), q_s in zip(pieces, q_on):
+            for start in range(0, valid, chunk):
+                stop = min(start + chunk, valid)
+                dists[:, offset + start : offset + stop] = select_ops.distances(
+                    q_s, x[start:stop], metric
+                ).cpu().numpy()
         METRICS.add("nomax.seconds", time.perf_counter() - t)
         METRICS.add("search.nomax_full")
         _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
@@ -584,36 +639,48 @@ def _execute_nomax(
             parts.append(part)
         return pa.concat_tables(parts)
 
-    fmask = plan.mask() if plan.active else None
+    fmask = plan.mask(sharded=sharded) if plan.active else None
     coded = cells_sorted = None
     if coding_data is not None:
         cells = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
         # sorted per query for the searchsorted membership
         cells_sorted = torch.from_numpy(np.sort(cells, axis=1).astype(np.int32)).to(cache.device)
-        coded_col = cache.coded_ids(req.coding, req.source, req.column)
+        coded_col = cache.coded_ids(req.coding, req.source, req.column, sharded=sharded)
         if coded_col.rows_padded != n_pad:
             raise _StaleRevision
         coded = coded_col.data
-    if coded is not None:
-        counts = select_ops.count_selected_probed(fmask, coded, cells_sorted, rows, chunk=chunk)
-        chunk_max = counts.max(dim=1).values.cpu().numpy()
-    else:
-        chunk_max = select_ops.count_selected_mask(fmask, rows, chunk=chunk).cpu().numpy()
 
-    ids_parts: list[torch.Tensor] = []
-    dist_parts: list[torch.Tensor] = []
-    for ci in np.flatnonzero(chunk_max):
-        width = min(_canonical_k(int(chunk_max[ci])), chunk)
-        ids_c, d_c = select_ops.compact_chunk(
-            corpus.data, queries, fmask, coded, cells_sorted, int(ci) * chunk, rows,
-            metric=metric, chunk=chunk, width=width,
-        )
-        ids_parts.append(ids_c)
-        dist_parts.append(d_c)
+    def shard_of(x, s: int):
+        return x.shards[s] if isinstance(x, psearch.Sharded) else x
+
+    ids_parts: list[np.ndarray] = []
+    dist_parts: list[np.ndarray] = []
+    for s, ((offset, valid, x), q_s) in enumerate(zip(pieces, q_on)):
+        ids_s: list[torch.Tensor] = []
+        dist_s: list[torch.Tensor] = []
+        fmask_s = None if fmask is None else shard_of(fmask, s)
+        coded_s = None if coded is None else shard_of(coded, s)
+        cells_s = None if cells_sorted is None else cells_sorted.to(x.device)
+        if coded_s is not None:
+            counts = select_ops.count_selected_probed(fmask_s, coded_s, cells_s, valid, chunk=chunk)
+            chunk_max = counts.max(dim=1).values.cpu().numpy()
+        else:
+            chunk_max = select_ops.count_selected_mask(fmask_s, valid, chunk=chunk).cpu().numpy()
+        for ci in np.flatnonzero(chunk_max):
+            width = min(_canonical_k(int(chunk_max[ci])), chunk)
+            ids_c, d_c = select_ops.compact_chunk(
+                x, q_s, fmask_s, coded_s, cells_s, int(ci) * chunk, valid,
+                metric=metric, chunk=chunk, width=width,
+            )
+            ids_s.append(torch.where(ids_c >= 0, ids_c + offset, -1))
+            dist_s.append(d_c)
+        if ids_s:  # kept on the device, copied to the host once a shard
+            ids_parts.append(torch.cat(ids_s, dim=1).cpu().numpy())
+            dist_parts.append(torch.cat(dist_s, dim=1).cpu().numpy())
     if ids_parts:
-        # chunk-major: each query's rows stay in table order
-        ids_all = torch.cat(ids_parts, dim=1).cpu().numpy()
-        d_all = torch.cat(dist_parts, dim=1).cpu().numpy()
+        # shard-major, then chunk-major: each query's rows stay in table order
+        ids_all = np.concatenate(ids_parts, axis=1)
+        d_all = np.concatenate(dist_parts, axis=1)
     else:
         ids_all = np.full((num_queries, 1), -1, np.int64)
         d_all = np.full((num_queries, 1), np.inf, np.float32)
@@ -623,15 +690,119 @@ def _execute_nomax(
     return gather_results(data, select, d_all, ids_all, value_dtype, views=views)
 
 
-def _scan_copies(cache: DeviceCache, req: SearchRequest) -> dict:
+def _scan_copies(cache: DeviceCache, req: SearchRequest, sharded: bool = False) -> dict:
     """kwargs holding the phase-1 scan copy of the request's precision
-    (empty for fp32)."""
+    (empty for fp32); the row-sharded copy with ``sharded``."""
     if req.precision == "bf16":
-        return {"corpus_scan": cache.matrix_bf16(req.source, req.column).data}
+        return {"corpus_scan": cache.matrix_bf16(req.source, req.column, sharded=sharded).data}
     if req.precision == "int8":
-        v8, sv = cache.matrix_int8(req.source, req.column)
+        v8, sv = cache.matrix_int8(req.source, req.column, sharded=sharded)
         return {"corpus_scan_int8": (v8.data, sv.data)}
     return {}
+
+
+def _scan_args(scan: dict) -> tuple:
+    """:func:`_scan_copies` as the positional arguments of the
+    ``parallel/search.py`` steps."""
+    if "corpus_scan" in scan:
+        return (scan["corpus_scan"],)
+    return scan.get("corpus_scan_int8", ())
+
+
+def _pad_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """``x`` with rows of ``fill`` appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_full((rows - x.shape[0], *x.shape[1:]), fill)])
+
+
+def _ring_route(cache: DeviceCache, q: int) -> "int | None":
+    """The ring's padded query count when a mesh request of ``q`` queries
+    takes it (the JAX package's rule on its padded count), else None."""
+    threshold = _ring_threshold()
+    if threshold is None or _canonical_q(q) < threshold:
+        return None
+    n = cache.mesh.size
+    return -(-q // n) * n
+
+
+def _mesh_exact(
+    cache: DeviceCache, req: SearchRequest, corpus, queries: torch.Tensor, metric: str,
+    plan: _FilterPlan, k_pad: int, snap_stamp: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the mesh: the ring from the threshold on, else
+    the replicated queries and the all-gather merge. Results ``[Q,
+    k_pad]`` on the mesh's first device."""
+    mesh = cache.mesh
+    aux_mul, aux_add = cache.sharded_aux(req.source, req.column, metric)
+    aux_add = plan.overlay(aux_add)
+    scan = _scan_args(_scan_copies(cache, req, sharded=True))
+    _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+    q = queries.shape[0]
+    ring_q = _ring_route(cache, q)
+    if ring_q is not None:
+        METRICS.add("search.mesh_ring")
+        fn = psearch.build_ring_search(mesh, k_pad, metric, req.precision)
+        dists, ids = fn(corpus.data, _pad_rows(queries, ring_q, 0.0), aux_mul, aux_add, *scan)
+        return dists[:q], ids[:q]
+    METRICS.add("search.mesh_gather")
+    fn = psearch.build_serving_search(mesh, k_pad, metric, precision=req.precision)
+    return fn(corpus.data, queries, aux_mul, aux_add, *scan)
+
+
+def _mesh_probed(
+    cache: DeviceCache, req: SearchRequest, coding_data, corpus, queries: torch.Tensor, cells_np: np.ndarray,
+    cells: torch.Tensor, metric: str, plan: _FilterPlan, k_pad: int, snap_stamp: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF over the mesh: the per-shard clustered gather when each shard's
+    gather moves at most about one local corpus pass, else the masked scan
+    (all-gather or ring). The route rule is the JAX package's, on the
+    padded query count and each shard's bucket lists."""
+    mesh = cache.mesh
+    q = queries.shape[0]
+    q_pad = _canonical_q(q)
+    t = time.perf_counter()
+    bucket_stack = None
+    if _clustered_eligible(coding_data):
+        perm_local, offsets, _ = cache.sharded_clustered_meta(req.coding, req.source, req.column)
+        if perm_local.shape[0] != plan.n_pad:
+            raise _StaleRevision
+        per = perm_local.shape[0] // mesh.size
+        bucket = topk2.bucket_for(q_pad, per)
+        lists = [_ivf_bucket_lists(cells_np, offsets[s], bucket, per // bucket) for s in range(mesh.size)]
+        width = max(b.shape[1] for b in lists)
+        if q_pad * width * bucket <= per:
+            bucket_stack = np.stack([np.pad(b, ((0, 0), (0, width - b.shape[1])), constant_values=-1) for b in lists])
+    METRICS.add("ivf.route_seconds", time.perf_counter() - t)
+
+    if bucket_stack is not None:
+        corpus_s, coded_s, orig = cache.sharded_clustered(req.coding, req.source, req.column)
+        mul_s, add_s = cache.sharded_clustered_aux(req.coding, req.source, req.column, metric)
+        add_s = plan.overlay(add_s, req.coding)
+        _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+        METRICS.add("search.ivf_clustered")
+        fn = psearch.build_serving_ivf_clustered(mesh, k_pad, metric)
+        return fn(corpus_s.data, queries, mul_s, add_s, coded_s.data, orig.data, cells,
+                  torch.from_numpy(bucket_stack))
+
+    coded = cache.coded_ids(req.coding, req.source, req.column, sharded=True)
+    aux_mul, aux_add = cache.sharded_aux(req.source, req.column, metric)
+    aux_add = plan.overlay(aux_add)
+    scan = _scan_args(_scan_copies(cache, req, sharded=True))
+    _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
+    METRICS.add("search.ivf_scan")
+    ring_q = _ring_route(cache, q)
+    if ring_q is not None:
+        # each block's probe cells ride with it (padding queries probe −1,
+        # which matches no cell)
+        METRICS.add("search.mesh_ring")
+        fn = psearch.build_ring_search(mesh, k_pad, metric, req.precision, probed=True)
+        dists, ids = fn(corpus.data, _pad_rows(queries, ring_q, 0.0), aux_mul, aux_add, *scan, coded.data,
+                        _pad_rows(cells, ring_q, -1))
+        return dists[:q], ids[:q]
+    METRICS.add("search.mesh_gather")
+    fn = psearch.build_serving_search(mesh, k_pad, metric, probed=True, precision=req.precision)
+    return fn(corpus.data, queries, aux_mul, aux_add, *scan, coded.data, cells)
 
 
 def _probed_topk(
@@ -647,6 +818,8 @@ def _probed_topk(
     cells_np = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
     METRICS.add("ivf.rank_seconds", time.perf_counter() - t)
     cells = torch.from_numpy(cells_np).to(cache.device)
+    if cache.mesh is not None:
+        return _mesh_probed(cache, req, coding_data, corpus, queries, cells_np, cells, metric, plan, k_pad, snap_stamp)
 
     t = time.perf_counter()
     bucket_lists = None

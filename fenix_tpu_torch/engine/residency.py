@@ -25,11 +25,19 @@ Probed (IVF) requests over a host corpus run on the host, no device
 involved (``probed_topk``, and the probed branch of
 ``execute_nomax_host``): each probed cell is a contiguous slice of the
 cell-sorted host layouts (``session.host_clustered_int8`` and its IVF
-sidecar, ``session.host_cell_meta``). The mesh-composed modes wait (ROADMAP
-queue 1 item 10). ``execute_many`` serves a list of compatible top-k requests
+sidecar, ``session.host_cell_meta``). ``execute_many`` serves a list of compatible top-k requests
 in one pass: a micro-batch (``executor.execute_search_batched``), a
 lone request being a batch of one. ``maxval=None`` over a host corpus is
 ``execute_nomax_host``.
+
+Over a mesh (``DeviceCache.mesh``) the modes compose with the row split,
+and the budget is per device: ``plan`` compares each device's slice
+(1/S of the padded corpus) with it. The int8-resident mode holds 1/S of
+the int8 copy on each device (``session.sharded_int8_solo``) and
+concatenates the shards' phase-A windows (global ids) before the host
+rescore; the stream uploads each chunk row-sharded, S times the
+per-device chunk, so every device scans 1/S of every chunk, and merges
+the shards' candidates (``parallel/search.py``) before the host merge.
 
 Counters (``stats``): ``search.residency_int8``,
 ``search.residency_stream``, ``search.stream_chunks``,
@@ -56,6 +64,8 @@ from fenix_tpu_torch.io import batch as batch_io
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.parallel import mesh as mesh_mod
+from fenix_tpu_torch.parallel import search as psearch
 from fenix_tpu_torch.utils import hbm
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -90,14 +100,19 @@ def plan(cache, req) -> str:
     data = cache.host_table(req.source)
     dim = ingest.vector_field_type(data.schema.field(req.column)).list_size
     n_pad = max(ingest.round_up(data.num_rows, cache.block), cache.block)
+    n_dev = 1
+    if cache.mesh is not None:
+        # the budget is per device: compare each device's slice with it
+        n_pad, _ = mesh_mod.shard_rows(data.num_rows, cache.mesh, cache.block)
+        n_dev = cache.mesh.size
     fp32 = 4 * n_pad * dim
     scan_extra = {"fp32": 0, "bf16": 2 * n_pad * dim, "int8": n_pad * dim}[req.precision]
     avail = _SAFETY * budget
-    if fp32 + scan_extra + 16 * n_pad <= avail:
+    if (fp32 + scan_extra + 16 * n_pad) // n_dev <= avail:
         return DUAL
     # past here dual cannot fit: int8-resident when the int8 copy fits,
     # streaming otherwise
-    if req.maxval is not None and n_pad * dim + 16 * n_pad <= avail:
+    if req.maxval is not None and (n_pad * dim + 16 * n_pad) // n_dev <= avail:
         return INT8
     return STREAM
 
@@ -220,8 +235,13 @@ def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.n
     """(dist [Q, k], ids [Q, k]) via the int8-resident two-phase: device
     phase A window → host gather + exact fp32 rescore."""
     metric = distance_ops.canonical_metric(req.metric)
-    v8, sv = cache.int8_solo(req.source, req.column)
-    aux_mul, aux_add = cache.int8_solo_aux(req.source, req.column, metric)
+    mesh = cache.mesh
+    if mesh is not None:
+        v8, sv = cache.sharded_int8_solo(req.source, req.column)
+        aux_mul, aux_add = cache.sharded_int8_solo_aux(req.source, req.column, metric)
+    else:
+        v8, sv = cache.int8_solo(req.source, req.column)
+        aux_mul, aux_add = cache.int8_solo_aux(req.source, req.column, metric)
     n_pad, rows = v8.rows_padded, v8.rows
 
     mask = _host_mask(cache, req)
@@ -231,14 +251,24 @@ def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.n
         padded = np.zeros(n_pad, bool)
         padded[:rows] = mask
         METRICS.add("filter.host_upload")
-        aux_add = torch.where(torch.from_numpy(padded).to(cache.device), aux_add, distance_ops.NEG_INF)
+        if mesh is not None:
+            aux_add = aux_add.map(lambda a, m: torch.where(m, a, distance_ops.NEG_INF),
+                                  psearch.put_rows(mesh, padded, n_pad))
+        else:
+            aux_add = torch.where(torch.from_numpy(padded).to(cache.device), aux_add, distance_ops.NEG_INF)
 
     w = _request_window(req, n_pad, k_pad)
     t = time.perf_counter()
     queries = torch.tensor(stacked, device=cache.device)
-    win = topk2.topk_window_int8(
-        v8.data, sv.data, queries, aux_mul, aux_add, k=k_pad, w=w, metric=metric
-    ).cpu().numpy()
+    if mesh is not None:
+        # [S, Q, W'] global-id windows → one [Q, S·W'] union, shard-major
+        fn = psearch.build_serving_window_int8(mesh, k_pad, min(w, v8.data.rows_local), metric)
+        wins = fn(v8.data, sv.data, queries, aux_mul, aux_add).cpu().numpy()
+        win = np.concatenate(list(wins), axis=1)
+    else:
+        win = topk2.topk_window_int8(
+            v8.data, sv.data, queries, aux_mul, aux_add, k=k_pad, w=w, metric=metric
+        ).cpu().numpy()
     METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
 
     host = cache.host_matrix(req.source, req.column)
@@ -343,9 +373,14 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
         # the memoized host mirror: quantizing inside every search would
         # cost more than the transfer the int8 mode quarters
         codes, scales = cache.host_int8(req.source, req.column)
+    mesh = cache.mesh
+    n_dev = 1 if mesh is None else mesh.size
+    # the budget is per device: over a mesh a chunk is S per-device chunks,
+    # one on each device
+    chunk_block = cache.block * n_dev
     chunk = min(
-        _stream_chunk_rows(hbm.budget_bytes(cache.device), dim, cache.block, 1 if int8_mode else 4),
-        max(ingest.round_up(rows, cache.block), cache.block),
+        _stream_chunk_rows(hbm.budget_bytes(cache.device), dim, cache.block, 1 if int8_mode else 4) * n_dev,
+        max(ingest.round_up(rows, chunk_block), chunk_block),
     )
     queries = torch.tensor(stacked, device=cache.device)
     qt = stacked.shape[0]
@@ -377,18 +412,31 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
 
     n_chunks = 0
     parts: list = []
-    w_c = max(k_pad, min(_request_window(req, chunk, k_pad), chunk))
-    for i, arrays in enumerate(batch_io.prefetch_to_device(chunks(), cache.device)):
+    w_c = max(k_pad, min(_request_window(req, chunk, k_pad), chunk // n_dev))
+    if mesh is None:
+        placed = batch_io.prefetch_to_device(chunks(), cache.device)
+    else:
+        # each chunk row-sharded, a slice to each device (uploaded in turn)
+        placed = (tuple(psearch.put_rows(mesh, a, chunk) for a in arrays) for arrays in chunks())
+        window = psearch.build_serving_window_int8(mesh, k_pad, w_c, metric)
+        search = psearch.build_serving_search(mesh, min(k_pad, chunk), metric)
+    for i, arrays in enumerate(placed):
         start = i * chunk
         t = time.perf_counter()
         if int8_mode:
             c8, sv_c, mul_c, add_c = arrays
-            win = topk2.topk_window_int8(c8, sv_c, queries, mul_c, add_c, k=k_pad, w=w_c, metric=metric)
-            win = win.cpu().numpy()
+            if mesh is None:
+                win = topk2.topk_window_int8(c8, sv_c, queries, mul_c, add_c, k=k_pad, w=w_c, metric=metric)
+                win = win.cpu().numpy()
+            else:  # [S, Q, W'] → [Q, S·W'], shard-major
+                win = np.concatenate(list(window(c8, sv_c, queries, mul_c, add_c).cpu().numpy()), axis=1)
             parts.append(np.where(win >= 0, win + start, -1))
         else:
             buf, mul_c, add_c = arrays
-            d_c, i_c = topk2.topk_two_phase(buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric)
+            if mesh is None:
+                d_c, i_c = topk2.topk_two_phase(buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric)
+            else:
+                d_c, i_c = search(buf, queries, mul_c, add_c)
             i_c = i_c.cpu().numpy()
             parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1)))
         METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)

@@ -17,8 +17,8 @@ filters: the scalar columns (``scalar``, integers as int32) and
 ``device_filter_mask``, a predicate evaluated on the card and memoized
 per (predicate, revision) in the filter-mask LRU. Joins: the sorted build
 side of a join key column (``sorted_key``). All tensors live on the
-one ``device`` the cache was made for; nothing moves to the CPU when a
-CUDA device was asked for.
+``device`` the cache was made for, or, row-sharded, on its mesh's
+devices; nothing moves to the CPU when a CUDA device was asked for.
 
 Mutations refresh across one recorded hop instead of re-reading the
 corpus: an append grows the fp32 matrix by the delta parts' rows alone
@@ -44,8 +44,21 @@ of the probed host search: ``host_cell_meta``, ``host_clustered_int8``
 with its IVF sidecar, and ``host_clustered_aux``. Entries derived from
 an index memoize under the table stamp plus the index files' mtimes.
 
-The mesh-sharded layouts and their refreshes wait (ROADMAP queue 1 item
-10).
+Meshes (``parallel/mesh.py``): a cache made with a ``mesh`` (``"auto"``,
+the default, is ``serving_mesh()`` for a CUDA cache and no mesh for a
+CPU one) also holds row-sharded entries (``parallel.search.Sharded``,
+every shard a whole number of ``block`` rows, so ``_shard_block`` is
+``block · S`` and a sharded ``N_pad`` differs from the flat one): the
+fp32 matrix (``sharded_matrix``, which an append grows and a delete
+shrinks across one recorded hop, counted as the flat matrix's refreshes
+are), its validity and aux, the scan copies (``matrix_bf16`` /
+``matrix_int8(sharded=True)``), the cell ids, the scalar filter columns
+and device filter masks, the per-shard clustered IVF layout
+(``sharded_clustered_meta`` / ``sharded_clustered`` /
+``sharded_clustered_aux`` / ``sharded_clustered_perm``) and the
+int8-resident copy built without device fp32 (``sharded_int8_solo`` and
+its aux). ``snapshot`` pairs the host table with the sharded matrix
+when a mesh is up.
 """
 
 from __future__ import annotations
@@ -79,6 +92,8 @@ from fenix_tpu_torch.io import arrow, ingest, table
 from fenix_tpu_torch.io.locks import catalog_lock, read_stable
 from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import relational, topk2
+from fenix_tpu_torch.parallel import mesh as mesh_mod
+from fenix_tpu_torch.parallel import search as psearch
 from fenix_tpu_torch.utils import hbm, profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -91,7 +106,7 @@ DEFAULT_BLOCK = 16384
 _MASK_CACHE_LIMIT = 128
 _INT8_UPLOAD_BLOCKS = 32  # blocks per host→device copy of the int8 mirror
 # device entries a new revision refreshes from, instead of dropping them
-_REFRESHED_KINDS = ("matrix", "int8_solo")
+_REFRESHED_KINDS = ("matrix", "int8_solo", "sharded_matrix")
 
 
 class _StaleRevision(Exception):
@@ -234,16 +249,75 @@ def _grown(old: torch.Tensor, delta: np.ndarray, old_rows: int, new_pad: int, fi
     return new
 
 
+def _grown_sharded(old: "psearch.Sharded", delta: np.ndarray, old_rows: int, new_pad: int, fill) -> "psearch.Sharded":
+    """:func:`_grown` of a row-sharded buffer: new ``[new_pad, ...]``
+    shards holding ``old``'s first ``old_rows`` rows (contiguous runs
+    copied between the shards' devices when the capacity grows), then the
+    host rows ``delta`` (the only upload), then ``fill``. The old shards
+    are left as they are."""
+    mesh, l_old = old.mesh, old.rows_local
+    per = new_pad // mesh.size
+    stop = old_rows + delta.shape[0]
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        lo, hi = s * per, (s + 1) * per
+        dst = torch.empty((per, *old.shape[1:]), dtype=old.dtype, device=dev)
+        g = lo
+        while g < min(hi, old_rows):  # old rows, one run per old shard
+            o = g // l_old
+            end = min(hi, old_rows, (o + 1) * l_old)
+            dst[g - lo : end - lo].copy_(old.shards[o][g - o * l_old : end - o * l_old], non_blocking=True)
+            g = end
+        a, b = max(lo, old_rows), min(hi, stop)
+        if a < b:
+            ingest.upload(dst[a - lo : b - lo], delta[a - old_rows : b - old_rows])
+        dst[min(max(stop - lo, 0), per) :].fill_(fill)
+        shards.append(dst)
+    return psearch.Sharded(mesh, shards)
+
+
+def _kept_sharded(old: "psearch.Sharded", idx: np.ndarray, new_pad: int) -> "psearch.Sharded":
+    """The rows ``idx`` (ascending global ids) of a row-sharded buffer,
+    re-placed contiguously as ``[new_pad, ...]`` shards with zero padding
+    rows: each run of kept rows owned by one old shard is gathered on its
+    device (one int64 index upload) and copied to its new shard."""
+    mesh, l_old = old.mesh, old.rows_local
+    per = new_pad // mesh.size
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        dst = torch.zeros((per, *old.shape[1:]), dtype=old.dtype, device=dev)
+        sel = idx[s * per : (s + 1) * per]
+        owner = sel // l_old
+        bounds = np.flatnonzero(np.diff(owner)) + 1  # idx ascends: one run per owner
+        for a, b in zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [sel.size]])):
+            if a == b:
+                continue
+            o = int(owner[a])
+            ix = torch.empty(b - a, dtype=torch.int64, device=mesh.devices[o])
+            ingest.upload(ix, (sel[a:b] - o * l_old).astype(np.int64))
+            dst[a:b].copy_(old.shards[o].index_select(0, ix), non_blocking=True)
+        shards.append(dst)
+    return psearch.Sharded(mesh, shards)
+
+
 class DeviceCache:
     """Per-root cache of host tables and device-resident columns on one
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``) and, with a ``mesh``, row-sharded over
+    its devices."""
 
     def __init__(
-        self, root: str, block: int = DEFAULT_BLOCK, device: "str | torch.device" = "cuda"
+        self,
+        root: str,
+        block: int = DEFAULT_BLOCK,
+        device: "str | torch.device" = "cuda",
+        mesh: "mesh_mod.Mesh | str | None" = "auto",
     ) -> None:
         self.root = root
         self.block = block
         self.device = torch.device(device)
+        # "auto" resolves on first use (serving_mesh counts the cards)
+        self._mesh = mesh
+        self.clustered_builds: int = 0  # clustered layouts built (flat and per shard)
         self._host: dict = {}
         self._device: dict = {}
         # The Flight server dispatches handlers from a thread pool; one
@@ -358,6 +432,8 @@ class DeviceCache:
             nonlocal total
             if isinstance(x, ingest.DeviceColumn):
                 add(x.data)
+            elif isinstance(x, psearch.Sharded):
+                add(x.shards)
             elif isinstance(x, (tuple, list)):
                 for y in x:
                     add(y)
@@ -722,14 +798,15 @@ class DeviceCache:
 
     # -- device columns ---------------------------------------------------
 
-    def scalar(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
+    def scalar(self, source: str | Sequence[str], column: str, *, sharded: bool = False) -> ingest.DeviceColumn:
         """Padded 1-D numeric column on the device (the filter columns):
         integers as int32 (:func:`_require_int32`), float64 as float32,
         bools unpacked from Arrow's bits (the JAX package's zero-copy read
         refuses them, so its bool predicates take the host route), padding
         0 with validity carried by ``rows``. A column with nulls raises
         ``ValueError``: its values have no device form, and the host mask
-        answers for it."""
+        answers for it. With ``sharded=True`` it is row-sharded and padded
+        like :meth:`sharded_matrix`, row-aligned with it."""
         key = _source_key(source)
         stamp = self._mtimes(key)
 
@@ -738,11 +815,15 @@ class DeviceCache:
             if col.null_count:
                 raise ValueError(f"column {column!r} has nulls")
             host = _require_int32(col.to_numpy(), column)
+            if sharded:
+                return psearch.to_sharded_vector(host, self.mesh, self.block)
             return ingest.to_device_vector(host, block=self.block, device=self.device)
 
-        return self._memo(self._device, (key, column, "scalar"), stamp, build)
+        return self._memo(self._device, (key, column, "scalar", sharded), stamp, build)
 
-    def device_filter_mask(self, source: str | Sequence[str], filt) -> "torch.Tensor | None":
+    def device_filter_mask(
+        self, source: str | Sequence[str], filt, *, sharded: bool = False
+    ) -> "torch.Tensor | psearch.Sharded | None":
         """Device ``[N_pad]`` bool mask of a device-evaluable predicate,
         evaluated over the device scalar columns (:meth:`scalar`): a
         filtered search moves no per-request mask to the card, and after
@@ -756,7 +837,7 @@ class DeviceCache:
         ``device_mask_builds``."""
         key = _source_key(source)
         stamp = self._mtimes(key)
-        ckey = (key, "device", filt.to_json())
+        ckey = (key, "device", bool(sharded), filt.to_json())
         with self._lock:
             hit = self._masks.get(ckey)
             if hit is not None and hit[0] == stamp:
@@ -766,16 +847,24 @@ class DeviceCache:
         if not names:
             return None
         try:
-            cols = {name: self.scalar(source, name).data for name in names}
+            cols = {name: self.scalar(source, name, sharded=sharded).data for name in names}
         except (KeyError, ValueError):
             return None
         skeleton, literals = filt.split_literals()
         skeleton, order = _mask_eval_fn(skeleton.to_json())
-        # 0-dim int32 / float32 slots: the literals' types promote as the
-        # JAX package's traced slots do
-        mask = skeleton.device_mask({n: cols[n] for n in order}, [torch.tensor(v) for v in literals])
-        if mask.dtype != torch.bool:
-            mask = mask != 0
+
+        def evaluate(columns: dict) -> torch.Tensor:
+            # 0-dim int32 / float32 slots: the literals' types promote as
+            # the JAX package's traced slots do
+            out = skeleton.device_mask({n: columns[n] for n in order}, [torch.tensor(v) for v in literals])
+            return out if out.dtype == torch.bool else out != 0
+
+        if sharded:  # shard by shard, each over its own rows
+            mask = psearch.Sharded(
+                self.mesh, [evaluate({n: c.shards[s] for n, c in cols.items()}) for s in range(self.mesh.size)]
+            )
+        else:
+            mask = evaluate(cols)
         with self._lock:
             self._masks[ckey] = (stamp, mask)
             self._masks.move_to_end(ckey)
@@ -867,7 +956,7 @@ class DeviceCache:
         )
 
     def _shrink_matrix(
-        self, source: str, column: str, old_stamp, old: ingest.DeviceColumn, new_stamp
+        self, source: str, column: str, old_stamp, old: ingest.DeviceColumn, new_stamp, *, sharded: bool = False
     ) -> "ingest.DeviceColumn | None":
         """The cached matrix refreshed across a delete or compaction by the
         recorded keep-mask lineage (``table.record_lineage``): the kept
@@ -875,8 +964,9 @@ class DeviceCache:
         kept row), padding rows zeroed; a compaction (every row kept)
         reuses the buffer. Parts appended on top of the hop grow it
         (an upsert). None when the lineage is absent, corrupt or not this
-        hop (the caller rebuilds). The mesh-sharded shrink waits with
-        ROADMAP queue 1 item 10."""
+        hop (the caller rebuilds). With ``sharded=True`` the matrix is
+        :meth:`sharded_matrix`'s: the kept rows are re-placed contiguously
+        over the shards (copies between the shards' devices)."""
         lin = table.lineage(self.root, source)
         if lin is None:
             return None
@@ -885,6 +975,10 @@ class DeviceCache:
             return None
         if bool(keep.all()):
             col = old  # a compaction: the same rows under a new base
+        elif sharded:
+            idx = np.flatnonzero(keep)
+            n_pad, _ = mesh_mod.shard_rows(idx.size, self.mesh, self.block)
+            col = ingest.DeviceColumn(data=_kept_sharded(old.data, idx, n_pad), rows=int(idx.size))
         else:
             idx = np.flatnonzero(keep).astype(np.int32)
             new_rows = int(idx.size)
@@ -896,36 +990,45 @@ class DeviceCache:
             col = ingest.DeviceColumn(data=data, rows=new_rows)
         if new_stamp == lin_new:
             return col
-        return self._grow_matrix(source, column, lin_new, col, new_stamp)
+        grow = self._grow_sharded_matrix if sharded else self._grow_matrix
+        return grow(source, column, lin_new, col, new_stamp)
 
-    def matrix_bf16(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
+    def _base_matrix(self, source: str | Sequence[str], column: str, sharded: bool) -> ingest.DeviceColumn:
+        return self.sharded_matrix(source, column) if sharded else self.matrix(source, column)
+
+    def matrix_bf16(self, source: str | Sequence[str], column: str, *, sharded: bool = False) -> ingest.DeviceColumn:
         """bf16 copy of the vector column for half-traffic phase-1 scans
-        (``precision="bf16"``; fp32 stays resident for the rescore)."""
+        (``precision="bf16"``; fp32 stays resident for the rescore); with
+        ``sharded=True`` of the row-sharded matrix, shard by shard."""
         key = _source_key(source)
         stamp = self._mtimes(key)
 
         def build() -> ingest.DeviceColumn:
-            full = self.matrix(source, column)
+            full = self._base_matrix(source, column, sharded)
+            if sharded:
+                return ingest.DeviceColumn(data=psearch.shard_scan_bf16(full.data), rows=full.rows)
             return ingest.DeviceColumn(data=full.data.to(torch.bfloat16), rows=full.rows)
 
-        return self._memo(self._device, (key, column, "matrix_bf16"), stamp, build)
+        return self._memo(self._device, (key, column, "matrix_bf16", sharded), stamp, build)
 
-    def matrix_int8(self, source: str | Sequence[str], column: str):
+    def matrix_int8(self, source: str | Sequence[str], column: str, *, sharded: bool = False):
         """Per-row symmetric int8 copy ``(v8, sv)`` of the vector column
         for quarter-traffic phase-1 scans (``precision="int8"``). Padding
-        rows are zeros and quantize to zeros."""
+        rows are zeros and quantize to zeros. Row-wise, so with
+        ``sharded=True`` each shard quantizes its own rows."""
         key = _source_key(source)
         stamp = self._mtimes(key)
 
         def build():
-            full = self.matrix(source, column)
-            v8, sv = topk2.quantize_corpus_int8(full.data)
+            full = self._base_matrix(source, column, sharded)
+            quantize = psearch.shard_scan_int8 if sharded else topk2.quantize_corpus_int8
+            v8, sv = quantize(full.data)
             return (
                 ingest.DeviceColumn(data=v8, rows=full.rows),
                 ingest.DeviceColumn(data=sv, rows=full.rows),
             )
 
-        return self._memo(self._device, (key, column, "matrix_int8"), stamp, build)
+        return self._memo(self._device, (key, column, "matrix_int8", sharded), stamp, build)
 
     def int8_solo(self, source: str | Sequence[str], column: str):
         """Per-row int8 device copy ``(v8 [N_pad, D], sv [N_pad])`` built
@@ -1130,26 +1233,37 @@ class DeviceCache:
         ]
         return np.concatenate(parts) if len(parts) > 1 else parts[0]
 
-    def _padded_codes(self, coding: str, key: tuple[str, ...], column: str) -> tuple[np.ndarray, int]:
+    def _padded_codes(
+        self, coding: str, key: tuple[str, ...], column: str, sharded: bool = False
+    ) -> tuple[np.ndarray, int]:
         """``([N_pad] int32 cell ids, rows)``: −1 on the padding rows (which
-        never match a probe cell), row-aligned with :meth:`matrix`."""
+        never match a probe cell), row-aligned with :meth:`matrix` (with
+        ``sharded``, with :meth:`sharded_matrix`)."""
         codes = self._host_codes(coding, key, column)
         rows = codes.shape[0]
-        out = np.full(max(ingest.round_up(rows, self.block), self.block), -1, np.int32)
+        if sharded:
+            n_pad, _ = mesh_mod.shard_rows(rows, self.mesh, self.block)
+        else:
+            n_pad = max(ingest.round_up(rows, self.block), self.block)
+        out = np.full(n_pad, -1, np.int32)
         out[:rows] = codes
         return out, rows
 
-    def coded_ids(self, coding: str, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
-        """Padded ``[N_pad]`` int32 cell-id column on the device
-        (padding −1)."""
+    def coded_ids(
+        self, coding: str, source: str | Sequence[str], column: str, *, sharded: bool = False
+    ) -> ingest.DeviceColumn:
+        """Padded ``[N_pad]`` int32 cell-id column on the device (padding
+        −1); with ``sharded=True`` row-sharded like :meth:`sharded_matrix`."""
         key = _source_key(source)
 
         def build() -> ingest.DeviceColumn:
-            codes, rows = self._padded_codes(coding, key, column)
+            codes, rows = self._padded_codes(coding, key, column, sharded)
+            if sharded:
+                return ingest.DeviceColumn(data=psearch.put_rows(self.mesh, codes, codes.shape[0]), rows=rows)
             return ingest.DeviceColumn(data=torch.from_numpy(codes).to(self.device), rows=rows)
 
         return self._memo(
-            self._device, (key, column, "coded", coding), self._coded_stamp(coding, key, column), build
+            self._device, (key, column, "coded", coding, sharded), self._coded_stamp(coding, key, column), build
         )
 
     def clustered_meta(self, coding: str, source: str | Sequence[str], column: str):
@@ -1196,6 +1310,7 @@ class DeviceCache:
         key = _source_key(source)
 
         def build():
+            self.clustered_builds += 1
             full = self.matrix(source, column)
             coded = self.coded_ids(coding, source, column)
             perm, _ = self.clustered_meta(coding, source, column)
@@ -1228,6 +1343,255 @@ class DeviceCache:
             self._coded_stamp(coding, key, column),
             build,
         )
+
+    # -- mesh-sharded entries (multi-device serving) -------------------------
+
+    @property
+    def mesh(self) -> "mesh_mod.Mesh | None":
+        """The mesh this cache shards over, or None for one device. When
+        set, the executor's top-k paths run ``parallel/search.py`` over the
+        row-sharded entries below."""
+        if isinstance(self._mesh, str):  # "auto"
+            self._mesh = mesh_mod.serving_mesh() if self.device.type == "cuda" else None
+        return self._mesh
+
+    @property
+    def _shard_block(self) -> int:
+        # every shard holds a whole number of blocks
+        return self.block * self.mesh.size
+
+    def sharded_matrix(self, source: str | Sequence[str], column: str) -> ingest.DeviceColumn:
+        """Row-sharded ``[N_pad, D]`` fp32 vector column over the mesh: rows
+        split contiguously, so a shard-local index plus the shard's offset
+        is the global row id (padding at the tail). A revision one recorded
+        hop away refreshes as :meth:`matrix` does, counted alike: an append
+        uploads only its rows (``_grow_sharded_matrix``; past the capacity
+        the existing rows move between the shards' devices), a delete or
+        compaction gathers the kept rows (``_shrink_matrix(sharded=True)``).
+        Other revisions rebuild from the host (``to_sharded_matrix``)."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+        ckey = (key, column, "sharded_matrix")
+
+        hit = self._device.get(ckey)
+        if hit is not None and hit[0] == stamp:
+            self._touch(ckey)
+            return hit[1]
+
+        with self._lock:
+            hit = self._device.get(ckey)
+            if hit is not None and hit[0] == stamp:
+                return hit[1]
+            if hit is not None and len(key) == 1:
+                t = time.perf_counter()
+                grown = self._grow_sharded_matrix(key[0], column, hit[0][0], hit[1], stamp[0])
+                refreshed = grown
+                if grown is None:
+                    refreshed = self._shrink_matrix(key[0], column, hit[0][0], hit[1], stamp[0], sharded=True)
+                METRICS.add("cache.refresh_seconds", time.perf_counter() - t)
+                # a compaction in the gap can fold the parts and reuse their
+                # names: a moved stamp rebuilds
+                if refreshed is not None and self._mtimes(key) == stamp:
+                    self._device[ckey] = (stamp, refreshed)
+                    self._touch(ckey)
+                    self._maybe_evict(ckey)
+                    if grown is not None:
+                        self.incremental_refreshes += 1
+                    else:
+                        self.lineage_refreshes += 1
+                    return refreshed
+                del grown, refreshed
+            del hit
+            self._device.pop(ckey, None)  # free the old revision first
+
+            def build() -> ingest.DeviceColumn:
+                data = table.load(self.root, key if len(key) > 1 else key[0])
+                return psearch.to_sharded_matrix(types.typed_column(data, column), self.mesh, self.block)
+
+            value, s1 = read_stable(lambda: self._mtimes(key), build, f"table {source!r}")
+            self._device[ckey] = (s1, value)
+            self._touch(ckey)
+            self._maybe_evict(ckey)
+            return value
+
+    def _grow_sharded_matrix(
+        self, source: str, column: str, old_stamp, old: ingest.DeviceColumn, new_stamp
+    ) -> "ingest.DeviceColumn | None":
+        """:meth:`_grow_matrix` of the row-sharded matrix: only the delta
+        rows are uploaded; the capacity is a cold build's."""
+        delta_names = table.append_delta(old_stamp, new_stamp)
+        if not delta_names:
+            return None
+        try:
+            parts = table.load_parts(self.root, source, delta_names)
+            delta = ingest.vector_matrix(parts, column).astype(np.float32, copy=False)
+        except (FileNotFoundError, KeyError, TypeError):
+            return None  # a raced mutation or a schema change: rebuild
+        new_rows = old.rows + delta.shape[0]
+        cold_pad = max(mesh_mod.shard_rows(new_rows, self.mesh, self.block)[0], old.rows_padded)
+        return ingest.DeviceColumn(
+            data=_grown_sharded(old.data, np.ascontiguousarray(delta), old.rows, cold_pad, 0), rows=new_rows
+        )
+
+    def sharded_validity(self, source: str | Sequence[str], column: str) -> "psearch.Sharded":
+        """Row-sharded bool ``[N_pad]``: the real (non-padding) rows,
+        computed on the devices."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            col = self.sharded_matrix(source, column)
+            per = col.data.rows_local
+            return psearch.Sharded(self.mesh, [
+                torch.arange(s * per, (s + 1) * per, device=dev) < col.rows
+                for s, dev in enumerate(self.mesh.devices)
+            ])
+
+        return self._memo(self._device, (key, column, "sharded_validity"), stamp, build)
+
+    def sharded_aux(self, source: str | Sequence[str], column: str, metric: str):
+        """Row-sharded ``(aux_mul, aux_add)`` (padding rows −inf)."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            col = self.sharded_matrix(source, column)
+            return psearch.shard_aux(col.data, self.sharded_validity(source, column), canonical)
+
+        return self._memo(self._device, (key, column, "sharded_aux", canonical), stamp, build)
+
+    def sharded_clustered_meta(self, coding: str, source: str | Sequence[str], column: str):
+        """Host side of the per-shard clustered IVF layout: each shard's
+        contiguous rows are sorted by cell id on their own (a stable sort,
+        padding last), so a probed cell is one contiguous local range per
+        shard. ``(perm_local [N_pad] int32: the local row of each slot,
+        offsets [S, n_cells + 1] int64: each shard's cell offsets,
+        orig_global [N_pad] int32: each slot's global row id, −1
+        padding)``."""
+        key = _source_key(source)
+
+        def build():
+            codes, _ = self._padded_codes(coding, key, column, sharded=True)
+            n_cells = self._n_cells(coding)
+            n_shards = self.mesh.size
+            n_pad = codes.shape[0]
+            per = n_pad // n_shards
+            intmax = np.iinfo(np.int64).max
+            perm_local = np.empty(n_pad, np.int32)
+            orig_global = np.empty(n_pad, np.int32)
+            offsets = np.empty((n_shards, n_cells + 1), np.int64)
+            for s in range(n_shards):
+                sl = slice(s * per, (s + 1) * per)
+                keys = np.where(codes[sl] >= 0, codes[sl].astype(np.int64), intmax)
+                p = np.argsort(keys, kind="stable").astype(np.int32)
+                perm_local[sl] = p
+                sorted_keys = keys[p]
+                offsets[s] = np.searchsorted(sorted_keys, np.arange(n_cells + 1))
+                orig_global[sl] = np.where(sorted_keys != intmax, s * per + p, -1)
+            return perm_local, offsets, orig_global
+
+        return self._memo(
+            self._host, (key, column, "sharded_clustered_meta", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def sharded_clustered_perm(self, coding: str, source: str | Sequence[str], column: str) -> "psearch.Sharded":
+        """The per-shard clustered layout's local permutation, row-sharded
+        on the devices (int64): a device filter mask follows the rows into
+        each shard's sorted order."""
+        key = _source_key(source)
+
+        def build():
+            perm_local, _, _ = self.sharded_clustered_meta(coding, source, column)
+            return psearch.put_rows(self.mesh, perm_local.astype(np.int64), perm_local.shape[0])
+
+        return self._memo(
+            self._device, (key, column, "sharded_clustered_perm", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def sharded_clustered(self, coding: str, source: str | Sequence[str], column: str):
+        """Device side of the per-shard clustered layout: ``(corpus_sorted,
+        coded_sorted, orig_ids)`` row-sharded DeviceColumns, each shard's
+        rows permuted on its own device (no host copy)."""
+        key = _source_key(source)
+
+        def build():
+            self.clustered_builds += 1
+            full = self.sharded_matrix(source, column)
+            coded = self.coded_ids(coding, source, column, sharded=True)
+            _, _, orig_global = self.sharded_clustered_meta(coding, source, column)
+            perm = self.sharded_clustered_perm(coding, source, column)
+            return (
+                ingest.DeviceColumn(data=psearch.permute_rows_sharded(self.mesh, full.data, perm), rows=full.rows),
+                ingest.DeviceColumn(data=psearch.permute_rows_sharded(self.mesh, coded.data, perm), rows=full.rows),
+                ingest.DeviceColumn(data=psearch.put_rows(self.mesh, orig_global, orig_global.shape[0]), rows=full.rows),
+            )
+
+        return self._memo(
+            self._device, (key, column, "sharded_clustered", coding), self._coded_stamp(coding, key, column), build
+        )
+
+    def sharded_clustered_aux(self, coding: str, source: str | Sequence[str], column: str, metric: str):
+        """``(aux_mul, aux_add)`` in the per-shard sorted order (padding
+        rows −inf)."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+
+        def build():
+            corpus_sorted, _, orig = self.sharded_clustered(coding, source, column)
+            return psearch.shard_aux(corpus_sorted.data, orig.data.map(lambda o: o >= 0), canonical)
+
+        return self._memo(
+            self._device,
+            (key, column, "sharded_clustered_aux", coding, canonical),
+            self._coded_stamp(coding, key, column),
+            build,
+        )
+
+    def sharded_int8_solo(self, source: str | Sequence[str], column: str):
+        """Row-sharded int8 device copy ``(v8 [N_pad, D], sv [N_pad])``
+        uploaded from the host int8 mirror (:meth:`host_int8`) without any
+        fp32 on the devices: the mesh-composed int8-resident mode, each
+        device holding 1/S of the int8 copy. Padding rows are zero codes
+        with scale 1e-30. Every revision uploads the refreshed mirror."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+        ckey = (key, column, "sharded_int8_solo")
+        hit = self._device.get(ckey)
+        if hit is not None and hit[0] == stamp:
+            self._touch(ckey)
+            return hit[1]
+        del hit
+        codes, scales = self.host_int8(source, column)  # built outside the cache lock
+
+        def build():
+            self._device.pop(ckey, None)  # free the old revision first
+            t = time.perf_counter()
+            rows = codes.shape[0]
+            n_pad, _ = mesh_mod.shard_rows(rows, self.mesh, self.block)
+            v8 = psearch.put_rows(self.mesh, codes, n_pad, 0, torch.int8)
+            sv = psearch.put_rows(self.mesh, np.asarray(scales, np.float32), n_pad, 1e-30)
+            METRICS.add("cache.int8_upload_seconds", time.perf_counter() - t)
+            return ingest.DeviceColumn(data=v8, rows=rows), ingest.DeviceColumn(data=sv, rows=rows)
+
+        return self._memo(self._device, ckey, stamp, build)
+
+    def sharded_int8_solo_aux(self, source: str | Sequence[str], column: str, metric: str):
+        """Row-sharded ``(aux_mul, aux_add)`` for the mesh-composed
+        int8-resident scan, uploaded from the host aux; padding rows
+        −inf."""
+        canonical = distance_ops.canonical_metric(metric)
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            mul, add = self.host_aux(source, column, canonical)
+            return (
+                psearch.to_sharded_vector(np.asarray(mul, np.float32), self.mesh, self.block, 1.0).data,
+                psearch.to_sharded_vector(np.asarray(add, np.float32), self.mesh, self.block, distance_ops.NEG_INF).data,
+            )
+
+        return self._memo(self._device, (key, column, "sharded_int8_solo_aux", canonical), stamp, build)
 
     # -- IVF past the budget: cell-sorted host layouts ----------------------
 
@@ -1378,7 +1742,9 @@ class DeviceCache:
             build,
         )
 
-    def snapshot(self, source: str | Sequence[str], column: str, coding: str | None = None):
+    def snapshot(
+        self, source: str | Sequence[str], column: str, coding: str | None = None, sharded: "bool | None" = None
+    ):
         """``(host table, device matrix, revision stamp)`` of ONE table
         revision, retried until stable. Fetching them separately could
         straddle a concurrent re-ingest and gather ids from a different
@@ -1387,12 +1753,16 @@ class DeviceCache:
         part of the stamp. Executors re-check the stamp
         (:meth:`snapshot_stamp`) after fetching the other device entries
         (aux, scan copies, coded ids, clustered layouts), which memoize
-        under their own stamps."""
+        under their own stamps. ``sharded`` (default: whether a mesh is
+        up) takes :meth:`sharded_matrix`."""
+        if sharded is None:
+            sharded = self.mesh is not None
+
         def read():
             data = (
                 self.coded_table(coding, source, column) if coding is not None else self.host_table(source)
             )
-            return data, self.matrix(source, column)
+            return data, self._base_matrix(source, column, sharded)
 
         with profiling.annotate("fenix.snapshot"):
             (data, matrix), stamp = read_stable(

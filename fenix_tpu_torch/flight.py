@@ -37,7 +37,8 @@ mutation refresh the device cache across the hop (``stats``:
 ``cache.incremental_refreshes``, ``cache.lineage_refreshes``).
 
 ``repartition`` hash-partitions a table into shard tables
-(``parallel/distributed.py``); every verb resolves a repartitioned name
+(``parallel/distributed.py``; by default one per mesh device, else 2);
+every verb resolves a repartitioned name
 to its shards (append and upsert refuse one), and ``drop-table`` and an
 overwrite put remove them. ``fault-inject`` arms failure points when the
 server runs with ``FENIX_ENABLE_FAULT_INJECTION=1``.
@@ -268,7 +269,7 @@ class Server(fl.FlightServerBase):
             case "make-coder":
                 config["source"] = distributed.resolve_source(self.root, config["source"])
                 with METRICS.timed("make-coder", coder=config.get("name")):
-                    coder_mod.make(self.root, **config, device=self.device)
+                    coder_mod.make(self.root, **config, device=self.device, mesh=self.cache.mesh)
                 return iter([])
 
             case "make-index":
@@ -295,10 +296,11 @@ class Server(fl.FlightServerBase):
 
             case "repartition":
                 name = config["source"]
-                num_shards = int(config.get("num_shards") or 2)
+                mesh = self.cache.mesh
+                num_shards = int(config.get("num_shards") or (mesh.size if mesh is not None else 2))
                 with METRICS.timed("repartition", table=name, shards=num_shards):
                     manifest = distributed.repartition(
-                        self.root, name, num_shards, key_column=config.get("key", "id")
+                        self.root, name, num_shards, key_column=config.get("key", "id"), mesh=mesh
                     )
                 self.cache.invalidate()
                 return iter([fl.Result(manifest.to_json().encode())])
@@ -328,7 +330,7 @@ class Server(fl.FlightServerBase):
                 snap["cache.lineage_refreshes"] = float(self.cache.lineage_refreshes)
                 for kind, count in self.cache.device_entry_kinds().items():
                     snap[f"cache.device_entries.{kind}"] = float(count)
-                for name, count in kernels.LAUNCHES.items():
+                for name, count in [*kernels.LAUNCHES.items(), *kernels.DEVICE_LAUNCHES.items()]:
                     snap[f"kernel.{name}.launches"] = float(count)
                 if self.cache.device.type == "cuda":
                     snap["device.max_memory_allocated"] = float(torch.cuda.max_memory_allocated(self.cache.device))

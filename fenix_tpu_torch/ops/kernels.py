@@ -68,6 +68,10 @@ LAUNCHES: dict[str, int] = {
     "bucket_scores.kernel.tensor_int8": 0,
 }
 
+# The same launches per card: "bucket_scores.kernel.<design>.cuda<index>",
+# one entry per (design, card) that launched (a mesh launches on each).
+DEVICE_LAUNCHES: dict[str, int] = {}
+
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
 _KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3}
 _INT8_DESIGNS = ("tensor_int8", "generic_int8")
@@ -293,6 +297,8 @@ def bucket_scores(
     with _COUNT_LOCK:
         LAUNCHES[f"bucket_scores.{route}"] += 1
         LAUNCHES[f"bucket_scores.kernel.{design}"] += 1
+        per_card = f"bucket_scores.kernel.{design}.cuda{device.index}"
+        DEVICE_LAUNCHES[per_card] = DEVICE_LAUNCHES.get(per_card, 0) + 1
         if route == "f32" and bucket == 128:
             LAUNCHES["bucket_scores.f32.bucket128"] += 1
     return out

@@ -23,8 +23,14 @@ in fp32, bf16 or int8 transport, the Lloyd math in fp32; its draws are
 numpy's (``default_rng``), as in the JAX package's, so a seed gives that
 function's coder.
 
-Not ported yet (ROADMAP queue 1 item 10): ``train_sharded``,
-``sharded_lloyd_step``.
+``train_sharded`` trains over a row-sharded corpus on a mesh
+(``parallel/mesh.py``): every shard samples its own rows with
+replacement, each step's weighted segment sums and counts are added on
+the mesh's first device in shard order (the JAX package's ``psum``), and
+the draws are the JAX package's for the seed and shard count
+(``threefry.choice`` for the initial rows, ``fold_in`` per shard,
+``randint`` per step). Not ported (ROADMAP queue 1 item 10 (c)):
+``sharded_lloyd_step``, which only the JAX package's tests call.
 """
 
 from __future__ import annotations
@@ -44,6 +50,38 @@ from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 _DRAW_THREADS = 4  # permutations drawn at once
 
 
+def _lloyd_sums(
+    codebooks: torch.Tensor,  # [n, K, D]
+    batch: torch.Tensor,  # [n, B, D]
+    metric: str,
+    weight: "torch.Tensor | None" = None,  # 0-dim f32: every sample's weight
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The statistics of one Lloyd step: ``(codebooks as compared —
+    normalized for cosine —, per-centroid sums [n, K, D] and counts [n, K]
+    of the (weighted) samples assigned to each, the assignment [n, B])``."""
+    if metric == "cosine":
+        codebooks = normalize(codebooks)
+        batch = normalize(batch)
+    n, k, d = codebooks.shape
+    assign = torch.argmin(pairwise_distance(batch, codebooks, metric), dim=-1)  # [n, B]
+    segment = (assign + k * torch.arange(n, device=assign.device)[:, None]).reshape(-1)
+    values = batch.reshape(-1, d)
+    ones = torch.ones_like(segment, dtype=batch.dtype)
+    if weight is not None:
+        values, ones = values * weight, ones * weight
+    sums = torch.zeros((n * k, d), dtype=batch.dtype, device=batch.device)
+    sums.index_add_(0, segment, values)
+    counts = torch.zeros(n * k, dtype=batch.dtype, device=batch.device)
+    counts.index_add_(0, segment, ones)
+    return codebooks, sums.view(n, k, d), counts.view(n, k), assign
+
+
+def _lloyd_update(codebooks: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor, metric: str) -> torch.Tensor:
+    """The mean of each old centroid and its samples."""
+    new = (codebooks + sums) / (1.0 + counts[..., None])
+    return normalize(new) if metric == "cosine" else new
+
+
 def lloyd_step_assign(
     codebooks: torch.Tensor,  # [n, K, D]
     batch: torch.Tensor,  # [n, B, D]
@@ -52,20 +90,8 @@ def lloyd_step_assign(
     """One Lloyd step per codebook: ``(new codebooks [n, K, D], the
     assignment [n, B] it made)``."""
     metric = canonical_metric(metric)
-    if metric == "cosine":
-        codebooks = normalize(codebooks)
-        batch = normalize(batch)
-    n, k, d = codebooks.shape
-    assign = torch.argmin(pairwise_distance(batch, codebooks, metric), dim=-1)  # [n, B]
-    segment = (assign + k * torch.arange(n, device=assign.device)[:, None]).reshape(-1)
-    sums = torch.zeros((n * k, d), dtype=batch.dtype, device=batch.device)
-    sums.index_add_(0, segment, batch.reshape(-1, d))
-    counts = torch.zeros(n * k, dtype=batch.dtype, device=batch.device)
-    counts.index_add_(0, segment, torch.ones_like(segment, dtype=batch.dtype))
-    new = (codebooks + sums.view(n, k, d)) / (1.0 + counts.view(n, k, 1))
-    if metric == "cosine":
-        new = normalize(new)
-    return new, assign
+    codebooks, sums, counts, assign = _lloyd_sums(codebooks, batch, metric)
+    return _lloyd_update(codebooks, sums, counts, metric), assign
 
 
 def lloyd_step(codebooks: torch.Tensor, batch: torch.Tensor, metric: str) -> torch.Tensor:
@@ -135,6 +161,80 @@ def train(
         idx = idx.to(corpus.device)
         for step in range(idx.shape[0]):
             codebooks = lloyd_step(codebooks, corpus[idx[step]], metric)
+    return codebooks
+
+
+def train_sharded(
+    mesh,  # parallel.mesh.Mesh
+    corpus,  # parallel.search.Sharded [N_pad, D] f32, padding zeros at the global tail
+    rows: int,  # valid rows
+    seed: int,
+    *,
+    num_codebooks: int,
+    codebook_size: int,
+    batch_size: int,
+    num_epochs: int,
+    metric: str,
+) -> torch.Tensor:  # [num_codebooks, codebook_size, D] on the mesh's first device
+    """Multi-codebook training over a row-sharded corpus, data-parallel
+    over its shards: the JAX package's ``train_sharded``, draw for draw.
+
+    The initial rows are ``choice(replace=False)`` of one unfolded key,
+    gathered from the shards that own them. Each step, every shard draws
+    ``ceil(batch_size / S)`` of its own valid rows with replacement
+    (``randint`` under ``fold_in(sample_key, shard)``, split per epoch and
+    step) and weighs its statistics by ``valid_rows / rows · batch_size /
+    b_local``, so every row's expected mass is ``batch_size / rows`` and
+    empty shards weigh 0; the shards' sums and counts are added on the
+    first device in shard order, so the result does not depend on the
+    devices' timing, and each codebook update is the single update on the
+    union batch. ``steps = max(rows // (num_codebooks · batch_size), 1)``
+    per epoch."""
+    metric_c = canonical_metric(metric)
+    n_shards = mesh.size
+    dim = corpus.shape[1]
+    per = corpus.rows_local
+    b_local = -(-batch_size // n_shards)
+    steps = max(rows // (num_codebooks * batch_size), 1)
+    dev0 = mesh.devices[0]
+
+    _, init_key, sample_key = threefry.split(threefry.prng_key(seed), 3)
+    init_rows = threefry.choice(init_key, rows, codebook_size * num_codebooks)
+    init = torch.empty((init_rows.shape[0], dim), dtype=torch.float32, device=dev0)
+    owner = init_rows // per
+    for o in np.unique(owner):
+        pos = np.flatnonzero(owner == o)
+        local = torch.from_numpy(init_rows[pos] - o * per).to(mesh.devices[o])
+        init[torch.from_numpy(pos).to(dev0)] = corpus.shards[o][local].to(dev0)
+    codebooks = init.view(num_codebooks, codebook_size, dim)
+
+    # per shard: its sample weight and, per epoch, its [steps, n, b_local] rows
+    weights, draws = [], []
+    for s in range(n_shards):
+        valid = min(max(rows - s * per, 0), per)
+        weights.append(torch.tensor(np.float32(np.float32(valid) / np.float32(rows)) * np.float32(batch_size / b_local),
+                                    device=mesh.devices[s]))
+        epochs = threefry.split(threefry.fold_in(sample_key, s), num_epochs) if num_epochs else []
+        draws.append([
+            torch.from_numpy(np.stack([
+                threefry.randint(key, (num_codebooks, b_local), 0, max(valid, 1))
+                for key in threefry.split(ekey, steps)
+            ]).astype(np.int64)).to(mesh.devices[s])
+            for ekey in epochs
+        ])
+
+    for epoch in range(num_epochs):
+        for step in range(steps):
+            total_sums = total_counts = None
+            for s, dev in enumerate(mesh.devices):
+                idx = draws[s][epoch][step]  # [n, b_local]
+                sample = corpus.shards[s][idx.reshape(-1)].view(num_codebooks, b_local, dim)
+                _, sums, counts, _ = _lloyd_sums(codebooks.to(dev), sample, metric_c, weights[s])
+                sums, counts = sums.to(dev0), counts.to(dev0)
+                total_sums = sums if total_sums is None else total_sums + sums
+                total_counts = counts if total_counts is None else total_counts + counts
+            base = normalize(codebooks) if metric_c == "cosine" else codebooks
+            codebooks = _lloyd_update(base, total_sums, total_counts, metric_c)
     return codebooks
 
 

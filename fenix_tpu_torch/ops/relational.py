@@ -21,7 +21,7 @@ sum over 6-bit int32 limbs only because JAX runs with x64 off, and a CUDA
 card adds int64 natively. The results are the same exact int64.
 
 ``hash_partition`` serves the multi-device shuffle and waits for it
-(ROADMAP queue 1 item 10).
+(ROADMAP queue 1 item 10 (c)).
 """
 
 from __future__ import annotations

@@ -1,2 +1,4 @@
-"""Sharded tables: the host half of ``fenix_tpu/parallel`` (repartitioned
-names). The device meshes wait for ROADMAP queue 1 item 10."""
+"""Multi-device execution: meshes of devices in one process
+(``mesh.py``), the row-sharded searches over them (``search.py``) and
+repartitioned tables, the host half of ``fenix_tpu/parallel``
+(``distributed.py``)."""

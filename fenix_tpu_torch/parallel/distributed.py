@@ -12,8 +12,9 @@ Ported: ``ShardManifest``, ``manifest_path``, ``load_manifest``,
 ``resolve_source``, ``drop_repartition`` and ``repartition`` through the
 host hash (``native.hash_partition``, the engine's hash, so the
 placement is the JAX package's whatever route it took). The device
-shuffle (``_device_shuffle_ids``, all_to_all over a mesh) and the
-cluster bootstrap wait for the multi-GPU port (ROADMAP queue 1 item 10).
+shuffle (``_device_shuffle_ids``, all_to_all over a mesh of as many
+devices as shards) raises ``NotImplementedError`` (ROADMAP queue 1 item
+10 (c)); multi-host bootstrap is its own later item.
 """
 
 from __future__ import annotations
@@ -92,10 +93,18 @@ def drop_repartition(root: str, table_name: str) -> bool:
     return True
 
 
-def repartition(root: str, table_name: str, num_shards: int, key_column: str = "id") -> ShardManifest:
+def repartition(
+    root: str, table_name: str, num_shards: int, key_column: str = "id", mesh=None
+) -> ShardManifest:
     """Hash-partition a catalog table on ``key_column`` into
     ``<t>@<shard>`` tables (rows keep their order within a shard), write
-    the manifest, and retire the original name and its indexes."""
+    the manifest, and retire the original name and its indexes. With a
+    ``mesh`` of ``num_shards`` devices the JAX package shuffles on the
+    devices; that route is not ported and raises."""
+    if mesh is not None and mesh.size == num_shards:
+        raise NotImplementedError(
+            "repartition's device shuffle over a mesh is not ported (ROADMAP queue 1 item 10 (c))"
+        )
     with catalog_lock(root):
         data = table_mod.load(root, table_name)
         keys = np.asarray(data.column(key_column)).astype(np.int64)

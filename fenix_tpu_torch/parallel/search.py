@@ -1,0 +1,435 @@
+"""Row-sharded kNN search with a candidate merge — port of
+``fenix_tpu/parallel/search.py`` (all but the dim-sharded search).
+
+The corpus rows split contiguously over a mesh (``parallel/mesh.py``):
+a :class:`Sharded` array holds one tensor per shard, each on its shard's
+device. Every shard runs the single-device two-phase search
+(``ops/topk2.py``, its phase 1 the hand-written kernels) over its own
+rows, with the bf16 / int8 scan copies sharded alike; then only the
+``[Q, k]`` (distance, global id) candidates of each shard cross to the
+mesh's first device, never rows. Where the JAX package has collectives
+the port copies between devices (``tensor.to(other, non_blocking=True)``):
+
+- the ``all_gather`` merge (:func:`merge_candidates`): the shards'
+  candidates concatenated shard-major, then the top-k by (distance asc,
+  id asc);
+- the ring (:func:`build_ring_search`): the queries split into S blocks,
+  block ``b`` starting on shard ``b``; in each of S steps every shard
+  searches the block it holds, merges the result into the block's carry,
+  and the block with its carry moves to the next shard's device. After S
+  steps each block is home with its global top-k. The ring runs over the
+  flattened ``(data, model)`` shard order, so ``model_parallel > 1``
+  extends it.
+
+Tie contract: shards own ascending contiguous id ranges and each shard's
+candidates come (distance, id)-ordered, so the shard-major concatenation
+lists tied candidates in id order. Both merges nevertheless sort by id
+and then, stably, by distance (:func:`topk_dist_id`), so a tie resolves
+to the smallest global id whatever order the candidates arrive in (the
+ring merges its carry, from other shards, before the new candidates),
+as the JAX package's ``topk_values_min_id`` does.
+
+On distinct cards the shards' searches are enqueued from one thread per
+card (``Mesh.map``), since a selection ends in a host read; the merges
+and the ring's exchanges are small copies and ops on the first device.
+
+Not ported (ROADMAP queue 1 item 10): ``build_dim_sharded_search`` and
+``shard_corpus_dim`` raise (item 10 (b): no engine route reaches them);
+``gather_rowsharded`` is absent (item 10 (c): only the mesh analytics
+use it).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.parallel.mesh import Mesh, shard_rows
+
+_PRECISIONS = ("fp32", "bf16", "int8")
+
+
+class Sharded:
+    """A row-sharded device array: ``shards[s]`` holds the global rows
+    ``[s·L, (s+1)·L)`` on ``mesh.devices[s]``, ``L = rows_local``."""
+
+    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]) -> None:
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+        self.mesh = mesh
+        self.shards = list(shards)
+
+    @property
+    def rows_local(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (self.rows_local * self.mesh.size, *self.shards[0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
+        """``fn`` applied shard by shard (to this array's shard and the
+        same shard of each of ``others``): row-wise work, enqueued in turn
+        (none of it waits on the device)."""
+        return Sharded(self.mesh, [fn(x, *(o.shards[s] for o in others)) for s, x in enumerate(self.shards)])
+
+    def gather(self, device: "torch.device | None" = None) -> torch.Tensor:
+        """The whole array on ``device`` (default: the mesh's first)."""
+        device = self.mesh.devices[0] if device is None else device
+        return torch.cat([x.to(device, non_blocking=True) for x in self.shards])
+
+
+def put_rows(mesh: Mesh, parts: "np.ndarray | Sequence[np.ndarray]", n_pad: int, fill=0,
+             dtype: "torch.dtype | None" = None) -> Sharded:
+    """Host rows (one array, or row blocks in order) placed row-sharded
+    as ``[n_pad, ...]``: each shard's slice uploads to its device
+    (``ingest.upload``, counted in ``transfer.h2d_bytes``), the padding
+    tail is ``fill``. No padded host copy is made."""
+    if isinstance(parts, np.ndarray):
+        parts = [parts]
+    parts = [np.ascontiguousarray(p) for p in parts]
+    if dtype is None:
+        src = parts[0].dtype if parts else np.dtype(np.float32)
+        dtype = torch.float32 if src == np.float64 else ingest.host_tensor(np.empty(0, src)).dtype
+    inner = parts[0].shape[1:] if parts else ()
+    per = n_pad // mesh.size
+    shards = [torch.empty((per, *inner), dtype=dtype, device=dev) for dev in mesh.devices]
+    start = 0
+    for part in parts:
+        stop = start + part.shape[0]
+        for s in range(start // per, -(-stop // per)):
+            lo, hi = max(start, s * per), min(stop, (s + 1) * per)
+            if lo < hi:
+                ingest.upload(shards[s][lo - s * per : hi - s * per], part[lo - start : hi - start])
+        start = stop
+    for s, shard in enumerate(shards):
+        shard[min(max(start - s * per, 0), per) :].fill_(fill)
+    return Sharded(mesh, shards)
+
+
+def to_sharded_matrix(array, mesh: Mesh, block: int) -> ingest.DeviceColumn:
+    """A vector column (Arrow, or a host ``[N, D]`` matrix) as a
+    row-sharded f32 :class:`Sharded` ``[N_pad, D]`` (``shard_rows``
+    padding, zero rows), each Arrow chunk read through its zero-copy view
+    (a quint8 column dequantized on the host): the sharded
+    ``ingest.to_device_matrix``."""
+    if isinstance(array, np.ndarray):
+        parts = [array]
+    else:
+        chunks = array.chunks if hasattr(array, "chunks") else [array]
+        parts = [ingest.fixed_size_list_to_numpy(c) for c in chunks if len(c)]
+    rows = sum(p.shape[0] for p in parts)
+    n_pad, _ = shard_rows(rows, mesh, block)
+    if not parts:
+        width = array.type.list_size if not isinstance(array, np.ndarray) else array.shape[1]
+        parts = [np.zeros((0, width), np.float32)]
+    return ingest.DeviceColumn(data=put_rows(mesh, parts, n_pad, 0, torch.float32), rows=rows)
+
+
+def to_sharded_vector(host: np.ndarray, mesh: Mesh, block: int, fill=0) -> ingest.DeviceColumn:
+    """A 1-D host column row-sharded and padded like
+    :func:`to_sharded_matrix` (``fill`` in the tail; float64 as
+    float32)."""
+    n_pad, _ = shard_rows(host.shape[0], mesh, block)
+    return ingest.DeviceColumn(data=put_rows(mesh, host, n_pad, fill), rows=host.shape[0])
+
+
+def replicate(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
+    """``x`` on every shard's device (one copy per distinct device)."""
+    copies: dict = {}
+    return [copies.setdefault(dev, x.to(dev, non_blocking=True)) for dev in mesh.devices]
+
+
+def shard_corpus(mesh: Mesh, corpus: np.ndarray, mask: "np.ndarray | None" = None,
+                 block: int = 8192) -> tuple[Sharded, Sharded]:
+    """A host ``[N, D]`` matrix placed row-sharded, padded so that every
+    shard holds a whole number of ``block``-row blocks, and its row
+    validity (``mask`` on the real rows, False on the padding)."""
+    n = corpus.shape[0]
+    n_pad, _ = shard_rows(n, mesh, block)
+    valid = np.ones(n, bool) if mask is None else np.asarray(mask, bool)
+    return put_rows(mesh, corpus, n_pad, 0), put_rows(mesh, valid, n_pad, False)
+
+
+def shard_aux(corpus: Sharded, mask: "Sharded | None", metric: str) -> tuple[Sharded, Sharded]:
+    """Row-sharded ``(aux_mul, aux_add)`` of the fused score
+    (``topk2.prepare_aux`` shard by shard; masked rows −inf)."""
+    pairs = [
+        topk2.prepare_aux(x, None if mask is None else mask.shards[s], metric)
+        for s, x in enumerate(corpus.shards)
+    ]
+    return Sharded(corpus.mesh, [p[0] for p in pairs]), Sharded(corpus.mesh, [p[1] for p in pairs])
+
+
+def shard_scan_int8(corpus: Sharded) -> tuple[Sharded, Sharded]:
+    """Row-sharded int8 scan copy ``(v8, sv)`` (per-row quantization)."""
+    pairs = [topk2.quantize_corpus_int8(x) for x in corpus.shards]
+    return Sharded(corpus.mesh, [p[0] for p in pairs]), Sharded(corpus.mesh, [p[1] for p in pairs])
+
+
+def shard_scan_bf16(corpus: Sharded) -> Sharded:
+    """Row-sharded bf16 scan copy."""
+    return corpus.map(lambda x: x.to(torch.bfloat16))
+
+
+def permute_rows_sharded(mesh: Mesh, x: Sharded, perm_local: Sharded) -> Sharded:
+    """Shard-local row permutation ``out[s·L + i] = x[s·L + perm[s·L + i]]``
+    (``perm_local`` holds local indices): a gather on each shard's
+    device, no copy through the host."""
+    return x.map(lambda a, p: a[p.long()], perm_local)
+
+
+# -- the merges -------------------------------------------------------------
+
+
+def topk_dist_id(dist: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of ``[Q, W]`` candidates by (distance asc, id asc),
+    whatever their order: a stable sort by id, then a stable sort by
+    distance. Infinite distances and −1 ids are no candidate; the result
+    is padded with (+inf, −1) to ``k`` columns."""
+    dead = torch.isinf(dist) | (ids < 0)
+    dist = dist.masked_fill(dead, torch.inf)
+    ids = ids.masked_fill(dead, -1)
+    big = torch.iinfo(ids.dtype).max
+    by_id = torch.sort(ids.masked_fill(dead, big), dim=1, stable=True).indices
+    dist, ids = dist.gather(1, by_id), ids.gather(1, by_id)
+    order = torch.sort(dist, dim=1, stable=True).indices[:, :k]
+    dist, ids = dist.gather(1, order), ids.gather(1, order)
+    if dist.shape[1] < k:
+        q, pad = dist.shape[0], k - dist.shape[1]
+        dist = torch.cat([dist, dist.new_full((q, pad), torch.inf)], dim=1)
+        ids = torch.cat([ids, ids.new_full((q, pad), -1)], dim=1)
+    return dist, ids
+
+
+def merge_candidates(mesh: Mesh, dists: Sequence[torch.Tensor], gids: Sequence[torch.Tensor],
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global top-``k`` ``(dist [Q, k], ids [Q, k])`` on the mesh's
+    first device from each shard's ``[Q, k_s]`` candidates, whose ids are
+    already global: the ``all_gather`` of the JAX package, shard-major."""
+    dev = mesh.devices[0]
+    dist = torch.cat([d.to(dev, non_blocking=True) for d in dists], dim=1)
+    ids = torch.cat([i.to(dev, non_blocking=True).long() for i in gids], dim=1)
+    return topk_dist_id(dist, ids, k)
+
+
+def _to_global(ids: torch.Tensor, offset: int) -> torch.Tensor:
+    return torch.where(ids >= 0, ids + offset, -1)
+
+
+def _split_rest(rest: tuple, with_aux: bool, precision: str, probed: bool):
+    """The optional arguments of a search step, in the JAX package's
+    order: aux pair, scan copies, then ``(coded, cells)``."""
+    aux = None
+    if with_aux:
+        aux, rest = (rest[0], rest[1]), rest[2:]
+    scan = None
+    if precision == "bf16":
+        scan, rest = ("bf16", rest[0]), rest[1:]
+    elif precision == "int8":
+        scan, rest = ("int8", (rest[0], rest[1])), rest[2:]
+    probe = (rest[0], rest[1]) if probed else None
+    return aux, scan, probe
+
+
+def _scan_kw(scan, s: int) -> dict:
+    if scan is None:
+        return {}
+    if scan[0] == "bf16":
+        return {"corpus_scan": scan[1].shards[s]}
+    v8, sv = scan[1]
+    return {"corpus_scan_int8": (v8.shards[s], sv.shards[s])}
+
+
+def _local_topk(corpus: Sharded, s: int, queries: torch.Tensor, mul, add, k: int, metric: str,
+                scan, coded: "Sharded | None", cells: "torch.Tensor | None"):
+    """Shard ``s``'s top-``min(k, L)`` of ``queries`` (on its device),
+    global ids."""
+    local = corpus.shards[s]
+    kk = min(k, local.shape[0])
+    if coded is not None:
+        d, i = topk2.topk_two_phase_probed(
+            local, queries, mul, add, coded.shards[s], cells, k=kk, metric=metric, **_scan_kw(scan, s)
+        )
+    else:
+        d, i = topk2.topk_two_phase(local, queries, mul, add, k=kk, metric=metric, **_scan_kw(scan, s))
+    return d, _to_global(i, s * corpus.rows_local)
+
+
+def _build(mesh: Mesh, k: int, metric: str, probed: bool, with_aux: bool = False, precision: str = "fp32"):
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+
+    def local_search(corpus: Sharded, queries: torch.Tensor, mask: "Sharded | None", *rest):
+        aux, scan, probe = _split_rest(rest, with_aux, precision, probed)
+        if aux is None:  # inline aux: one extra pass over each shard per call
+            aux = shard_aux(corpus, mask, metric)
+        q_s = replicate(mesh, queries)
+        c_s = replicate(mesh, probe[1]) if probe is not None else [None] * mesh.size
+
+        def run(s: int):
+            return _local_topk(corpus, s, q_s[s], aux[0].shards[s], aux[1].shards[s], k, metric, scan,
+                               probe[0] if probe is not None else None, c_s[s])
+
+        parts = mesh.map(run)
+        return merge_candidates(mesh, [p[0] for p in parts], [p[1] for p in parts], k)
+
+    return local_search
+
+
+def build_sharded_search(mesh: Mesh, k: int, metric: str, block: "int | None" = None,
+                         with_aux: bool = False, precision: str = "fp32"):
+    """A sharded exact top-k step: ``fn(corpus, queries, mask[, aux_mul,
+    aux_add][, scan copies]) -> (dist [Q, k], ids [Q, k])`` on the mesh's
+    first device, with ``corpus`` and ``mask`` :class:`Sharded` (from
+    :func:`shard_corpus`) and ``queries`` a tensor. ``with_aux`` takes
+    row-sharded aux (:func:`shard_aux`) instead of computing it per call;
+    ``precision`` "bf16" appends a :func:`shard_scan_bf16` copy, "int8" a
+    :func:`shard_scan_int8` pair. Each shard rescores against its fp32
+    rows, so distances are fp32-exact. ``block`` is the JAX signature's,
+    unused."""
+    return _build(mesh, k, metric, probed=False, with_aux=with_aux, precision=precision)
+
+
+def build_sharded_search_probed(mesh: Mesh, k: int, metric: str, block: "int | None" = None):
+    """Sharded IVF search: ``fn(corpus, queries, mask, coded, cells) ->
+    (dist, ids)`` with ``coded`` the row-sharded cell ids and ``cells``
+    the ``[Q, P]`` probe cells; each shard scans only rows of its
+    queries' probe cells."""
+    return _build(mesh, k, metric, probed=True)
+
+
+def build_serving_search(mesh: Mesh, k: int, metric: str, probed: bool = False, precision: str = "fp32"):
+    """The sharded step as the engine dispatches it: ``fn(corpus, queries,
+    aux_mul, aux_add[, scan copies][, coded, cells]) -> (dist, ids)``,
+    the cached row-sharded aux carrying padding and filters."""
+    raw = _build(mesh, k, metric, probed=probed, with_aux=True, precision=precision)
+
+    def serving(corpus: Sharded, queries: torch.Tensor, *rest):
+        return raw(corpus, queries, None, *rest)
+
+    return serving
+
+
+def build_serving_window_int8(mesh: Mesh, k: int, w: int, metric: str):
+    """Sharded phase A of the int8-resident and int8-stream modes:
+    ``fn(v8, sv, queries, aux_mul, aux_add) -> [S, Q, W']`` global row
+    ids on the mesh's first device, each shard's top-``W'`` window of its
+    rows (``topk2.topk_window_int8`` at ``min(k, L)``, ``min(w, L)``).
+    The host concatenates the windows shard-major and rescores them
+    exactly; a window may hold masked or padding rows, which the host
+    rescore drops."""
+
+    def window(v8: Sharded, sv: Sharded, queries: torch.Tensor, mul: Sharded, add: Sharded) -> torch.Tensor:
+        L = v8.rows_local
+        q_s = replicate(mesh, queries)
+
+        def run(s: int):
+            ids = topk2.topk_window_int8(
+                v8.shards[s], sv.shards[s], q_s[s], mul.shards[s], add.shards[s],
+                k=min(k, L), w=min(w, L), metric=metric,
+            )
+            return _to_global(ids, s * L)
+
+        dev = mesh.devices[0]
+        return torch.stack([x.to(dev, non_blocking=True) for x in mesh.map(run)])
+
+    return window
+
+
+def build_serving_ivf_clustered(mesh: Mesh, k: int, metric: str):
+    """Sharded IVF over per-shard clustered layouts (each shard's rows
+    sorted by cell id): ``fn(corpus_s, queries, aux_mul_s, aux_add_s,
+    coded_s, orig_ids_s, cells, bucket_lists) -> (dist, ids)``, where
+    ``bucket_lists`` is ``[S, Q, B]`` with shard ``s``'s buckets (in its
+    local bucket space) in row ``s``. Every shard gathers only its own
+    probed buckets; ``topk2.topk_ivf_clustered`` returns original global
+    ids, which merge as they are."""
+
+    def ivf(corpus_s: Sharded, queries, mul, add, coded_s: Sharded, orig: Sharded, cells, bucket_lists):
+        kk = min(k, corpus_s.rows_local)
+        q_s, c_s = replicate(mesh, queries), replicate(mesh, cells)
+
+        def run(s: int):
+            dev = mesh.devices[s]
+            return topk2.topk_ivf_clustered(
+                corpus_s.shards[s], q_s[s], mul.shards[s], add.shards[s], coded_s.shards[s],
+                orig.shards[s], c_s[s], bucket_lists[s].to(dev, non_blocking=True), k=kk, metric=metric,
+            )
+
+        parts = mesh.map(run)
+        return merge_candidates(mesh, [p[0] for p in parts], [p[1] for p in parts], k)
+
+    return ivf
+
+
+def build_ring_search(mesh: Mesh, k: int, metric: str, precision: str = "fp32", probed: bool = False):
+    """The ring top-k: ``fn(corpus, queries, aux_mul, aux_add[, scan
+    copies][, coded, cells]) -> (dist [Q, k], ids [Q, k])`` on the mesh's
+    first device, ``Q`` a multiple of the shard count (the executor pads
+    it with zero queries). Block ``b`` of the queries (and, probed, of
+    their probe cells) starts on shard ``b``; in step ``t`` shard ``s``
+    holds block ``(s − t) mod S``, issues that block's copy to the next
+    shard's device, searches it over its own rows and merges the result
+    into the block's ``[Q/S, k]`` carry (:func:`topk_dist_id`: ties to the
+    smallest global id, whatever the arrival order), and the carry
+    follows the block. The same answer as the ``all_gather`` merge."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    n = mesh.size
+    devices = mesh.devices
+
+    def ring(corpus: Sharded, queries: torch.Tensor, aux_mul: Sharded, aux_add: Sharded, *rest):
+        _, scan, probe = _split_rest(rest, False, precision, probed)
+        q = queries.shape[0]
+        if q % n:
+            raise ValueError(f"the ring takes a multiple of {n} queries, got {q}")
+        qb = q // n
+        blocks = [queries[b * qb : (b + 1) * qb].to(devices[b], non_blocking=True) for b in range(n)]
+        cells = [None] * n
+        if probe is not None:
+            cells = [probe[1][b * qb : (b + 1) * qb].to(devices[b], non_blocking=True) for b in range(n)]
+        carry = [
+            (torch.full((qb, k), torch.inf, device=devices[b]), torch.full((qb, k), -1, dtype=torch.int64,
+                                                                          device=devices[b]))
+            for b in range(n)
+        ]
+        for t in range(n):
+            def step(s: int):
+                b = (s - t) % n
+                nxt = devices[(s + 1) % n]
+                # the block's move first: it does not depend on the scan
+                moved = (blocks[b].to(nxt, non_blocking=True),
+                         None if cells[b] is None else cells[b].to(nxt, non_blocking=True))
+                d, gid = _local_topk(corpus, s, blocks[b], aux_mul.shards[s], aux_add.shards[s], k, metric,
+                                     scan, probe[0] if probe is not None else None, cells[b])
+                m_d, m_i = topk_dist_id(torch.cat([carry[b][0], d], dim=1), torch.cat([carry[b][1], gid], dim=1), k)
+                return b, moved, (m_d.to(nxt, non_blocking=True), m_i.to(nxt, non_blocking=True))
+
+            for b, moved, merged in mesh.map(step):
+                blocks[b], cells[b] = moved
+                carry[b] = merged
+        dev = devices[0]
+        return (torch.cat([carry[b][0].to(dev, non_blocking=True) for b in range(n)]),
+                torch.cat([carry[b][1].to(dev, non_blocking=True) for b in range(n)]))
+
+    return ring
+
+
+def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
+    """The JAX package's search with the D contraction sharded over the
+    model axis; no engine route reaches it. Not ported: raises."""
+    raise NotImplementedError("the dim-sharded search is not ported (ROADMAP queue 1 item 10 (b))")
+
+
+def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256):
+    """The placement of the dim-sharded search. Not ported: raises."""
+    raise NotImplementedError("the dim-sharded placement is not ported (ROADMAP queue 1 item 10 (b))")

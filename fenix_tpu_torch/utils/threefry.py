@@ -16,7 +16,14 @@ seed:
   of the same counters;
 - ``permutation(key, n)``: ``jax.random._shuffle``, rounds of stably
   sorting by fresh 32-bit draws, ``ceil(3 ln n / ln(2³² − 1))`` rounds
-  (three at 8M rows); ``choice(replace=False)`` is its prefix.
+  (three at 8M rows); ``choice(key, n, size)`` (``replace=False``) is
+  its prefix;
+- ``fold_in(key, data)``: the hash of the counter ``(0, data)``, i.e.
+  ``split(key, data + 1)[data]``;
+- ``randint(key, shape, minval, maxval)``: int32 draws, two 32-bit draws
+  per value (of the two keys of ``split(key)``) folded into the span in
+  uint32 arithmetic, as ``jax.random.randint`` computes them
+  (``train_sharded``'s per-shard samples).
 
 A stable sort keeps tied draws in their current order, which is what
 ``lax.sort_key_val(..., is_stable=True)`` does, so the result is the JAX
@@ -98,3 +105,36 @@ def permutation(key: tuple[int, int], n: int) -> np.ndarray:
         packed.sort()
         x = x[(packed & np.uint64(_MASK)).astype(np.int64)]
     return x
+
+
+def choice(key: tuple[int, int], n: int, size: int) -> np.ndarray:
+    """``jax.random.choice(key, n, (size,), replace=False)`` as int64:
+    the first ``size`` entries of :func:`permutation`."""
+    if size > n:
+        raise ValueError(f"cannot take {size} of {n} without replacement")
+    return permutation(key, n)[:size]
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
+    b0, b1 = threefry2x32(key, np.zeros(1, np.uint32), np.full(1, int(data) & _MASK, np.uint32))
+    return int(b0[0]), int(b1[0])
+
+
+def randint(key: tuple[int, int], shape: tuple[int, ...], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, the
+    default dtype with 64-bit types off) as an int32 array: the high and
+    low draws of ``split(key)``'s two keys, each reduced mod the span
+    ``maxval − minval`` (1 when empty) and combined as
+    ``(hi % span · m + lo % span) % span``, ``m = (2¹⁶ % span)² % span``,
+    every product wrapping as uint32 does: the JAX package's sampler."""
+    n = int(np.prod(shape, dtype=np.int64))
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, n), random_bits(k2, n)
+    span = np.uint32((int(maxval) - int(minval)) & _MASK) if maxval > minval else np.uint32(1)
+    multiplier = (1 << 16) % int(span)
+    multiplier = np.uint32(((multiplier * multiplier) & _MASK) % int(span))  # the square wraps too
+    with np.errstate(over="ignore"):
+        offset = (higher % span) * multiplier + (lower % span)  # wraps mod 2³², as uint32 does
+    offset = offset % span
+    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32).reshape(shape)

@@ -25,6 +25,9 @@ from fenix_tpu_torch.engine import executor, residency, service
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest, table
 from fenix_tpu_torch.ops import kernels, topk2
+from fenix_tpu_torch.parallel import distributed
+from fenix_tpu_torch.parallel import search as psearch
+from fenix_tpu_torch.parallel.mesh import make_mesh
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 torch.set_num_threads(2)
@@ -189,7 +192,10 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     device and over the host corpus, the int8-resident and streaming
     modes, requests over the budget, probed search over the host corpus
     (top-k and maxval=None), coder training past the budget, joins (the
-    JAX package's answer) and an aggregate without a join are served."""
+    JAX package's answer) and an aggregate without a join are served. Over
+    a mesh, joins and aggregates (``partitioned`` too), repartition's
+    device shuffle and the dim-sharded search raise (ROADMAP item 10 (b)
+    and (c)), while a plain search and a sharded coder are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -241,6 +247,23 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     plain = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5}
     aggregated = service.run_search_config(cache, {**plain, "aggregate": {"group_by": "id"}}, target)
     assert aggregated.equals(service.run_search_config(cache, plain, target))
+    # over a mesh: joins and aggregates (partitioned or not), the device
+    # shuffle of repartition and the dim-sharded search raise, naming their
+    # slice of ROADMAP item 10; a plain search and a coder are served
+    meshed = DeviceCache(root, device="cpu", mesh=make_mesh(devices=["cpu"] * 2))
+    for config in (joined, {**joined, "aggregate": {"group_by": "grp", "max_groups": 8}},
+                   {**joined, "join": {**joined["join"], "partitioned": True}}):
+        with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
+            service.run_search_config(meshed, config, target)
+    with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
+        distributed.repartition(root, "attrs", 2, mesh=meshed.mesh)
+    assert table.load(root, "attrs").num_rows == len(range(0, N, 3))  # nothing was written
+    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
+        psearch.build_dim_sharded_search(meshed.mesh, 5, "l2")
+    assert service.run_search_config(meshed, plain, target).column("id").equals(dual.column("id"))
+    ivf = {"metric": "l2", "codebook_size": 8, "num_codebooks": 1, "batch_size": 512, "num_epochs": 1}
+    sharded_coder = coder.make(root, "ivf2", "items", "vector", ivf, seed=0, device="cpu", mesh=meshed.mesh)
+    assert sharded_coder["tensor"].shape == (1, 8, DIM)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
@@ -288,7 +311,8 @@ def test_port_imports_without_jax(tmp_path):
     code = (
         "import sys, pyarrow as pa, fenix_tpu_torch, fenix_tpu_torch.launch, fenix_tpu_torch.ops.kernels, "
         "fenix_tpu_torch.ops.select, fenix_tpu_torch.ops.relational, "
-        "fenix_tpu_torch.parallel.distributed, fenix_tpu_torch.utils.threefry, "
+        "fenix_tpu_torch.parallel.distributed, fenix_tpu_torch.parallel.mesh, fenix_tpu_torch.parallel.search, "
+        "fenix_tpu_torch.utils.threefry, "
         "fenix_tpu_torch.types, fenix_tpu_torch.utils.profiling, fenix_tpu_torch.utils.replay, "
         "fenix_tpu_torch.examples.quickstart; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
@@ -434,19 +458,20 @@ def test_chip_smoke_kernel_entries():
     by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection,
                "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
                "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
-               "types": {**selection, "kernel.stream": 2}}
+               "types": {**selection, "kernel.stream": 2},
+               "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 12
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 13
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 6
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 7
     assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
-                                         "analytics": 1, "batching": 1, "types": 1}
+                                         "analytics": 1, "batching": 1, "types": 1, "mesh": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 17
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 21
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -467,6 +492,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["analytics"]["kernel.tensor_int8"], by_path["types"]["kernel.stream"] = 1, 0
     with pytest.raises(AssertionError, match="stream was not launched on the types path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["types"]["kernel.stream"], by_path["mesh"]["f32.bucket128"] = 2, 0
+    with pytest.raises(AssertionError, match="f32@bucket128 was not launched on the mesh path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -1029,3 +1057,52 @@ def test_chip_smoke_tracing_phase_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(smoke, "DEVICE", "cuda")
     with pytest.raises(AssertionError, match="no CUDA kernel events"):
         smoke.trace_summary(os.path.join(trace_dir, sorted(os.listdir(trace_dir))[-1]))
+
+
+def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 15 of chip_smoke.py rehearsed on the CPU at 16,384 rows over 4
+    ``cpu`` shards: (a) a root of phase 3's rows, its coder trained by
+    ``train_sharded`` on the mesh, phase 3's searches (the Q=1024 one on
+    the ring and on the all-gather route), the read, two IVF searches and
+    32 batched requests, each equal to the single device's answer and
+    held to the float64 oracle, the shard-shape kernel rows, the merge,
+    the CPU-held ``train_sharded`` and the append and delete refreshes;
+    (b) the mesh-composed residency modes under a per-device budget."""
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "MESH_WARM_REPS": 1, "MUT_APPEND_ROWS": 1024,
+        "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,
+                       "num_epochs": 2},
+        "MESH_IVF": (("ivf_q8_p64_filtered", 8, 4, True, "clustered"), ("ivf_q1024_p64", 520, 4, False, "scan")),
+        "MESH_TRAIN_CHECK": {"rows": 4096, "config": {"metric": "l2", "codebook_size": 16, "num_codebooks": 1,
+                                                      "batch_size": 512, "num_epochs": 1}},
+        "time_ms": lambda fn, reps: (fn(), 1.0)[1],
+        # Q=520 still pads to the ring's 1,024 (ring blocks of 130), at k=16
+        "SEARCHES": tuple((s[0], 520, s[2], 16, *s[4:]) if s[1] == 1024 else s for s in smoke.SEARCHES),
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+    latencies = {s[0]: [1.0] for s in smoke.SEARCHES}
+    kernels.LAUNCHES["bucket_scores.f32"] += 1  # phase 15 zeroes every count before its path
+    mesh = smoke.phase_mesh(kernels, topk2, expr, vectors, ids, tags, queries, latencies, "cpu", "cpu")
+    assert mesh["mesh"] == {"cards": 0, "shards": 4} and mesh["served"] is None
+    assert not any(mesh["launches"].values())  # CPU tensors launch nothing
+    assert mesh["mutations"]["append"]["refreshes"] == (1, 0)
+    assert mesh["mutations"]["delete_tag_eq_9"]["refreshes"] == (0, 1)
+    appended_tags = smoke.appended_rows(1024, 128, SMOKE_ROWS, (queries[1][0],), seed=650)[2]
+    assert mesh["mutations"]["rows"] == SMOKE_ROWS + 1024 - int((tags == 9).sum() + (appended_tags == 9).sum())
+    shapes = {(r["route"], r["q"], r["n"]) for r in mesh["checks"]}
+    assert ("f32", 130, 16384) in shapes and ("f32", 520, 16384) in shapes  # a ring block, the all-gather batch
+    assert not os.path.exists(os.path.join(smoke.HERE, "build", "chip_smoke", f"mesh-{os.getpid()}"))
+
+    wide, wide_ids, wide_tags = smoke.make_data(SMOKE_ROWS, seed=1, dim=64)
+    root = str(tmp_path / "wide")
+    table.make(root, "smoke/wide", pa.table({
+        "id": pa.array(wide_ids), "vector": ingest.numpy_to_fixed_size_list(wide, pa.float32()),
+        "tag": pa.array(wide_tags)}).to_reader(max_chunksize=4096))
+    monkeypatch.setattr(smoke, "MESH_BUDGET", 2 << 20)  # a shard's fp32 slice past it, its int8 slice inside
+    res_queries = {q: smoke.make_queries(wide, q, seed=100 + q) for q in (8, 1024)}
+    out = smoke.phase_mesh_residency(root, smoke.Live(wide, wide_ids, wide_tags), res_queries, "cpu", "cpu")
+    planned = {r["search"]: r["planned"] for r in out["rows"] if r["cache"] == "mesh"}
+    assert planned["mesh_auto_q8"] == "int8" and planned["mesh_dual_q8"] == "dual"
+    assert "FENIX_HBM_BUDGET" not in os.environ
