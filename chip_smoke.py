@@ -43,7 +43,9 @@ Phases, each printing one JSON line with its own timings:
    only swaps allowed are between rows whose float64 distances differ by
    less than NEAR_TIE * max(1, d), which no fp32 engine can order.
    bf16/int8 recall@k >= 0.99; every returned distance within
-   1e-4 * max(1, d) of float64.
+   1e-4 * max(1, d) of float64. A query may return fewer than k rows
+   where a filter (and probes) leave fewer; its count must then be
+   min(k, the rows the oracle allows), wherever results meet the oracle.
    (c) at 1,048,576 x 768: f32 Q=8 bucket 128, int8 Q=8 bucket 128 and
    Q=1024 bucket 32.
 5. warm per-search latency (client wall clock, median of 5).
@@ -270,12 +272,34 @@ Phases, each printing one JSON line with its own timings:
    Q=1024, fp32 and int8 stream Q=8, forced dual), the counters moving as
    the JAX package's mesh tests expect; fp32 answers equal one device's,
    int8 ones hold the graded rule against it, all held to the float64
-   oracle over the live rows.
+   oracle over the live rows. (d) after (a)'s checks, on (a)'s mesh root
+   and cache: phase 11's attrs (10,000,000 rows) and attrs_dup put in
+   process, then every request of AN_REQUESTS through
+   analytics.execute_search_join on one device and on the mesh, with the
+   join as it stands (both tables are past FENIX_PART_ATTRS_MIN: the
+   partitioned attribute route, join.partitioned one rise a call) and
+   with "partitioned": false (the replicated route), one cold and
+   MESH_WARM_REPS warm calls each. Every count is 0 before the mesh calls
+   and read after them (the mesh_analytics path); each call moves its
+   join.* route counter by one and no search.mesh_ring, and launches its
+   design once per shard and nothing else (the per-card counts). Each
+   mesh answer equals one device's: group keys, integer aggregates
+   (int64), min and max equal, float sums and means within
+   1e-5 * sum |v| of their group, lookup and inner rows equal with fp32
+   distance ties in id order; where the two plain searches' winners
+   differ by a near tie at the k-th place (winner_swaps, counted), each
+   answer is held to its own winners instead. After the mutations, every
+   mesh and one-device answer meets phase 11's float64 and numpy
+   oracles. Printed: warm in-process ms on the mesh beside one device's,
+   the first call's cache.parted_key_seconds and cache.sorted_key_seconds,
+   the partial-table merge alone at the Q=1024 count. With several
+   cards, (c)'s server also answers config 3's join as the in-process
+   mesh did.
 
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation, analytics, batching, types, mesh),
+mutation, analytics, batching, types, mesh, mesh_analytics),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. With no arguments it runs every phase on one card (a machine with
@@ -323,11 +347,14 @@ KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types", "mesh")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types", "mesh",
+                                    "mesh_analytics")),
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
-     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh")),
+     "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh",
+                                    "mesh_analytics")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
-     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh")),
+     "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh",
+                                    "mesh_analytics")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -983,7 +1010,8 @@ class Oracle:
     def topk(self, queries_np, metric, k, mask=None, chunk=64):
         """Top-k of each query over the rows ``mask`` allows: a ``[N]``
         bool tensor for every query, or ``mask(start, stop)`` giving the
-        ``[stop - start, N]`` rows of those queries."""
+        ``[stop - start, N]`` rows of those queries. A query with fewer
+        than k allowed rows gets them all, padded with (-1, +inf)."""
         import torch
 
         out_ids, out_d = [], []
@@ -1002,17 +1030,21 @@ class Oracle:
                 del m
             coarse, idx = torch.topk(d, k + 16, dim=1, largest=False)
             del d
-            fine = self.exact(q, idx, metric)
+            # candidates the mask refused (a query with fewer allowed rows
+            # than the window) rank last at +inf
+            fine = torch.where(torch.isfinite(coarse), self.exact(q, idx, metric), torch.inf)
             idx, order = torch.sort(idx, dim=1)
             fine = torch.gather(fine, 1, order)
             fine, order = torch.sort(fine, dim=1, stable=True)
-            idx = torch.gather(idx, 1, order)
+            idx = torch.where(torch.isfinite(fine), torch.gather(idx, 1, order), -1)
             # the (k+16)-th coarse distance must clear the k-th exact one,
-            # or a tied row past the window could belong in the top k
+            # or a tied row past the window could belong in the top k (a
+            # window that holds every allowed row has no row past it)
             if metric == "l2":  # the coarse pass ranks squared distances
                 coarse = coarse.clamp_min(0.0).sqrt()
             margin = coarse[:, -1] - fine[:, k - 1]
-            if (margin <= 1e-9 * (1.0 + fine[:, k - 1].abs())).any():
+            full = torch.isfinite(coarse[:, -1])
+            if (full & (margin <= 1e-9 * (1.0 + fine[:, k - 1].abs()))).any():
                 raise AssertionError("oracle window too narrow for the ties at k")
             out_ids.append(idx[:, :k].cpu())
             out_d.append(fine[:, :k].cpu())
@@ -1020,7 +1052,10 @@ class Oracle:
 
 
 def split_result(result, qn: int, k: int):
-    """[Q, k] ids and distances from a result table."""
+    """[Q, k] ids and distances from a result table in query order. A query
+    may return fewer than k rows (a filter and probes that leave fewer):
+    its row is padded with (-1, +inf), and check_ids holds its count to
+    the oracle's."""
     import numpy as np
 
     ids = np.array(result.column("id"))
@@ -1029,11 +1064,15 @@ def split_result(result, qn: int, k: int):
         qid = result.column("__QUERY_ID__").to_numpy()
     else:
         qid = np.zeros(len(ids), np.int64)
-    if len(ids) != qn * k or not np.array_equal(qid, np.repeat(np.arange(qn), k)):
-        raise AssertionError(f"result has {len(ids)} rows, expected {qn} x {k} in query order")
+    counts = np.bincount(qid, minlength=qn)
+    if (np.diff(qid) < 0).any() or counts.shape[0] != qn or counts.max(initial=0) > k:
+        raise AssertionError(f"result has {len(ids)} rows, expected at most {qn} x {k} in query order")
     if not np.isfinite(dist).all():
         raise AssertionError("non-finite distance in the result")
-    return ids.reshape(qn, k), dist.reshape(qn, k)
+    slot = np.arange(len(ids)) - np.repeat(np.cumsum(counts) - counts, counts)
+    out_ids, out_d = np.full((qn, k), -1, ids.dtype), np.full((qn, k), np.inf, dist.dtype)
+    out_ids[qid, slot], out_d[qid, slot] = ids, dist
+    return out_ids, out_d
 
 
 def check_search(oracle, spec, queries_np, result, mask) -> dict:
@@ -1044,42 +1083,53 @@ def check_search(oracle, spec, queries_np, result, mask) -> dict:
 
 
 def allowed(mask, ids, device) -> bool:
-    """Whether every returned row passes ``mask`` (see Oracle.topk)."""
+    """Whether every returned row passes ``mask`` (see Oracle.topk); -1
+    slots are padding."""
+    import numpy as np
     import torch
 
     if not callable(mask):
-        return bool(mask.cpu().numpy()[ids].all())
+        return bool(mask.cpu().numpy()[ids[ids >= 0]].all())
     for s in range(0, ids.shape[0], 64):
         sel = torch.from_numpy(ids[s : s + 64]).to(device)
-        if not bool(torch.gather(mask(s, s + sel.shape[0]), 1, sel).all()):
+        ok = torch.gather(mask(s, s + sel.shape[0]), 1, sel.clamp_min(0)) | (sel < 0)
+        if not bool(ok.all()):
             return False
     return True
 
 
 def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, require_ties) -> dict:
     """Hold [Q, k] result ids and distances to the float64 oracle over the
-    rows ``mask`` allows: fp32 ids position by position up to near ties
-    (exact ties in id order), bf16/int8 recall@k >= 0.99, every distance
-    within 1e-4 * max(1, d)."""
+    rows ``mask`` allows: each query's row count (ids of -1 are padding,
+    see split_result) equal to min(k, its allowed rows), then fp32 ids
+    position by position up to near ties (exact ties in id order),
+    bf16/int8 recall@k >= 0.99, every distance within 1e-4 * max(1, d)."""
     import numpy as np
     import torch
 
     want_ids, want_d = oracle.topk(queries_np, metric, k, mask)
+    real = ids >= 0
+    want_n = np.isfinite(want_d).sum(axis=1)
+    if (real.sum(axis=1) != want_n).any() or (real[:, 1:] & ~real[:, :-1]).any():
+        bad = int((real.sum(axis=1) != want_n).sum())
+        raise AssertionError(f"{name}: {bad} queries return other than min(k, allowed rows) rows")
     q = torch.from_numpy(queries_np).to(oracle.device, torch.float64)
-    got_d64 = oracle.exact(q, torch.from_numpy(ids).to(oracle.device), metric).cpu().numpy()
-    dist_err = np.abs(dist - got_d64) / np.maximum(1.0, np.abs(got_d64))
+    got_d64 = oracle.exact(q, torch.from_numpy(np.where(real, ids, 0)).to(oracle.device), metric).cpu().numpy()
+    got_d64 = np.where(real, got_d64, 0.0)  # padding: 0 against 0 below
+    dist_err = np.abs(np.where(real, dist, 0.0) - got_d64) / np.maximum(1.0, np.abs(got_d64))
     if dist_err.max() > 1e-4:
         raise AssertionError(f"{name}: distance off float64 by {dist_err.max()} relative")
     if mask is not None and not allowed(mask, ids, oracle.device):
         raise AssertionError(f"{name}: a row outside the filter or the probes was returned")
     ties = sum(
-        len(set(row.tolist()) & {i + DUP for i in row.tolist() if i < DUP}) for row in ids
+        len(set(row.tolist()) & {i + DUP for i in row.tolist() if 0 <= i < DUP}) for row in ids
     )
     out = {"ties_in_results": int(ties), "max_rel_dist_err": float(dist_err.max())}
     # fp32 resolves distances to about 1e-6 relative; float64 neighbours
     # closer than NEAR_TIE can come back in either order from any fp32
     # engine. Exactly equal float64 distances (the duplicate rows) must
     # come back in id order.
+    want_d = np.where(real, want_d, 0.0)  # the counts agree: the same padding slots
     near_tie = NEAR_TIE * np.maximum(1.0, np.abs(want_d))
     if precision == "fp32":
         differ = ids != want_ids
@@ -1087,7 +1137,7 @@ def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, r
         if far.any():
             bad = int(far.any(axis=1).sum())
             raise AssertionError(f"{name}: ids differ from the float64 oracle in {bad} queries")
-        tied = got_d64[:, 1:] == got_d64[:, :-1]
+        tied = (got_d64[:, 1:] == got_d64[:, :-1]) & real[:, 1:]
         if (tied & (ids[:, 1:] < ids[:, :-1])).any():
             raise AssertionError(f"{name}: exactly tied rows not in id order")
         if require_ties and ties == 0:
@@ -1095,9 +1145,10 @@ def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, r
         out["ids_equal_positions"] = float(1.0 - differ.mean())
         out["near_tie_swaps"] = int(differ.sum())
     else:
-        kth = want_d[:, -1:]
-        hits = got_d64 <= kth + near_tie[:, -1:]
-        recall = float(hits.mean())
+        last = np.maximum(want_n - 1, 0)[:, None]
+        kth = np.take_along_axis(want_d, last, axis=1) + np.take_along_axis(near_tie, last, axis=1)
+        hits = (got_d64 <= kth)[real]
+        recall = float(hits.mean()) if hits.size else 1.0
         if recall < 0.99:
             raise AssertionError(f"{name}: recall@{k} {recall} < 0.99")
         out["recall"] = recall
@@ -2210,7 +2261,7 @@ class Live:
         top = int(self.ids.max())
         lookup = np.full(top + 1, -1, np.int64)
         lookup[self.ids] = np.arange(self.ids.shape[0])
-        return np.where(ids <= top, lookup[np.minimum(ids, top)], -1)
+        return np.where((ids >= 0) & (ids <= top), lookup[np.clip(ids, 0, top)], -1)
 
 
 def appended_rows(rows: int, dim: int, first_id: int, copies, seed: int):
@@ -2278,9 +2329,9 @@ def check_live(live: Live, name: str, metric: str, k: int, queries, result, prec
 
     qn = queries.shape[0]
     ids, dist = split_result(result, qn, k)
-    pos = live.pos(ids)
-    if (pos < 0).any():
-        raise AssertionError(f"{name}: {int((pos < 0).sum())} returned ids are not in the table")
+    pos = live.pos(ids)  # padding (-1) stays -1
+    if ((pos < 0) & (ids >= 0)).any():
+        raise AssertionError(f"{name}: {int(((pos < 0) & (ids >= 0)).sum())} returned ids are not in the table")
     oracle = Oracle(live.parts, DEVICE)
     mask = mask_fn(oracle.device) if mask_fn is not None else None
     out = check_ids(oracle, name, metric, k, precision, queries, pos, dist, mask, require_ties=False)
@@ -2717,11 +2768,12 @@ def check_groups(name: str, got, groups, values, agg: str, int_lane: bool) -> di
     return {"groups": int(uniq.size), "max_rel_err_of_sum_abs": worst}
 
 
-def phase_analytics_checks(oracle, tags, ivf: dict, an: dict) -> list[dict]:
+def phase_analytics_checks(oracle, tags, ivf: dict, an: dict, label: str = "analytics_oracle") -> list[dict]:
     """Phase 11 after the server: each plain search against the float64
     oracle by phase 4's rule (the probed one over its probe cells, as
     phase 7), then its join and aggregate in numpy on the host copy of
-    the attribute tables."""
+    the attribute tables. Phase 15 (d) holds its mesh answers so too,
+    each line under ``label``."""
     import numpy as np
     import pyarrow as pa
     import torch
@@ -2729,8 +2781,6 @@ def phase_analytics_checks(oracle, tags, ivf: dict, an: dict) -> list[dict]:
     from fenix_tpu_torch.ops import cells
 
     attrs, dup = an["attrs"], an["dup"]
-    row_of_key = np.empty(AN_ATTRS_ROWS, np.int64)
-    row_of_key[attrs["key"]] = np.arange(AN_ATTRS_ROWS)
     codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
     tag_mask_dev = torch.from_numpy(tags < 50).to(oracle.device)
     out = []
@@ -2743,36 +2793,52 @@ def phase_analytics_checks(oracle, tags, ivf: dict, an: dict) -> list[dict]:
             mask = tag_mask_dev if filtered else None
         row = {"search": name, **check_ids(oracle, name, metric, k, precision, queries, ids, dist, mask,
                                            require_ties=False)}
-        flat_ids, flat_d = ids.ravel(), dist.ravel().astype(np.float64)
-        if join["source"] == "attrs":  # every search id matches exactly one attrs row
-            rows = row_of_key[flat_ids]
-            groups, weights = attrs["grp"][rows], attrs["weight"][rows]
-            if aggregate is None:
-                want = plain.append_column("grp", pa.array(groups)).append_column("weight", pa.array(weights))
-                if not joined.equals(want):
-                    raise AssertionError(f"{name}: lookup rows differ from the oracle's rows with attrs gathered")
-                row["rows"] = joined.num_rows
-            else:
-                value = aggregate.get("value")
-                values = {"weight": weights, "__DISTANCE__": flat_d, None: np.ones(rows.size, np.int64)}[value]
-                row.update(check_groups(name, joined, groups, values, aggregate["agg"], value is None))
-        else:  # attrs_dup: id i < AN_DUP_ROWS / 4 matches rows 4i .. 4i+3, in row order
-            hit = flat_ids < AN_DUP_ROWS // 4
-            left = np.repeat(np.flatnonzero(hit), 4)
-            right = (4 * flat_ids[hit][:, None] + np.arange(4)).ravel()
-            if aggregate is None:
-                want = plain.take(pa.array(left))
-                for col in ("grp", "val"):
-                    want = want.append_column(col, pa.array(dup[col][right]))
-                if not joined.equals(want):
-                    raise AssertionError(f"{name}: inner rows differ from (left row, right row) order")
-                row["rows"] = joined.num_rows
-            else:
-                row.update(check_groups(name, joined, dup["grp"][right], np.ones(right.size, np.int64),
-                                        aggregate["agg"], True))
+        if aggregate is None:
+            left, right, table = oracle_join(plain, join, attrs, dup)
+            want = plain.take(pa.array(left))
+            for col in join.get("columns") or [c for c in table if c != join["right_on"]]:
+                want = want.append_column(col, pa.array(table[col][right]))
+            if not joined.equals(want):
+                raise AssertionError(f"{name}: joined rows differ from the oracle's rows in (left row, right row) "
+                                     "order with the attributes gathered")
+            row["rows"] = joined.num_rows
+        else:
+            row.update(check_groups(name, joined, *oracle_groups(plain, join, aggregate, attrs, dup),
+                                    aggregate["agg"], aggregate.get("value") is None))
         out.append(row)
-        emit({"phase": "analytics_oracle", **row})
+        emit({"phase": label, **row})
     return out
+
+
+def oracle_join(plain, join: dict, attrs: dict, dup: dict):
+    """Phase 11's join in numpy on the host copy of the attribute tables:
+    the (left row, attribute row) pairs of a plain search's rows in (left
+    row, right row) order, and the attribute table's columns."""
+    import numpy as np
+
+    ids = np.asarray(plain.column("id"))
+    if join["source"] == "attrs":  # every search id matches exactly one attrs row
+        row_of_key = np.empty(AN_ATTRS_ROWS, np.int64)
+        row_of_key[attrs["key"]] = np.arange(AN_ATTRS_ROWS)
+        return np.arange(ids.size), row_of_key[ids], attrs
+    hit = ids < AN_DUP_ROWS // 4  # attrs_dup: id i < AN_DUP_ROWS / 4 matches rows 4i .. 4i+3
+    return np.repeat(np.flatnonzero(hit), 4), (4 * ids[hit][:, None] + np.arange(4)).ravel(), dup
+
+
+def oracle_groups(plain, join: dict, aggregate: dict, attrs: dict, dup: dict):
+    """The joined rows' (group keys, values) of a plain search's rows
+    (oracle_join): the value column, the distances, or ones for a count."""
+    import numpy as np
+
+    left, right, table = oracle_join(plain, join, attrs, dup)
+    value = aggregate.get("value")
+    if value is None:
+        values = np.ones(right.size, np.int64)
+    elif value == "__DISTANCE__":
+        values = np.asarray(plain.column("__DISTANCE__")).astype(np.float64)[left]
+    else:
+        values = table[value][right]
+    return table[aggregate["group_by"]][right], values
 
 
 # -- phase 12: micro-batching ----------------------------------------------------
@@ -3736,10 +3802,15 @@ def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, 
         emit({"phase": "mesh_batched", "requests": MESH_BATCH, "batch_ms": batch_ms, "mesh": shape,
               "device": kind, "nvidia_smi": smi})
 
+        # (d) joins and aggregates on the mesh, both attribute routes
+        t = time.perf_counter()
+        an = mesh_analytics(expr, executor, DeviceCache, meshed, mesh, shape, root, vectors, smi, kind)
+        emit({"phase": "mesh_analytics_done", "seconds": time.perf_counter() - t})
+
         # (c) several cards: a Flight server with FENIX_MESH=auto, each card's launches
         served = None
         if shape["cards"] >= 2:
-            served = mesh_server_checks(kernels, topk2, expr, root, reqs, got, smi, kind)
+            served = mesh_server_checks(kernels, topk2, expr, root, reqs, got, an, vectors, smi, kind)
 
         # the kernels at the shard shapes, the merge, ring against all-gather
         compares = []
@@ -3777,13 +3848,240 @@ def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, 
         for r in reqs:
             emit({"phase": "mesh_oracle", "search": r["name"],
                   **mesh_oracle_checks(oracle, r, got[r["name"]][0], codes, codebooks, tags)})
+        t = time.perf_counter()
+        for route, results in an["results"].items():  # (d) against phase 11's oracles
+            phase_analytics_checks(oracle, tags, {"codes": codes, "codebooks": codebooks},
+                                   {"results": results, "attrs": an["attrs"], "dup": an["dup"]},
+                                   label=f"mesh_analytics_oracle_{route}")
+        emit({"phase": "mesh_analytics_oracle_done", "seconds": time.perf_counter() - t})
         del oracle
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return {"launches": mesh_launches, "card_launches": card_launches, "checks": compares, "mesh": shape,
-            "served": served, "mutations": mutations}
+            "served": served, "mutations": mutations, "analytics_launches": an["launches"],
+            "analytics_card_launches": an["card_launches"]}
+
+
+def mesh_card_shards(mesh) -> dict:
+    """Shards per card index of the mesh (all four on card 0 on one card)."""
+    out: dict = {}
+    for d in mesh.devices:
+        out[d.index] = out.get(d.index, 0) + 1
+    return out
+
+
+def mesh_analytics(expr, executor, DeviceCache, meshed, mesh, shape, root, vectors, smi: str, kind: str) -> dict:
+    """Phase 15 (d): BASELINE config 3's joins on the mesh. attrs and
+    attrs_dup go into the mesh root in process; each request of AN_REQUESTS
+    runs on one device and then on the mesh, with the join as it stands
+    (both tables are past FENIX_PART_ATTRS_MIN: the partitioned route,
+    join.partitioned one rise a call) and with "partitioned": false (the
+    replicated route), one cold and MESH_WARM_REPS warm calls each. Every
+    count is 0 just before the mesh calls and read just after; each call
+    launches its design once per shard and nothing else. Each mesh answer
+    equals one device's: group keys equal, integer aggregates equal and
+    int64, float sums and means within 1e-5 * sum |v| of their group (of
+    the numpy oracle's values), min and max equal; lookup and inner rows
+    equal with fp32 distance ties in id order. The plain mesh search of
+    each request is returned for phase 11's oracles."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch.engine import analytics
+    from fenix_tpu_torch.io import table
+    from fenix_tpu_torch.ops import kernels
+    from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
+
+    attrs, dup = analytics_tables()
+    for name, cols in (("attrs", attrs), ("dup", dup)):
+        schema = pa.schema({k: pa.from_numpy_dtype(v.dtype) for k, v in cols.items()})
+        rows = len(next(iter(cols.values())))
+        t = time.perf_counter()
+        table.make(root, "attrs" if name == "attrs" else "attrs_dup", pa.RecordBatchReader.from_batches(schema, (
+            pa.record_batch([pa.array(v[s : s + AN_BATCH_ROWS]) for v in cols.values()], schema=schema)
+            for s in range(0, rows, AN_BATCH_ROWS))))
+        emit({"phase": "mesh_analytics_put", "table": name, "rows": rows, "seconds": time.perf_counter() - t})
+
+    scan_dtypes = {"fp32": torch.float32, "int8": torch.int8}
+    reqs = []
+    for name, qn, metric, k, precision, filtered, probes, join, aggregate, route, seed in AN_REQUESTS:
+        queries = make_queries(vectors, qn, seed=seed)
+        kw = dict(metric=metric, maxval=k, precision=precision,
+                  filter=(expr.field("tag") < 50) if filtered else None)
+        if probes is not None:
+            kw.update(coding=IVF_CODER, probes=probes)
+        req = executor.SearchRequest("smoke/items", "vector", queries[0] if qn == 1 else queries, **kw)
+        design = None if probes is not None else kernels.kernel_for(scan_dtypes[precision], qn, D)
+        reqs.append({"name": name, "q": qn, "queries": queries, "req": req, "join": join, "aggregate": aggregate,
+                     "route": route, "design": design})
+
+    def plain_req(r: dict):
+        return executor.SearchRequest("smoke/items", "vector", r["req"].target, **{k: getattr(r["req"], k) for k in (
+            "metric", "maxval", "precision", "filter", "coding", "probes")})
+
+    def call(cache, r: dict, partitioned: "bool | None"):
+        join = analytics.JoinSpec.from_dict({**r["join"], "partitioned": partitioned} if partitioned is False
+                                            else r["join"])
+        agg = analytics.AggregateSpec.from_dict(r["aggregate"]) if r["aggregate"] else None
+        return lambda: analytics.execute_search_join(cache, r["req"], join, agg)
+
+    single = DeviceCache(root, device=DEVICE, mesh=None)
+    solo = {r["name"]: in_process(call(single, r, None), MESH_WARM_REPS) for r in reqs}
+    solo_plain = {r["name"]: executor.execute_search(single, plain_req(r)) for r in reqs}
+    del single
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # the mesh analytics path: every launch count 0 just before it, read just after
+    for counts in (kernels.LAUNCHES, kernels.DEVICE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    routes = {"partitioned": None, "replicated": False}
+    got, rows, shards_on = {}, [], mesh_card_shards(mesh)
+    calls = 1 + MESH_WARM_REPS
+    for route, partitioned in routes.items():
+        for r in reqs:
+            m0, d0 = METRICS.snapshot(), dict(kernels.DEVICE_LAUNCHES)
+            result, first, warm = in_process(call(meshed, r, partitioned), MESH_WARM_REPS)
+            m1, d1 = METRICS.snapshot(), dict(kernels.DEVICE_LAUNCHES)
+            moved = {c: m1.get(c, 0) - m0.get(c, 0) for c in ("join.fused", "join.two_step", "join.inner",
+                                                                "join.partitioned", "search.mesh_ring")}
+            want = {"join.fused": 0, "join.two_step": 0, "join.inner": 0, r["route"]: calls,
+                    "join.partitioned": calls if route == "partitioned" else 0, "search.mesh_ring": 0}
+            if moved != want:
+                raise AssertionError(f"{route} {r['name']}: counters moved {moved}, expected {want}")
+            rises = {key: d1.get(key, 0) - d0.get(key, 0) for key in set(d0) | set(d1)}
+            for design in DESIGNS:
+                for card, n in shards_on.items():
+                    key = f"bucket_scores.kernel.{design}.cuda{card}"
+                    expect = calls * n if DEVICE == "cuda" and design == r["design"] else 0
+                    if rises.get(key, 0) != expect:
+                        raise AssertionError(f"{route} {r['name']}: {key} rose by {rises.get(key, 0)}, expected "
+                                             f"{expect} ({calls} calls, {n} shards on the card)")
+            got[route, r["name"]] = result
+            s_result, s_first, s_warm = solo[r["name"]]
+            rows.append({"phase": "mesh_analytics_search", "search": r["name"], "attrs_route": route,
+                         "q": r["q"], "join_route": r["route"], "kernel": r["design"],
+                         "mesh_first_s": first, "mesh_warm_median_ms": float(np.median(warm)), "mesh_warm_ms": warm,
+                         "single_first_s": s_first, "single_warm_median_ms": float(np.median(s_warm)),
+                         "first_parted_key_s": m1.get("cache.parted_key_seconds", 0)
+                         - m0.get("cache.parted_key_seconds", 0),
+                         "first_sorted_key_s": m1.get("cache.sorted_key_seconds", 0)
+                         - m0.get("cache.sorted_key_seconds", 0),
+                         "launches_per_card_per_call": {k: v / calls for k, v in rises.items() if v},
+                         "clock": "host, in process", "mesh": shape, "device": kind, "nvidia_smi": smi})
+    sync()
+    path = {k.removeprefix("bucket_scores."): v for k, v in kernels.LAUNCHES.items()}
+    card_path = dict(kernels.DEVICE_LAUNCHES)
+
+    # the plain mesh search of each request, the input of phase 11's
+    # oracles: on the all-gather route, the fused route's merge
+    os.environ["FENIX_RING"] = "off"
+    plain = {r["name"]: executor.execute_search(meshed, plain_req(r)) for r in reqs}
+    os.environ.pop("FENIX_RING")
+
+    # the partial-table merge alone, on the Q=1024 count's partials
+    count = next(r for r in reqs if r["name"] == AN_REQUESTS[1][0])  # the Q=1024 count
+    captured, merge = [], analytics._merge_parted_tables
+    analytics._merge_parted_tables = lambda *a: captured.append(a) or merge(*a)
+    try:
+        call(meshed, count, None)()
+    finally:
+        analytics._merge_parted_tables = merge
+    merge_ms = host_ms(lambda: merge(*captured[0]))
+
+    for route in routes:
+        for r, row in zip(reqs, rows[len(reqs) * list(routes).index(route):]):
+            row.update(check_join_vs_single(f"{route} {r['name']}", got[route, r["name"]], solo[r["name"]][0],
+                                            r["q"], plain[r["name"]], solo_plain[r["name"]], r, attrs, dup))
+            emit(row)
+    emit({"phase": "mesh_analytics_timing", "merge_parted_ms_q1024_count": merge_ms,
+          "partials": len(captured[0][0]), "groups_per_partial": [int(p[2]) for p in captured[0][0]],
+          "clock": "host", "mesh": shape, "device": kind, "nvidia_smi": smi})
+    emit({"phase": "mesh_analytics_served", "launches": path, "launches_per_card": card_path, "mesh": shape})
+    results = {route: {r["name"]: (r["queries"], plain[r["name"]], got[route, r["name"]]) for r in reqs}
+               for route in routes}
+    results["single"] = {r["name"]: (r["queries"], solo_plain[r["name"]], solo[r["name"]][0]) for r in reqs}
+    return {"launches": path, "card_launches": card_path, "results": results, "attrs": attrs, "dup": dup}
+
+
+def winner_swaps(name: str, plain, solo_plain, qn: int) -> int:
+    """The winners (query, id) of the mesh's plain search that one
+    device's lacks. A swap is allowed only at fp32 resolution: the
+    swapped winner's distance within NEAR_TIE of its query's last one,
+    on both sides (the two searches sum a distance's products in orders
+    that may differ by an ulp, so a tie at the k-th place can break
+    either way)."""
+    import numpy as np
+
+    def pairs(t):
+        q = t.column("__QUERY_ID__").to_numpy() if qn > 1 else np.zeros(t.num_rows, np.int64)
+        return q * (1 << 32) + np.asarray(t.column("id")), q, np.asarray(t.column("__DISTANCE__"))
+
+    (a, qa, da), (b, qb, db) = pairs(plain), pairs(solo_plain)
+    only = [(np.isin(a, b, invert=True), qa, da), (np.isin(b, a, invert=True), qb, db)]
+    if only[0][0].sum() != only[1][0].sum():
+        raise AssertionError(f"{name}: the mesh and one device return different row counts")
+    for extra, q, d in only:
+        last = np.full(qn, -np.inf)
+        np.maximum.at(last, q, d)
+        if (np.abs(d[extra] - last[q[extra]]) > NEAR_TIE * np.maximum(1.0, np.abs(last[q[extra]]))).any():
+            raise AssertionError(f"{name}: the mesh's winners differ from one device's past fp32 near ties")
+    return int(only[0][0].sum())
+
+
+def check_join_vs_single(name: str, got, want, qn: int, plain, solo_plain, r: dict, attrs: dict, dup: dict) -> dict:
+    """A mesh join answer against one device's (see mesh_analytics). Where
+    the two plain searches' winners differ by a near tie at the k-th
+    place (winner_swaps), the answers differ by those winners' rows:
+    each is then held to phase 11's oracles over its own winners, and
+    the swaps are counted."""
+    import numpy as np
+    import pyarrow as pa
+
+    swaps = winner_swaps(name, plain, solo_plain, qn)
+    if swaps:
+        return {"winner_swaps": swaps}
+    if r["aggregate"] is None:  # lookup or inner rows, fp32 distance ties in id order
+        g = np.lexsort((np.asarray(got.column("id")), np.asarray(got.column("__DISTANCE__")),
+                        got.column("__QUERY_ID__").to_numpy() if qn > 1 else np.zeros(got.num_rows)))
+        w = np.lexsort((np.asarray(want.column("id")), np.asarray(want.column("__DISTANCE__")),
+                        want.column("__QUERY_ID__").to_numpy() if qn > 1 else np.zeros(want.num_rows)))
+        if got.column_names != want.column_names or got.num_rows != want.num_rows:
+            raise AssertionError(f"{name}: mesh rows {got.num_rows} {got.column_names} differ from one device's")
+        for col in got.column_names:
+            a, b = got.column(col).take(pa.array(g)), want.column(col).take(pa.array(w))
+            if col == "__DISTANCE__":
+                a, b = a.to_numpy(), b.to_numpy()
+                if (np.abs(a - b) > 1e-5 * np.maximum(1.0, np.abs(b))).any():
+                    raise AssertionError(f"{name}: mesh distances off one device's")
+            elif not a.equals(b):
+                raise AssertionError(f"{name}: mesh column {col} differs from one device's")
+        return {"rows": got.num_rows, "rows_equal": True, "winner_swaps": 0}
+    groups, values = oracle_groups(plain, r["join"], r["aggregate"], attrs, dup)
+    keys = got.column("__GROUP__").to_pylist()
+    if keys != want.column("__GROUP__").to_pylist():
+        raise AssertionError(f"{name}: mesh group keys differ from one device's")
+    a, b = got.column("__AGG__").to_numpy(), want.column("__AGG__").to_numpy()
+    agg = r["aggregate"]["agg"]
+    if pa.types.is_integer(want.schema.field("__AGG__").type):
+        if got.schema.field("__AGG__").type != pa.int64() or not np.array_equal(a, b):
+            raise AssertionError(f"{name}: mesh integer aggregate differs from one device's")
+        return {"groups": len(keys), "aggregates_equal": True, "winner_swaps": 0}
+    worst = 0.0
+    for slot, key in enumerate(keys):
+        if agg in ("min", "max"):
+            if a[slot] != b[slot]:
+                raise AssertionError(f"{name}: group {key} {agg} {a[slot]} != one device's {b[slot]}")
+            continue
+        scale = float(np.abs(values[groups == key]).sum())
+        if abs(a[slot] - b[slot]) > 1e-5 * scale:
+            raise AssertionError(f"{name}: group {key} {agg} off one device's by {abs(a[slot] - b[slot])}")
+        worst = max(worst, abs(a[slot] - b[slot]) / max(scale, 1e-30))
+    return {"groups": len(keys), "max_rel_diff_of_sum_abs": worst, "winner_swaps": 0}
 
 
 def mesh_mutations(expr, executor, index_mod, table, DeviceCache, meshed, mesh, root, live, reqs,
@@ -3838,11 +4136,12 @@ def mesh_mutations(expr, executor, index_mod, table, DeviceCache, meshed, mesh, 
     return {**out, "rows": int(live.ids.shape[0])}
 
 
-def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, smi: str, kind: str) -> dict:
+def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, an: dict, vectors, smi: str, kind: str) -> dict:
     """Phase 15 (c), on several cards: each design on each card against its
     plain version, then a Flight server started with FENIX_MESH=auto over
-    the phase's root answers its requests as the in-process mesh did, and
-    every card launched the stream, tiled and tensor_int8 designs."""
+    the phase's root answers its requests, and BASELINE config 3's join
+    (the partitioned route), as the in-process mesh did, and every card
+    launched the stream, tiled and tensor_int8 designs."""
     from fenix_tpu_torch.flight import Flight
 
     designs = per_card_designs(kernels, topk2)
@@ -3864,7 +4163,18 @@ def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, smi: str, kin
             times[r["name"]] = (time.perf_counter() - t) * 1e3
             if not result.select(["id", "__DISTANCE__"]).equals(got[r["name"]][0].select(["id", "__DISTANCE__"])):
                 raise AssertionError(f"{r['name']}: the mesh server answers differently from the in-process mesh")
+        name, qn, metric, k, precision, _, _, join, aggregate, _, seed = AN_REQUESTS[0]  # config 3
+        kw = dict(metric=metric, maxval=k, precision=precision, join=join, aggregate=aggregate)
+        target = make_queries(vectors, qn, seed=seed)[0]
+        client.search(target, "smoke/items", "vector", **kw)  # warm
+        t = time.perf_counter()
+        result = client.search(target, "smoke/items", "vector", **kw)
+        times[name] = (time.perf_counter() - t) * 1e3
+        if not result.equals(an["results"]["partitioned"][name][2]):
+            raise AssertionError(f"{name}: the mesh server's join answers differently from the in-process mesh")
         stats = client.stats()
+        if not stats.get("join.partitioned"):
+            raise AssertionError(f"{name}: the mesh server did not take the partitioned route")
     finally:
         stop_server(client, proc, log, log_path)
     import torch
@@ -3958,8 +4268,8 @@ def phase_mesh_residency(root: str, live, queries, smi: str, kind: str) -> dict:
         else:
             checks[name] = check_mesh_vs_single(f"mesh_{name}", got, want, qn)
         ids, dist = split_result(got, qn, RES_K)
-        pos = live.pos(ids)
-        if (pos < 0).any():
+        pos = live.pos(ids)  # padding (-1) stays -1
+        if ((pos < 0) & (ids >= 0)).any():
             raise AssertionError(f"mesh_{name}: returned ids that are not in the table")
         checks[name]["oracle"] = check_ids(oracle, f"mesh_{name}", "l2", RES_K, "int8" if graded else "fp32",
                                            queries[qn], pos, dist, mask, require_ties=False)
@@ -4257,7 +4567,9 @@ def run() -> int:
     t = time.perf_counter()
     mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi, kind)
     emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
-          "mesh": mesh["mesh"], "seconds": time.perf_counter() - t})
+          "analytics_launches": mesh["analytics_launches"],
+          "analytics_launches_per_card": mesh["analytics_card_launches"], "mesh": mesh["mesh"],
+          "seconds": time.perf_counter() - t})
     del vectors, ids_np, tags, queries
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
 
@@ -4268,7 +4580,8 @@ def run() -> int:
     by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
                "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
                "batching": batching, "types": ty_launches,
-               "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
+               "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
+               "mesh_analytics": {k: mesh["analytics_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})
@@ -4305,10 +4618,13 @@ def run_mesh_only() -> int:
     t = time.perf_counter()
     mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, {}, smi, kind)
     emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
-          "mesh": mesh["mesh"], "seconds": time.perf_counter() - t})
+          "analytics_launches": mesh["analytics_launches"],
+          "analytics_launches_per_card": mesh["analytics_card_launches"], "mesh": mesh["mesh"],
+          "seconds": time.perf_counter() - t})
     for name, key, *_ in KERNELS:
-        if "mesh" in _[-1] and not mesh["launches"].get(key):
-            raise AssertionError(f"{name} was not launched on the mesh path")
+        for path, counts in (("mesh", mesh["launches"]), ("mesh_analytics", mesh["analytics_launches"])):
+            if path in _[-1] and not counts.get(key):
+                raise AssertionError(f"{name} was not launched on the {path} path")
     del vectors, ids_np, tags, queries
 
     import pyarrow as pa

@@ -16,7 +16,9 @@ int8-resident device copy built without any fp32 on the device. Device
 filters: the scalar columns (``scalar``, integers as int32) and
 ``device_filter_mask``, a predicate evaluated on the card and memoized
 per (predicate, revision) in the filter-mask LRU. Joins: the sorted build
-side of a join key column (``sorted_key``). All tensors live on the
+side of a join key column (``sorted_key``) and, over a mesh, its
+partitioned form (``parted_key`` / ``parted_scalar``: sorted globally on
+the host, one contiguous key range per shard). All tensors live on the
 ``device`` the cache was made for, or, row-sharded, on its mesh's
 devices; nothing moves to the CPU when a CUDA device was asked for.
 
@@ -1167,6 +1169,63 @@ class DeviceCache:
             return sk, si, col.rows
 
         return self._memo(self._device, (key, column, "sorted_key"), stamp, build)
+
+    def parted_key(self, source: str | Sequence[str], column: str):
+        """The partitioned build side of a join key column, for attribute
+        tables too large to hold on one card: the keys (int32, padded with
+        ``INT32_MAX`` to ``max(round_up(rows, _shard_block),
+        _shard_block)``) sort globally and stably on the host and split
+        into S contiguous sorted ranges, shard ``s`` holding sorted
+        positions ``[s·per, (s+1)·per)`` on its device. A probe key then
+        searches each range locally, and its first global match lies on
+        the first shard whose range holds the key: the one where it
+        exceeds ``bounds[s]``, the previous range's last key (shard 0 has
+        ``INT32_MIN`` and claims on the bare match).
+
+        Returns ``(sorted keys, original rows (int32), bounds, rows,
+        perm)``: the first two :class:`~fenix_tpu_torch.parallel.search.Sharded`,
+        ``bounds`` and ``perm`` (sorted position → original row) host
+        arrays. Timer ``cache.parted_key_seconds``."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            t = time.perf_counter()
+            data = self.host_table(source)
+            host = _require_int32(ingest.scalar_column_to_numpy(data.column(column)), column).astype(np.int32)
+            rows = host.shape[0]
+            n_shards = self.mesh.size
+            a_pad = max(ingest.round_up(rows, self._shard_block), self._shard_block)
+            keys = np.full(a_pad, relational.INT32_MAX, np.int32)
+            keys[:rows] = host
+            perm = np.argsort(keys, kind="stable").astype(np.int32)
+            sk = keys[perm]
+            per = a_pad // n_shards
+            bounds = np.full(n_shards, np.iinfo(np.int32).min, np.int32)
+            bounds[1:] = sk[np.arange(1, n_shards) * per - 1]
+            out = (psearch.put_rows(self.mesh, sk, a_pad), psearch.put_rows(self.mesh, perm, a_pad), bounds, rows, perm)
+            METRICS.add("cache.parted_key_seconds", time.perf_counter() - t)
+            return out
+
+        return self._memo(self._device, (key, column, "parted_key"), stamp, build)
+
+    def parted_scalar(self, source: str | Sequence[str], column: str, key_column: str) -> "psearch.Sharded":
+        """A scalar column permuted into :meth:`parted_key`'s sorted order
+        of ``key_column`` and split alongside it, so that a shard's local
+        join hit reads its group or value on its own device. Device types
+        as :meth:`scalar`'s (integers int32, float64 as float32); padding
+        0."""
+        key = _source_key(source)
+        stamp = self._mtimes(key)
+
+        def build():
+            _, _, _, rows, perm = self.parted_key(source, key_column)
+            host = _require_int32(ingest.scalar_column_to_numpy(self.host_table(source).column(column)), column)
+            real = perm < rows
+            permuted = np.where(real, host[np.where(real, perm, 0)], 0).astype(host.dtype)
+            return psearch.put_rows(self.mesh, permuted, permuted.shape[0])
+
+        return self._memo(self._device, (key, column, "parted_scalar", key_column), stamp, build)
 
     # -- IVF: coders, indexes and the clustered layout ----------------------
 

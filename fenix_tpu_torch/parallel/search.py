@@ -33,10 +33,14 @@ On distinct cards the shards' searches are enqueued from one thread per
 card (``Mesh.map``), since a selection ends in a host read; the merges
 and the ring's exchanges are small copies and ops on the first device.
 
-Not ported (ROADMAP queue 1 item 10): ``build_dim_sharded_search`` and
-``shard_corpus_dim`` raise (item 10 (b): no engine route reaches them);
-``gather_rowsharded`` is absent (item 10 (c): only the mesh analytics
-use it).
+:func:`gather_rowsharded` reads a row-sharded integer column at the
+merged winners' global ids (the ``psum`` of the JAX package: each shard
+takes the ids it owns, the parts add on the mesh's first device); the
+mesh joins (``engine/analytics.py``) read the winners' join keys so.
+
+Not ported (ROADMAP queue 1 item 3, once item 10 (b)):
+``build_dim_sharded_search`` and ``shard_corpus_dim`` raise; no engine
+route reaches them.
 """
 
 from __future__ import annotations
@@ -219,6 +223,34 @@ def merge_candidates(mesh: Mesh, dists: Sequence[torch.Tensor], gids: Sequence[t
     dist = torch.cat([d.to(dev, non_blocking=True) for d in dists], dim=1)
     ids = torch.cat([i.to(dev, non_blocking=True).long() for i in gids], dim=1)
     return topk_dist_id(dist, ids, k)
+
+
+def gather_rowsharded(column: Sharded, gids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``column[gid]`` for global row ids ``gids`` (any shape, on the
+    mesh's first device) from a row-sharded 1-D integer or bool column:
+    each shard reads the ids it owns (a contiguous range) on its device
+    and contributes 0 elsewhere; the parts add up on the first device.
+    Slots where ``valid`` is False read 0. Integer and bool columns only:
+    0 is the missing-slot identity, and a float column's legitimate zeros
+    would hide an ownership fault."""
+    if column.dtype.is_floating_point or column.dtype.is_complex:
+        raise TypeError(f"gather_rowsharded takes an integer column, got {column.dtype}")
+    mesh, rows_local = column.mesh, column.rows_local
+    dev = mesh.devices[0]
+    flat_s = replicate(mesh, gids.reshape(-1))
+    valid_s = replicate(mesh, valid.reshape(-1))
+
+    def part(s: int) -> torch.Tensor:
+        local = flat_s[s] - s * rows_local
+        owned = valid_s[s] & (local >= 0) & (local < rows_local)
+        taken = column.shards[s][local.clamp(0, rows_local - 1)]
+        return torch.where(owned, taken, torch.zeros_like(taken))
+
+    out = None
+    for p in mesh.map(part):
+        p = p.to(dev, non_blocking=True)
+        out = p if out is None else (out | p if p.dtype == torch.bool else out + p)
+    return out.reshape(gids.shape)
 
 
 def _to_global(ids: torch.Tensor, offset: int) -> torch.Tensor:

@@ -193,9 +193,10 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     modes, requests over the budget, probed search over the host corpus
     (top-k and maxval=None), coder training past the budget, joins (the
     JAX package's answer) and an aggregate without a join are served. Over
-    a mesh, joins and aggregates (``partitioned`` too), repartition's
-    device shuffle and the dim-sharded search raise (ROADMAP item 10 (b)
-    and (c)), while a plain search and a sharded coder are served."""
+    a mesh, repartition's device shuffle and the dim-sharded search raise
+    (ROADMAP item 10 (b) and (c)), while a plain search, joins and
+    aggregates (``partitioned`` too, the one device's answers) and a
+    sharded coder are served."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -247,14 +248,14 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     plain = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5}
     aggregated = service.run_search_config(cache, {**plain, "aggregate": {"group_by": "id"}}, target)
     assert aggregated.equals(service.run_search_config(cache, plain, target))
-    # over a mesh: joins and aggregates (partitioned or not), the device
-    # shuffle of repartition and the dim-sharded search raise, naming their
-    # slice of ROADMAP item 10; a plain search and a coder are served
+    # over a mesh: the device shuffle of repartition and the dim-sharded
+    # search raise, naming their slice of ROADMAP item 10; a plain search,
+    # joins and aggregates (partitioned or not) and a coder are served
     meshed = DeviceCache(root, device="cpu", mesh=make_mesh(devices=["cpu"] * 2))
     for config in (joined, {**joined, "aggregate": {"group_by": "grp", "max_groups": 8}},
                    {**joined, "join": {**joined["join"], "partitioned": True}}):
-        with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
-            service.run_search_config(meshed, config, target)
+        got = service.run_search_config(meshed, config, target)
+        assert_tables_match(got, service.run_search_config(cache, config, target))
     with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
         distributed.repartition(root, "attrs", 2, mesh=meshed.mesh)
     assert table.load(root, "attrs").num_rows == len(range(0, N, 3))  # nothing was written
@@ -459,19 +460,21 @@ def test_chip_smoke_kernel_entries():
                "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
                "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
                "types": {**selection, "kernel.stream": 2},
-               "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
+               "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
+               "mesh_analytics": {**selection, "kernel.stream": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 13
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 14
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 7
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 8
     assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
-                                         "analytics": 1, "batching": 1, "types": 1, "mesh": 1}
+                                         "analytics": 1, "batching": 1, "types": 1, "mesh": 1,
+                                         "mesh_analytics": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 21
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 25
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -495,6 +498,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["types"]["kernel.stream"], by_path["mesh"]["f32.bucket128"] = 2, 0
     with pytest.raises(AssertionError, match="f32@bucket128 was not launched on the mesh path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["mesh"]["f32.bucket128"], by_path["mesh_analytics"]["kernel.tiled"] = 4, 0
+    with pytest.raises(AssertionError, match="tiled was not launched on the mesh_analytics path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -546,6 +552,42 @@ def _with_ids(result, ids, dist):
     cols["id"] = pa.array(ids.reshape(-1))
     cols["__DISTANCE__"] = pa.array(dist.reshape(-1), type=result.schema.field("__DISTANCE__").type)
     return pa.table(cols)
+
+
+def test_chip_smoke_check_search_takes_a_short_result(smoke_root, tmp_path):
+    """A filtered 1-probe IVF search whose probe cell holds fewer than k
+    allowed rows returns them all and no more; check_search takes the
+    short result and holds its count to the oracle's (min(k, allowed
+    rows)): a row dropped from it fails."""
+    from fenix_tpu_torch import coder
+    from fenix_tpu_torch import index as index_mod
+    from fenix_tpu_torch.io import arrow
+    from fenix_tpu_torch.ops import cells
+
+    _, vectors, tags = smoke_root
+    root = str(tmp_path)
+    table.make(root, "items", pa.table({
+        "id": pa.array(np.arange(SMOKE_ROWS)), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+        "tag": pa.array(tags)}).to_reader(max_chunksize=4096))
+    config = {"metric": "l2", "codebook_size": 1024, "num_codebooks": 1, "batch_size": 4096, "num_epochs": 1}
+    codebooks = coder.make(root, "c", "items", "vector", config, seed=0, device="cpu")["tensor"]
+    index_mod.make(root, "c", "items", "vector", device="cpu")
+    codes = arrow.load(index_mod.path_of(root, "c", "items", "vector")).column(index_mod.CODE_COL).to_numpy()
+    queries = smoke.make_queries(vectors, 8, seed=30)
+    result = executor.execute_search(DeviceCache(root, device="cpu"), executor.SearchRequest(
+        "items", "vector", queries, metric="l2", maxval=10, coding="c", probes=1, filter=expr.field("tag") < 50))
+    probe = cells.topk_cells_np(queries, codebooks, "l2", 1)
+    mask = smoke.probe_mask(torch.from_numpy(np.array(codes)), probe, torch.from_numpy(tags), n_cells=1024)
+    counts = np.bincount(result.column("__QUERY_ID__").to_numpy(), minlength=8)
+    assert counts.min() < 10  # a short query is exercised
+    spec = ("ivf_short", 8, "l2", 10, "fp32", True, False)
+    oracle = smoke.Oracle(vectors, "cpu")
+    assert smoke.check_search(oracle, spec, queries, result, mask)["ids_equal_positions"] == 1.0
+    qid = result.column("__QUERY_ID__").to_numpy()
+    last_short = np.flatnonzero(qid == int(np.argmin(counts)))[-1]
+    dropped = result.filter(pa.array(np.arange(result.num_rows) != last_short))
+    with pytest.raises(AssertionError, match=r"min\(k, allowed rows\)"):
+        smoke.check_search(oracle, spec, queries, dropped, mask)
 
 
 def test_chip_smoke_oracle_refuses_wrong_order(smoke_root):
@@ -1067,7 +1109,9 @@ def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
     32 batched requests, each equal to the single device's answer and
     held to the float64 oracle, the shard-shape kernel rows, the merge,
     the CPU-held ``train_sharded`` and the append and delete refreshes;
-    (b) the mesh-composed residency modes under a per-device budget."""
+    (d) phase 11's joins on both attribute routes, each equal to the
+    single device's and held to phase 11's oracles; (b) the mesh-composed
+    residency modes under a per-device budget."""
     vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
     for name, value in {
         "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "IVF_CELLS": 64, "MESH_WARM_REPS": 1, "MUT_APPEND_ROWS": 1024,
@@ -1079,14 +1123,19 @@ def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
         "time_ms": lambda fn, reps: (fn(), 1.0)[1],
         # Q=520 still pads to the ring's 1,024 (ring blocks of 130), at k=16
         "SEARCHES": tuple((s[0], 520, s[2], 16, *s[4:]) if s[1] == 1024 else s for s in smoke.SEARCHES),
+        # (d): phase 11's requests at Q <= 100 and 2 probes over small attribute tables
+        "AN_ATTRS_ROWS": 20_000, "AN_DUP_ROWS": 8192, "AN_BATCH_ROWS": 5000,
+        "AN_REQUESTS": tuple((r[0], min(r[1], 100), *r[2:6], r[6] and 2, *r[7:]) for r in smoke.AN_REQUESTS),
     }.items():
         monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setenv("FENIX_PART_ATTRS_MIN", "8192")  # both attribute tables take the partitioned route
     queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
     latencies = {s[0]: [1.0] for s in smoke.SEARCHES}
     kernels.LAUNCHES["bucket_scores.f32"] += 1  # phase 15 zeroes every count before its path
     mesh = smoke.phase_mesh(kernels, topk2, expr, vectors, ids, tags, queries, latencies, "cpu", "cpu")
     assert mesh["mesh"] == {"cards": 0, "shards": 4} and mesh["served"] is None
     assert not any(mesh["launches"].values())  # CPU tensors launch nothing
+    assert not any(mesh["analytics_launches"].values())
     assert mesh["mutations"]["append"]["refreshes"] == (1, 0)
     assert mesh["mutations"]["delete_tag_eq_9"]["refreshes"] == (0, 1)
     appended_tags = smoke.appended_rows(1024, 128, SMOKE_ROWS, (queries[1][0],), seed=650)[2]

@@ -34,6 +34,7 @@ import torch
 from fenix_tpu import coder as jcoder
 from fenix_tpu import expr as jexpr
 from fenix_tpu import index as jindex
+from fenix_tpu.engine import analytics as janalytics
 from fenix_tpu.engine import executor as jexecutor
 from fenix_tpu.engine import residency as jresidency
 from fenix_tpu.engine.session import DeviceCache as JaxCache
@@ -251,16 +252,27 @@ def test_sharded_batched_probed(caches, rng):
     ids=["enrich", "count", "sum"],
 )
 def test_mesh_joins_raise(caches, rng, aggspec):
-    """Joins and aggregates over a mesh (the JAX package's fused mesh
-    routes) are ROADMAP item 10 (c): they raise, never answering from the
-    single-device route."""
-    _, mesh_c, _ = caches
-    req = executor.SearchRequest("t", "vector", rng.standard_normal((2, DIM)).astype(np.float32), metric="l2",
-                                 maxval=5)
-    join = analytics.JoinSpec(source="t", right_on="id")
-    agg = analytics.AggregateSpec.from_dict(aggspec) if aggspec else None
-    with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
-        analytics.execute_search_join(mesh_c, req, join, agg)
+    """Joins and aggregates over a mesh (ROADMAP item 10 (c), which raised
+    them) answer as the JAX mesh and one device do: the fused route joined
+    to the search table itself, enrichment rows in order up to fp32 ties,
+    integer aggregates equal and int64. ``tests/test_torch_mesh_analytics.py``
+    holds the routes and placements."""
+    jax_c, mesh_c, single_c = caches
+    target = rng.standard_normal((2, DIM)).astype(np.float32)
+    got, single, want = (
+        amod.execute_search_join(
+            cache, module.SearchRequest("t", "vector", target, metric="l2", maxval=5, select=["id"]),
+            amod.JoinSpec(source="t", right_on="id"),
+            amod.AggregateSpec.from_dict(aggspec) if aggspec else None,
+        )
+        for cache, module, amod in ((mesh_c, executor, analytics), (single_c, executor, analytics),
+                                    (jax_c, jexecutor, janalytics))
+    )
+    if aggspec is None:
+        assert_mesh_answer(got, single, want, l2_target=target)
+    else:
+        assert got.schema.field("__AGG__").type == pa.int64()
+        assert got.equals(single) and got.to_pylist() == want.to_pylist()
 
 
 def test_mesh_env(root, monkeypatch):
