@@ -295,17 +295,51 @@ Phases, each printing one JSON line with its own timings:
    the partial-table merge alone at the Q=1024 count. With several
    cards, (c)'s server also answers config 3's join as the in-process
    mesh did.
+16. the shuffle (BASELINE config 4), on phase 15's mesh after its oracle
+   checks, in the normal run and ``--mesh-only``. (d) first, while phase
+   15's float64 oracle over phase 3's rows is up: the dim-sharded search
+   on a (2, 2) mesh (four cards, else four shards on the first), Q=8
+   top-10 for l2, cosine and dot, held to the oracle by phase 4's rule
+   (its l2 is the expanded sqrt(|q|^2 - s), within 1e-4 * max(1, d)) and
+   to the row-sharded search on phase 15's mesh (ids up to near ties),
+   both timed; then kmeans.sharded_lloyd_step at phase 7's coder shapes
+   (one book, rows over the data axis; two books over the model axis)
+   against lloyd_step_single on one device within 1e-5 of the largest
+   entry, but for centroids a float64 near tie could move. (a)
+   distributed._device_shuffle_ids over SH_KEYS int64 keys (a seeded
+   permutation), each shard's ids equal to the host path's
+   (native.hash_partition + flatnonzero), through at the estimated
+   capacity; then the same keys with their first SH_HOT of rows on one
+   key: the estimate overflows and the retry at n_pad // S goes through;
+   device and host seconds. (b) build_shuffle of SH_PAYLOAD_ROWS x
+   SH_PAYLOAD_D fp32 rows a shard at twice the balanced share: chunks=1
+   and chunks=4 bitwise equal, every row once with its key on its hash's
+   shard, ms and GB/s moved. (c) distributed.repartition of (a)'s root
+   table (after phase 15's mutations) into S shards on the mesh: a spy
+   shows the device branch, the shard tables hold the host path's
+   placement, and phase 15 (a)'s five searches and MESH_READ over the
+   resolved name through executor.execute_search on a mesh cache (every
+   count 0 just before, read just after: the repartition path) equal the
+   answers before it, ids per query with each group of exactly tied
+   fp32 distances as a set (ties now resolve by shard order; a group
+   straddling the k-th place may differ within NEAR_TIE, phase 4's
+   rule), distances within 1e-5 * max(1, d), and both are held to the
+   float64 oracle over the live rows. With
+   several cards, (c)'s FENIX_MESH=auto server of phase 15 also answers
+   Flight repartition with its default shard count on a second table of
+   SH_SERVER_ROWS rows (one shard a card, the host placement, the (key,
+   id) upload in transfer.h2d_bytes, a search as before it).
 
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation, analytics, batching, types, mesh, mesh_analytics),
+mutation, analytics, batching, types, mesh, mesh_analytics, repartition),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. With no arguments it runs every phase on one card (a machine with
-several runs them on the first, and phase 15 over all of them);
-``--mesh-only`` runs phase 1's build and phase 15 alone ((b) on phase
-6's rows put in process), the run for a machine with several cards.
+several runs them on the first, and phases 15 and 16 over all of them);
+``--mesh-only`` runs phase 1's build and phases 15 and 16 alone ((b) on
+phase 6's rows put in process), the run for a machine with several cards.
 """
 
 from __future__ import annotations
@@ -348,18 +382,18 @@ KERNELS = (
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types", "mesh",
-                                    "mesh_analytics")),
+                                    "mesh_analytics", "repartition")),
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh",
-                                    "mesh_analytics")),
+                                    "mesh_analytics", "repartition")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
      "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh",
-                                    "mesh_analytics")),
+                                    "mesh_analytics", "repartition")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
     ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh")),  # bucket_scores_pallas (K3)
+     "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh", "repartition")),  # bucket_scores_pallas (K3)
 )
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
@@ -562,6 +596,17 @@ MESH_RES_SEARCHES = (
     ("mesh_stream_int8_q8", 8, "stream", "int8", "search.stream_chunks", None),
     ("mesh_dual_q8", 8, "dual", "fp32", None, None),
 )
+
+# phase 16: the shuffle, the mesh branch of repartition, the dim-sharded
+# search and the sharded Lloyd step, on phase 15's mesh after its checks
+SH_KEYS = 100_000_000  # (a): BASELINE config 4's row count, a seeded permutation
+SH_HOT = 0.3  # (a): the skewed set's share of rows on one key, its first rows
+SH_PAYLOAD_ROWS = 262_144  # (b): rows per shard
+SH_PAYLOAD_D = 768  # (b): BASELINE config 2/4's width
+SH_REPS = 3  # (b): timed exchanges per chunking, after the checked one
+SH_SERVER_ROWS = 1 << 20  # (c), several cards: the second table of the Flight repartition
+DIM_Q, DIM_K = 8, 10  # (d): queries and k of the dim-sharded search
+DIM_METRICS = ("l2", "cosine", "dot")
 
 BATCH_SHAPES = (
     ("batch_q32_cosine_k10", MB_THREADS, "cosine", 10, "fp32", False, False),
@@ -3562,17 +3607,17 @@ def mesh_requests(expr, vectors, queries) -> list[dict]:
     return reqs
 
 
-def run_requests(executor, cache, reqs, reps: int) -> tuple[dict, dict]:
+def run_requests(executor, cache, reqs, reps: int, source="smoke/items") -> tuple[dict, dict]:
     """Each request through ``executor.execute_search`` (the entry Flight
-    calls): ``{name: (result, first_s, warm_ms)}``, and per request the
-    rise of each of its route counters (an IVF request names both IVF
-    routes; every call moves one of them)."""
+    calls) over ``source``: ``{name: (result, first_s, warm_ms)}``, and per
+    request the rise of each of its route counters (an IVF request names
+    both IVF routes; every call moves one of them)."""
     from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
     out, routes = {}, {}
     for r in reqs:
         os.environ["FENIX_RING"] = r["ring"]
-        req = executor.SearchRequest(source="smoke/items", column="vector", target=r["target"], **r["kw"])
+        req = executor.SearchRequest(source=source, column="vector", target=r["target"], **r["kw"])
         counters = r["counter"] if isinstance(r["counter"], tuple) else (r["counter"],)
         before = METRICS.snapshot()
         out[r["name"]] = in_process(lambda: executor.execute_search(cache, req), reps)
@@ -3702,9 +3747,11 @@ def per_card_designs(kernels, topk2) -> list[dict]:
     return out
 
 
-def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi: str, kind: str) -> dict:
-    """Phase 15 (a) and (c): the serving mesh over its own root of phase
-    3's rows (see the module docstring). Returns the mesh path's launches
+def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi: str, kind: str,
+               with_shuffle: bool = False) -> dict:
+    """Phase 15 (a), (c) and (d): the serving mesh over its own root of
+    phase 3's rows (see the module docstring), then, ``with_shuffle``,
+    phase 16 on the same mesh and root. Returns the mesh paths' launches
     and the kernel rows at the shard shapes."""
     import numpy as np
     import pyarrow as pa
@@ -3854,6 +3901,11 @@ def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, 
                                    {"results": results, "attrs": an["attrs"], "dup": an["dup"]},
                                    label=f"mesh_analytics_oracle_{route}")
         emit({"phase": "mesh_analytics_oracle_done", "seconds": time.perf_counter() - t})
+        shuffled = None
+        if with_shuffle:
+            t = time.perf_counter()
+            shuffled = phase_shuffle(mesh, shape, root, live, reqs, vectors, oracle, smi, kind)
+            emit({"phase": "shuffle_done", "launches": shuffled["launches"], "seconds": time.perf_counter() - t})
         del oracle
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
@@ -3861,7 +3913,8 @@ def phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, 
         shutil.rmtree(work, ignore_errors=True)
     return {"launches": mesh_launches, "card_launches": card_launches, "checks": compares, "mesh": shape,
             "served": served, "mutations": mutations, "analytics_launches": an["launches"],
-            "analytics_card_launches": an["card_launches"]}
+            "analytics_card_launches": an["card_launches"],
+            "repartition_launches": shuffled["launches"] if shuffled else None}
 
 
 def mesh_card_shards(mesh) -> dict:
@@ -4172,6 +4225,7 @@ def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, an: dict, vec
         times[name] = (time.perf_counter() - t) * 1e3
         if not result.equals(an["results"]["partitioned"][name][2]):
             raise AssertionError(f"{name}: the mesh server's join answers differently from the in-process mesh")
+        repartitioned = server_repartition(client, vectors, root, smi, kind)  # phase 16 (c)
         stats = client.stats()
         if not stats.get("join.partitioned"):
             raise AssertionError(f"{name}: the mesh server did not take the partitioned route")
@@ -4186,8 +4240,8 @@ def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, an: dict, vec
         for d in ("stream", "tiled", "tensor_int8"):
             if not per_card[card][d]:
                 raise AssertionError(f"card {card} launched no {d} kernel under the mesh server")
-    row = {"phase": "mesh_server", "launches_per_card": per_card, "client_ms": times, "device": kind,
-           "nvidia_smi": smi}
+    row = {"phase": "mesh_server", "launches_per_card": per_card, "client_ms": times,
+           "repartition": repartitioned, "device": kind, "nvidia_smi": smi}
     emit(row)
     return row
 
@@ -4279,6 +4333,536 @@ def phase_mesh_residency(root: str, live, queries, smi: str, kind: str) -> dict:
     for name, check in checks.items():
         emit({"phase": "mesh_residency_check", "search": name, **check})
     return {"rows": rows, "mesh": shape}
+
+
+# -- phase 16: the shuffle, repartition on the mesh, the dim-sharded search ----
+
+
+def shuffle_spy(pshuffle, calls: list):
+    """Put a recording stand-in for ``pshuffle.build_shuffle`` in place:
+    each exchange it builds appends its capacity, chunks, whether a
+    window overflowed and its seconds (host clock to the cards' end) to
+    ``calls``. Returns the original, for the caller to put back."""
+    build = pshuffle.build_shuffle
+
+    def spy(mesh, capacity, row_shape, chunks=1):
+        fn = build(mesh, capacity, row_shape, chunks)
+
+        def run(rows, keys):
+            sync()
+            t = time.perf_counter()
+            out = fn(rows, keys)
+            sync()
+            calls.append({"capacity": capacity, "chunks": chunks, "exchange_s": time.perf_counter() - t,
+                          "overflow": any(bool(o.any()) for o in out[3].shards)})
+            return out
+
+        return run
+
+    pshuffle.build_shuffle = spy
+    return build
+
+
+def shuffle_ids_case(mesh, shape, keys, name: str, smi: str, kind: str) -> dict:
+    """Phase 16 (a), one key set: ``distributed._device_shuffle_ids``
+    against the host path (``native.hash_partition`` and ``flatnonzero``),
+    each shard's ids equal, with the capacities it tried."""
+    import numpy as np
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.parallel import distributed
+    from fenix_tpu_torch.parallel import shuffle as pshuffle
+
+    n_shards = mesh.size
+    t = time.perf_counter()
+    parts, _ = native.hash_partition(keys, n_shards)
+    want = [np.flatnonzero(parts == s) for s in range(n_shards)]
+    host_s = time.perf_counter() - t
+    del parts
+    calls: list = []
+    build = shuffle_spy(pshuffle, calls)
+    try:
+        sync()
+        t = time.perf_counter()
+        got = distributed._device_shuffle_ids(mesh, keys, n_shards)
+        sync()
+        device_s = time.perf_counter() - t
+    finally:
+        pshuffle.build_shuffle = build
+    for s in range(n_shards):
+        if not np.array_equal(got[s], want[s]):
+            raise AssertionError(f"shuffle {name}: shard {s}'s ids differ from the host hash's")
+    n_pad = -(-keys.size // n_shards) * n_shards
+    row = {"phase": "shuffle_ids", "keys": name, "rows": int(keys.size), "shards": n_shards,
+           "estimated_capacity": calls[0]["capacity"], "bound": n_pad // n_shards,
+           "took_capacity": calls[-1]["capacity"], "tries": calls, "device_s": device_s, "host_s": host_s,
+           "rows_per_shard": [int(g.size) for g in got], "clock": "host, keys on the host to ids on the host",
+           "mesh": shape, "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
+def phase_shuffle_ids(mesh, shape, smi: str, kind: str) -> dict:
+    """Phase 16 (a): the id shuffle of repartition over SH_KEYS int64 keys,
+    a seeded permutation (must go through at the estimated capacity), then
+    the same keys with their first SH_HOT of rows on one key, all on the
+    first source shards (must overflow there and go through on the retry
+    at the provable bound n_pad // S)."""
+    import numpy as np
+
+    keys = np.random.default_rng(1600).permutation(SH_KEYS).astype(np.int64)
+    uniform = shuffle_ids_case(mesh, shape, keys, "uniform", smi, kind)
+    if [c["overflow"] for c in uniform["tries"]] != [False]:
+        raise AssertionError(f"uniform keys: not through at the estimated capacity: {uniform['tries']}")
+    keys[: int(SH_HOT * SH_KEYS)] = keys[0]
+    skewed = shuffle_ids_case(mesh, shape, keys, "skewed", smi, kind)
+    last = skewed["tries"][-1]
+    if [c["overflow"] for c in skewed["tries"]] != [True, False] or (
+            last["capacity"] != -(-skewed["bound"] // last["chunks"]) * last["chunks"]):
+        raise AssertionError(f"skewed keys: no overflow, then the retry at n_pad // S: {skewed['tries']}")
+    return {"uniform": uniform, "skewed": skewed}
+
+
+def phase_shuffle_payload(mesh, shape, smi: str, kind: str) -> dict:
+    """Phase 16 (b): ``build_shuffle`` of SH_PAYLOAD_ROWS fp32 rows of
+    SH_PAYLOAD_D a shard (made on the card from a seed), keyed by a seeded
+    permutation of the row numbers, at twice the balanced share. chunks=1
+    and chunks=4 bitwise equal; no window over; every row arrives once,
+    with its key, on its hash's shard, equal to its source row. Each
+    chunking timed SH_REPS times after the checked call (host clock
+    around the exchange, synchronised), with the bytes it moves."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import relational
+    from fenix_tpu_torch.parallel import shuffle as pshuffle
+    from fenix_tpu_torch.parallel.search import Sharded
+
+    n_shards, b, d = mesh.size, SH_PAYLOAD_ROWS, SH_PAYLOAD_D
+    cap = 2 * b // n_shards
+    keys_np = np.random.default_rng(1610).permutation(n_shards * b).astype(np.int32)
+    rows = Sharded(mesh, [torch.randn((b, d), generator=torch.Generator(dev).manual_seed(1620 + s), device=dev)
+                          for s, dev in enumerate(mesh.devices)])
+    keys = Sharded(mesh, [torch.from_numpy(keys_np[s * b : (s + 1) * b]).to(dev)
+                          for s, dev in enumerate(mesh.devices)])
+    out, times = {}, {}
+    for chunks in (1, 4):
+        fn = pshuffle.build_shuffle(mesh, cap, (d,), chunks=chunks)
+        out[chunks] = fn(rows, keys)
+        ms = []
+        for _ in range(SH_REPS):
+            sync()
+            t = time.perf_counter()
+            fn(rows, keys)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+        times[chunks] = ms
+    for part, one, four in zip(("recv", "recv_keys", "valid", "overflow"), out[1], out[4]):
+        if not all(torch.equal(x, y) for x, y in zip(one.shards, four.shards)):
+            raise AssertionError(f"payload shuffle: chunks=4's {part} differs from chunks=1's")
+    recv, recv_keys, valid, overflow = out.pop(1)
+    del out
+    if any(bool(o.any()) for o in overflow.shards):
+        raise AssertionError("payload shuffle: a window overflowed at twice the balanced share")
+    row_of_key = torch.from_numpy(np.argsort(keys_np))  # key -> global row
+    arrived = []
+    for dst, dev in enumerate(mesh.devices):
+        wk, wv = recv_keys.shards[dst].view(n_shards, cap), valid.shards[dst].view(n_shards, cap)
+        wr = recv.shards[dst].view(n_shards, cap, d)
+        for src, src_dev in enumerate(mesh.devices):
+            k = wk[src][wv[src]]
+            if not bool((relational.hash_partition(k, n_shards) == dst).all()):
+                raise AssertionError(f"payload shuffle: a key on shard {dst} does not hash there")
+            local = row_of_key.to(src_dev)[k.to(src_dev).long()] - src * b
+            if bool(((local < 0) | (local >= b)).any()):
+                raise AssertionError(f"payload shuffle: window {src} of shard {dst} holds another source's keys")
+            if not torch.equal(wr[src][wv[src]].to(src_dev), rows.shards[src][local]):
+                raise AssertionError(f"payload shuffle: rows of window {src} on shard {dst} are not their keys' rows")
+            arrived.append(k.to(mesh.devices[0]))
+    arrived = torch.sort(torch.cat(arrived)).values
+    if not torch.equal(arrived.cpu(), torch.arange(n_shards * b, dtype=arrived.dtype)):
+        raise AssertionError("payload shuffle: not every row arrived exactly once")
+    payload = n_shards * b * (d * 4 + 4)  # each row and its key move once
+    windows = n_shards * n_shards * cap * (d * 4 + 4 + 1)
+    row = {"phase": "shuffle_payload", "rows_per_shard": b, "width": d, "shards": n_shards, "capacity": cap,
+           "payload_bytes": payload, "window_bytes": windows,
+           **{f"chunks{c}_ms": ms for c, ms in times.items()},
+           **{f"chunks{c}_median_ms": float(np.median(ms)) for c, ms in times.items()},
+           **{f"chunks{c}_payload_gb_per_s": payload / (float(np.median(ms)) * 1e6) for c, ms in times.items()},
+           **{f"chunks{c}_window_gb_per_s": windows / (float(np.median(ms)) * 1e6) for c, ms in times.items()},
+           "clock": "host, synchronised", "mesh": shape, "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
+def ids_agree(oracle, name: str, metric: str, queries, got, want, rel: float) -> int:
+    """[Q, k] row positions ``got`` against ``want``: equal, except where
+    the two rows' float64 distances to the query are within ``rel`` *
+    max(1, d) of each other (near ties, which no fp32 engine orders).
+    Returns the count of such differing positions."""
+    import numpy as np
+    import torch
+
+    differ = got != want
+    if not differ.any():
+        return 0
+    q = torch.from_numpy(np.ascontiguousarray(queries)).to(oracle.device, torch.float64)
+
+    def d64(pos):
+        return oracle.exact(q, torch.from_numpy(np.where(pos >= 0, pos, 0)).to(oracle.device), metric).cpu().numpy()
+
+    dg, dw = d64(got), d64(want)
+    bad = differ & ((got < 0) | (want < 0) | (np.abs(dg - dw) > rel * np.maximum(1.0, np.abs(dw))))
+    if bad.any():
+        raise AssertionError(f"{name}: ids differ at {int(bad.sum())} positions beyond ties")
+    return int(differ.sum())
+
+
+def canonical_ties(pos, dist):
+    """``pos`` [Q, k] with each run of equal fp32 distances put in row
+    order: exact ties resolve by table order, which a repartition changes.
+    Padding (-1, +inf) stays last."""
+    import numpy as np
+
+    order = np.lexsort((np.where(pos >= 0, pos, np.iinfo(np.int64).max), dist))
+    return np.take_along_axis(pos, order, axis=1)
+
+
+def repartition_search_check(oracle, live, r: dict, before, after) -> dict:
+    """A search over the repartitioned name against the same search before
+    it: ids per query equal with each group of exactly tied fp32 distances
+    as a set (both put in row order), but where a group straddles the k-th
+    place, whose rows may differ within NEAR_TIE (phase 4's rule);
+    distances within 1e-5 * max(1, d). Both are held to the float64 oracle
+    over the live rows by phase 4's rule."""
+    import numpy as np
+    import torch
+
+    name, qn, metric, k, precision, filtered, _ = r["check"][1]
+    b_ids, b_d = split_result(before, qn, k)
+    a_ids, a_d = split_result(after, qn, k)
+    b_pos, a_pos = live.pos(b_ids), live.pos(a_ids)
+    if ((a_pos < 0) & (a_ids >= 0)).any():
+        raise AssertionError(f"{name}: returned ids not in the table")
+    mask = torch.from_numpy(live.tags < 50).to(oracle.device) if filtered else None
+    out = {"before": check_ids(oracle, f"{name}_before", metric, k, precision, r["queries"], b_pos, b_d, mask,
+                               require_ties=False)}
+    canon = canonical_ties(a_pos, a_d)
+    out["after"] = check_ids(oracle, f"{name}_after", metric, k, precision, r["queries"], canon, a_d, mask,
+                             require_ties=False)
+    out["tie_reorders"] = int((canon != a_pos).sum())
+    out["near_tie_swaps_vs_before"] = ids_agree(oracle, name, metric, r["queries"], canon,
+                                                canonical_ties(b_pos, b_d), NEAR_TIE)
+    real = b_pos >= 0
+    err = np.abs(np.where(real, a_d - b_d, 0.0)) / np.maximum(1.0, np.abs(np.where(real, b_d, 0.0)))
+    if err.max(initial=0.0) > 1e-5:
+        raise AssertionError(f"{name}: distances after the repartition off by {err.max()} relative")
+    out["max_rel_dist_diff"] = float(err.max(initial=0.0))
+    return out
+
+
+def repartition_read_check(oracle, live, r: dict, before, after) -> dict:
+    """MESH_READ over the repartitioned name: per query the rows selected
+    before it (now in shard order), distances within 1e-5 * max(1, d);
+    both held to the float64 oracle (check_selection, rows in live
+    order)."""
+    import numpy as np
+    import pyarrow as pa
+
+    rows = np.flatnonzero(tag_mask(live.tags, r["check"][1]))
+    placed = []
+    for label, res in (("before", before), ("after", after)):
+        pos = live.pos(np.asarray(res.column("id")))
+        qid = res.column("__QUERY_ID__").to_numpy()
+        order = np.lexsort((pos, qid))
+        placed.append(pa.table({"id": pos[order], "__DISTANCE__": np.asarray(res.column("__DISTANCE__"))[order],
+                                "__QUERY_ID__": qid[order]}))
+    checks = {label: check_selection(oracle, f"{r['name']}_{label}", r["kw"]["metric"], r["queries"], t,
+                                     lambda qi: rows) for label, t in zip(("before", "after"), placed)}
+    b, a = (np.asarray(t.column("__DISTANCE__")) for t in placed)
+    err = np.abs(a - b) / np.maximum(1.0, np.abs(b))
+    if err.max(initial=0.0) > 1e-5:
+        raise AssertionError(f"{r['name']}: distances after the repartition off by {err.max()} relative")
+    return {**checks, "max_rel_dist_diff": float(err.max(initial=0.0))}
+
+
+def phase_repartition(mesh, shape, root: str, live, reqs, smi: str, kind: str) -> dict:
+    """Phase 16 (c): ``distributed.repartition`` of (a)'s table (after
+    phase 15's mutations: ``live``) into S shards on the mesh. A spy on
+    ``_device_shuffle_ids`` shows the device branch; the shard tables hold
+    the host path's placement of the same keys. Phase 15 (a)'s five
+    searches and MESH_READ through ``executor.execute_search`` on a mesh
+    cache over the resolved name (every count 0 just before, read just
+    after: the repartition path) equal the answers before it."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.engine import executor
+    from fenix_tpu_torch.engine.session import DeviceCache
+    from fenix_tpu_torch.io import table
+    from fenix_tpu_torch.ops import kernels
+    from fenix_tpu_torch.parallel import distributed
+
+    name = "smoke/items"
+    chosen = [r for r in reqs if r["check"][0] in ("search", "read") and r["ring"] == "auto"]
+    before, _ = run_requests(executor, DeviceCache(root, device=DEVICE, mesh=mesh), chosen, 0)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    calls = []
+    inner = distributed._device_shuffle_ids
+
+    def spy(m, keys, num_shards):
+        calls.append(num_shards)
+        return inner(m, keys, num_shards)
+
+    distributed._device_shuffle_ids = spy
+    try:
+        t = time.perf_counter()
+        manifest = distributed.repartition(root, name, mesh.size, mesh=mesh)
+        repartition_s = time.perf_counter() - t
+    finally:
+        distributed._device_shuffle_ids = inner
+    if calls != [mesh.size]:
+        raise AssertionError(f"repartition on the mesh did not take the device shuffle: {calls}")
+    parts, _ = native.hash_partition(live.ids, mesh.size)
+    shard_rows = []
+    for s in range(manifest.num_shards):
+        got = np.asarray(table.load(root, manifest.shard_name(s)).column("id"))
+        if not np.array_equal(got, live.ids[parts == s]):
+            raise AssertionError(f"shard table {s} differs from the host path's placement")
+        shard_rows.append(int(got.size))
+    source = distributed.resolve_source(root, name)
+    if source != [manifest.shard_name(s) for s in range(mesh.size)]:
+        raise AssertionError(f"{name} resolves to {source}")
+
+    for counts in (kernels.LAUNCHES, kernels.DEVICE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    after, routes = run_requests(executor, DeviceCache(root, device=DEVICE, mesh=mesh), chosen, MESH_WARM_REPS,
+                                 source=source)
+    sync()
+    launches = {k.removeprefix("bucket_scores."): v for k, v in kernels.LAUNCHES.items()}
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    emit({"phase": "repartition", "rows": int(live.ids.shape[0]), "shards": manifest.num_shards,
+          "shard_rows": shard_rows, "seconds": repartition_s, "device_route_calls": len(calls),
+          "launches": launches, "mesh": shape, "device": kind, "nvidia_smi": smi})
+
+    oracle = Oracle(live.parts, DEVICE)
+    for r in chosen:
+        if sum(routes[r["name"]].values()) != MESH_WARM_REPS + 1:
+            raise AssertionError(f"{r['name']}: route counters moved {routes[r['name']]} over the shards")
+        result, first, warm = after[r["name"]]
+        check = (repartition_read_check if r["check"][0] == "read" else repartition_search_check)(
+            oracle, live, r, before[r["name"]][0], result)
+        emit({"phase": "repartition_search", "search": r["name"], "q": r["q"], "first_s": first,
+              "warm_median_ms": float(np.median(warm)), "before_first_s": before[r["name"]][1],
+              "routes": routes[r["name"]], **check, "clock": "host, in process", "mesh": shape, "device": kind,
+              "nvidia_smi": smi})
+    del oracle
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": repartition_s, "shard_rows": shard_rows}
+
+
+def dim_mesh():
+    """Phase 16 (d)'s (2, 2) mesh: one shard a card on four or more cards,
+    else four shards on the first card (or the CPU)."""
+    import torch
+
+    from fenix_tpu_torch.parallel.mesh import make_mesh
+
+    if DEVICE == "cuda" and torch.cuda.device_count() >= 4:
+        return make_mesh(4, model_parallel=2)
+    return make_mesh(devices=[f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * 4, model_parallel=2)
+
+
+def lloyd_near_ties(books, batch):
+    """Centroids ``[n, K]`` that a float64 near tie (the two nearest within
+    1e-5 relative) could move between two fp32 Lloyd steps."""
+    import torch
+
+    n, k, _ = books.shape
+    touched = torch.zeros((n, k), dtype=torch.bool, device=books.device)
+    for j in range(n):
+        c = books[j].double()
+        csq = (c * c).sum(1)
+        for s in range(0, batch.shape[1], 4096):
+            x = batch[j, s : s + 4096].double()
+            top = torch.topk((x * x).sum(1, keepdim=True) - 2.0 * x @ c.T + csq[None, :], 2, dim=1, largest=False)
+            d = top.values.clamp_min(0.0).sqrt()
+            near = (d[:, 1] - d[:, 0]) <= 1e-5 * d[:, 1]
+            touched[j, top.indices[near].reshape(-1)] = True
+    return touched
+
+
+def sharded_lloyd_checks(dmesh, vectors, smi: str, kind: str) -> list[dict]:
+    """``kmeans.sharded_lloyd_step`` at phase 7's coder shapes (IVF_CELLS
+    centroids of D, IVF_STEP_ROWS rows) on the (2, 2) mesh, one book with
+    the rows over the data axis, then two books over the model axis,
+    against ``lloyd_step_single`` on one device: within 1e-5 of the largest
+    entry, but for centroids a float64 near tie could move."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import kmeans
+    from fenix_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    d = vectors.shape[1]
+    pick = np.random.default_rng(1640).choice(vectors.shape[0], 2 * IVF_CELLS + IVF_STEP_ROWS, replace=False)
+    dev0 = dmesh.devices[0]
+    out = []
+    for n_books, axis in ((1, None), (2, MODEL_AXIS)):
+        books = torch.from_numpy(vectors[pick[: n_books * IVF_CELLS]]).to(dev0).view(n_books, IVF_CELLS, d)
+        batch = torch.from_numpy(vectors[pick[2 * IVF_CELLS :]]).to(dev0).view(n_books, -1, d)
+        step = kmeans.sharded_lloyd_step(dmesh, DATA_AXIS, axis, "l2")
+        got, first, warm = in_process(lambda: step(books, batch), MESH_WARM_REPS)
+        want = torch.stack([kmeans.lloyd_step_single(books[j], batch[j], "l2") for j in range(n_books)])
+        touched = lloyd_near_ties(books, batch)
+        err = (got - want).abs().amax(dim=-1) / want.abs().max()
+        worst = float(err[~touched].max()) if bool((~touched).any()) else 0.0
+        if worst > 1e-5:
+            raise AssertionError(f"sharded Lloyd step ({n_books} books) off one device's by {worst} of the largest")
+        row = {"phase": "sharded_lloyd_step", "books": n_books, "model_axis": axis, "centroids": IVF_CELLS,
+               "rows": IVF_STEP_ROWS, "max_err_of_largest": worst, "near_tie_centroids": int(touched.sum()),
+               "first_s": first, "warm_ms": warm, "clock": "host, synchronised",
+               "mesh": {"data": 2, "model": 2, "devices": [str(x) for x in dmesh.devices]}, "device": kind,
+               "nvidia_smi": smi}
+        emit(row)
+        out.append(row)
+    return out
+
+
+def phase_dim_sharded(mesh, vectors, oracle, smi: str, kind: str) -> dict:
+    """Phase 16 (d): ``build_dim_sharded_search`` over phase 3's rows on the
+    (2, 2) mesh (rows over the data axis, columns over the model axis),
+    DIM_Q queries top-DIM_K for each of DIM_METRICS, held to the float64
+    oracle (phase 4's rule, distances within 1e-4 * max(1, d)) and to the
+    row-sharded search on phase 15's mesh (ids equal up to near ties),
+    each timed (host clock, synchronised); then the sharded Lloyd step."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.ops import topk2
+    from fenix_tpu_torch.parallel import search as psearch
+
+    dmesh = dim_mesh()
+    dev0 = dmesh.devices[0]
+    n, d = vectors.shape
+    t = time.perf_counter()
+    corpus, mask = psearch.shard_corpus_dim(dmesh, vectors)
+    rows, rows_mask = psearch.shard_corpus(mesh, vectors)
+    sync()
+    place_s = time.perf_counter() - t
+    full = torch.from_numpy(vectors)
+    if corpus.shape[0] > n:
+        full = torch.cat([full, torch.zeros((corpus.shape[0] - n, d))])
+    host_mask = torch.cat([m.cpu() for m in mask])
+    out = []
+    for i, metric in enumerate(DIM_METRICS):
+        q = make_queries(vectors, DIM_Q, seed=1630 + i)
+        mul, add = topk2.prepare_aux(full, host_mask, metric)  # of the full-D rows, before placement
+        q_t = torch.from_numpy(q)
+        args = (corpus, topk2.prepare_queries(q_t, metric).to(dev0), corpus.data_rows(mul), corpus.data_rows(add),
+                (q_t.double() ** 2).sum(1).float())
+        fn = psearch.build_dim_sharded_search(dmesh, DIM_K, metric)
+        (dist, ids), first, warm = in_process(lambda: fn(*args), MESH_WARM_REPS)
+        row_aux = psearch.shard_aux(rows, rows_mask, metric)
+        row_fn = psearch.build_sharded_search(mesh, DIM_K, metric, with_aux=True)
+        q_dev = q_t.to(mesh.devices[0])
+        (r_dist, r_ids), r_first, r_warm = in_process(lambda: row_fn(rows, q_dev, rows_mask, *row_aux), MESH_WARM_REPS)
+        name = f"dim_sharded_{metric}"
+        ids_np, dist_np = ids.cpu().numpy(), dist.cpu().numpy()
+        check = check_ids(oracle, name, metric, DIM_K, "fp32", q, ids_np, dist_np, None, require_ties=False)
+        swaps = ids_agree(oracle, name, metric, q, ids_np, r_ids.cpu().numpy(), NEAR_TIE)
+        row = {"phase": "dim_sharded", "search": name, "q": DIM_Q, "k": DIM_K, "rows": n, "dim": d,
+               "first_s": first, "warm_ms": warm, "warm_median_ms": float(np.median(warm)),
+               "row_sharded_first_s": r_first, "row_sharded_warm_ms": r_warm,
+               "row_sharded_warm_median_ms": float(np.median(r_warm)), "near_tie_swaps_vs_row_sharded": swaps,
+               "placement_s": place_s, **check, "clock": "host, synchronised",
+               "mesh": {"data": 2, "model": 2, "devices": [str(x) for x in dmesh.devices]},
+               "row_mesh_shards": mesh.size, "device": kind, "nvidia_smi": smi}
+        emit(row)
+        out.append(row)
+        del row_aux
+    del corpus, mask, rows, rows_mask
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"searches": out, "lloyd": sharded_lloyd_checks(dmesh, vectors, smi, kind)}
+
+
+def server_repartition(client, vectors, root: str, smi: str, kind: str) -> dict:
+    """Phase 16 (c) on several cards: a second table of SH_SERVER_ROWS rows
+    (past phase 3's duplicates, so no two tie) put over Flight to (c)'s
+    FENIX_MESH=auto server, then Flight ``repartition`` with its default
+    shard count: one shard a card, the host hash's placement, the upload
+    of the (key, id) pairs in the server's transfer.h2d_bytes (the host
+    path uploads nothing), and a search as before it."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from fenix_tpu_torch import native
+    from fenix_tpu_torch.io import ingest, table
+
+    cards = torch.cuda.device_count()
+    name = "smoke/second"
+    lo = 2 * DUP
+    ids = np.arange(lo, lo + SH_SERVER_ROWS, dtype=np.int64)
+    rows = vectors[lo : lo + SH_SERVER_ROWS]
+    schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), vectors.shape[1])})
+    client.make_table(name, pa.RecordBatchReader.from_batches(schema, (
+        pa.record_batch([pa.array(ids[s : s + BATCH_ROWS]),
+                         ingest.numpy_to_fixed_size_list(rows[s : s + BATCH_ROWS], pa.float32())], schema=schema)
+        for s in range(0, SH_SERVER_ROWS, BATCH_ROWS))))
+    target = make_queries(rows, 8, seed=1650)
+    before = client.search(target, name, "vector", metric="l2", maxval=10)
+    h2d = client.stats().get("transfer.h2d_bytes", 0)
+    t = time.perf_counter()
+    manifest = client.repartition(name)
+    seconds = time.perf_counter() - t
+    uploaded = client.stats().get("transfer.h2d_bytes", 0) - h2d
+    if manifest["num_shards"] != cards or uploaded < 8 * SH_SERVER_ROWS:
+        raise AssertionError(f"Flight repartition: {manifest}, {uploaded} bytes uploaded: not the device shuffle")
+    parts, _ = native.hash_partition(ids, cards)
+    for s in range(cards):
+        got = np.asarray(table.load(root, f"{name}@{s}").column("id"))
+        if not np.array_equal(got, ids[parts == s]):
+            raise AssertionError(f"Flight repartition: shard table {s} differs from the host path's placement")
+    after = client.search(target, name, "vector", metric="l2", maxval=10)
+    check = check_mesh_vs_single("server_repartition", after, before, 8)
+    row = {"phase": "server_repartition", "rows": SH_SERVER_ROWS, "num_shards": manifest["num_shards"],
+           "seconds": seconds, "h2d_bytes": uploaded, **check, "device": kind, "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
+def phase_shuffle(mesh, shape, root: str, live, reqs, vectors, oracle, smi: str, kind: str) -> dict:
+    """Phase 16 (see the module docstring), on phase 15's mesh after its
+    checks: (d) first, with phase 15's oracle over phase 3's rows, then
+    (a), (b) and (c) on (a)'s root. Returns the repartition path's
+    launches."""
+    import torch
+
+    t = time.perf_counter()
+    dim = phase_dim_sharded(mesh, vectors, oracle, smi, kind)
+    emit({"phase": "dim_sharded_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    ids = phase_shuffle_ids(mesh, shape, smi, kind)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    emit({"phase": "shuffle_ids_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    payload = phase_shuffle_payload(mesh, shape, smi, kind)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    emit({"phase": "shuffle_payload_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    rep = phase_repartition(mesh, shape, root, live, reqs, smi, kind)
+    emit({"phase": "repartition_done", "seconds": time.perf_counter() - t})
+    return {"launches": rep["launches"], "ids": ids, "payload": payload, "repartition": rep, "dim": dim}
 
 
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
@@ -4565,10 +5149,11 @@ def run() -> int:
     ivf_launches, sel_launches, an_launches = ivf["launches"], sel["launches"], an["launches"]
     del results, ivf, sel, mut, an
     t = time.perf_counter()
-    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi, kind)
+    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, latencies, smi, kind, with_shuffle=True)
     emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
           "analytics_launches": mesh["analytics_launches"],
-          "analytics_launches_per_card": mesh["analytics_card_launches"], "mesh": mesh["mesh"],
+          "analytics_launches_per_card": mesh["analytics_card_launches"],
+          "repartition_launches": mesh["repartition_launches"], "mesh": mesh["mesh"],
           "seconds": time.perf_counter() - t})
     del vectors, ids_np, tags, queries
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
@@ -4581,7 +5166,8 @@ def run() -> int:
                "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
                "batching": batching, "types": ty_launches,
                "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
-               "mesh_analytics": {k: mesh["analytics_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
+               "mesh_analytics": {k: mesh["analytics_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
+               "repartition": {k: mesh["repartition_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})
@@ -4593,7 +5179,7 @@ def run() -> int:
 
 
 def run_mesh_only() -> int:
-    """Phase 1's build and phase 15 alone: (a) and (c) on phase 3's rows,
+    """Phase 1's build and phases 15 and 16 alone: (a) and (c) on phase 3's rows,
     (b) on phase 6's rows put in process: the run for a machine with
     several cards, where the serving mesh spans them (the whole script
     there would repeat phases 2-14 on one card)."""
@@ -4616,13 +5202,15 @@ def run_mesh_only() -> int:
     vectors, ids_np, tags = make_data(ROWS, seed=0)
     queries = [make_queries(vectors, spec[1], seed=10 + i) for i, spec in enumerate(SEARCHES)]
     t = time.perf_counter()
-    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, {}, smi, kind)
+    mesh = phase_mesh(kernels, topk2, expr, vectors, ids_np, tags, queries, {}, smi, kind, with_shuffle=True)
     emit({"phase": "mesh_done", "launches": mesh["launches"], "launches_per_card": mesh["card_launches"],
           "analytics_launches": mesh["analytics_launches"],
-          "analytics_launches_per_card": mesh["analytics_card_launches"], "mesh": mesh["mesh"],
+          "analytics_launches_per_card": mesh["analytics_card_launches"],
+          "repartition_launches": mesh["repartition_launches"], "mesh": mesh["mesh"],
           "seconds": time.perf_counter() - t})
     for name, key, *_ in KERNELS:
-        for path, counts in (("mesh", mesh["launches"]), ("mesh_analytics", mesh["analytics_launches"])):
+        for path, counts in (("mesh", mesh["launches"]), ("mesh_analytics", mesh["analytics_launches"]),
+                             ("repartition", mesh["repartition_launches"])):
             if path in _[-1] and not counts.get(key):
                 raise AssertionError(f"{name} was not launched on the {path} path")
     del vectors, ids_np, tags, queries
@@ -4655,7 +5243,7 @@ def run_mesh_only() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mesh-only", action="store_true",
-                        help="phase 1's build and phase 15 alone (a machine with several cards)")
+                        help="phase 1's build and phases 15 and 16 alone (a machine with several cards)")
     args = parser.parse_args()
     try:
         return run_mesh_only() if args.mesh_only else run()

@@ -515,9 +515,10 @@ class Flight:
         return self
 
     def repartition(self, source: str, num_shards: int | None = None, key: str = "id") -> dict:
-        """Hash-partition ``source`` into ``num_shards`` shard tables (2 by
-        default) keyed by ``key``; the name then resolves to the shards on
-        every verb, and its indexes are dropped. Returns the manifest."""
+        """Hash-partition ``source`` into ``num_shards`` shard tables (by
+        default one per device of the server's mesh, else 2) keyed by
+        ``key``; the name then resolves to the shards on every verb, and
+        its indexes are dropped. Returns the manifest."""
         results = self._action("repartition", {"source": source, "num_shards": num_shards, "key": key})
         return _loads(results[0].body.to_pybytes())
 

@@ -29,8 +29,12 @@ replacement, each step's weighted segment sums and counts are added on
 the mesh's first device in shard order (the JAX package's ``psum``), and
 the draws are the JAX package's for the seed and shard count
 (``threefry.choice`` for the initial rows, ``fold_in`` per shard,
-``randint`` per step). Not ported (ROADMAP queue 1 item 10 (c)):
-``sharded_lloyd_step``, which only the JAX package's tests call.
+``randint`` per step).
+
+``sharded_lloyd_step`` is one Lloyd step on a ``(data, model)`` mesh:
+whole codebooks per model column, the batch rows split over the data
+shards, each column's sums and counts added on its first device in
+data-shard order, then the single update.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from fenix_tpu_torch import native
 from fenix_tpu_torch.io import batch as batch_io
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.ops.distance import canonical_metric, normalize, pairwise_distance
+from fenix_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 from fenix_tpu_torch.utils import hbm, threefry
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -236,6 +241,54 @@ def train_sharded(
             base = normalize(codebooks) if metric_c == "cosine" else codebooks
             codebooks = _lloyd_update(base, total_sums, total_counts, metric_c)
     return codebooks
+
+
+def sharded_lloyd_step(mesh, data_axis: str, model_axis: "str | None", metric: str):
+    """One Lloyd step over a mesh (``parallel.mesh.Mesh``): ``fn(codebooks
+    [n, K, D], batch [n, B, D]) -> [n, K, D]`` on the mesh's first device.
+
+    The codebooks split over ``model_axis`` (whole books per model column,
+    ``n`` a multiple of its size; with None every column would hold every
+    book, so the first column alone works); the batch rows split over
+    ``data_axis`` (``B`` a multiple of its size). Shard ``(r, c)`` takes
+    the segment sums and counts of column ``c``'s books over row block
+    ``r``; they add on ``(0, c)``'s device in ``r`` order, so the sum
+    order does not depend on the devices' timing, and the update is
+    ``lloyd_step_single``'s on the whole batch."""
+    if data_axis != DATA_AXIS or model_axis not in (MODEL_AXIS, None):
+        raise ValueError(f"axes must be {DATA_AXIS!r} and {MODEL_AXIS!r} or None, got {data_axis!r}, {model_axis!r}")
+    metric_c = canonical_metric(metric)
+    rows, m = len(mesh.grid), len(mesh.grid[0])
+    cols = m if model_axis else 1
+
+    def step(codebooks: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
+        n, b = codebooks.shape[0], batch.shape[1]
+        if n % cols or b % rows:
+            raise ValueError(f"{n} codebooks x {b} rows do not split over a {rows} x {cols} mesh")
+        nb, rb = n // cols, b // rows
+
+        def part(s: int):
+            r, c = divmod(s, m)
+            if c >= cols:
+                return None
+            dev = mesh.devices[s]
+            books = codebooks[c * nb : (c + 1) * nb].to(dev, non_blocking=True)
+            sample = batch[c * nb : (c + 1) * nb, r * rb : (r + 1) * rb].to(dev, non_blocking=True)
+            return _lloyd_sums(books, sample, metric_c)[:3]
+
+        parts = mesh.map(part)
+        dev0 = mesh.devices[0]
+        out = []
+        for c in range(cols):
+            base, sums, counts = parts[c]
+            for r in range(1, rows):
+                _, s_r, c_r = parts[r * m + c]
+                sums = sums + s_r.to(base.device, non_blocking=True)
+                counts = counts + c_r.to(base.device, non_blocking=True)
+            out.append(_lloyd_update(base, sums, counts, metric_c).to(dev0, non_blocking=True))
+        return torch.cat(out)
+
+    return step
 
 
 TRANSPORTS = ("fp32", "bf16", "int8")

@@ -20,8 +20,10 @@ ratio in float64 for mean. The JAX package's limb lanes (``_limb_plan``,
 sum over 6-bit int32 limbs only because JAX runs with x64 off, and a CUDA
 card adds int64 natively. The results are the same exact int64.
 
-``hash_partition`` serves the multi-device shuffle and waits for it
-(ROADMAP queue 1 item 10 (c)).
+``hash_partition`` is the shuffle's destination hash
+(``parallel/shuffle.py``): the murmur3 finalizer over the low 32 bits of
+the key, bit-equal to ``native.hash_partition``. torch has no uint32
+arithmetic on a card, so the hash runs in int64 held below 2^32.
 """
 
 from __future__ import annotations
@@ -282,3 +284,26 @@ def group_aggregate_int(
         out = _segment(sv, gid, max_groups, "amin" if agg == "min" else "amax")
     group_keys, n_groups, valid = _group_keys_count(sk, gid, new_group, max_groups, dropped)
     return group_keys, torch.where(valid, out, torch.zeros_like(out)), n_groups
+
+
+# -- hash partition (for the shuffle) -------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x · c mod 2^32`` for int64 ``x`` in [0, 2^32): ``c`` in 16-bit
+    halves, so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def hash_partition(keys: torch.Tensor, num_partitions: int) -> torch.Tensor:
+    """Partition id (int32) per key: the murmur3 finalizer over the key's
+    low 32 bits, ``% num_partitions`` — the JAX package's
+    ``relational.hash_partition`` and ``native.hash_partition``."""
+    x = keys.to(torch.int64) & _MASK32
+    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
+    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return (x % num_partitions).to(torch.int32)

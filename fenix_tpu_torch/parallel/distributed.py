@@ -1,5 +1,5 @@
-"""Repartitioned (sharded) tables — the host half of
-``fenix_tpu/parallel/distributed.py`` (``:66-136``, ``:183-233``).
+"""Repartitioned (sharded) tables and the cluster bootstrap — port of
+``fenix_tpu/parallel/distributed.py``.
 
 ``repartition`` hash-partitions a catalog table into ``<t>@<shard>``
 tables, writes ``<t>.manifest.json`` beside them and retires the
@@ -8,13 +8,16 @@ shard list (:func:`resolve_source`), which the engine serves as a
 multi-source request. The files are the JAX package's, so either
 package serves a root the other repartitioned.
 
-Ported: ``ShardManifest``, ``manifest_path``, ``load_manifest``,
-``resolve_source``, ``drop_repartition`` and ``repartition`` through the
-host hash (``native.hash_partition``, the engine's hash, so the
-placement is the JAX package's whatever route it took). The device
-shuffle (``_device_shuffle_ids``, all_to_all over a mesh of as many
-devices as shards) raises ``NotImplementedError`` (ROADMAP queue 1 item
-10 (c)); multi-host bootstrap is its own later item.
+Two routes place the rows, with the same hash and so the same placement.
+With a mesh of exactly ``num_shards`` devices, (key, row id) pairs go
+through the device shuffle (``parallel/shuffle.py``) and each shard's
+received ids drive the host-side table gather; row payloads never reach
+the device, so any Arrow schema repartitions. Otherwise, and for an
+empty table, ``native.hash_partition`` places them on the host.
+
+``ClusterConfig`` / ``initialize`` bring up one process's mesh. More than
+one process (multi-host, on ``torch.distributed``) is ROADMAP queue 1
+item 4 and raises.
 """
 
 from __future__ import annotations
@@ -25,11 +28,49 @@ import os
 
 import numpy as np
 import pyarrow as pa
+import torch
 
 from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch import native
 from fenix_tpu_torch.io import table as table_mod
 from fenix_tpu_torch.io.locks import catalog_lock
+from fenix_tpu_torch.parallel import mesh as mesh_mod
+from fenix_tpu_torch.parallel import shuffle as pshuffle
+from fenix_tpu_torch.parallel.search import put_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """Typed cluster/topology config (serialized as JSON)."""
+
+    coordinator_address: str | None = None  # "host:port"; None = single host
+    num_processes: int = 1
+    process_id: int = 0
+    model_parallel: int = 1
+
+    @staticmethod
+    def from_env() -> "ClusterConfig":
+        return ClusterConfig(
+            coordinator_address=os.environ.get("FENIX_COORDINATOR"),
+            num_processes=int(os.environ.get("FENIX_NUM_PROCESSES", "1")),
+            process_id=int(os.environ.get("FENIX_PROCESS_ID", "0")),
+            model_parallel=int(os.environ.get("FENIX_MODEL_PARALLEL", "1")),
+        )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+
+def initialize(config: "ClusterConfig | None" = None) -> "mesh_mod.Mesh":
+    """The engine mesh over this process's cards (``make_mesh`` with the
+    config's ``model_parallel``; the config from the environment when
+    None). More than one process is not ported: raises."""
+    config = config or ClusterConfig.from_env()
+    if config.num_processes > 1:
+        raise NotImplementedError(
+            "multi-host (more than one process on torch.distributed) is not ported (ROADMAP queue 1 item 4)"
+        )
+    return mesh_mod.make_mesh(model_parallel=config.model_parallel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +83,9 @@ class ShardManifest:
 
     def shard_name(self, shard: int) -> str:
         return f"{self.table}@{shard}"
+
+    def local_shards(self, process_id: int, num_processes: int) -> list[int]:
+        return [s for s in range(self.num_shards) if s % num_processes == process_id]
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -93,26 +137,58 @@ def drop_repartition(root: str, table_name: str) -> bool:
     return True
 
 
+def _device_shuffle_ids(mesh: "mesh_mod.Mesh", keys: np.ndarray, num_shards: int) -> list[np.ndarray]:
+    """Each shard's row ids (sorted) by the device shuffle: (key, row id)
+    pairs go through ``build_shuffle`` with ``row_shape=()``, keys cut to
+    int32 (the low 32 bits, which both hash paths use), ids padded with
+    −1 to a multiple of the shard count. The capacity is estimated at
+    ``safety=2.0``; on any overflow the exchange runs once more at the
+    provable bound ``n_pad // S``."""
+    n = keys.size
+    n_pad = -(-n // num_shards) * num_shards
+    ids = np.full(n_pad, -1, np.int32)
+    ids[:n] = np.arange(n, dtype=np.int32)
+    keys_pad = np.zeros(n_pad, np.int32)
+    keys_pad[:n] = keys.astype(np.int32)
+    rows_dev = put_rows(mesh, ids, n_pad)
+    keys_dev = put_rows(mesh, keys_pad, n_pad)
+
+    capacity = pshuffle.estimate_capacity(keys, num_shards, n_pad // num_shards, safety=2.0)
+    for cap in (capacity, n_pad // num_shards):
+        # large exchanges double-buffer (4 chunks); small ones keep one
+        chunks = 4 if cap >= 4096 else 1
+        cap = -(-cap // chunks) * chunks
+        recv_ids, _, valid, overflow = pshuffle.build_shuffle(mesh, cap, (), chunks=chunks)(rows_dev, keys_dev)
+        if not any(bool(o.any()) for o in overflow.shards):
+            break
+    out = []
+    for got, ok in zip(recv_ids.shards, valid.shards):
+        sel = got[ok]
+        out.append(torch.sort(sel[sel >= 0]).values.cpu().numpy())
+    return out
+
+
 def repartition(
     root: str, table_name: str, num_shards: int, key_column: str = "id", mesh=None
 ) -> ShardManifest:
     """Hash-partition a catalog table on ``key_column`` into
     ``<t>@<shard>`` tables (rows keep their order within a shard), write
     the manifest, and retire the original name and its indexes. With a
-    ``mesh`` of ``num_shards`` devices the JAX package shuffles on the
-    devices; that route is not ported and raises."""
-    if mesh is not None and mesh.size == num_shards:
-        raise NotImplementedError(
-            "repartition's device shuffle over a mesh is not ported (ROADMAP queue 1 item 10 (c))"
-        )
+    ``mesh`` of ``num_shards`` devices and a nonempty table the rows are
+    routed by the device shuffle (:func:`_device_shuffle_ids`), else by
+    ``native.hash_partition``: the same hash, so the same placement."""
     with catalog_lock(root):
         data = table_mod.load(root, table_name)
         keys = np.asarray(data.column(key_column)).astype(np.int64)
-        parts, _ = native.hash_partition(keys, num_shards)
+        if mesh is not None and mesh.size == num_shards and keys.size:
+            shard_ids = _device_shuffle_ids(mesh, keys, num_shards)
+        else:
+            parts, _ = native.hash_partition(keys, num_shards)
+            shard_ids = [np.flatnonzero(parts == s) for s in range(num_shards)]
 
         manifest = ShardManifest(table=table_name, num_shards=num_shards)
-        for shard in range(num_shards):
-            piece = data.take(pa.array(np.flatnonzero(parts == shard)))
+        for shard, ids in enumerate(shard_ids):
+            piece = data.take(pa.array(ids.astype(np.int64)))
             table_mod.make(root, manifest.shard_name(shard), piece.to_reader())
 
         path = manifest_path(root, table_name)
@@ -125,3 +201,9 @@ def repartition(
         index_mod.drop_for_source(root, table_name)
         table_mod.drop(root, table_name)
     return manifest
+
+
+def shard_table(root: str, table_name: str, num_shards: int, key_column: str = "id") -> ShardManifest:
+    """Split a catalog table into hash-partitioned shard tables: the host
+    route of :func:`repartition`."""
+    return repartition(root, table_name, num_shards, key_column=key_column)

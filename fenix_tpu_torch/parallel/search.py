@@ -1,5 +1,5 @@
-"""Row-sharded kNN search with a candidate merge — port of
-``fenix_tpu/parallel/search.py`` (all but the dim-sharded search).
+"""Row-sharded kNN search with a candidate merge, and the dim-sharded
+search — port of ``fenix_tpu/parallel/search.py``.
 
 The corpus rows split contiguously over a mesh (``parallel/mesh.py``):
 a :class:`Sharded` array holds one tensor per shard, each on its shard's
@@ -38,9 +38,11 @@ merged winners' global ids (the ``psum`` of the JAX package: each shard
 takes the ids it owns, the parts add on the mesh's first device); the
 mesh joins (``engine/analytics.py``) read the winners' join keys so.
 
-Not ported (ROADMAP queue 1 item 3, once item 10 (b)):
-``build_dim_sharded_search`` and ``shard_corpus_dim`` raise; no engine
-route reaches them.
+:func:`build_dim_sharded_search` splits the D contraction over the
+model axis instead (:class:`DimSharded`): each shard's partial products
+add on its data shard's first device (the ``psum``), and the merge runs
+over data shards only. No engine route reaches it; it trades speed for a
+corpus whose full-D row shard would not fit one device.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ import torch
 
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.ops.distance import NEG_INF, canonical_metric
 from fenix_tpu_torch.parallel.mesh import Mesh, shard_rows
 
 _PRECISIONS = ("fp32", "bf16", "int8")
@@ -456,12 +459,126 @@ def build_ring_search(mesh: Mesh, k: int, metric: str, precision: str = "fp32", 
     return ring
 
 
+class DimSharded:
+    """``[N_pad, D]`` split rows over the data axis and columns over the
+    model axis: ``shards[r·M + c]`` holds the ``rows_local`` rows of data
+    shard ``r``, columns ``[c·D/M, (c+1)·D/M)``, on ``mesh.devices[r·M +
+    c]``. Per-row vectors (mask, aux) are held per data shard on its first
+    device, ``mesh.grid[r][0]`` (:meth:`data_rows`)."""
+
+    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]) -> None:
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+        self.mesh = mesh
+        self.shards = list(shards)
+
+    @property
+    def rows_local(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        m = len(self.mesh.grid[0])
+        return (self.rows_local * len(self.mesh.grid), self.shards[0].shape[1] * m)
+
+    def data_rows(self, x: "np.ndarray | torch.Tensor") -> list[torch.Tensor]:
+        """A per-row ``[N_pad]`` vector split over the data shards, piece
+        ``r`` on ``mesh.grid[r][0]``."""
+        x = torch.as_tensor(x)
+        per = self.rows_local
+        return [x[r * per : (r + 1) * per].to(row[0], non_blocking=True) for r, row in enumerate(self.mesh.grid)]
+
+
+def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256) -> tuple[DimSharded, list[torch.Tensor]]:
+    """Place a host ``[N, D]`` matrix rows over the data axis and columns
+    over the model axis, rows padded (zero) per data shard to a whole
+    number of ``block``s; ``D`` must split evenly over the model axis.
+    Returns the :class:`DimSharded` corpus and the row validity per data
+    shard (``mask`` on the real rows, False on the padding)."""
+    rows, m = len(mesh.grid), len(mesh.grid[0])
+    n, d = corpus.shape
+    assert d % m == 0, (d, mesh.shape)
+    per = -(-n // rows)
+    per = -(-per // block) * block
+    width = d // m
+    shards = []
+    for r, row in enumerate(mesh.grid):
+        part = np.ascontiguousarray(corpus[r * per : (r + 1) * per])
+        for c, dev in enumerate(row):
+            x = torch.zeros((per, width), dtype=torch.float32, device=dev)
+            if part.shape[0]:
+                ingest.upload(x[: part.shape[0]], np.ascontiguousarray(part[:, c * width : (c + 1) * width]))
+            shards.append(x)
+    valid = np.zeros(per * rows, bool)
+    valid[:n] = True if mask is None else np.asarray(mask, bool)
+    placed = DimSharded(mesh, shards)
+    return placed, placed.data_rows(torch.from_numpy(valid))
+
+
 def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
-    """The JAX package's search with the D contraction sharded over the
-    model axis; no engine route reaches it. Not ported: raises."""
-    raise NotImplementedError("the dim-sharded search is not ported (ROADMAP queue 1 item 10 (b))")
+    """Exact top-k with the D contraction sharded over the model axis:
+    ``fn(corpus, queries_p, aux_mul, aux_add, q_sq) -> (dist [Q, k], ids
+    [Q, k])`` on the mesh's first device, the ring's form.
 
+    ``corpus`` is a :class:`DimSharded` (:func:`shard_corpus_dim`);
+    ``queries_p`` the ``[Q, D]`` prepared queries
+    (``topk2.prepare_queries``: the full-D normalization happens before the
+    column split); ``aux_mul`` / ``aux_add`` the per-row aux of the full-D
+    rows (``topk2.prepare_aux``, computed before placement), one piece per
+    data shard (``corpus.data_rows``); ``q_sq`` the ``[Q]`` squared norms
+    of the raw queries.
 
-def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256):
-    """The placement of the dim-sharded search. Not ported: raises."""
-    raise NotImplementedError("the dim-sharded placement is not ported (ROADMAP queue 1 item 10 (b))")
+    Per data shard ``r``: each shard ``(r, c)`` computes the partial
+    product of its query columns and its rows in fp32 (TF32 is off), the M
+    partials add on ``(r, 0)``'s device in ``c`` order (the ``psum``), then
+    ``s·aux_mul + aux_add`` and the top ``min(k, rows_local)`` by (score
+    desc, id asc), ids offset by ``r·rows_local``. The candidates merge over
+    the data shards only (the model shards of a row hold the same rows), by
+    (score desc, id asc), padded to ``k`` with (−inf, −1).
+
+    Distances are the JAX function's conversion: l2 is ``sqrt(max(q_sq −
+    s, 0))``, the expanded form, since no shard holds a whole row — not
+    the engine's ``‖q − v‖``, so it cancels where the distance is small
+    against ‖q‖; cosine ``0.5 − 0.5·s``; dot ``−s``."""
+    metric_c = canonical_metric(metric)
+    grid = mesh.grid
+
+    def dim_search(corpus: DimSharded, queries_p: torch.Tensor, aux_mul: Sequence[torch.Tensor],
+                   aux_add: Sequence[torch.Tensor], q_sq: torch.Tensor):
+        m = len(grid[0])
+        width = corpus.shards[0].shape[1]
+        rows_local = corpus.rows_local
+        kk = min(k, rows_local)
+
+        def partial(s: int) -> torch.Tensor:
+            c = s % m
+            v = corpus.shards[s]
+            return queries_p[:, c * width : (c + 1) * width].to(v.device, torch.float32) @ v.T
+
+        partials = mesh.map(partial)
+        dists, gids = [], []
+        for r, row in enumerate(grid):
+            dev = row[0]
+            total = partials[r * m]
+            for c in range(1, m):
+                total = total + partials[r * m + c].to(dev, non_blocking=True)
+            score = total * aux_mul[r][None, :] + aux_add[r][None, :]
+            # iota ids: a stable descending sort puts tied scores in id order
+            top_s, top_i = torch.sort(score, dim=1, descending=True, stable=True)
+            top_s, top_i = top_s[:, :kk], top_i[:, :kk]
+            dead = top_s == NEG_INF
+            dists.append(torch.where(dead, torch.inf, -top_s))
+            gids.append(torch.where(dead, -1, top_i + r * rows_local))
+        neg, ids = merge_candidates(mesh, dists, gids, k)  # (−score asc, id asc)
+        m_s = -neg
+        dead = torch.isinf(neg)
+        q_sq = q_sq.to(m_s.device, torch.float32)
+        if metric_c == "l2":
+            dist = torch.sqrt(torch.clamp_min(q_sq[:, None] - m_s, 0.0))
+        elif metric_c == "cosine":
+            dist = 0.5 - 0.5 * m_s
+        else:
+            dist = -m_s
+        return torch.where(dead, torch.inf, dist), torch.where(dead, -1, ids)
+
+    return dim_search

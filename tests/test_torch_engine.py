@@ -193,10 +193,11 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     modes, requests over the budget, probed search over the host corpus
     (top-k and maxval=None), coder training past the budget, joins (the
     JAX package's answer) and an aggregate without a join are served. Over
-    a mesh, repartition's device shuffle and the dim-sharded search raise
-    (ROADMAP item 10 (b) and (c)), while a plain search, joins and
-    aggregates (``partitioned`` too, the one device's answers) and a
-    sharded coder are served."""
+    a mesh a plain search, joins and aggregates (``partitioned`` too, the
+    one device's answers), repartition's device shuffle (the host path's
+    shard tables), the dim-sharded search (the row-sharded answer) and a
+    sharded coder are served; only ``initialize`` with more than one
+    process raises (multi-host, ROADMAP queue 1 item 4)."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -248,19 +249,34 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     plain = {"source": "items", "column": "vector", "metric": "l2", "maxval": 5}
     aggregated = service.run_search_config(cache, {**plain, "aggregate": {"group_by": "id"}}, target)
     assert aggregated.equals(service.run_search_config(cache, plain, target))
-    # over a mesh: the device shuffle of repartition and the dim-sharded
-    # search raise, naming their slice of ROADMAP item 10; a plain search,
-    # joins and aggregates (partitioned or not) and a coder are served
+    # over a mesh: a plain search, joins and aggregates (partitioned or
+    # not), repartition's device shuffle, the dim-sharded search and a
+    # coder are served; only a second process raises
     meshed = DeviceCache(root, device="cpu", mesh=make_mesh(devices=["cpu"] * 2))
     for config in (joined, {**joined, "aggregate": {"group_by": "grp", "max_groups": 8}},
                    {**joined, "join": {**joined["join"], "partitioned": True}}):
         got = service.run_search_config(meshed, config, target)
         assert_tables_match(got, service.run_search_config(cache, config, target))
-    with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
-        distributed.repartition(root, "attrs", 2, mesh=meshed.mesh)
-    assert table.load(root, "attrs").num_rows == len(range(0, N, 3))  # nothing was written
-    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
-        psearch.build_dim_sharded_search(meshed.mesh, 5, "l2")
+    host_root = str(tmp_path / "host")
+    table.make(host_root, "attrs", table.load(root, "attrs").to_reader())
+    distributed.repartition(root, "attrs", 2, key_column="key", mesh=meshed.mesh)  # the device shuffle
+    distributed.repartition(host_root, "attrs", 2, key_column="key", mesh=None)
+    for s in range(2):
+        assert table.load(root, f"attrs@{s}").equals(table.load(host_root, f"attrs@{s}"))
+    vectors = ingest.fixed_size_list_to_numpy(table.load(root, "items").column("vector").combine_chunks())
+    dim_mesh = make_mesh(devices=["cpu"] * 2, model_parallel=2)
+    corpus, mask = psearch.shard_corpus_dim(dim_mesh, vectors)
+    padded = torch.zeros(corpus.shape)
+    padded[:N] = torch.from_numpy(vectors)
+    mul, add = topk2.prepare_aux(padded, torch.cat(mask), "l2")  # of the full-D rows, before placement
+    q = torch.from_numpy(target)
+    dist, ids = psearch.build_dim_sharded_search(dim_mesh, 5, "l2")(
+        corpus, topk2.prepare_queries(q, "l2"), corpus.data_rows(mul), corpus.data_rows(add), (q * q).sum(1))
+    assert ids.flatten().tolist() == dual.column("id").to_pylist()
+    # the dim-sharded l2 is the expanded sqrt(‖q‖² − s): 1e-4, not the engine's 1e-5
+    np.testing.assert_allclose(dist.flatten().numpy(), dual.column("__DISTANCE__").to_numpy(), rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        distributed.initialize(distributed.ClusterConfig(num_processes=2))
     assert service.run_search_config(meshed, plain, target).column("id").equals(dual.column("id"))
     ivf = {"metric": "l2", "codebook_size": 8, "num_codebooks": 1, "batch_size": 512, "num_epochs": 1}
     sharded_coder = coder.make(root, "ivf2", "items", "vector", ivf, seed=0, device="cpu", mesh=meshed.mesh)
@@ -461,20 +477,22 @@ def test_chip_smoke_kernel_entries():
                "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
                "types": {**selection, "kernel.stream": 2},
                "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
-               "mesh_analytics": {**selection, "kernel.stream": 4}}
+               "mesh_analytics": {**selection, "kernel.stream": 4},
+               "repartition": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 14
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 15
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 8
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 9
     assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
                                          "analytics": 1, "batching": 1, "types": 1, "mesh": 1,
-                                         "mesh_analytics": 1}
+                                         "mesh_analytics": 1, "repartition": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 25
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 29
+    assert entries["bucket_scores.f32@bucket128"]["launches_by_path"]["repartition"] == 4
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -501,6 +519,12 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["mesh"]["f32.bucket128"], by_path["mesh_analytics"]["kernel.tiled"] = 4, 0
     with pytest.raises(AssertionError, match="tiled was not launched on the mesh_analytics path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["mesh_analytics"]["kernel.tiled"], by_path["repartition"]["kernel.tensor_int8"] = 1, 0
+    with pytest.raises(AssertionError, match="tensor_int8 was not launched on the repartition path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["repartition"]["kernel.tensor_int8"], by_path["repartition"]["f32.bucket128"] = 1, 0
+    with pytest.raises(AssertionError, match="f32@bucket128 was not launched on the repartition path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -1155,3 +1179,53 @@ def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
     planned = {r["search"]: r["planned"] for r in out["rows"] if r["cache"] == "mesh"}
     assert planned["mesh_auto_q8"] == "int8" and planned["mesh_dual_q8"] == "dual"
     assert "FENIX_HBM_BUDGET" not in os.environ
+
+
+def test_chip_smoke_shuffle_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 16 of chip_smoke.py rehearsed on the CPU over 4 ``cpu`` shards:
+    (d) the dim-sharded search on a (2, 2) mesh held to the float64 oracle
+    and the row-sharded search, the sharded Lloyd step against one
+    device; (a) the id shuffle, uniform through at the estimated capacity
+    and skewed through on the retry at the bound; (b) the payload shuffle,
+    chunks 1 and 4 bitwise equal; (c) repartition of a mutated 16,384-row
+    root on the mesh (the device route), the shard tables the host
+    placement, phase 15's searches and read equal to theirs before it."""
+    from fenix_tpu_torch import index as index_mod
+    from fenix_tpu_torch.parallel import distributed as pdistributed
+
+    vectors, ids, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    for name, value in {
+        "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "MESH_WARM_REPS": 1, "IVF_CELLS": 64, "IVF_STEP_ROWS": 2048,
+        "SH_KEYS": 100_003, "SH_PAYLOAD_ROWS": 2048, "SH_PAYLOAD_D": 24, "SH_REPS": 1,
+        "SEARCHES": tuple((s[0], 520, s[2], 16, *s[4:]) if s[1] == 1024 else s for s in smoke.SEARCHES),
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    root = str(tmp_path / "root")
+    table.make(root, "smoke/items", pa.table({
+        "id": pa.array(ids), "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
+        "tag": pa.array(tags)}).to_reader(max_chunksize=4096))
+    live = smoke.Live(vectors, ids, tags)
+    new = smoke.appended_rows(512, 128, SMOKE_ROWS, (vectors[5],), seed=650)
+    table.append(root, "smoke/items", smoke.to_reader(*new).read_all())
+    live.append(*new)
+    index_mod.delete_rows(root, "smoke/items", expr.field("tag") == 9)
+    live.keep(live.tags != 9)
+
+    queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+    reqs = smoke.mesh_requests(expr, vectors, queries)
+    mesh, shape = smoke.mesh_for_run()
+    device_calls = []
+    inner = pdistributed._device_shuffle_ids
+    monkeypatch.setattr(pdistributed, "_device_shuffle_ids",
+                        lambda *a: device_calls.append(a[2]) or inner(*a))
+    out = smoke.phase_shuffle(mesh, shape, root, live, reqs, vectors, smoke.Oracle(vectors, "cpu"), "cpu", "cpu")
+    assert device_calls == [4, 4, 4]  # (a) uniform, (a) skewed, (c)
+    assert not any(out["launches"].values())  # CPU tensors launch nothing
+    assert [t["overflow"] for t in out["ids"]["uniform"]["tries"]] == [False]
+    assert [t["overflow"] for t in out["ids"]["skewed"]["tries"]] == [True, False]
+    assert out["ids"]["uniform"]["tries"][0]["chunks"] == 4  # 25,001 rows a shard: double-buffered
+    assert out["payload"]["capacity"] == 1024 and out["payload"]["payload_bytes"] == 4 * 2048 * (24 * 4 + 4)
+    assert sum(out["repartition"]["shard_rows"]) == live.ids.shape[0]
+    assert [r["search"] for r in out["dim"]["searches"]] == [f"dim_sharded_{m}" for m in smoke.DIM_METRICS]
+    assert [r["books"] for r in out["dim"]["lloyd"]] == [1, 2]
+    assert pdistributed.resolve_source(root, "smoke/items") == [f"smoke/items@{s}" for s in range(4)]

@@ -43,6 +43,7 @@ from fenix_tpu.ops import topk2 as jtopk2
 from fenix_tpu.parallel import mesh as jmesh
 from fenix_tpu.parallel import search as jsearch
 from fenix_tpu.utils.metrics import GLOBAL as JMETRICS
+from tests import oracles
 from fenix_tpu_torch import expr
 from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch.engine import analytics, executor, residency
@@ -252,8 +253,8 @@ def test_sharded_batched_probed(caches, rng):
     ids=["enrich", "count", "sum"],
 )
 def test_mesh_joins_raise(caches, rng, aggspec):
-    """Joins and aggregates over a mesh (ROADMAP item 10 (c), which raised
-    them) answer as the JAX mesh and one device do: the fused route joined
+    """Joins and aggregates over a mesh (the test's name is from when they
+    raised) answer as the JAX mesh and one device do: the fused route joined
     to the search table itself, enrichment rows in order up to fp32 ties,
     integer aggregates equal and int64. ``tests/test_torch_mesh_analytics.py``
     holds the routes and placements."""
@@ -449,11 +450,99 @@ def test_train_sharded_matches_jax(rng, n_shards, metric):
     assert np.abs(got - want).max() <= 3.3e-7 * np.abs(want).max()
 
 
+def _dim_inputs(corpus: np.ndarray, queries: np.ndarray, metric: str, block: int, model_parallel: int = 2):
+    """Both packages' dim-sharded inputs from one host corpus on 8 shards
+    in a (4, 2) grid: the aux of the full-D padded rows (computed before
+    placement, as the JAX tests do), prepared queries and raw ‖q‖²."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    jm, pm = jax_mesh(8, model_parallel), port_mesh(8, model_parallel)
+    jc, _ = jsearch.shard_corpus_dim(jm, corpus, block=block)
+    pc, pmask = psearch.shard_corpus_dim(pm, corpus, block=block)
+    n_pad, d = jc.shape
+    assert pc.shape == (n_pad, d)
+    full = np.zeros((n_pad, d), np.float32)
+    full[: corpus.shape[0]] = corpus
+    mask = np.zeros(n_pad, bool)
+    mask[: corpus.shape[0]] = True
+    np.testing.assert_array_equal(torch.cat(pmask).numpy(), mask)
+    jmul, jadd = jtopk2.prepare_aux(jnp.asarray(full), jnp.asarray(mask), metric)
+    q_sq = (queries.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    jargs = (jc, jax.device_put(np.asarray(jtopk2.prepare_queries(jnp.asarray(queries), metric)),
+                                NamedSharding(jm, P(None, jmesh.MODEL_AXIS))),
+             jax.device_put(np.asarray(jmul), NamedSharding(jm, P(jmesh.DATA_AXIS))),
+             jax.device_put(np.asarray(jadd), NamedSharding(jm, P(jmesh.DATA_AXIS))), jnp.asarray(q_sq))
+    pmul, padd = topk2.prepare_aux(torch.from_numpy(full), torch.from_numpy(mask), metric)
+    pargs = (pc, topk2.prepare_queries(torch.from_numpy(queries), metric), pc.data_rows(pmul), pc.data_rows(padd),
+             torch.from_numpy(q_sq))
+    return jm, pm, jargs, pargs
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine", "dot"])
+def test_dim_sharded_search_matches_oracle(rng, metric):
+    """``test_parallel.py::test_dim_sharded_search_matches_oracle``: D
+    split over the model axis, partials added per data shard; ids exact
+    against the float oracle (a tie spanning data shards in id order),
+    distances within rtol 1e-4 / atol 1e-5; and the JAX mesh's answer."""
+    n, d, q, k = 3000, 32, 8, 10
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    corpus[777] = corpus[13]  # tie spanning data shards
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    # the tied pair at the top, far enough that l2's expanded form keeps 1e-5
+    queries[0] = corpus[13] + 0.1 * rng.standard_normal(d).astype(np.float32)
+    jm, pm, jargs, pargs = _dim_inputs(corpus, queries, metric, block=128)
+    dist, ids = psearch.build_dim_sharded_search(pm, k, metric)(*pargs)
+    assert dist.shape == ids.shape == (q, k) and ids[0, :2].tolist() == [13, 777]
+    want_d, want_i = oracles.topk(oracles.distance(queries, corpus, metric), k)
+    np.testing.assert_array_equal(ids.numpy(), want_i)
+    np.testing.assert_allclose(dist.numpy(), want_d, rtol=1e-4, atol=1e-5)
+    jd, ji = jtopk2.unpack_result(np.asarray(jsearch.build_dim_sharded_search(jm, k=k, metric=metric)(*jargs)))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+
+
 def test_dim_sharded_search_raises():
-    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
-        psearch.build_dim_sharded_search(port_mesh(), 4, "l2")
-    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
-        psearch.shard_corpus_dim(port_mesh(), np.zeros((8, 4), np.float32))
+    """Once the route raised; now the port answers as the JAX mesh does,
+    also where k passes a data shard's rows and masked (−inf) rows pad the
+    result: a masked corpus, k beyond the valid rows, (−1, +inf) padding."""
+    rng = np.random.default_rng(5)
+    n, d, k = 40, 8, 64  # 4 data shards of 16 rows (8 real rows padded): k > rows_local
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((3, d)).astype(np.float32)
+    for metric in ("l2", "cosine", "dot"):
+        jm, pm, jargs, pargs = _dim_inputs(corpus, queries, metric, block=8)
+        dist, ids = psearch.build_dim_sharded_search(pm, k, metric)(*pargs)
+        jd, ji = jtopk2.unpack_result(np.asarray(jsearch.build_dim_sharded_search(jm, k=k, metric=metric)(*jargs)))
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(dist.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+        assert (ids.numpy() == -1).sum(axis=1).tolist() == [k - n] * 3 and np.isinf(dist.numpy()[:, n:]).all()
+    with pytest.raises(AssertionError):
+        psearch.shard_corpus_dim(port_mesh(8, 2), np.zeros((8, 5), np.float32))  # D must split over M
+
+
+@pytest.mark.parametrize("model_axis", ["model", None])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_sharded_lloyd_step_matches_local(rng, model_axis, metric):
+    """``test_parallel.py::test_sharded_lloyd_step_matches_local``: books
+    over the model axis (or not), batch rows over the data axis, within
+    rtol 1e-4 / atol 1e-5 of the float oracle and 1e-5 of the largest
+    entry of the port's ``lloyd_step_single`` and of the JAX step."""
+    n_books, k, d, b = 2, 8, 16, 128
+    q = rng.standard_normal((n_books, k, d)).astype(np.float32)
+    v = rng.standard_normal((n_books, b, d)).astype(np.float32)
+    got = kmeans.sharded_lloyd_step(port_mesh(8, 2), mesh_mod.DATA_AXIS, model_axis, metric)(
+        torch.from_numpy(q), torch.from_numpy(v)).numpy()
+    want = np.stack([oracles.lloyd_step(q[j], v[j], metric) for j in range(n_books)])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    single = torch.stack([kmeans.lloyd_step_single(torch.from_numpy(q[j]), torch.from_numpy(v[j]), metric)
+                          for j in range(n_books)]).numpy()
+    jstep = jkmeans.sharded_lloyd_step(jax_mesh(8, 2), jmesh.DATA_AXIS, model_axis, metric)
+    jgot = np.asarray(jstep(jnp.asarray(q), jnp.asarray(v)))
+    for other in (single, jgot):
+        assert np.abs(got - other).max() <= 1e-5 * np.abs(other).max()
+    with pytest.raises(ValueError, match="split"):
+        kmeans.sharded_lloyd_step(port_mesh(8, 2), "data", "model", metric)(torch.from_numpy(q[:1]),
+                                                                          torch.from_numpy(v[:1]))
 
 
 # -- test_ring.py -------------------------------------------------------------------
