@@ -50,7 +50,8 @@ Phases, each printing one JSON line with its own timings:
    Q=1024 bucket 32.
 5. warm per-search latency (client wall clock, median of 5).
 6. host-corpus residency: a 4,194,304 x 768 fp32 table (BASELINE config
-   2's widths, cut from 10M rows; duplicate rows as in phase 3) goes over
+   2's widths, cut from 10M rows; duplicate rows as in phase 3; drawn on a
+   host thread from phase 1 on, under the build and phases 2-5) goes over
    Flight to a second server started with FENIX_HBM_BUDGET = 6 GiB, where
    dual residency does not fit and the int8 copy does. First the kernel
    against its plain version at the inputs each search gives it, then
@@ -116,7 +117,7 @@ Phases, each printing one JSON line with its own timings:
    search.residency_host_nomax and pass the same oracle.
 
 9. IVF past the budget, on the phase-6 server after 8 (d): make_index of
-   an IVF4096 l2 coder (batch 65,536, 2 epochs: 128 Lloyd steps) must
+   an IVF2048 l2 coder (batch 65,536, 2 epochs: 128 Lloyd steps) must
    train by streaming the host corpus in fp32 transport
    (train.stream_fp32, train.stream_steps) and assign every row on the
    host (index.host_assigns); make-coder / make-index seconds and the cell
@@ -329,16 +330,48 @@ Phases, each printing one JSON line with its own timings:
    Flight repartition with its default shard count on a second table of
    SH_SERVER_ROWS rows (one shard a card, the host placement, the (key,
    id) upload in transfer.h2d_bytes, a search as before it).
+17. multi-host, after phase 16, in the normal run and ``--mesh-only``:
+   the script starts two workers of itself (``--multihost-worker``) that
+   meet through ``distributed.initialize`` at a local coordinator and
+   form one mesh of MH_SHARDS shards, two a process: on one card both
+   workers' shards on it (gloo, through pinned host memory), on four
+   cards two cards a worker (CUDA_VISIBLE_DEVICES, NCCL). The inputs are
+   written once as .npy files under build/chip_smoke/ and each worker
+   reads its own row range of them (the payload rows are made on each
+   shard's card from its seed, as in phase 16). Every launch count is 0
+   in a worker before its legs, read after them (the multihost path):
+   (a) phase 3's rows, 2,097,152 a shard, with their bf16 and int8 copies
+   under phase 15 (a)'s five searches; (b) the ring at phase 3's Q=1024
+   l2 filtered search, each worker keeping its blocks; (c)
+   kmeans.train_sharded at MESH_TRAIN_CHECK (index_add_ deterministic);
+   (d) phase 16 (b)'s payload exchange at chunks 1 and 4, then the id
+   shuffle of phase 3's row count with SH_HOT of the keys on one: an
+   overflow, then the retry, in step on both workers; (e) config 3's
+   attribute side partitioned over the shards (DeviceCache.parted_key's
+   layout) under MH_JOINS (the Q=1024 count and the Q=1 float sum); (f)
+   the streaming scan of phase 3's rows in 4 chunks at Q=8; (g) the
+   dim-sharded search on a (2, 2) mesh at Q=8 for DIM_METRICS. Each leg
+   one call and MH_REPS warm ones. After the workers exit, the script
+   runs the same legs on its own one-process mesh of the same four
+   shards and requires every replicated array equal on both workers and
+   to its own, bitwise, each shard's own (the ring's blocks in block
+   order, the payload's digests, the id shuffle's ids) on its owner
+   alike; the id shuffle's placement the host hash's; the searches, the
+   ring, the stream and the dim-sharded search held to a float64 oracle
+   by phase 4's rule. Printed: the backend, each leg's warm ms in each
+   worker beside one process's, each worker's launches per design. A
+   worker that fails or outlives MH_TIMEOUT_S is killed and the script
+   fails. The shard shapes are phase 15's, whose kernel rows hold them.
 
 Then one JSON line of the kernels (the four designs: stream and tiled
 for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
-mutation, analytics, batching, types, mesh, mesh_analytics, repartition),
-the nvidia-smi line, and last
+mutation, analytics, batching, types, mesh, mesh_analytics, repartition,
+multihost), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result. With no arguments it runs every phase on one card (a machine with
-several runs them on the first, and phases 15 and 16 over all of them);
-``--mesh-only`` runs phase 1's build and phases 15 and 16 alone ((b) on
+several runs them on the first, and phases 15 to 17 over all of them);
+``--mesh-only`` runs phase 1's build and phases 15 to 17 alone ((b) on
 phase 6's rows put in process), the run for a machine with several cards.
 """
 
@@ -353,6 +386,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # the card every phase runs on
@@ -382,18 +416,18 @@ KERNELS = (
     # replaces, paths that must launch it
     ("bucket_scores.kernel.stream", "kernel.stream", "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "residency", "mutation", "analytics", "batching", "types", "mesh",
-                                    "mesh_analytics", "repartition")),
+                                    "mesh_analytics", "repartition", "multihost")),
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh",
-                                    "mesh_analytics", "repartition")),
+                                    "mesh_analytics", "repartition", "multihost")),
     ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
      "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh",
-                                    "mesh_analytics", "repartition")),
+                                    "mesh_analytics", "repartition", "multihost")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
     ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
-     "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh", "repartition")),  # bucket_scores_pallas (K3)
+     "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh", "repartition", "multihost")),  # K3
 )
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
@@ -482,12 +516,13 @@ ALL_LAUNCH_KEYS = (*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS)
 
 # phase 9: IVF past the budget on the phase-6 server (4,194,304 x 768 past
 # 6 GiB); the fp32 form (12.9 GB) passes 0.9 x the budget, so the coder
-# trains by streaming and the rows are assigned on the host. IVF4096 =
-# 2*sqrt(N): cut from IVF8192 = 4*sqrt(N), the lower edge of FAISS's
+# trains by streaming and the rows are assigned on the host. IVF2048 =
+# sqrt(N): cut from IVF8192 = 4*sqrt(N), the lower edge of FAISS's
 # 4*sqrt(N) to 16*sqrt(N) (faiss wiki, "Guidelines to choose an index"),
 # because the host assignment at 8,192 cells took 602 s on the card's host
-IVFH_CODER = "ivf4k"
-IVFH_CELLS = 4096
+# and at 4,096 cells ~90-100 s, the most of any phase, when phase 17 came
+IVFH_CODER = "ivf2k"
+IVFH_CELLS = 2048
 IVFH_CONFIG = {"metric": "l2", "codebook_size": IVFH_CELLS, "num_codebooks": 1,
                "batch_size": 65_536, "num_epochs": 2}
 IVFH_K = 100
@@ -607,6 +642,16 @@ SH_REPS = 3  # (b): timed exchanges per chunking, after the checked one
 SH_SERVER_ROWS = 1 << 20  # (c), several cards: the second table of the Flight repartition
 DIM_Q, DIM_K = 8, 10  # (d): queries and k of the dim-sharded search
 DIM_METRICS = ("l2", "cosine", "dot")
+
+# phase 17: multi-host, two worker processes of this script on torch.distributed
+MH_PROCS = 2  # worker processes, two shards each: phase 15's four
+MH_SHARDS = 4
+MH_REPS = 3  # warm calls per leg, after the first
+MH_TIMEOUT_S = 420  # the workers' limit, start to exit
+MH_INIT_TIMEOUT_S = 180  # initialize's rendezvous and every collective
+MH_STREAM = (8, "l2", 10, 4)  # (f): queries, metric, k, chunks of phase 3's rows
+MH_JOINS = ("q1024_l2_k100_tag_lt_50_count", "config3_q1_cosine_k128_sum_weight")  # (e), of AN_REQUESTS
+MH_DIGEST_WORDS = 1 << 24  # (d): int32 words a digest block sums
 
 BATCH_SHAPES = (
     ("batch_q32_cosine_k10", MB_THREADS, "cosine", 10, "fp32", False, False),
@@ -1272,7 +1317,7 @@ def check_rises(name: str, before: dict, after: dict, spec) -> None:
         )
 
 
-def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
+def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str, wide_data) -> dict:
     """A 4,194,304 x 768 table served past a 6 GiB budget by a second
     server: auto routes to int8 residency, then forced int8, fp32 and int8
     streaming, and dual as the same server's exact answer. Returns the
@@ -1285,7 +1330,7 @@ def phase_residency(kernels, topk2, Flight, expr, smi: str, kind: str) -> dict:
     from fenix_tpu_torch.io import ingest
 
     t = time.perf_counter()
-    vectors, ids_np, tags = make_data(RES_ROWS, seed=1, dim=RES_D)
+    vectors, ids_np, tags = wide_data.result()  # make_data(RES_ROWS, seed=1, dim=RES_D), drawn meanwhile
     # near queries copy duplicated rows whose both copies pass tag < 50,
     # so exact ties reach every filtered top-100
     pool = np.flatnonzero((tags[:DUP] < 50) & (tags[DUP : 2 * DUP] < 50))
@@ -4354,7 +4399,7 @@ def shuffle_spy(pshuffle, calls: list):
             out = fn(rows, keys)
             sync()
             calls.append({"capacity": capacity, "chunks": chunks, "exchange_s": time.perf_counter() - t,
-                          "overflow": any(bool(o.any()) for o in out[3].shards)})
+                          "overflow": bool(out[3].gather().any())})
             return out
 
         return run
@@ -4865,6 +4910,504 @@ def phase_shuffle(mesh, shape, root: str, live, reqs, vectors, oracle, smi: str,
     return {"launches": rep["launches"], "ids": ids, "payload": payload, "repartition": rep, "dim": dim}
 
 
+# -- phase 17: multi-host -------------------------------------------------------
+
+
+def mh_config() -> dict:
+    """What phase 17's legs read besides their input files, from this
+    module's constants: the workers are fresh processes of this script and
+    read it from the work directory."""
+    return {"device": DEVICE, "searches": [list(s) for s in SEARCHES],
+            "joins": [list(r) for r in AN_REQUESTS if r[0] in MH_JOINS], "train": MESH_TRAIN_CHECK,
+            "payload": [SH_PAYLOAD_ROWS, SH_PAYLOAD_D], "stream": list(MH_STREAM),
+            "dim": [DIM_Q, DIM_K, list(DIM_METRICS)], "attr_rows": AN_ATTRS_ROWS, "reps": MH_REPS}
+
+
+def mh_layout() -> tuple[list, list, list]:
+    """``(one process's devices, each worker's devices, each worker's
+    CUDA_VISIBLE_DEVICES)``: on four cards or more each worker takes two
+    cards (NCCL) and the one process a card a shard; else both workers put
+    their two shards on the first card (gloo) and the one process its four."""
+    import torch
+
+    per = MH_SHARDS // MH_PROCS
+    if DEVICE == "cuda" and torch.cuda.device_count() >= MH_SHARDS:
+        visible = [",".join(str(p * per + i) for i in range(per)) for p in range(MH_PROCS)]
+        return [f"cuda:{i}" for i in range(MH_SHARDS)], [[f"cuda:{i}" for i in range(per)]] * MH_PROCS, visible
+    dev = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    return [dev] * MH_SHARDS, [[dev] * per] * MH_PROCS, [None] * MH_PROCS
+
+
+MH_FILES = ("vectors", "tags", "hot_keys", "payload_keys", "parted_keys", "parted_rows", "parted_grp",
+            "parted_weight", "parted_bounds")
+
+
+def mh_write_inputs(work: str, vectors, tags, queries, cfg: dict) -> None:
+    """The legs' inputs as files under ``work``: phase 3's rows and tags,
+    the queries (phase 3's, phase 11's join seeds, the stream's, phase 16
+    (d)'s), (d)'s hot keys (phase 16 (a)'s rule over phase 3's row count)
+    and payload keys, and config 3's attribute side as
+    ``DeviceCache.parted_key`` / ``parted_scalar`` lay it out: the keys
+    padded with INT32_MAX to a multiple of the shard count, sorted stably,
+    their original rows, grp (int32) and weight (float32) in that order
+    (0 on the padding), and each range's lower bound."""
+    import numpy as np
+
+    def save(name: str, array) -> None:
+        np.save(os.path.join(work, f"{name}.npy"), array)
+
+    n = vectors.shape[0]
+    save("vectors", vectors)
+    save("tags", tags)
+    qs = {f"search_{i}": q for i, q in enumerate(queries)}
+    for r in cfg["joins"]:
+        qs[f"join_{r[0]}"] = make_queries(vectors, r[1], seed=r[-1])
+    qs["stream"] = make_queries(vectors, cfg["stream"][0], seed=1700)
+    for i, metric in enumerate(cfg["dim"][2]):
+        qs[f"dim_{metric}"] = make_queries(vectors, cfg["dim"][0], seed=1630 + i)
+    np.savez(os.path.join(work, "queries.npz"), **qs)
+    hot = np.random.default_rng(1600).permutation(n).astype(np.int64)
+    hot[: int(SH_HOT * n)] = hot[0]
+    save("hot_keys", hot)
+    save("payload_keys", np.random.default_rng(1610).permutation(MH_SHARDS * cfg["payload"][0]).astype(np.int32))
+    attrs, _ = analytics_tables()
+    rows = attrs["key"].shape[0]
+    keys = np.full(-(-rows // MH_SHARDS) * MH_SHARDS, np.iinfo(np.int32).max, np.int32)
+    keys[:rows] = attrs["key"]
+    perm = np.argsort(keys, kind="stable").astype(np.int32)
+    real, at = perm < rows, np.minimum(perm, rows - 1)
+    sk = keys[perm]
+    bounds = np.full(MH_SHARDS, np.iinfo(np.int32).min, np.int32)
+    bounds[1:] = sk[np.arange(1, MH_SHARDS) * (keys.shape[0] // MH_SHARDS) - 1]
+    save("parted_keys", sk)
+    save("parted_rows", perm)
+    save("parted_grp", np.where(real, attrs["grp"][at], 0).astype(np.int32))
+    save("parted_weight", np.where(real, attrs["weight"][at], 0.0).astype(np.float32))
+    save("parted_bounds", bounds)
+
+
+def mh_inputs(work: str) -> dict:
+    """The input files mapped (a process reads only the rows it uploads)
+    and the queries."""
+    import numpy as np
+
+    out = {name: np.load(os.path.join(work, f"{name}.npy"), mmap_mode="r") for name in MH_FILES}
+    with np.load(os.path.join(work, "queries.npz")) as z:
+        out["queries"] = {k: z[k] for k in z.files}
+    return out
+
+
+def mh_rows(mesh, n: int) -> tuple[int, int]:
+    """This process's contiguous row range of an ``n``-row array on ``mesh``."""
+    per = n // mesh.size
+    return mesh.local_shards[0] * per, (mesh.local_shards[-1] + 1) * per
+
+
+def mh_put(psearch, mesh, host, fill=0, dtype=None):
+    """``host`` row-sharded over ``mesh``, this process reading and
+    uploading its own rows only (``put_rows`` from ``start``)."""
+    lo, hi = mh_rows(mesh, host.shape[0])
+    return psearch.put_rows(mesh, host[lo:hi], host.shape[0], fill, dtype, start=lo)
+
+
+def mh_digest(x) -> list:
+    """Two sums over ``x`` as int32 words (bools widened), on its device:
+    the plain sum and the sum weighted by position mod 65,521, both mod
+    2^64. Equal for equal tensors; two runs that differ anywhere differ in
+    them but by an accident of arithmetic."""
+    import torch
+
+    w = (x.to(torch.int32) if x.dtype == torch.bool else x.contiguous().view(torch.int32)).reshape(-1)
+    s1 = torch.zeros((), dtype=torch.int64, device=w.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=w.device)
+    for start in range(0, w.numel(), MH_DIGEST_WORDS):
+        blk = w[start : start + MH_DIGEST_WORDS].long()
+        pos = torch.arange(start, start + blk.numel(), device=w.device) % 65_521 + 1
+        s1 += blk.sum()
+        s2 += (blk * pos).sum()
+    return [int(s1), int(s2)]
+
+
+def mh_legs(mesh, inp: dict, cfg: dict) -> tuple[dict, dict, dict]:
+    """Phase 17's legs on ``mesh``: ``(arrays, times, notes)``. A worker's
+    mesh spans both processes; the reference is one process's mesh of the
+    same four shards. Every array is replicated (the same on every
+    process) but the ring's blocks (from ``notes["ring_q_start"]``), the
+    payload digests and the id shuffle's ids, which are this process's
+    own shards'. Each leg: one call, then ``cfg["reps"]`` warm ones (host
+    clock to the result, synchronised)."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.engine import analytics
+    from fenix_tpu_torch.io import ingest
+    from fenix_tpu_torch.ops import kmeans, topk2
+    from fenix_tpu_torch.parallel import distributed
+    from fenix_tpu_torch.parallel import search as psearch
+    from fenix_tpu_torch.parallel import shuffle as pshuffle
+
+    out, times, notes = {}, {}, {}
+    vec, tags, lead = inp["vectors"], inp["tags"], mesh.lead
+    n = vec.shape[0]
+    lo, hi = mh_rows(mesh, n)
+
+    def timed(name: str, fn):
+        result, first, warm = in_process(fn, cfg["reps"])
+        times[name] = {"first_s": first, "warm_ms": warm, "warm_median_ms": float(np.median(warm))}
+        return result
+
+    def query(name: str):
+        return torch.from_numpy(inp["queries"][name]).to(lead)
+
+    # (a) phase 15 (a)'s five searches over phase 3's rows and their scan copies
+    corpus = psearch.put_rows(mesh, vec[lo:hi], n, 0, torch.float32, start=lo)
+    masks = {False: psearch.put_rows(mesh, np.ones(hi - lo, bool), n, False, start=lo),
+             True: psearch.put_rows(mesh, tags[lo:hi] < 50, n, False, start=lo)}
+    scans = {"fp32": (), "bf16": (psearch.shard_scan_bf16(corpus),), "int8": psearch.shard_scan_int8(corpus)}
+    auxes: dict = {}
+
+    def aux(metric: str, filtered: bool):
+        if (metric, filtered) not in auxes:
+            auxes[metric, filtered] = psearch.shard_aux(corpus, masks[filtered], metric)
+        return auxes[metric, filtered]
+
+    for i, (name, _, metric, k, precision, filtered, _) in enumerate(cfg["searches"]):
+        fn = psearch.build_serving_search(mesh, k, metric, precision=precision)
+        args = (corpus, query(f"search_{i}"), *aux(metric, filtered), *scans[precision])
+        dist, ids = timed(f"a_{name}", lambda: fn(*args))
+        out[f"a_{name}_dist"], out[f"a_{name}_ids"] = dist.cpu().numpy(), ids.cpu().numpy()
+    del scans
+
+    # (b) the ring at phase 3's Q=1024 l2 filtered search: this process's blocks
+    name, qn, metric, k, _, filtered, _ = cfg["searches"][2]
+    ring = psearch.build_ring_search(mesh, k, metric)
+    q = query("search_2")
+    dist, ids = timed("b_ring", lambda: ring(corpus, q, *aux(metric, filtered)))
+    out["b_ring_dist"], out["b_ring_ids"] = dist.cpu().numpy(), ids.cpu().numpy()
+    notes["ring_q_start"] = mesh.local_shards[0] * (qn // mesh.size)
+
+    # (c) train_sharded at phase 15's check size, index_add_ deterministic
+    rows, tc = cfg["train"]["rows"], cfg["train"]["config"]
+    kw = {key: tc[key] for key in ("num_codebooks", "codebook_size", "batch_size", "num_epochs", "metric")}
+    sub = mh_put(psearch, mesh, vec[:rows], 0, torch.float32)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        books = timed("c_train_sharded", lambda: kmeans.train_sharded(mesh, sub, rows, 0, **kw))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["c_codebooks"] = books.cpu().numpy()
+    del sub
+
+    # (d) phase 16 (b)'s payload exchange at chunks 1 and 4, then the id shuffle's retry
+    b, width = cfg["payload"]
+    cap = 2 * b // mesh.size
+    rows_p = psearch.Sharded(mesh, [
+        torch.randn((b, width), generator=torch.Generator(dev).manual_seed(1620 + s), device=dev)
+        if mesh.is_local(s) else None for s, dev in enumerate(mesh.devices)])
+    keys_p = mh_put(psearch, mesh, inp["payload_keys"])
+    for chunks in (1, 4):
+        exchange = pshuffle.build_shuffle(mesh, cap, (width,), chunks=chunks)
+        got = timed(f"d_payload_chunks{chunks}", lambda: exchange(rows_p, keys_p))
+        for part, arr in zip(("recv", "recv_keys", "valid"), got[:3]):
+            for s in mesh.local_shards:
+                out[f"d_payload{chunks}_{part}_{s}"] = np.array(mh_digest(arr.shards[s]), np.int64)
+        out[f"d_payload{chunks}_overflow"] = got[3].gather().cpu().numpy()
+        del got
+    del rows_p, keys_p
+    calls: list = []
+    build = shuffle_spy(pshuffle, calls)
+    try:
+        hot_ids = timed("d_hot_ids", lambda: distributed._device_shuffle_ids(mesh, inp["hot_keys"], mesh.size))
+    finally:
+        pshuffle.build_shuffle = build
+    notes["hot_tries"] = [[c["capacity"], c["chunks"], c["overflow"]] for c in calls[: len(calls) // (cfg["reps"] + 1)]]
+    for s in mesh.local_shards:
+        out[f"d_hot_ids_{s}"] = hot_ids[s]
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e) config 3's partitioned join (the engine's fused route over the
+    # partitioned attribute side): the search table's join key is its id
+    # column (arange), so the winners' keys are their ids
+    pk, pi, grp, weight = (mh_put(psearch, mesh, inp[f"parted_{c}"]) for c in ("keys", "rows", "grp", "weight"))
+    bounds = np.asarray(inp["parted_bounds"])
+    for name, _, metric, k, _, filtered, _, _, agg_obj, _, _ in cfg["joins"]:
+        spec = analytics.AggregateSpec.from_dict(agg_obj)
+        p_value = weight if analytics._uses_value_col(spec) else None
+        int_values = analytics._int_agg_mode(spec, p_value)
+        agg = analytics._device_agg(spec)
+        fn = psearch.build_serving_search(mesh, k, metric)
+        q, (mul, add) = query(f"join_{name}"), aux(metric, filtered)
+
+        def join():
+            dist, ids = fn(corpus, q, mul, add)
+            parts = analytics._parted_partials(
+                mesh, (pk, pi, bounds, cfg["attr_rows"], grp, p_value), ids.reshape(-1).to(torch.int32),
+                (ids >= 0).reshape(-1), analytics._winner_values(spec, dist, int_values), agg=agg,
+                max_groups=spec.max_groups, int_values=int_values)
+            return analytics._merge_parted_tables(parts, spec.max_groups, agg, int_values)
+
+        table = timed(f"e_{name}", join)
+        out[f"e_{name}_groups"] = table.column(analytics.GROUP_COL).to_numpy()
+        out[f"e_{name}_values"] = table.column(analytics.AGG_COL).to_numpy()
+    del pk, pi, grp, weight, auxes, masks
+
+    # (f) the streaming scan: phase 3's rows in chunks, each row-sharded and
+    # uploaded per call, merged by (distance, id)
+    qn, metric, k, n_chunks = cfg["stream"]
+    chunk = n // n_chunks
+    c_lo, c_hi = mh_rows(mesh, chunk)
+    serving = psearch.build_serving_search(mesh, k, metric)
+    q = query("stream")
+
+    def stream():
+        dists, gids = [], []
+        for start in range(0, n, chunk):
+            part = psearch.put_rows(mesh, vec[start + c_lo : start + c_hi], chunk, 0, torch.float32, start=c_lo)
+            dist, ids = serving(part, q, *psearch.shard_aux(part, None, metric))
+            dists.append(dist)
+            gids.append(torch.where(ids >= 0, ids + start, -1))
+        return psearch.topk_dist_id(torch.cat(dists, dim=1), torch.cat(gids, dim=1), k)
+
+    dist, ids = timed("f_stream", stream)
+    out["f_stream_dist"], out["f_stream_ids"] = dist.cpu().numpy(), ids.cpu().numpy()
+    del corpus
+
+    # (g) the dim-sharded search on a (2, 2) mesh: the column partials add in
+    # a process, the merge over data rows crosses
+    dmesh = mesh.reshape(2)
+    corpus_dim, _ = psearch.shard_corpus_dim(dmesh, vec)
+    per, m = corpus_dim.rows_local, 2
+    _, kd, metrics = cfg["dim"]
+    for metric in metrics:
+        mul, add = [None] * len(dmesh.grid), [None] * len(dmesh.grid)
+        for r, row in enumerate(dmesh.grid):
+            if dmesh.is_local(r * m):  # the aux of the full-D rows, before placement
+                x = torch.zeros((per, vec.shape[1]), dtype=torch.float32)
+                real = vec[r * per : (r + 1) * per]
+                x[: real.shape[0]] = ingest.host_tensor(np.ascontiguousarray(real))
+                valid = torch.arange(per) < real.shape[0]
+                mul[r], add[r] = topk2.prepare_aux(x.to(row[0]), valid.to(row[0]), metric)
+                del x
+        q_t = torch.from_numpy(np.ascontiguousarray(inp["queries"][f"dim_{metric}"]))
+        fn = psearch.build_dim_sharded_search(dmesh, kd, metric)
+        args = (corpus_dim, topk2.prepare_queries(q_t, metric).to(lead), mul, add, (q_t.double() ** 2).sum(1).float())
+        dist, ids = timed(f"g_dim_{metric}", lambda: fn(*args))
+        out[f"g_dim_{metric}_dist"], out[f"g_dim_{metric}_ids"] = dist.cpu().numpy(), ids.cpu().numpy()
+    del corpus_dim
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out, times, notes
+
+
+def multihost_worker(coordinator: str, pid: int, work: str) -> int:
+    """One worker of phase 17 (``--multihost-worker``): ``initialize`` with
+    the coordinator, its devices from ``work/config.json``, every launch
+    count 0, the legs, then its arrays (``proc<pid>.npz``) and its times,
+    notes, launches and backend (``proc<pid>.json``) into ``work``."""
+    global DEVICE
+    import numpy as np
+    import torch
+
+    with open(os.path.join(work, "config.json")) as f:
+        cfg = json.load(f)
+    DEVICE = cfg["device"]
+    if DEVICE == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from fenix_tpu_torch.ops import kernels
+    from fenix_tpu_torch.parallel import distributed
+
+    config = distributed.ClusterConfig(coordinator_address=coordinator, num_processes=MH_PROCS, process_id=pid)
+    mesh = distributed.initialize(config, devices=cfg["devices"][pid], timeout=MH_INIT_TIMEOUT_S)
+    for counts in (kernels.LAUNCHES, kernels.DEVICE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    arrays, times, notes = mh_legs(mesh, mh_inputs(work), cfg)
+    launches = {k.removeprefix("bucket_scores."): v for k, v in kernels.LAUNCHES.items()}
+    torch.distributed.destroy_process_group()
+    np.savez(os.path.join(work, f"proc{pid}.npz"), **arrays)
+    with open(os.path.join(work, f"proc{pid}.json"), "w") as f:
+        json.dump({"times": times, "notes": notes, "launches": launches,
+                   "card_launches": dict(kernels.DEVICE_LAUNCHES), "backend": mesh.backend,
+                   "devices": [str(d) for d in mesh.devices], "local_shards": mesh.local_shards,
+                   "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}, f)
+    return 0
+
+
+def mh_run_workers(work: str, visible: list) -> float:
+    """Start the MH_PROCS workers (this script, ``--multihost-worker``) on a
+    free local port and wait for them: a worker that fails, or a pair not
+    done within MH_TIMEOUT_S, ends them all and raises with their logs'
+    tails. Returns the seconds the pair took."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs, logs = [], []
+    t = time.perf_counter()
+    try:
+        for pid in range(MH_PROCS):
+            env = dict(os.environ)
+            if visible[pid] is not None:
+                env["CUDA_VISIBLE_DEVICES"] = visible[pid]
+            logs.append(open(os.path.join(work, f"proc{pid}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost-worker", coordinator, str(pid), work],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env, cwd=HERE))
+        deadline = time.monotonic() + MH_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    seconds = time.perf_counter() - t
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for pid in range(len(procs)):
+            with open(os.path.join(work, f"proc{pid}.log")) as f:
+                tails.append(f"-- worker {pid}, rc {procs[pid].returncode} --\n{f.read()[-6000:]}")
+        raise AssertionError("phase 17: a multihost worker failed or timed out after "
+                             f"{seconds:.1f} s\n" + "\n".join(tails))
+    return seconds
+
+
+def mh_compare(results: list, metas: list, want: dict) -> dict:
+    """Each worker's arrays against one process's: every replicated array
+    on every worker, and each shard's own on its owner, bitwise; the ring's
+    blocks concatenated in block order, bitwise."""
+    import numpy as np
+
+    checked = 0
+    for key, w in want.items():
+        if key.startswith("b_ring_"):
+            continue
+        holders = [r[key] for r in results if key in r]
+        owned = key.rsplit("_", 1)[-1].isdigit()
+        if len(holders) != (1 if owned else len(results)):
+            raise AssertionError(f"multihost {key}: held by {len(holders)} workers")
+        for h in holders:
+            if h.dtype != w.dtype or h.shape != w.shape or not np.array_equal(h, w):
+                raise AssertionError(f"multihost {key}: a worker's differs from one process's")
+            checked += 1
+    order = sorted(range(len(results)), key=lambda p: metas[p]["notes"]["ring_q_start"])
+    for key in ("b_ring_dist", "b_ring_ids"):
+        got = np.concatenate([results[p][key] for p in order])
+        if got.dtype != want[key].dtype or not np.array_equal(got, want[key]):
+            raise AssertionError(f"multihost {key}: the workers' blocks differ from one process's ring")
+        checked += 1
+    return {"arrays_equal": checked}
+
+
+def mh_checks(want: dict, notes: dict, metas: list, cfg: dict, inp: dict, vectors, tags) -> list[dict]:
+    """The reference's answers (now the workers' too) held to their own
+    rules: the payload at chunks 1 and 4 alike and through; the id
+    shuffle's placement the host hash's, after an overflow and a retry that
+    both workers took in step; the searches, the ring, the stream and the
+    dim-sharded search to a float64 oracle over phase 3's rows by phase 4's
+    rule."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch import native
+
+    for key in [k for k in want if k.startswith("d_payload1_")]:
+        if not np.array_equal(want[key], want[key.replace("d_payload1_", "d_payload4_")]):
+            raise AssertionError(f"multihost payload: chunks=4 differs from chunks=1 at {key}")
+    if want["d_payload1_overflow"].any():
+        raise AssertionError("multihost payload: a window overflowed at twice the balanced share")
+    tries = [m["notes"]["hot_tries"] for m in metas]
+    if any(t != notes["hot_tries"] for t in tries) or [t[2] for t in notes["hot_tries"]] != [True, False]:
+        raise AssertionError(f"multihost id shuffle: not an overflow, then a retry, in step: {tries}")
+    parts, _ = native.hash_partition(np.asarray(inp["hot_keys"]), MH_SHARDS)
+    for s in range(MH_SHARDS):
+        if not np.array_equal(want[f"d_hot_ids_{s}"], np.flatnonzero(parts == s)):
+            raise AssertionError(f"multihost id shuffle: shard {s}'s ids differ from the host hash's")
+    del parts
+    qs = inp["queries"]
+    oracle = Oracle(vectors, DEVICE)
+    mask = torch.from_numpy(tags < 50).to(oracle.device)
+    cases = [(f"a_{name}", metric, k, precision, qs[f"search_{i}"], filtered, flat is False)
+             for i, (name, _, metric, k, precision, filtered, flat) in enumerate(cfg["searches"])]
+    _, _, metric, k, precision, filtered, _ = cfg["searches"][2]
+    cases.append(("b_ring", metric, k, precision, qs["search_2"], filtered, True))
+    _, metric, k, _ = cfg["stream"]
+    cases.append(("f_stream", metric, k, "fp32", qs["stream"], False, False))
+    cases += [(f"g_dim_{m}", m, cfg["dim"][1], "fp32", qs[f"dim_{m}"], False, False) for m in cfg["dim"][2]]
+    rows = []
+    for key, metric, k, precision, q, filtered, ties in cases:
+        rows.append({"search": f"multihost_{key}", **check_ids(
+            oracle, f"multihost_{key}", metric, k, precision, q, want[f"{key}_ids"], want[f"{key}_dist"],
+            mask if filtered else None, require_ties=ties)})
+    del oracle, mask
+    return rows
+
+
+def phase_multihost(smi: str, kind: str, vectors, tags, queries) -> dict:
+    """Phase 17 (see the module docstring): the inputs written once, the
+    two workers, then the same legs on one process's mesh of the same four
+    shards, every array compared, the answers held to the oracle. Returns
+    the workers' launches (the multihost path) and the backend."""
+    import numpy as np
+    import torch
+
+    from fenix_tpu_torch.parallel.mesh import make_mesh
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    cfg = mh_config()
+    single, cfg["devices"], visible = mh_layout()
+    work = os.path.join(HERE, "build", "chip_smoke", f"multihost-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    try:
+        t = time.perf_counter()
+        mh_write_inputs(work, vectors, tags, queries, cfg)
+        with open(os.path.join(work, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        write_s = time.perf_counter() - t
+        workers_s = mh_run_workers(work, visible)
+        results = [dict(np.load(os.path.join(work, f"proc{p}.npz"))) for p in range(MH_PROCS)]
+        metas = []
+        for p in range(MH_PROCS):
+            with open(os.path.join(work, f"proc{p}.json")) as f:
+                metas.append(json.load(f))
+        backend = metas[0]["backend"]
+        t = time.perf_counter()
+        inp = mh_inputs(work)
+        want, times, notes = mh_legs(make_mesh(devices=single), inp, cfg)
+        single_s = time.perf_counter() - t
+        compared = mh_compare(results, metas, want)
+        t = time.perf_counter()
+        oracle_rows = mh_checks(want, notes, metas, cfg, inp, vectors, tags)
+        del inp
+        checks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "multihost", "backend": backend, "processes": MH_PROCS, "shards": MH_SHARDS,
+          "workers": [{k: m[k] for k in ("devices", "local_shards", "cuda_visible_devices", "backend")}
+                      for m in metas],
+          "single_process_devices": single, **compared, "write_inputs_s": write_s, "workers_s": workers_s,
+          "single_process_s": single_s, "checks_s": checks_s, "device": kind, "nvidia_smi": smi})
+    for leg, mine in times.items():
+        emit({"phase": "multihost_leg", "leg": leg, "backend": backend,
+              "worker_warm_median_ms": [m["times"][leg]["warm_median_ms"] for m in metas],
+              "worker_warm_ms": [m["times"][leg]["warm_ms"] for m in metas],
+              "worker_first_s": [m["times"][leg]["first_s"] for m in metas],
+              "single_process_warm_median_ms": mine["warm_median_ms"], "single_process_warm_ms": mine["warm_ms"],
+              "single_process_first_s": mine["first_s"], "clock": "host, synchronised, per process",
+              "device": kind, "nvidia_smi": smi})
+    for row in oracle_rows:
+        emit({"phase": "multihost_oracle", **row})
+    per_worker = [{k: m["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS} for m in metas]
+    emit({"phase": "multihost_launches", "backend": backend, "per_worker": per_worker,
+          "per_worker_card": [m["card_launches"] for m in metas], "device": kind, "nvidia_smi": smi})
+    return {"launches": {k: sum(w[k] for w in per_worker) for k in ALL_LAUNCH_KEYS}, "backend": backend}
+
+
 def kernel_entries(compares: list[dict], by_path: dict) -> list[dict]:
     """One entry of the kernels line per row of KERNELS: its launches on
     each path (it must have some on each path KERNELS names), its largest
@@ -4914,6 +5457,12 @@ def run() -> int:
     scan_dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
     # -- phase 1 --------------------------------------------------------------
+    # the rows of phases 3 and 6 are drawn on a host thread (numpy's draws
+    # release the GIL) under the build and phases 2-5
+    draws = ThreadPoolExecutor(max_workers=1, thread_name_prefix="smoke-draws")
+    phase3_data = draws.submit(make_data, ROWS, 0)
+    wide_data = draws.submit(make_data, RES_ROWS, 1, RES_D)
+    draws.shutdown(wait=False)
     t = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4924,7 +5473,7 @@ def run() -> int:
           "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
-    vectors, ids_np, tags = make_data(ROWS, seed=0)
+    vectors, ids_np, tags = phase3_data.result()
     queries = [make_queries(vectors, spec[1], seed=10 + i) for i, spec in enumerate(SEARCHES)]
     emit({"phase": "data", "rows": ROWS, "dim": D, "seconds": time.perf_counter() - t})
 
@@ -5155,8 +5704,14 @@ def run() -> int:
           "analytics_launches_per_card": mesh["analytics_card_launches"],
           "repartition_launches": mesh["repartition_launches"], "mesh": mesh["mesh"],
           "seconds": time.perf_counter() - t})
+
+    # -- phase 17: multi-host, two processes -----------------------------------
+    t = time.perf_counter()
+    multihost = phase_multihost(smi, kind, vectors, tags, queries)
+    emit({"phase": "multihost_done", "launches": multihost["launches"], "backend": multihost["backend"],
+          "seconds": time.perf_counter() - t})
     del vectors, ids_np, tags, queries
-    res = phase_residency(kernels, topk2, Flight, expr, smi, kind)
+    res = phase_residency(kernels, topk2, Flight, expr, smi, kind, wide_data)
 
     # -- the kernels line ------------------------------------------------------
     compares = small + forced + wide + main_shapes + mut_checks + res["checks"] + mesh["checks"]
@@ -5167,7 +5722,8 @@ def run() -> int:
                "batching": batching, "types": ty_launches,
                "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
                "mesh_analytics": {k: mesh["analytics_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
-               "repartition": {k: mesh["repartition_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS}}
+               "repartition": {k: mesh["repartition_launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},
+               "multihost": multihost["launches"]}
     entries = kernel_entries(compares, by_path)
     for e in entries:
         emit({"phase": "kernel_timed_at", "name": e["name"], **e.pop("timed_at")})
@@ -5179,10 +5735,11 @@ def run() -> int:
 
 
 def run_mesh_only() -> int:
-    """Phase 1's build and phases 15 and 16 alone: (a) and (c) on phase 3's rows,
-    (b) on phase 6's rows put in process: the run for a machine with
-    several cards, where the serving mesh spans them (the whole script
-    there would repeat phases 2-14 on one card)."""
+    """Phase 1's build and phases 15 to 17 alone: (a) and (c) on phase 3's
+    rows, (b) on phase 6's rows put in process, then phase 16 and phase
+    17: the run for a machine with several cards, where the serving mesh
+    spans them and phase 17's workers take two cards each (the whole
+    script there would repeat phases 2-14 on one card)."""
     import numpy as np
     import torch
 
@@ -5208,9 +5765,13 @@ def run_mesh_only() -> int:
           "analytics_launches_per_card": mesh["analytics_card_launches"],
           "repartition_launches": mesh["repartition_launches"], "mesh": mesh["mesh"],
           "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    multihost = phase_multihost(smi, kind, vectors, tags, queries)
+    emit({"phase": "multihost_done", "launches": multihost["launches"], "backend": multihost["backend"],
+          "seconds": time.perf_counter() - t})
     for name, key, *_ in KERNELS:
         for path, counts in (("mesh", mesh["launches"]), ("mesh_analytics", mesh["analytics_launches"]),
-                             ("repartition", mesh["repartition_launches"])):
+                             ("repartition", mesh["repartition_launches"]), ("multihost", multihost["launches"])):
             if path in _[-1] and not counts.get(key):
                 raise AssertionError(f"{name} was not launched on the {path} path")
     del vectors, ids_np, tags, queries
@@ -5243,9 +5804,14 @@ def run_mesh_only() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mesh-only", action="store_true",
-                        help="phase 1's build and phases 15 and 16 alone (a machine with several cards)")
+                        help="phase 1's build and phases 15 to 17 alone (a machine with several cards)")
+    parser.add_argument("--multihost-worker", nargs=3, metavar=("COORDINATOR", "PROCESS_ID", "WORK_DIR"),
+                        help="one worker process of phase 17 (the script starts these itself)")
     args = parser.parse_args()
     try:
+        if args.multihost_worker:
+            coordinator, pid, work = args.multihost_worker
+            return multihost_worker(coordinator, int(pid), work)
         return run_mesh_only() if args.mesh_only else run()
     except Exception:
         traceback.print_exc()

@@ -348,13 +348,16 @@ def _pack_groups_parted(groups, values, hit, agg: str, max_groups: int, int_valu
     return gk, v[:, None], n
 
 
-def _partial_to_host(gk, lanes, n) -> "tuple[np.ndarray, np.ndarray, int]":
-    """A partial table in one device→host copy: (keys int64, lanes as
-    int64 or float64, group count)."""
-    g = gk.shape[0]
-    floating = lanes.is_floating_point()
-    bits = lanes.to(torch.float64).view(torch.int64) if floating else lanes.to(torch.int64)
-    host = torch.cat([gk.to(torch.int64), bits.reshape(-1), n.reshape(1).to(torch.int64)]).cpu().numpy()
+def _partial_packed(gk, lanes, n) -> torch.Tensor:
+    """A partial table as one int64 vector on its device: keys, lanes (a
+    float lane as its float64 bits), group count."""
+    bits = lanes.to(torch.float64).view(torch.int64) if lanes.is_floating_point() else lanes.to(torch.int64)
+    return torch.cat([gk.to(torch.int64), bits.reshape(-1), n.reshape(1).to(torch.int64)])
+
+
+def _partial_from_host(host: np.ndarray, g: int, floating: bool) -> "tuple[np.ndarray, np.ndarray, int]":
+    """(keys int64, lanes as int64 or float64, group count) of a
+    :func:`_partial_packed` vector read back."""
     body = host[g:-1].reshape(g, -1)
     return host[:g], body.view(np.float64) if floating else body, int(host[-1])
 
@@ -363,7 +366,8 @@ def _parted_partials(mesh, entries, left_keys, valid, left_values, *, agg: str, 
                      int_values: bool) -> list:
     """Every shard's partial group table of the probe ``left_keys``
     (copied to each shard with ``valid`` and ``left_values``), on the
-    host."""
+    host, in shard order: gathered to every process (``Mesh.gather``) and
+    read back in one device→host copy."""
     pk, pi, bounds, attr_rows, p_group, p_value = entries
     keys_s = psearch.replicate(mesh, left_keys)
     valid_s = psearch.replicate(mesh, valid) if valid is not None else [None] * mesh.size
@@ -375,15 +379,16 @@ def _parted_partials(mesh, entries, left_keys, valid, left_values, *, agg: str, 
         safe = torch.where(hit, pos, 0)
         groups = p_group.shards[s][safe].to(torch.int32)
         values = _taken_values(p_value.shards[s], safe, int_values) if p_value is not None else values_s[s]
-        return _partial_to_host(*_pack_groups_parted(groups, values, hit, agg, max_groups, int_values))
+        return _partial_packed(*_pack_groups_parted(groups, values, hit, agg, max_groups, int_values))
 
-    return mesh.map(part)
+    host = torch.stack(mesh.gather(mesh.map(part))).cpu().numpy()
+    return [_partial_from_host(h, max_groups, not int_values) for h in host]
 
 
 def _parted_lookup(mesh, pk, pi, bounds, attr_rows: int, left_keys, valid) -> torch.Tensor:
     """The original attribute row of each probe key's first match, or −1,
-    on the mesh's first device: each shard's claims (unique per key)
-    combined by a max."""
+    on the mesh's lead device: each shard's claims (unique per key),
+    gathered, combined by a max."""
     keys_s = psearch.replicate(mesh, left_keys)
     valid_s = psearch.replicate(mesh, valid) if valid is not None else [None] * mesh.size
 
@@ -393,8 +398,7 @@ def _parted_lookup(mesh, pk, pi, bounds, attr_rows: int, left_keys, valid) -> to
         return torch.where(hit, pi.shards[s][pos], -1)
 
     out = None
-    for claim in mesh.map(part):
-        claim = claim.to(mesh.devices[0], non_blocking=True)
+    for claim in mesh.gather(mesh.map(part)):
         out = claim if out is None else torch.maximum(out, claim)
     return out
 

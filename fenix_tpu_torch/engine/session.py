@@ -317,6 +317,8 @@ class DeviceCache:
         self.root = root
         self.block = block
         self.device = torch.device(device)
+        if isinstance(mesh, mesh_mod.Mesh) and mesh.process_count > 1:
+            raise ValueError("a DeviceCache serves one process; its mesh spans several")
         # "auto" resolves on first use (serving_mesh counts the cards)
         self._mesh = mesh
         self.clustered_builds: int = 0  # clustered layouts built (flat and per shard)

@@ -25,16 +25,18 @@ function's coder.
 
 ``train_sharded`` trains over a row-sharded corpus on a mesh
 (``parallel/mesh.py``): every shard samples its own rows with
-replacement, each step's weighted segment sums and counts are added on
-the mesh's first device in shard order (the JAX package's ``psum``), and
-the draws are the JAX package's for the seed and shard count
-(``threefry.choice`` for the initial rows, ``fold_in`` per shard,
-``randint`` per step).
+replacement, each step's weighted segment sums and counts are gathered
+(``Mesh.gather``) and added on the lead device in shard order (the JAX
+package's ``psum``), and the draws are the JAX package's for the seed
+and shard count (``threefry.choice`` for the initial rows, ``fold_in``
+per global shard id, ``randint`` per step). Over several processes each
+runs its own shards and adds every shard's statistics in the same
+order, so each holds the codebooks one process would train, bit for bit.
 
 ``sharded_lloyd_step`` is one Lloyd step on a ``(data, model)`` mesh:
 whole codebooks per model column, the batch rows split over the data
-shards, each column's sums and counts added on its first device in
-data-shard order, then the single update.
+shards, each column's sums and counts gathered and added in data-shard
+order, then the single update.
 """
 
 from __future__ import annotations
@@ -185,59 +187,74 @@ def train_sharded(
     over its shards: the JAX package's ``train_sharded``, draw for draw.
 
     The initial rows are ``choice(replace=False)`` of one unfolded key,
-    gathered from the shards that own them. Each step, every shard draws
+    gathered from the shards that own them (to every process). Each step,
+    every shard draws
     ``ceil(batch_size / S)`` of its own valid rows with replacement
     (``randint`` under ``fold_in(sample_key, shard)``, split per epoch and
     step) and weighs its statistics by ``valid_rows / rows · batch_size /
     b_local``, so every row's expected mass is ``batch_size / rows`` and
-    empty shards weigh 0; the shards' sums and counts are added on the
-    first device in shard order, so the result does not depend on the
-    devices' timing, and each codebook update is the single update on the
-    union batch. ``steps = max(rows // (num_codebooks · batch_size), 1)``
-    per epoch."""
+    empty shards weigh 0; the shards' sums and counts are gathered and
+    added on the lead device in shard order, so the result does not depend
+    on the devices' timing or on which process holds a shard, and each
+    codebook update is the single update on the union batch. ``steps =
+    max(rows // (num_codebooks · batch_size), 1)`` per epoch. The result
+    is on the lead device of every process."""
     metric_c = canonical_metric(metric)
     n_shards = mesh.size
     dim = corpus.shape[1]
     per = corpus.rows_local
     b_local = -(-batch_size // n_shards)
     steps = max(rows // (num_codebooks * batch_size), 1)
-    dev0 = mesh.devices[0]
+    dev0 = mesh.lead
+    local = mesh.local_shards
 
     _, init_key, sample_key = threefry.split(threefry.prng_key(seed), 3)
     init_rows = threefry.choice(init_key, rows, codebook_size * num_codebooks)
-    init = torch.empty((init_rows.shape[0], dim), dtype=torch.float32, device=dev0)
     owner = init_rows // per
+    width = int(np.bincount(owner, minlength=n_shards).max())
+
+    def owned(s: int) -> torch.Tensor:
+        """Shard ``s``'s initial rows, padded with its row 0 to ``width``."""
+        at = np.zeros(width, np.int64)
+        pos = np.flatnonzero(owner == s)
+        at[: pos.size] = init_rows[pos] - s * per
+        return corpus.shards[s][torch.from_numpy(at).to(mesh.devices[s])]
+
+    picked = mesh.gather([owned(s) if mesh.is_local(s) else None for s in range(n_shards)])
+    init = torch.empty((init_rows.shape[0], dim), dtype=torch.float32, device=dev0)
     for o in np.unique(owner):
         pos = np.flatnonzero(owner == o)
-        local = torch.from_numpy(init_rows[pos] - o * per).to(mesh.devices[o])
-        init[torch.from_numpy(pos).to(dev0)] = corpus.shards[o][local].to(dev0)
+        init[torch.from_numpy(pos).to(dev0)] = picked[o][: pos.size]
     codebooks = init.view(num_codebooks, codebook_size, dim)
 
-    # per shard: its sample weight and, per epoch, its [steps, n, b_local] rows
-    weights, draws = [], []
-    for s in range(n_shards):
+    # per local shard: its sample weight and, per epoch, its [steps, n, b_local] rows
+    weights, draws = {}, {}
+    for s in local:
         valid = min(max(rows - s * per, 0), per)
-        weights.append(torch.tensor(np.float32(np.float32(valid) / np.float32(rows)) * np.float32(batch_size / b_local),
-                                    device=mesh.devices[s]))
+        weights[s] = torch.tensor(np.float32(np.float32(valid) / np.float32(rows)) * np.float32(batch_size / b_local),
+                                  device=mesh.devices[s])
         epochs = threefry.split(threefry.fold_in(sample_key, s), num_epochs) if num_epochs else []
-        draws.append([
+        draws[s] = [
             torch.from_numpy(np.stack([
                 threefry.randint(key, (num_codebooks, b_local), 0, max(valid, 1))
                 for key in threefry.split(ekey, steps)
             ]).astype(np.int64)).to(mesh.devices[s])
             for ekey in epochs
-        ])
+        ]
 
     for epoch in range(num_epochs):
         for step in range(steps):
-            total_sums = total_counts = None
-            for s, dev in enumerate(mesh.devices):
+            parts: list = [None] * n_shards
+            for s in local:
                 idx = draws[s][epoch][step]  # [n, b_local]
                 sample = corpus.shards[s][idx.reshape(-1)].view(num_codebooks, b_local, dim)
-                _, sums, counts, _ = _lloyd_sums(codebooks.to(dev), sample, metric_c, weights[s])
-                sums, counts = sums.to(dev0), counts.to(dev0)
-                total_sums = sums if total_sums is None else total_sums + sums
-                total_counts = counts if total_counts is None else total_counts + counts
+                parts[s] = _lloyd_sums(codebooks.to(mesh.devices[s]), sample, metric_c, weights[s])[1:3]
+            all_sums = mesh.gather([None if p is None else p[0] for p in parts])
+            all_counts = mesh.gather([None if p is None else p[1] for p in parts])
+            total_sums, total_counts = all_sums[0], all_counts[0]
+            for sums, counts in zip(all_sums[1:], all_counts[1:]):
+                total_sums = total_sums + sums
+                total_counts = total_counts + counts
             base = normalize(codebooks) if metric_c == "cosine" else codebooks
             codebooks = _lloyd_update(base, total_sums, total_counts, metric_c)
     return codebooks
@@ -245,16 +262,17 @@ def train_sharded(
 
 def sharded_lloyd_step(mesh, data_axis: str, model_axis: "str | None", metric: str):
     """One Lloyd step over a mesh (``parallel.mesh.Mesh``): ``fn(codebooks
-    [n, K, D], batch [n, B, D]) -> [n, K, D]`` on the mesh's first device.
+    [n, K, D], batch [n, B, D]) -> [n, K, D]`` on the mesh's lead device
+    (the inputs whole on every process).
 
     The codebooks split over ``model_axis`` (whole books per model column,
     ``n`` a multiple of its size; with None every column would hold every
     book, so the first column alone works); the batch rows split over
     ``data_axis`` (``B`` a multiple of its size). Shard ``(r, c)`` takes
     the segment sums and counts of column ``c``'s books over row block
-    ``r``; they add on ``(0, c)``'s device in ``r`` order, so the sum
-    order does not depend on the devices' timing, and the update is
-    ``lloyd_step_single``'s on the whole batch."""
+    ``r``; they are gathered and add on the lead device in ``r`` order, so
+    the sum order does not depend on the devices' timing or processes,
+    and the update is ``lloyd_step_single``'s on the whole batch."""
     if data_axis != DATA_AXIS or model_axis not in (MODEL_AXIS, None):
         raise ValueError(f"axes must be {DATA_AXIS!r} and {MODEL_AXIS!r} or None, got {data_axis!r}, {model_axis!r}")
     metric_c = canonical_metric(metric)
@@ -274,18 +292,21 @@ def sharded_lloyd_step(mesh, data_axis: str, model_axis: "str | None", metric: s
             dev = mesh.devices[s]
             books = codebooks[c * nb : (c + 1) * nb].to(dev, non_blocking=True)
             sample = batch[c * nb : (c + 1) * nb, r * rb : (r + 1) * rb].to(dev, non_blocking=True)
-            return _lloyd_sums(books, sample, metric_c)[:3]
+            return _lloyd_sums(books, sample, metric_c)[1:3]
 
         parts = mesh.map(part)
-        dev0 = mesh.devices[0]
+        dev0 = mesh.lead
         out = []
         for c in range(cols):
-            base, sums, counts = parts[c]
-            for r in range(1, rows):
-                _, s_r, c_r = parts[r * m + c]
-                sums = sums + s_r.to(base.device, non_blocking=True)
-                counts = counts + c_r.to(base.device, non_blocking=True)
-            out.append(_lloyd_update(base, sums, counts, metric_c).to(dev0, non_blocking=True))
+            column = range(c, rows * m, m)
+            sums = mesh.gather([None if p is None else p[0] for p in parts], column)
+            counts = mesh.gather([None if p is None else p[1] for p in parts], column)
+            books = codebooks[c * nb : (c + 1) * nb].to(dev0, non_blocking=True)
+            base = normalize(books) if metric_c == "cosine" else books
+            total_s, total_c = sums[0], counts[0]
+            for s_r, c_r in zip(sums[1:], counts[1:]):
+                total_s, total_c = total_s + s_r, total_c + c_r
+            out.append(_lloyd_update(base, total_s, total_c, metric_c))
         return torch.cat(out)
 
     return step

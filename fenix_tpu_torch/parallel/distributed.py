@@ -15,20 +15,26 @@ received ids drive the host-side table gather; row payloads never reach
 the device, so any Arrow schema repartitions. Otherwise, and for an
 empty table, ``native.hash_partition`` places them on the host.
 
-``ClusterConfig`` / ``initialize`` bring up one process's mesh. More than
-one process (multi-host, on ``torch.distributed``) is ROADMAP queue 1
-item 4 and raises.
+``ClusterConfig`` / ``initialize`` bring up the mesh: with a coordinator
+and more than one process, one mesh over every process's devices on
+``torch.distributed`` (the JAX package's ``jax.distributed.initialize``
+and global mesh); otherwise this process's ``make_mesh``. The mesh
+routes of ``parallel/`` then cross the process boundary through the
+mesh's collectives (``parallel/mesh.py``); the engine (``DeviceCache``,
+the Flight server) stays one process, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 
 import numpy as np
 import pyarrow as pa
 import torch
+import torch.distributed as dist
 
 from fenix_tpu_torch import index as index_mod
 from fenix_tpu_torch import native
@@ -61,16 +67,63 @@ class ClusterConfig:
         return json.dumps(dataclasses.asdict(self))
 
 
-def initialize(config: "ClusterConfig | None" = None) -> "mesh_mod.Mesh":
-    """The engine mesh over this process's cards (``make_mesh`` with the
-    config's ``model_parallel``; the config from the environment when
-    None). More than one process is not ported: raises."""
+def initialize(config: "ClusterConfig | None" = None, devices=None, timeout: float = 300.0) -> "mesh_mod.Mesh":
+    """The engine mesh (the config from the environment when None).
+
+    Without a coordinator, or with one process, this process's
+    ``make_mesh`` over ``devices`` (default: every visible card) with the
+    config's ``model_parallel``, as the JAX package does. With a
+    coordinator and ``num_processes > 1``: every process meets at the
+    coordinator's TCP store (process 0 hosts it), publishes its local
+    devices, and ``torch.distributed`` comes up on the backend their layout
+    decides (:func:`choose_backend`); the mesh spans every process's
+    devices in process order (process 0's shards first), each process
+    holding its own. ``devices`` may repeat a device (the tests' shards on
+    ``cpu``). Every process must bring as many. A peer that does not
+    arrive, or a collective one process never enters, fails after
+    ``timeout`` seconds."""
     config = config or ClusterConfig.from_env()
-    if config.num_processes > 1:
-        raise NotImplementedError(
-            "multi-host (more than one process on torch.distributed) is not ported (ROADMAP queue 1 item 4)"
-        )
-    return mesh_mod.make_mesh(model_parallel=config.model_parallel)
+    if not (config.coordinator_address and config.num_processes > 1):
+        return mesh_mod.make_mesh(model_parallel=config.model_parallel, devices=devices)
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    local = [torch.device(d) for d in devices]
+    if not local:
+        raise ValueError("no local devices for the mesh")
+    rank, world = config.process_id, config.num_processes
+    wait = datetime.timedelta(seconds=timeout)
+    host, port = config.coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, rank == 0, timeout=wait)
+    layout = {"devices": [str(d) for d in local], "uuids": [_card_uuid(d) for d in local]}
+    store.set(f"fenix/layout/{rank}", json.dumps(layout))
+    layouts = [json.loads(store.get(f"fenix/layout/{p}")) for p in range(world)]
+    counts = [len(lay["devices"]) for lay in layouts]
+    if len(set(counts)) != 1:
+        raise ValueError(f"every process must bring as many devices; they bring {counts}")
+    backend = choose_backend([u for lay in layouts for u in lay["uuids"]])
+    if backend == "nccl":
+        torch.cuda.set_device(local[0])
+    dist.init_process_group(backend, store=dist.PrefixStore("fenix/pg", store), rank=rank, world_size=world,
+                            timeout=wait)
+    flat = mesh_mod.make_mesh(devices=[d for lay in layouts for d in lay["devices"]],
+                              model_parallel=config.model_parallel)
+    owners = [p for p in range(world) for _ in range(counts[0])]
+    return mesh_mod.Mesh(flat.grid, owners=owners, process_index=rank, backend=backend)
+
+
+def _card_uuid(device: torch.device) -> "str | None":
+    if device.type != "cuda":
+        return None
+    return str(torch.cuda.get_device_properties(device.index if device.index is not None else 0).uuid)
+
+
+def choose_backend(uuids) -> str:
+    """The backend for a world whose shards sit on these cards (a card's
+    UUID, None for the CPU), in shard order: NCCL when every shard has a
+    card of its own, else gloo (the CPU, or shards that share a card,
+    which NCCL refuses as a duplicate GPU)."""
+    uuids = list(uuids)
+    return "nccl" if all(u is not None for u in uuids) and len(set(uuids)) == len(uuids) else "gloo"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +196,10 @@ def _device_shuffle_ids(mesh: "mesh_mod.Mesh", keys: np.ndarray, num_shards: int
     int32 (the low 32 bits, which both hash paths use), ids padded with
     −1 to a multiple of the shard count. The capacity is estimated at
     ``safety=2.0``; on any overflow the exchange runs once more at the
-    provable bound ``n_pad // S``."""
+    provable bound ``n_pad // S``. Over several processes ``keys`` is the
+    whole key column on every process, the overflow flags are gathered so
+    that every process takes the same retry, and the ids of the other
+    processes' shards are None."""
     n = keys.size
     n_pad = -(-n // num_shards) * num_shards
     ids = np.full(n_pad, -1, np.int32)
@@ -159,12 +215,12 @@ def _device_shuffle_ids(mesh: "mesh_mod.Mesh", keys: np.ndarray, num_shards: int
         chunks = 4 if cap >= 4096 else 1
         cap = -(-cap // chunks) * chunks
         recv_ids, _, valid, overflow = pshuffle.build_shuffle(mesh, cap, (), chunks=chunks)(rows_dev, keys_dev)
-        if not any(bool(o.any()) for o in overflow.shards):
+        if not bool(overflow.gather().any()):
             break
     out = []
     for got, ok in zip(recv_ids.shards, valid.shards):
-        sel = got[ok]
-        out.append(torch.sort(sel[sel >= 0]).values.cpu().numpy())
+        sel = None if got is None else got[ok]
+        out.append(None if sel is None else torch.sort(sel[sel >= 0]).values.cpu().numpy())
     return out
 
 
@@ -176,7 +232,10 @@ def repartition(
     the manifest, and retire the original name and its indexes. With a
     ``mesh`` of ``num_shards`` devices and a nonempty table the rows are
     routed by the device shuffle (:func:`_device_shuffle_ids`), else by
-    ``native.hash_partition``: the same hash, so the same placement."""
+    ``native.hash_partition``: the same hash, so the same placement. It
+    runs in one process."""
+    if mesh is not None and mesh.process_count > 1:
+        raise ValueError("repartition runs in one process; its mesh spans several")
     with catalog_lock(root):
         data = table_mod.load(root, table_name)
         keys = np.asarray(data.column(key_column)).astype(np.int64)

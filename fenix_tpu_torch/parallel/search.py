@@ -7,18 +7,20 @@ device. Every shard runs the single-device two-phase search
 (``ops/topk2.py``, its phase 1 the hand-written kernels) over its own
 rows, with the bf16 / int8 scan copies sharded alike; then only the
 ``[Q, k]`` (distance, global id) candidates of each shard cross to the
-mesh's first device, never rows. Where the JAX package has collectives
-the port copies between devices (``tensor.to(other, non_blocking=True)``):
+mesh's lead device, never rows. Where the JAX package has collectives
+the port calls the mesh's (``parallel/mesh.py``: copies between devices
+in one process, ``torch.distributed`` across processes):
 
 - the ``all_gather`` merge (:func:`merge_candidates`): the shards'
-  candidates concatenated shard-major, then the top-k by (distance asc,
-  id asc);
+  candidates gathered shard-major (``Mesh.gather``), then the top-k by
+  (distance asc, id asc), so every process ends with the same result;
 - the ring (:func:`build_ring_search`): the queries split into S blocks,
   block ``b`` starting on shard ``b``; in each of S steps every shard
   searches the block it holds, merges the result into the block's carry,
-  and the block with its carry moves to the next shard's device. After S
-  steps each block is home with its global top-k. The ring runs over the
-  flattened ``(data, model)`` shard order, so ``model_parallel > 1``
+  and the block with its carry moves to the next shard (``Mesh.ppermute``).
+  After S steps each block is home with its global top-k; over several
+  processes each keeps the blocks of its own shards. The ring runs over
+  the flattened ``(data, model)`` shard order, so ``model_parallel > 1``
   extends it.
 
 Tie contract: shards own ascending contiguous id ranges and each shard's
@@ -31,17 +33,23 @@ as the JAX package's ``topk_values_min_id`` does.
 
 On distinct cards the shards' searches are enqueued from one thread per
 card (``Mesh.map``), since a selection ends in a host read; the merges
-and the ring's exchanges are small copies and ops on the first device.
+and the ring's exchanges are small copies and ops on the lead device.
+
+Over several processes (``parallel/distributed.initialize``) a
+:class:`Sharded` holds the local shards only (None for the others), a
+process uploads its own row range (:func:`put_rows` with ``start``), and
+every shard-wise loop below runs the local shards.
 
 :func:`gather_rowsharded` reads a row-sharded integer column at the
 merged winners' global ids (the ``psum`` of the JAX package: each shard
-takes the ids it owns, the parts add on the mesh's first device); the
-mesh joins (``engine/analytics.py``) read the winners' join keys so.
+takes the ids it owns, the parts are gathered and add in shard order);
+the mesh joins (``engine/analytics.py``) read the winners' join keys so.
 
 :func:`build_dim_sharded_search` splits the D contraction over the
 model axis instead (:class:`DimSharded`): each shard's partial products
-add on its data shard's first device (the ``psum``), and the merge runs
-over data shards only. No engine route reaches it; it trades speed for a
+add on its data shard's first device (the ``psum``, inside one process:
+a data row's shards must share their process), and the merge runs over
+data shards only. No engine route reaches it; it trades speed for a
 corpus whose full-D row shard would not fit one device.
 """
 
@@ -60,46 +68,61 @@ from fenix_tpu_torch.parallel.mesh import Mesh, shard_rows
 _PRECISIONS = ("fp32", "bf16", "int8")
 
 
+def _col(parts: Sequence, i: int) -> list:
+    """Item ``i`` of each shard's tuple, None where the shard has none."""
+    return [None if p is None else p[i] for p in parts]
+
+
 class Sharded:
     """A row-sharded device array: ``shards[s]`` holds the global rows
-    ``[s·L, (s+1)·L)`` on ``mesh.devices[s]``, ``L = rows_local``."""
+    ``[s·L, (s+1)·L)`` on ``mesh.devices[s]``, ``L = rows_local``; None
+    for a shard of another process."""
 
-    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]) -> None:
+    def __init__(self, mesh: Mesh, shards: Sequence["torch.Tensor | None"]) -> None:
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
         self.mesh = mesh
         self.shards = list(shards)
 
     @property
+    def _first(self) -> torch.Tensor:
+        return self.shards[self.mesh.local_shards[0]]
+
+    @property
     def rows_local(self) -> int:
-        return self.shards[0].shape[0]
+        return self._first.shape[0]
 
     @property
     def shape(self) -> tuple[int, ...]:
-        return (self.rows_local * self.mesh.size, *self.shards[0].shape[1:])
+        return (self.rows_local * self.mesh.size, *self._first.shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self._first.dtype
 
     def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
         """``fn`` applied shard by shard (to this array's shard and the
         same shard of each of ``others``): row-wise work, enqueued in turn
         (none of it waits on the device)."""
-        return Sharded(self.mesh, [fn(x, *(o.shards[s] for o in others)) for s, x in enumerate(self.shards)])
+        return Sharded(self.mesh, [None if x is None else fn(x, *(o.shards[s] for o in others))
+                                   for s, x in enumerate(self.shards)])
 
     def gather(self, device: "torch.device | None" = None) -> torch.Tensor:
-        """The whole array on ``device`` (default: the mesh's first)."""
-        device = self.mesh.devices[0] if device is None else device
-        return torch.cat([x.to(device, non_blocking=True) for x in self.shards])
+        """The whole array on ``device`` (default: the mesh's lead device),
+        on every process."""
+        whole = torch.cat(self.mesh.gather(self.shards))
+        return whole if device is None else whole.to(device, non_blocking=True)
 
 
 def put_rows(mesh: Mesh, parts: "np.ndarray | Sequence[np.ndarray]", n_pad: int, fill=0,
-             dtype: "torch.dtype | None" = None) -> Sharded:
-    """Host rows (one array, or row blocks in order) placed row-sharded
-    as ``[n_pad, ...]``: each shard's slice uploads to its device
-    (``ingest.upload``, counted in ``transfer.h2d_bytes``), the padding
-    tail is ``fill``. No padded host copy is made."""
+             dtype: "torch.dtype | None" = None, start: int = 0) -> Sharded:
+    """Host rows (one array, or row blocks in order), global rows from
+    ``start`` on, placed row-sharded as ``[n_pad, ...]``: each local
+    shard's slice uploads to its device (``ingest.upload``, counted in
+    ``transfer.h2d_bytes``), its rows outside the given ones are ``fill``.
+    No padded host copy is made. Over several processes each process
+    passes its own row range and its ``start`` (the counterpart of
+    ``jax.make_array_from_process_local_data``), or every row."""
     if isinstance(parts, np.ndarray):
         parts = [parts]
     parts = [np.ascontiguousarray(p) for p in parts]
@@ -108,17 +131,19 @@ def put_rows(mesh: Mesh, parts: "np.ndarray | Sequence[np.ndarray]", n_pad: int,
         dtype = torch.float32 if src == np.float64 else ingest.host_tensor(np.empty(0, src)).dtype
     inner = parts[0].shape[1:] if parts else ()
     per = n_pad // mesh.size
-    shards = [torch.empty((per, *inner), dtype=dtype, device=dev) for dev in mesh.devices]
-    start = 0
+    shards = [torch.empty((per, *inner), dtype=dtype, device=dev) if mesh.is_local(s) else None
+              for s, dev in enumerate(mesh.devices)]
+    first = at = start
     for part in parts:
-        stop = start + part.shape[0]
-        for s in range(start // per, -(-stop // per)):
-            lo, hi = max(start, s * per), min(stop, (s + 1) * per)
-            if lo < hi:
-                ingest.upload(shards[s][lo - s * per : hi - s * per], part[lo - start : hi - start])
-        start = stop
-    for s, shard in enumerate(shards):
-        shard[min(max(start - s * per, 0), per) :].fill_(fill)
+        stop = at + part.shape[0]
+        for s in range(at // per, -(-stop // per)):
+            lo, hi = max(at, s * per), min(stop, (s + 1) * per)
+            if lo < hi and shards[s] is not None:
+                ingest.upload(shards[s][lo - s * per : hi - s * per], part[lo - at : hi - at])
+        at = stop
+    for s in mesh.local_shards:
+        shards[s][: min(max(first - s * per, 0), per)].fill_(fill)
+        shards[s][min(max(at - s * per, 0), per) :].fill_(fill)
     return Sharded(mesh, shards)
 
 
@@ -149,10 +174,12 @@ def to_sharded_vector(host: np.ndarray, mesh: Mesh, block: int, fill=0) -> inges
     return ingest.DeviceColumn(data=put_rows(mesh, host, n_pad, fill), rows=host.shape[0])
 
 
-def replicate(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
-    """``x`` on every shard's device (one copy per distinct device)."""
+def replicate(mesh: Mesh, x: torch.Tensor) -> list:
+    """``x`` on every local shard's device (one copy per distinct device),
+    None for the shards of other processes."""
     copies: dict = {}
-    return [copies.setdefault(dev, x.to(dev, non_blocking=True)) for dev in mesh.devices]
+    return [copies.setdefault(dev, x.to(dev, non_blocking=True)) if mesh.is_local(s) else None
+            for s, dev in enumerate(mesh.devices)]
 
 
 def shard_corpus(mesh: Mesh, corpus: np.ndarray, mask: "np.ndarray | None" = None,
@@ -170,16 +197,16 @@ def shard_aux(corpus: Sharded, mask: "Sharded | None", metric: str) -> tuple[Sha
     """Row-sharded ``(aux_mul, aux_add)`` of the fused score
     (``topk2.prepare_aux`` shard by shard; masked rows −inf)."""
     pairs = [
-        topk2.prepare_aux(x, None if mask is None else mask.shards[s], metric)
+        None if x is None else topk2.prepare_aux(x, None if mask is None else mask.shards[s], metric)
         for s, x in enumerate(corpus.shards)
     ]
-    return Sharded(corpus.mesh, [p[0] for p in pairs]), Sharded(corpus.mesh, [p[1] for p in pairs])
+    return Sharded(corpus.mesh, _col(pairs, 0)), Sharded(corpus.mesh, _col(pairs, 1))
 
 
 def shard_scan_int8(corpus: Sharded) -> tuple[Sharded, Sharded]:
     """Row-sharded int8 scan copy ``(v8, sv)`` (per-row quantization)."""
-    pairs = [topk2.quantize_corpus_int8(x) for x in corpus.shards]
-    return Sharded(corpus.mesh, [p[0] for p in pairs]), Sharded(corpus.mesh, [p[1] for p in pairs])
+    pairs = [None if x is None else topk2.quantize_corpus_int8(x) for x in corpus.shards]
+    return Sharded(corpus.mesh, _col(pairs, 0)), Sharded(corpus.mesh, _col(pairs, 1))
 
 
 def shard_scan_bf16(corpus: Sharded) -> Sharded:
@@ -217,29 +244,30 @@ def topk_dist_id(dist: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[torch.T
     return dist, ids
 
 
-def merge_candidates(mesh: Mesh, dists: Sequence[torch.Tensor], gids: Sequence[torch.Tensor],
-                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def merge_candidates(mesh: Mesh, dists: Sequence["torch.Tensor | None"], gids: Sequence["torch.Tensor | None"],
+                     k: int, shards: "Sequence[int] | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The global top-``k`` ``(dist [Q, k], ids [Q, k])`` on the mesh's
-    first device from each shard's ``[Q, k_s]`` candidates, whose ids are
-    already global: the ``all_gather`` of the JAX package, shard-major."""
-    dev = mesh.devices[0]
-    dist = torch.cat([d.to(dev, non_blocking=True) for d in dists], dim=1)
-    ids = torch.cat([i.to(dev, non_blocking=True).long() for i in gids], dim=1)
+    lead device, on every process, from the ``[Q, k_s]`` candidates of
+    each of ``shards`` (default: every shard; each process gives its
+    own), whose ids are already global: the ``all_gather`` of the JAX
+    package, shard-major."""
+    dist = torch.cat(mesh.gather(dists, shards), dim=1)
+    ids = torch.cat([i.long() for i in mesh.gather(gids, shards)], dim=1)
     return topk_dist_id(dist, ids, k)
 
 
 def gather_rowsharded(column: Sharded, gids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """``column[gid]`` for global row ids ``gids`` (any shape, on the
-    mesh's first device) from a row-sharded 1-D integer or bool column:
+    mesh's lead device) from a row-sharded 1-D integer or bool column:
     each shard reads the ids it owns (a contiguous range) on its device
-    and contributes 0 elsewhere; the parts add up on the first device.
+    and contributes 0 elsewhere; the parts are gathered and add up in
+    shard order on the lead device.
     Slots where ``valid`` is False read 0. Integer and bool columns only:
     0 is the missing-slot identity, and a float column's legitimate zeros
     would hide an ownership fault."""
     if column.dtype.is_floating_point or column.dtype.is_complex:
         raise TypeError(f"gather_rowsharded takes an integer column, got {column.dtype}")
     mesh, rows_local = column.mesh, column.rows_local
-    dev = mesh.devices[0]
     flat_s = replicate(mesh, gids.reshape(-1))
     valid_s = replicate(mesh, valid.reshape(-1))
 
@@ -250,8 +278,7 @@ def gather_rowsharded(column: Sharded, gids: torch.Tensor, valid: torch.Tensor) 
         return torch.where(owned, taken, torch.zeros_like(taken))
 
     out = None
-    for p in mesh.map(part):
-        p = p.to(dev, non_blocking=True)
+    for p in mesh.gather(mesh.map(part)):
         out = p if out is None else (out | p if p.dtype == torch.bool else out + p)
     return out.reshape(gids.shape)
 
@@ -315,7 +342,7 @@ def _build(mesh: Mesh, k: int, metric: str, probed: bool, with_aux: bool = False
                                probe[0] if probe is not None else None, c_s[s])
 
         parts = mesh.map(run)
-        return merge_candidates(mesh, [p[0] for p in parts], [p[1] for p in parts], k)
+        return merge_candidates(mesh, _col(parts, 0), _col(parts, 1), k)
 
     return local_search
 
@@ -324,7 +351,7 @@ def build_sharded_search(mesh: Mesh, k: int, metric: str, block: "int | None" = 
                          with_aux: bool = False, precision: str = "fp32"):
     """A sharded exact top-k step: ``fn(corpus, queries, mask[, aux_mul,
     aux_add][, scan copies]) -> (dist [Q, k], ids [Q, k])`` on the mesh's
-    first device, with ``corpus`` and ``mask`` :class:`Sharded` (from
+    lead device, with ``corpus`` and ``mask`` :class:`Sharded` (from
     :func:`shard_corpus`) and ``queries`` a tensor. ``with_aux`` takes
     row-sharded aux (:func:`shard_aux`) instead of computing it per call;
     ``precision`` "bf16" appends a :func:`shard_scan_bf16` copy, "int8" a
@@ -357,7 +384,7 @@ def build_serving_search(mesh: Mesh, k: int, metric: str, probed: bool = False, 
 def build_serving_window_int8(mesh: Mesh, k: int, w: int, metric: str):
     """Sharded phase A of the int8-resident and int8-stream modes:
     ``fn(v8, sv, queries, aux_mul, aux_add) -> [S, Q, W']`` global row
-    ids on the mesh's first device, each shard's top-``W'`` window of its
+    ids on the mesh's lead device, each shard's top-``W'`` window of its
     rows (``topk2.topk_window_int8`` at ``min(k, L)``, ``min(w, L)``).
     The host concatenates the windows shard-major and rescores them
     exactly; a window may hold masked or padding rows, which the host
@@ -374,8 +401,7 @@ def build_serving_window_int8(mesh: Mesh, k: int, w: int, metric: str):
             )
             return _to_global(ids, s * L)
 
-        dev = mesh.devices[0]
-        return torch.stack([x.to(dev, non_blocking=True) for x in mesh.map(run)])
+        return torch.stack(mesh.gather(mesh.map(run)))
 
     return window
 
@@ -401,7 +427,7 @@ def build_serving_ivf_clustered(mesh: Mesh, k: int, metric: str):
             )
 
         parts = mesh.map(run)
-        return merge_candidates(mesh, [p[0] for p in parts], [p[1] for p in parts], k)
+        return merge_candidates(mesh, _col(parts, 0), _col(parts, 1), k)
 
     return ivf
 
@@ -409,18 +435,22 @@ def build_serving_ivf_clustered(mesh: Mesh, k: int, metric: str):
 def build_ring_search(mesh: Mesh, k: int, metric: str, precision: str = "fp32", probed: bool = False):
     """The ring top-k: ``fn(corpus, queries, aux_mul, aux_add[, scan
     copies][, coded, cells]) -> (dist [Q, k], ids [Q, k])`` on the mesh's
-    first device, ``Q`` a multiple of the shard count (the executor pads
+    lead device, ``Q`` a multiple of the shard count (the executor pads
     it with zero queries). Block ``b`` of the queries (and, probed, of
     their probe cells) starts on shard ``b``; in step ``t`` shard ``s``
-    holds block ``(s − t) mod S``, issues that block's copy to the next
-    shard's device, searches it over its own rows and merges the result
-    into the block's ``[Q/S, k]`` carry (:func:`topk_dist_id`: ties to the
-    smallest global id, whatever the arrival order), and the carry
-    follows the block. The same answer as the ``all_gather`` merge."""
+    holds block ``(s − t) mod S``, searches it over its own rows and
+    merges the result into the block's ``[Q/S, k]`` carry
+    (:func:`topk_dist_id`: ties to the smallest global id, whatever the
+    arrival order), and the block with its carry moves to the next shard
+    (``Mesh.ppermute``). The same answer as the ``all_gather`` merge. Over
+    several processes the result holds the rows of the blocks that end on
+    this process's shards, in block order (its contiguous share of the
+    queries, from ``local_shards[0] · Q/S``)."""
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
     n = mesh.size
     devices = mesh.devices
+    local = mesh.local_shards
 
     def ring(corpus: Sharded, queries: torch.Tensor, aux_mul: Sharded, aux_add: Sharded, *rest):
         _, scan, probe = _split_rest(rest, False, precision, probed)
@@ -428,33 +458,30 @@ def build_ring_search(mesh: Mesh, k: int, metric: str, precision: str = "fp32", 
         if q % n:
             raise ValueError(f"the ring takes a multiple of {n} queries, got {q}")
         qb = q // n
-        blocks = [queries[b * qb : (b + 1) * qb].to(devices[b], non_blocking=True) for b in range(n)]
+        # what each shard holds, indexed by shard: a block, its cells, its carry
+        held = [None] * n
         cells = [None] * n
-        if probe is not None:
-            cells = [probe[1][b * qb : (b + 1) * qb].to(devices[b], non_blocking=True) for b in range(n)]
-        carry = [
-            (torch.full((qb, k), torch.inf, device=devices[b]), torch.full((qb, k), -1, dtype=torch.int64,
-                                                                          device=devices[b]))
-            for b in range(n)
-        ]
-        for t in range(n):
+        carry_d, carry_i = [None] * n, [None] * n
+        for b in local:
+            held[b] = queries[b * qb : (b + 1) * qb].to(devices[b], non_blocking=True)
+            if probe is not None:
+                cells[b] = probe[1][b * qb : (b + 1) * qb].to(devices[b], non_blocking=True)
+            carry_d[b] = torch.full((qb, k), torch.inf, device=devices[b])
+            carry_i[b] = torch.full((qb, k), -1, dtype=torch.int64, device=devices[b])
+        for _ in range(n):
             def step(s: int):
-                b = (s - t) % n
-                nxt = devices[(s + 1) % n]
-                # the block's move first: it does not depend on the scan
-                moved = (blocks[b].to(nxt, non_blocking=True),
-                         None if cells[b] is None else cells[b].to(nxt, non_blocking=True))
-                d, gid = _local_topk(corpus, s, blocks[b], aux_mul.shards[s], aux_add.shards[s], k, metric,
-                                     scan, probe[0] if probe is not None else None, cells[b])
-                m_d, m_i = topk_dist_id(torch.cat([carry[b][0], d], dim=1), torch.cat([carry[b][1], gid], dim=1), k)
-                return b, moved, (m_d.to(nxt, non_blocking=True), m_i.to(nxt, non_blocking=True))
+                d, gid = _local_topk(corpus, s, held[s], aux_mul.shards[s], aux_add.shards[s], k, metric, scan,
+                                     probe[0] if probe is not None else None, cells[s])
+                return topk_dist_id(torch.cat([carry_d[s], d], dim=1), torch.cat([carry_i[s], gid], dim=1), k)
 
-            for b, moved, merged in mesh.map(step):
-                blocks[b], cells[b] = moved
-                carry[b] = merged
-        dev = devices[0]
-        return (torch.cat([carry[b][0].to(dev, non_blocking=True) for b in range(n)]),
-                torch.cat([carry[b][1].to(dev, non_blocking=True) for b in range(n)]))
+            merged = mesh.map(step)
+            carry_d, carry_i = mesh.ppermute(_col(merged, 0)), mesh.ppermute(_col(merged, 1))
+            held = mesh.ppermute(held)
+            if probe is not None:
+                cells = mesh.ppermute(cells)
+        dev = mesh.lead
+        return (torch.cat([carry_d[b].to(dev, non_blocking=True) for b in local]),
+                torch.cat([carry_i[b].to(dev, non_blocking=True) for b in local]))
 
     return ring
 
@@ -464,29 +491,39 @@ class DimSharded:
     model axis: ``shards[r·M + c]`` holds the ``rows_local`` rows of data
     shard ``r``, columns ``[c·D/M, (c+1)·D/M)``, on ``mesh.devices[r·M +
     c]``. Per-row vectors (mask, aux) are held per data shard on its first
-    device, ``mesh.grid[r][0]`` (:meth:`data_rows`)."""
+    device, ``mesh.grid[r][0]`` (:meth:`data_rows`). Over several
+    processes each data row's shards must lie in one process, which holds
+    them; the others are None."""
 
-    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]) -> None:
+    def __init__(self, mesh: Mesh, shards: Sequence["torch.Tensor | None"]) -> None:
         if len(shards) != mesh.size:
             raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+        m = len(mesh.grid[0])
+        if any(mesh.owners[s] != mesh.owners[s - s % m] for s in range(mesh.size)):
+            raise ValueError(f"a data row of the mesh spans processes: owners {mesh.owners}")
         self.mesh = mesh
         self.shards = list(shards)
 
     @property
+    def _first(self) -> torch.Tensor:
+        return self.shards[self.mesh.local_shards[0]]
+
+    @property
     def rows_local(self) -> int:
-        return self.shards[0].shape[0]
+        return self._first.shape[0]
 
     @property
     def shape(self) -> tuple[int, int]:
         m = len(self.mesh.grid[0])
-        return (self.rows_local * len(self.mesh.grid), self.shards[0].shape[1] * m)
+        return (self.rows_local * len(self.mesh.grid), self._first.shape[1] * m)
 
-    def data_rows(self, x: "np.ndarray | torch.Tensor") -> list[torch.Tensor]:
+    def data_rows(self, x: "np.ndarray | torch.Tensor") -> list:
         """A per-row ``[N_pad]`` vector split over the data shards, piece
-        ``r`` on ``mesh.grid[r][0]``."""
+        ``r`` on ``mesh.grid[r][0]`` (None for another process's row)."""
         x = torch.as_tensor(x)
-        per = self.rows_local
-        return [x[r * per : (r + 1) * per].to(row[0], non_blocking=True) for r, row in enumerate(self.mesh.grid)]
+        per, m = self.rows_local, len(self.mesh.grid[0])
+        return [x[r * per : (r + 1) * per].to(row[0], non_blocking=True) if self.mesh.is_local(r * m) else None
+                for r, row in enumerate(self.mesh.grid)]
 
 
 def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256) -> tuple[DimSharded, list[torch.Tensor]]:
@@ -503,6 +540,9 @@ def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256) -> tuple[D
     width = d // m
     shards = []
     for r, row in enumerate(mesh.grid):
+        if not mesh.is_local(r * m):
+            shards.extend([None] * m)
+            continue
         part = np.ascontiguousarray(corpus[r * per : (r + 1) * per])
         for c, dev in enumerate(row):
             x = torch.zeros((per, width), dtype=torch.float32, device=dev)
@@ -518,7 +558,8 @@ def shard_corpus_dim(mesh: Mesh, corpus, mask=None, block: int = 256) -> tuple[D
 def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
     """Exact top-k with the D contraction sharded over the model axis:
     ``fn(corpus, queries_p, aux_mul, aux_add, q_sq) -> (dist [Q, k], ids
-    [Q, k])`` on the mesh's first device, the ring's form.
+    [Q, k])`` on the mesh's lead device, on every process, the ring's
+    form.
 
     ``corpus`` is a :class:`DimSharded` (:func:`shard_corpus_dim`);
     ``queries_p`` the ``[Q, D]`` prepared queries
@@ -534,7 +575,9 @@ def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
     ``s·aux_mul + aux_add`` and the top ``min(k, rows_local)`` by (score
     desc, id asc), ids offset by ``r·rows_local``. The candidates merge over
     the data shards only (the model shards of a row hold the same rows), by
-    (score desc, id asc), padded to ``k`` with (−inf, −1).
+    (score desc, id asc), padded to ``k`` with (−inf, −1): over several
+    processes the partial sums stay in a process (a data row's shards
+    share one) and the merge gathers across them.
 
     Distances are the JAX function's conversion: l2 is ``sqrt(max(q_sq −
     s, 0))``, the expanded form, since no shard holds a whole row — not
@@ -546,7 +589,7 @@ def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
     def dim_search(corpus: DimSharded, queries_p: torch.Tensor, aux_mul: Sequence[torch.Tensor],
                    aux_add: Sequence[torch.Tensor], q_sq: torch.Tensor):
         m = len(grid[0])
-        width = corpus.shards[0].shape[1]
+        width = corpus.shape[1] // m
         rows_local = corpus.rows_local
         kk = min(k, rows_local)
 
@@ -556,8 +599,10 @@ def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
             return queries_p[:, c * width : (c + 1) * width].to(v.device, torch.float32) @ v.T
 
         partials = mesh.map(partial)
-        dists, gids = [], []
+        dists, gids = [None] * mesh.size, [None] * mesh.size  # each data row's at its first shard
         for r, row in enumerate(grid):
+            if not mesh.is_local(r * m):
+                continue
             dev = row[0]
             total = partials[r * m]
             for c in range(1, m):
@@ -567,9 +612,10 @@ def build_dim_sharded_search(mesh: Mesh, k: int, metric: str):
             top_s, top_i = torch.sort(score, dim=1, descending=True, stable=True)
             top_s, top_i = top_s[:, :kk], top_i[:, :kk]
             dead = top_s == NEG_INF
-            dists.append(torch.where(dead, torch.inf, -top_s))
-            gids.append(torch.where(dead, -1, top_i + r * rows_local))
-        neg, ids = merge_candidates(mesh, dists, gids, k)  # (−score asc, id asc)
+            dists[r * m] = torch.where(dead, torch.inf, -top_s)
+            gids[r * m] = torch.where(dead, -1, top_i + r * rows_local)
+        # (−score asc, id asc)
+        neg, ids = merge_candidates(mesh, dists, gids, k, shards=range(0, mesh.size, m))
         m_s = -neg
         dead = torch.isinf(neg)
         q_sq = q_sq.to(m_s.device, torch.float32)

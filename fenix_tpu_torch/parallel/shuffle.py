@@ -5,10 +5,13 @@ tables, skew-handled shuffle").
 Each source shard hashes its keys to a destination shard
 (``ops/relational.hash_partition``), orders its rows by destination with
 one stable sort, and packs them into fixed-capacity windows, one per
-destination. The JAX package's ``all_to_all`` becomes S × S copies between
-the shards' devices: window ``d`` of source ``s`` lands in slot ``s`` of
+destination. The JAX package's ``all_to_all`` is the mesh's
+(``Mesh.all_to_all``): window ``d`` of source ``s`` lands in slot ``s`` of
 destination ``d``, so after the exchange each destination holds its S
-source windows source-major, the JAX layout. Rows past a window's fill
+source windows source-major, the JAX layout. In one process that is S × S
+copies between the shards' devices; over several processes the windows
+between local shards stay copies and the others cross in one message a
+process pair. Rows past a window's fill
 carry what the clipped gather index gives them (``valid`` marks the real
 ones), so every output equals the JAX function's, not only the valid part.
 
@@ -17,13 +20,14 @@ Skew is handled by sampling (:func:`estimate_capacity`) and detected:
 capacity, so the caller can shuffle again with a larger one; no row is
 dropped silently.
 
-``chunks > 1`` splits each window into chunks. On distinct cards
-(``Mesh.concurrent``) every source enqueues from its own thread: chunk
+``chunks > 1`` splits each window into chunks. On distinct cards of one
+process (``Mesh.concurrent``) every source enqueues from its own thread: chunk
 ``c`` is packed on the card's compute stream, its copies go out on a copy
 stream per destination behind an event, and chunk ``c + 1`` is packed
 while they are in flight; the destination's stream waits for its copies
-by events, with no host sync. On one device (or the CPU) the chunks run
-in turn. Either way the result is bitwise the ``chunks=1`` result.
+by events, with no host sync. Otherwise (one device, the CPU, several
+processes) the chunks run in turn, each one ``all_to_all``. Either way the
+result is bitwise the ``chunks=1`` result.
 """
 
 from __future__ import annotations
@@ -83,10 +87,11 @@ def build_shuffle(mesh: Mesh, capacity: int, row_shape: Sequence[int], chunks: i
     """The exchange step: ``fn(rows, keys) -> (recv, recv_keys, valid,
     overflow)``, with ``rows`` a row-sharded :class:`Sharded` ``[N,
     *row_shape]`` and ``keys`` one ``[N]`` (integer). Every output is
-    :class:`Sharded`: shard ``d`` of ``recv`` is ``[S·capacity,
-    *row_shape]``, its S source windows source-major, ``recv_keys`` and
-    ``valid`` alike; shard ``s`` of ``overflow`` is ``[S]`` bool, one flag
-    per destination of source ``s`` (``[S·S]`` gathered)."""
+    :class:`Sharded` (the local shards): shard ``d`` of ``recv`` is
+    ``[S·capacity, *row_shape]``, its S source windows source-major,
+    ``recv_keys`` and ``valid`` alike; shard ``s`` of ``overflow`` is
+    ``[S]`` bool, one flag per destination of source ``s`` (``[S·S]``
+    gathered)."""
     if chunks != 1 and capacity % chunks:
         raise ValueError(f"capacity {capacity} does not split into {chunks} chunks")
     n = mesh.size
@@ -95,32 +100,36 @@ def build_shuffle(mesh: Mesh, capacity: int, row_shape: Sequence[int], chunks: i
     row_shape = tuple(row_shape)
 
     def exchange(rows: Sharded, keys: Sharded):
-        recv = [torch.empty((n, capacity, *row_shape), dtype=rows.dtype, device=d) for d in devices]
-        recv_keys = [torch.empty((n, capacity), dtype=keys.dtype, device=d) for d in devices]
-        recv_valid = [torch.empty((n, capacity), dtype=torch.bool, device=d) for d in devices]
-        outs = (recv, recv_keys, recv_valid)
+        def empty(shape, dtype) -> list:
+            return [torch.empty(shape, dtype=dtype, device=dev) if mesh.is_local(d) else None
+                    for d, dev in enumerate(devices)]
 
-        def copy_out(s: int, d: int, c: int, sent) -> None:
-            """Chunk ``c`` of source ``s``'s window for ``d`` into slot ``s`` of ``d``."""
-            sl = slice(c * chunk, (c + 1) * chunk)
-            for out, part in zip(outs, sent):
-                out[d][s, sl].copy_(part[d], non_blocking=True)
+        outs = (empty((n, capacity, *row_shape), rows.dtype), empty((n, capacity), keys.dtype),
+                empty((n, capacity), torch.bool))
 
-        if mesh.concurrent:
+        if mesh.concurrent and mesh.process_count == 1:
+            def copy_out(s: int, d: int, c: int, sent) -> None:
+                """Chunk ``c`` of source ``s``'s window for ``d`` into slot ``s`` of ``d``."""
+                sl = slice(c * chunk, (c + 1) * chunk)
+                for out, part in zip(outs, sent):
+                    out[d][s, sl].copy_(part[d], non_blocking=True)
+
             overflow = _exchange_streams(mesh, rows, keys, capacity, chunks, chunk, copy_out)
         else:
-            overflow = []
-            for s in range(n):
-                route = _route(keys.shards[s], n, capacity)
-                for c in range(chunks):
-                    sent = _pack(rows.shards[s], keys.shards[s], route, c, chunk, capacity)
-                    for d in range(n):
-                        copy_out(s, d, c, sent)
-                overflow.append(route[3])
+            routes = [_route(keys.shards[s], n, capacity) if mesh.is_local(s) else None for s in range(n)]
+            for c in range(chunks):
+                sent = [None if r is None else _pack(rows.shards[s], keys.shards[s], r, c, chunk, capacity)
+                        for s, r in enumerate(routes)]
+                sl = slice(c * chunk, (c + 1) * chunk)
+                for i, out in enumerate(outs):
+                    mesh.all_to_all([None if p is None else p[i] for p in sent],
+                                    [None if o is None else o[:, sl] for o in out])
+            overflow = [None if r is None else r[3] for r in routes]
+        recv, recv_keys, recv_valid = outs
         return (
-            Sharded(mesh, [r.view(n * capacity, *row_shape) for r in recv]),
-            Sharded(mesh, [k.view(n * capacity) for k in recv_keys]),
-            Sharded(mesh, [v.view(n * capacity) for v in recv_valid]),
+            Sharded(mesh, [r if r is None else r.view(n * capacity, *row_shape) for r in recv]),
+            Sharded(mesh, [k if k is None else k.view(n * capacity) for k in recv_keys]),
+            Sharded(mesh, [v if v is None else v.view(n * capacity) for v in recv_valid]),
             Sharded(mesh, overflow),
         )
 

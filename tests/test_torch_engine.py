@@ -196,8 +196,8 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     a mesh a plain search, joins and aggregates (``partitioned`` too, the
     one device's answers), repartition's device shuffle (the host path's
     shard tables), the dim-sharded search (the row-sharded answer) and a
-    sharded coder are served; only ``initialize`` with more than one
-    process raises (multi-host, ROADMAP queue 1 item 4)."""
+    sharded coder are served, and ``initialize`` with more than one process
+    but no coordinator gives the JAX package's local mesh (fault 9)."""
     cache = DeviceCache(root, device="cpu")
     target = rng.standard_normal((2, DIM)).astype(np.float32)
 
@@ -275,8 +275,11 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     assert ids.flatten().tolist() == dual.column("id").to_pylist()
     # the dim-sharded l2 is the expanded sqrt(‖q‖² − s): 1e-4, not the engine's 1e-5
     np.testing.assert_allclose(dist.flatten().numpy(), dual.column("__DISTANCE__").to_numpy(), rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        distributed.initialize(distributed.ClusterConfig(num_processes=2))
+    from fenix_tpu.parallel import distributed as jdistributed
+
+    jm = jdistributed.initialize(jdistributed.ClusterConfig(num_processes=2))
+    pm = distributed.initialize(distributed.ClusterConfig(num_processes=2), devices=["cpu"] * jm.devices.size)
+    assert pm.shape == dict(jm.shape) and pm.process_count == 1 and pm.backend is None
     assert service.run_search_config(meshed, plain, target).column("id").equals(dual.column("id"))
     ivf = {"metric": "l2", "codebook_size": 8, "num_codebooks": 1, "batch_size": 512, "num_epochs": 1}
     sharded_coder = coder.make(root, "ivf2", "items", "vector", ivf, seed=0, device="cpu", mesh=meshed.mesh)
@@ -478,21 +481,23 @@ def test_chip_smoke_kernel_entries():
                "types": {**selection, "kernel.stream": 2},
                "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
                "mesh_analytics": {**selection, "kernel.stream": 4},
-               "repartition": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
+               "repartition": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
+               "multihost": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
     assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
-    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 15
+    assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 16
     tiled = entries["bucket_scores.kernel.tiled"]
-    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 9
+    assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 10
     assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
                                          "analytics": 1, "batching": 1, "types": 1, "mesh": 1,
-                                         "mesh_analytics": 1, "repartition": 1}
+                                         "mesh_analytics": 1, "repartition": 1, "multihost": 1}
     assert tiled["timed_at"]["search"] == "q1024"
     stream = entries["bucket_scores.kernel.stream"]
-    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 29
+    assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 33
     assert entries["bucket_scores.f32@bucket128"]["launches_by_path"]["repartition"] == 4
+    assert entries["bucket_scores.f32@bucket128"]["launches_by_path"]["multihost"] == 4
     assert entries["bucket_scores.f32@bucket128"]["replaces"] == "fenix_tpu/ops/topk2.py:357"
     for e in entries.values():
         assert {"bound_ms", "library_ms", "max_abs_err", "plain_ms", "launches"} <= set(e)
@@ -525,6 +530,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["repartition"]["kernel.tensor_int8"], by_path["repartition"]["f32.bucket128"] = 1, 0
     with pytest.raises(AssertionError, match="f32@bucket128 was not launched on the repartition path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["repartition"]["f32.bucket128"], by_path["multihost"]["kernel.tiled"] = 4, 0
+    with pytest.raises(AssertionError, match="tiled was not launched on the multihost path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -1179,6 +1187,36 @@ def test_chip_smoke_mesh_phase_on_the_cpu(tmp_path, monkeypatch):
     planned = {r["search"]: r["planned"] for r in out["rows"] if r["cache"] == "mesh"}
     assert planned["mesh_auto_q8"] == "int8" and planned["mesh_dual_q8"] == "dual"
     assert "FENIX_HBM_BUDGET" not in os.environ
+
+
+def test_chip_smoke_multihost_phase_on_the_cpu(monkeypatch):
+    """Phase 17 of chip_smoke.py rehearsed on the CPU: two worker processes
+    of the script (``--multihost-worker``, gloo, two ``cpu`` shards each)
+    run the seven legs over 16,384 rows, bitwise equal to one process's
+    four shards, the id shuffle overflowing and retrying in step, every
+    search leg held to the float64 oracle."""
+    vectors, _, tags = smoke.make_data(SMOKE_ROWS, seed=0)
+    for name, value in {
+        "DEVICE": "cpu", "MH_REPS": 1, "AN_ATTRS_ROWS": 40_000, "AN_DUP_ROWS": 1024,
+        "SH_PAYLOAD_ROWS": 2048, "SH_PAYLOAD_D": 24,
+        "MESH_TRAIN_CHECK": {"rows": 8192, "config": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1,
+                                                      "batch_size": 1024, "num_epochs": 1}},
+        "SEARCHES": tuple((s[0], 520, s[2], 16, *s[4:]) if s[1] == 1024 else s for s in smoke.SEARCHES),
+        "AN_REQUESTS": tuple((r[0], 64, *r[2:]) if r[1] == 1024 else r for r in smoke.AN_REQUESTS),
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the workers' torch threads
+    queries = [smoke.make_queries(vectors, s[1], seed=10 + i) for i, s in enumerate(smoke.SEARCHES)]
+    emitted = []
+    monkeypatch.setattr(smoke, "emit", emitted.append)
+    out = smoke.phase_multihost("cpu", "cpu", vectors, tags, queries)
+    assert out["backend"] == "gloo" and not any(out["launches"].values())  # CPU tensors launch nothing
+    head = next(r for r in emitted if r["phase"] == "multihost")
+    assert [w["local_shards"] for w in head["workers"]] == [[0, 1], [2, 3]]
+    assert head["arrays_equal"] > 40
+    legs = {r["leg"] for r in emitted if r["phase"] == "multihost_leg"}
+    assert {"b_ring", "c_train_sharded", "d_payload_chunks4", "d_hot_ids", "f_stream", "g_dim_dot"} <= legs
+    assert sum(r["phase"] == "multihost_oracle" for r in emitted) == 5 + 1 + 1 + 3
 
 
 def test_chip_smoke_shuffle_phase_on_the_cpu(tmp_path, monkeypatch):

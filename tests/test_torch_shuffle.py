@@ -15,7 +15,9 @@ distances within 1e-5 (no two rows of these tables tie).
 """
 
 import os
+import socket
 import threading
+import time
 
 import jax
 import numpy as np
@@ -401,17 +403,21 @@ def test_flight_repartition_probed_and_mutation_guard(server, rng):
 def test_cluster_config_and_initialize(monkeypatch):
     """The config reads the JAX package's variables into the same JSON;
     one process gets ``make_mesh`` over its cards with the config's
-    model_parallel, more than one raises (multi-host is not ported)."""
+    model_parallel; with a coordinator nobody serves, ``initialize`` fails
+    within its timeout (it never waits forever for a peer)."""
     env = {"FENIX_COORDINATOR": "10.0.0.1:1234", "FENIX_NUM_PROCESSES": "2", "FENIX_PROCESS_ID": "1",
            "FENIX_MODEL_PARALLEL": "2"}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     config = distributed.ClusterConfig.from_env()
     assert config.to_json() == jdistributed.ClusterConfig.from_env().to_json()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        distributed.initialize(config)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        distributed.initialize()
+    with socket.socket() as s:  # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    start = time.monotonic()
+    with pytest.raises(RuntimeError):  # torch.distributed's DistError
+        distributed.initialize(distributed.ClusterConfig(f"127.0.0.1:{closed}", 2, 1), devices=["cpu"], timeout=1.0)
+    assert time.monotonic() - start < 30
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     mesh = distributed.initialize(distributed.ClusterConfig(model_parallel=2))
     assert mesh.shape == {"data": 2, "model": 2}
