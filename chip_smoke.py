@@ -14,16 +14,18 @@ Phases, each printing one JSON line with its own timings:
    multiple of the 128-row tile where the bucket allows, whole -inf
    buckets; f32 and bf16 through both the stream and the tiled kernel,
    int8 at EDGE_Q_INT8 through both int8 designs, tensor_int8 where D is
-   a multiple of 16), (b) at the exact inputs the main path gives it in
-   phase 3, each f32/bf16 design forced at 8,388,608 x 128 over the query
+   a multiple of 16, bf16 at EDGE_Q_INT8 through tensor_bf16 where D is a
+   multiple of 8), (b) at the exact inputs the main path gives it in
+   phase 3, each f32/bf16 design forced at 8,388,608 x 128 at the query
    counts of FORCED and each int8 design at FORCED_INT8's shapes over
    FORCED_INT8_Q, the timings that set the dispatcher's rules
-   (kernels.STREAM_MAX_Q, kernels.kernel_for). Every timed row also
+   (kernels.STREAM_MAX_Q, kernels.TENSOR_BF16_MIN_Q, kernels.kernel_for).
+   Every timed row also
    carries its bound (the larger of bytes over the read rate and
    operations over the peak rate of their type, see `bound`), its share of
    that bound, and library_ms, one PyTorch call for the product alone
-   (`library_fn`); an int8 row also carries the largest difference between
-   the two int8 designs at its inputs (`design_diff`).
+   (`library_fn`); an int8 row is also held bit-equal to the other int8
+   design at its inputs (`design_diff`), as every edge shape is.
    Tolerances, per query j:
    f32 and bf16 (both sides widen the same inputs to f32):
    1e-5 * |q_j| * max_i |v_i| * aux_mul_i + 1e-6 * max_i |aux_add_i|;
@@ -265,8 +267,8 @@ Phases, each printing one JSON line with its own timings:
    one and equal to a cold mesh cache's. (c) with two or more cards:
    each design on each card against its plain version, then a Flight
    server started with FENIX_MESH=auto answers (a)'s requests as the
-   in-process mesh did, and every card launched stream, tiled and
-   tensor_int8 (the per-card launch counts). (b) on the phase-6 root
+   in-process mesh did, and every card launched stream, tiled,
+   tensor_int8 and tensor_bf16 (the per-card launch counts). (b) on the phase-6 root
    after its server, a mesh cache and one device in process under a
    per-device MESH_BUDGET of 2 GiB (a shard's fp32 copy past it, its int8
    copy inside): MESH_RES_SEARCHES (auto must plan int8, forced int8
@@ -363,8 +365,9 @@ Phases, each printing one JSON line with its own timings:
    worker that fails or outlives MH_TIMEOUT_S is killed and the script
    fails. The shard shapes are phase 15's, whose kernel rows hold them.
 
-Then one JSON line of the kernels (the four designs: stream and tiled
-for K1, tensor_int8 and generic_int8 for K2, and K3 as f32 at bucket 128,
+Then one JSON line of the kernels (the five designs: stream and tiled
+for K1 in f32, tensor_bf16 for K1 in bf16, tensor_int8 and generic_int8
+for K2, and K3 as f32 at bucket 128,
 each with its launches on every path: exact, residency, ivf, selection,
 mutation, analytics, batching, types, mesh, mesh_analytics, repartition,
 multihost), the nvidia-smi line, and last
@@ -409,7 +412,7 @@ SEARCHES = (
 )
 ROUTES = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
 K3_ROUTE = "f32.bucket128"  # f32 launches at bucket 128 also serve K3
-DESIGNS = ("stream", "tiled", "tensor_int8", "generic_int8")  # LAUNCHES["bucket_scores.kernel.<design>"]
+DESIGNS = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")  # LAUNCHES["bucket_scores.kernel.<design>"]
 INT8_DESIGNS = ("tensor_int8", "generic_int8")
 KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
@@ -420,9 +423,13 @@ KERNELS = (
     ("bucket_scores.kernel.tiled", "kernel.tiled", "fenix_tpu_torch/csrc/bucket_scores_tiled.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "selection", "mutation", "analytics", "batching", "types", "mesh",
                                     "mesh_analytics", "repartition", "multihost")),
-    ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_int8.cu",
+    ("bucket_scores.kernel.tensor_int8", "kernel.tensor_int8", "fenix_tpu_torch/csrc/bucket_scores_tensor.cu",
      "fenix_tpu/ops/topk2.py:464", ("exact", "residency", "selection", "mutation", "analytics", "types", "mesh",
                                     "mesh_analytics", "repartition", "multihost")),
+    # every bf16 search: phase 3's Q=64, and on the typed table, the mesh,
+    # the repartitioned table and the multi-host workers
+    ("bucket_scores.kernel.tensor_bf16", "kernel.tensor_bf16", "fenix_tpu_torch/csrc/bucket_scores_tensor.cu",
+     "fenix_tpu/ops/topk2.py:453", ("exact", "types", "mesh", "repartition", "multihost")),
     # int8 rows that are not 16-byte strided only; no main-path table has them
     ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
      "fenix_tpu/ops/topk2.py:464", ()),
@@ -431,11 +438,17 @@ KERNELS = (
 )
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
-EDGE_Q_INT8 = EDGE_Q + (100, 200, 257, 1024)  # int8 also: 128- and 256-query tiles, several
+EDGE_Q_INT8 = EDGE_Q + (100, 200, 257, 1024)  # the tensor cores also: 128- and 256-query tiles, several
 EDGE_D = (96, 100, 130, 768)  # 100 and 130 are not a multiple of 16 bytes of bf16 / f32
 EDGE_BUCKETS = (1, 2, 32, 128)
-# phase 2 (b): each f32/bf16 design forced at ROWS x D over these query counts
-FORCED = (("f32", (1, 8, 16, 32, 64)), ("bf16", (1, 8, 16, 32, 64)))
+# phase 2 (b): f32/bf16 designs forced at ROWS x D: (route, query count, designs)
+FORCED = (
+    *(("f32", q, ("stream", "tiled")) for q in (1, 8, 16, 32, 64)),
+    *(("f32", q, ("stream",)) for q in (12, 24)),  # the outer-product groups between 8 and 32
+    ("f32", 128, ("stream", "tiled")),  # where stream hands over to tiled
+    *(("bf16", q, ("tensor_bf16", "stream")) for q in (1, 8, 16, 32)),
+    *(("bf16", q, ("tensor_bf16", "tiled")) for q in (64, 256, 1024)),
+)
 # phase 2 (b): each int8 design forced at these (rows, D) over these query counts
 FORCED_INT8 = ((8_388_608, 128), (4_194_304, 768))
 FORCED_INT8_Q = (1, 8, 16, 32, 64, 256, 1024)
@@ -818,11 +831,8 @@ def check_kernel(kernels, q, v, mul, add, bucket, inv_sq, kernel):
 
 def design_diff(kernels, got, q, v, mul, add, bucket, inv_sq, design) -> dict:
     """An int8 design's maxima ``got`` against the other int8 design at the
-    same inputs. Both sum exactly in integers and share the epilogue's
-    expression, so they can differ only where the compiler contracts that
-    expression into an FMA differently: the difference is held to
-    check_close's int8 tolerance, which allows for that, and the row says
-    whether the two were bit-equal."""
+    same inputs. Both sum exactly in integers and spell out the epilogue's
+    one FMA, so they must agree bit for bit."""
     import torch
 
     other = INT8_DESIGNS[1 - INT8_DESIGNS.index(design)]
@@ -831,10 +841,10 @@ def design_diff(kernels, got, q, v, mul, add, bucket, inv_sq, design) -> dict:
     theirs = kernels.bucket_scores(q, v, mul, add, bucket, inv_sq=inv_sq, _kernel=other)
     if theirs.is_cuda:
         torch.cuda.synchronize()
-    diff = check_close(got, theirs, q, v, mul, add, inv_sq)
-    equal = torch.equal(got, theirs)
-    return {"other_design": other, "max_abs_diff_designs": diff, "designs_bit_equal": equal,
-            "designs_differ_by": None if equal else "epilogue FMA contraction, within the int8 tolerance"}
+    if not torch.equal(got, theirs):
+        diff = float(torch.where(torch.isfinite(got), (got - theirs).abs(), torch.zeros_like(got)).max())
+        raise AssertionError(f"{design} and {other} differ by {diff}: the int8 designs must be bit-equal")
+    return {"other_design": other, "designs_bit_equal": True}
 
 
 def compare(kernels, q, v, mul, add, bucket, inv_sq, kernel=None) -> dict:
@@ -895,12 +905,13 @@ def edge_rows(bucket: int) -> int:
 
 def phase_edge_shapes(kernels, topk2) -> dict:
     """Phase 2 (a), edge shapes: every design against the plain version
-    over EDGE_Q (int8: EDGE_Q_INT8) x EDGE_D x EDGE_BUCKETS, untimed; where
-    both int8 designs run, they also agree with each other."""
+    over EDGE_Q (int8 and tensor_bf16: EDGE_Q_INT8) x EDGE_D x
+    EDGE_BUCKETS, untimed; where both int8 designs run, they are also
+    bit-equal."""
     import torch
 
     g = torch.Generator(device=DEVICE).manual_seed(5)
-    checked, err, diff_designs = 0, 0.0, 0.0
+    checked, err, bit_equal = 0, 0.0, 0
     for d in EDGE_D:
         for bucket in EDGE_BUCKETS:
             n = edge_rows(bucket)
@@ -918,6 +929,8 @@ def phase_edge_shapes(kernels, topk2) -> dict:
                 if qn in EDGE_Q:
                     cases += [(q32, v32, None, k) for k in ("stream", "tiled")]
                     cases += [(q32.to(torch.bfloat16), v16, None, k) for k in ("stream", "tiled")]
+                if d % 8 == 0:
+                    cases.append((q32.to(torch.bfloat16), v16, None, "tensor_bf16"))
                 cases += [(q8, v8, inv_sq, k) for k in INT8_DESIGNS if k != "tensor_int8" or d % 16 == 0]
                 outs = {}
                 for q, v, isq, kernel in cases:
@@ -925,16 +938,16 @@ def phase_edge_shapes(kernels, topk2) -> dict:
                     e, outs[kernel] = check_kernel(kernels, q, v, m, add, bucket, isq, kernel)
                     err = max(err, e)
                     checked += 1
-                if "tensor_int8" in outs:
-                    diff_designs = max(diff_designs, check_close(
-                        outs["tensor_int8"], outs["generic_int8"], q8, v8, mul * sv, add, inv_sq))
+                if "tensor_int8" in outs and not torch.equal(outs["tensor_int8"], outs["generic_int8"]):
+                    raise AssertionError(f"int8 designs differ at Q={qn}, D={d}, bucket {bucket}")
+                bit_equal += "tensor_int8" in outs
     return {"checked": checked, "q": EDGE_Q, "q_int8": EDGE_Q_INT8, "d": EDGE_D, "buckets": EDGE_BUCKETS,
-            "max_abs_err": err, "max_abs_diff_int8_designs": diff_designs}
+            "max_abs_err": err, "int8_designs_bit_equal": bit_equal}
 
 
 def phase_forced(kernels, topk2, vectors) -> list[dict]:
-    """Phase 2 (b): the stream and tiled kernels, each forced, at ROWS x D
-    (cosine aux, random queries) over the query counts of FORCED."""
+    """Phase 2 (b): the f32/bf16 designs, each forced, at ROWS x D (cosine
+    aux, random queries) at the query counts of FORCED."""
     import numpy as np
     import torch
 
@@ -942,14 +955,14 @@ def phase_forced(kernels, topk2, vectors) -> list[dict]:
     mul, add = topk2.prepare_aux(corpus, None, "cosine")
     rng = np.random.default_rng(2)
     rows = []
-    for route, counts in FORCED:
+    for route in ("f32", "bf16"):
         dtype = torch.float32 if route == "f32" else torch.bfloat16
         v = corpus if route == "f32" else corpus.to(dtype)
-        for qn in counts:
+        for _, qn, designs in (f for f in FORCED if f[0] == route):
             q = torch.from_numpy(rng.standard_normal((qn, D), dtype=np.float32)).to(DEVICE)
             qp = topk2.prepare_queries(q, "cosine").to(dtype).contiguous()
             bucket = topk2.bucket_for(qn, ROWS)
-            for kernel in ("stream", "tiled"):
+            for kernel in designs:
                 rows.append({"route": route, "q": qn, "n": ROWS, "bucket": bucket,
                              **compare(kernels, qp, v, mul, add, bucket, None, kernel=kernel)})
                 emit({"phase": "kernel_forced", **rows[-1]})
@@ -3778,7 +3791,8 @@ def per_card_designs(kernels, topk2) -> list[dict]:
     out = []
     for card in range(torch.cuda.device_count()):
         dev = torch.device("cuda", card)
-        for d, designs in ((128, ("stream", "tiled", "tensor_int8", "generic_int8")), (100, ("generic_int8",))):
+        for d, designs in ((128, ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")),
+                           (100, ("generic_int8",))):
             v = torch.from_numpy(rng.standard_normal((1 << 16, d), dtype=np.float32)).to(dev)
             mul = torch.ones(v.shape[0], device=dev)
             add = torch.from_numpy(rng.standard_normal(v.shape[0]).astype(np.float32)).to(dev)
@@ -3786,7 +3800,12 @@ def per_card_designs(kernels, topk2) -> list[dict]:
             v8, sv = topk2.quantize_corpus_int8(v)
             q8, inv_sq = topk2.quantize_queries_int8(q)
             for design in designs:
-                args = (q8, v8, mul * sv, add, 32, inv_sq) if "int8" in design else (q, v, mul, add, 32, None)
+                if "int8" in design:
+                    args = (q8, v8, mul * sv, add, 32, inv_sq)
+                elif design == "tensor_bf16":
+                    args = (q.bfloat16(), v.bfloat16(), mul, add, 32, None)
+                else:
+                    args = (q, v, mul, add, 32, None)
                 err, _ = check_kernel(kernels, *args, design)
                 out.append({"card": card, "d": d, "kernel": design, "max_abs_err": err})
     return out
@@ -4239,7 +4258,7 @@ def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, an: dict, vec
     plain version, then a Flight server started with FENIX_MESH=auto over
     the phase's root answers its requests, and BASELINE config 3's join
     (the partitioned route), as the in-process mesh did, and every card
-    launched the stream, tiled and tensor_int8 designs."""
+    launched the stream, tiled, tensor_int8 and tensor_bf16 designs."""
     from fenix_tpu_torch.flight import Flight
 
     designs = per_card_designs(kernels, topk2)
@@ -4282,7 +4301,7 @@ def mesh_server_checks(kernels, topk2, expr, root: str, reqs, got, an: dict, vec
     for card in range(torch.cuda.device_count()):
         per_card[card] = {d: stats.get(f"kernel.bucket_scores.kernel.{d}.cuda{card}.launches", 0)
                           for d in DESIGNS}
-        for d in ("stream", "tiled", "tensor_int8"):
+        for d in ("stream", "tiled", "tensor_int8", "tensor_bf16"):
             if not per_card[card][d]:
                 raise AssertionError(f"card {card} launched no {d} kernel under the mesh server")
     row = {"phase": "mesh_server", "launches_per_card": per_card, "client_ms": times,

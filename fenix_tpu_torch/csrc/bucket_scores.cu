@@ -1,10 +1,12 @@
 // Phase 1 of the two-phase exact top-k search on Hopper: per-bucket
 // maxima of the fused score, with only the maxima written to memory.
-// This file holds the C entry point of all four phase-1 kernels and one
-// of the two int8 designs, generic_kernel ("generic_int8"). The f32/bf16
+// This file holds the C entry point of all five phase-1 kernels and one
+// of the two int8 designs, generic_kernel ("generic_int8"). The f32
 // corpora take bucket_scores_stream.cu (small Q) or bucket_scores_tiled.cu
-// (large Q); int8 rows of a multiple of 16 bytes take the tensor-core
-// design in bucket_scores_int8.cu ("tensor_int8"), faster at every query
+// (large Q); bf16 rows of a multiple of 16 bytes take the tensor-core
+// design in bucket_scores_tensor.cu ("tensor_bf16") from the query count
+// kernels.py sets, other bf16 rows stream/tiled; int8 rows of a multiple
+// of 16 bytes take "tensor_int8" in the same file, faster at every query
 // count measured. generic_kernel serves only int8 rows that TMA cannot
 // address (D not a multiple of 16): a shape rule of the caller
 // (fenix_tpu_torch/ops/kernels.py:kernel_for), not a fallback.
@@ -19,7 +21,7 @@
 // query-major [QT, N/bucket].
 //
 // Design (right and simple; the int8 path the engine's tables take is
-// bucket_scores_int8.cu):
+// bucket_scores_tensor.cu):
 // - One block computes a tile of BM corpus rows x BQ queries. Both
 //   operand tiles are staged through shared memory in steps of KW
 //   words of four int8 codes packed into an int32; each thread owns a
@@ -139,7 +141,7 @@ generic_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
     for (int j = 0; j < TN; ++j) {
       const int c = tx + NTX * j;
       const float isq = (q0 + c < qt) ? inv_sq[q0 + c] : 1.0f;
-      const float s = static_cast<float>(acc[i][j]) * mul + add * isq;
+      const float s = fmaf(static_cast<float>(acc[i][j]), mul, add * isq);  // tensor_int8's, bit for bit
       sm.ep.s[c][r] = live ? s : -INFINITY;
     }
   }
@@ -211,7 +213,8 @@ int launch_generic(const void* q, const void* v, const float* aux_mul, const flo
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (inv_sq required).
 // kernel: 0 = stream, 1 = tiled (f32/bf16 corpora, f32 queries),
 //         2 = generic, 3 = tensor_int8 (int8 corpus and queries; 3 needs
-//         D a multiple of 16, bucket_scores_int8.cu).
+//         D a multiple of 16), 4 = tensor_bf16 (bf16 corpus and queries,
+//         D a multiple of 8); 3 and 4 in bucket_scores_tensor.cu.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int fenix_bucket_scores(int dtype, int kernel, const void* q, const void* v,
                                    const float* aux_mul, const float* aux_add,
@@ -230,5 +233,7 @@ extern "C" int fenix_bucket_scores(int dtype, int kernel, const void* q, const v
     return launch_generic(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
   if (kernel == 3 && dtype == 2 && inv_sq != nullptr)
     return fenix::launch_tensor_int8(q, v, aux_mul, aux_add, inv_sq, out, qt, n, d, bucket_log2, s);
+  if (kernel == 4 && dtype == 1)
+    return fenix::launch_tensor_bf16(q, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

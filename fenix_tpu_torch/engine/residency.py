@@ -13,7 +13,7 @@
 ``stream`` larger than device memory: the host corpus moves through the
            device in double-buffered chunks (``io.batch.prefetch_to_device``).
            fp32 chunks run the exact two-phase search (the K1 kernel) and
-           the host merges them by (distance, id); ``precision="int8"``
+           the host merges them by (score, id); ``precision="int8"``
            streams the host int8 mirror, each chunk gives a window, and
            one host rescore covers their union.
 
@@ -358,7 +358,7 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     """(dist [Q, k], ids [Q, k]) by streaming the host corpus through the
     device in fixed-shape chunks (the ragged tail padded with zero rows,
     ``aux_add = −inf``, ``aux_mul = 0`` and, for int8, scale 1e-30).
-    fp32: the exact two-phase search per chunk, host merge by (dist, id).
+    fp32: the exact two-phase search per chunk, host merge by (score, id).
     int8: a phase-A window per chunk, one exact host rescore over the
     union."""
     metric = distance_ops.canonical_metric(req.metric)
@@ -434,11 +434,19 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
         else:
             buf, mul_c, add_c = arrays
             if mesh is None:
-                d_c, i_c = topk2.topk_two_phase(buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric)
-            else:
+                # the chunk's aux on the device, as dual builds it over the
+                # whole table, so both score every row bit for bit alike
+                # (the host aux carries the filter and the padding as −inf)
+                mul_c, add_c = topk2.prepare_aux(buf, add_c != distance_ops.NEG_INF, metric)
+                d_c, i_c, s_c = topk2.topk_two_phase(
+                    buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric, with_scores=True
+                )
+                key_c = -s_c.cpu().numpy()
+            else:  # the shards' candidates come merged by (distance, id)
                 d_c, i_c = search(buf, queries, mul_c, add_c)
+                key_c = d_c.cpu().numpy()
             i_c = i_c.cpu().numpy()
-            parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1)))
+            parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1), key_c))
         METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
         n_chunks += 1
     METRICS.add("search.stream_chunks", n_chunks)
@@ -448,12 +456,15 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
         win = np.concatenate(parts, axis=1) if parts else np.full((qt, 1), -1, np.int64)
         return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
 
-    d_all = np.concatenate([d for d, _ in parts], axis=1)
-    i_all = np.concatenate([i for _, i in parts], axis=1)
+    d_all, i_all, key_all = (np.concatenate(x, axis=1) for x in zip(*parts))
     d_all = np.where(i_all >= 0, d_all, np.inf)
+    key_all = np.where(i_all >= 0, key_all, np.inf)
     width = d_all.shape[1]
-    # (dist asc, id asc) merge of the chunks, the query as the major key
-    flat_order = np.lexsort((i_all.ravel(), d_all.ravel(), np.repeat(np.arange(qt), width))).reshape(
+    # (score desc, id asc) merge of the chunks, the query as the major key:
+    # the order topk_two_phase gives one pass over the whole table (an l2
+    # distance is recomputed as ‖q − v‖, which may invert rows whose scores
+    # nearly tie, so it is no merge key)
+    flat_order = np.lexsort((i_all.ravel(), key_all.ravel(), np.repeat(np.arange(qt), width))).reshape(
         qt, width
     )
     order = (flat_order - (np.arange(qt) * width)[:, None])[:, :k]

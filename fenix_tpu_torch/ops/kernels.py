@@ -3,14 +3,16 @@
 One kernel family lives here today, the phase-1 bucket-max scan, which
 replaces ``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16
 and int8 bodies), the small-Q XLA dot beside it, and
-``bucket_scores_pallas`` (K3). Four designs share one wrapper:
+``bucket_scores_pallas`` (K3). Five designs share one wrapper:
 
-- ``stream`` (``csrc/bucket_scores_stream.cu``): f32/bf16 corpora at small
-  query counts, bound by the read of V;
-- ``tiled`` (``csrc/bucket_scores_tiled.cu``): f32/bf16 corpora at large
-  query counts, bound by the fp32 FMA rate;
-- ``tensor_int8`` (``csrc/bucket_scores_int8.cu``): the int8 corpus on the
-  tensor cores (``wgmma`` fed by TMA), for rows of a multiple of 16 bytes;
+- ``stream`` (``csrc/bucket_scores_stream.cu``): f32 corpora at small
+  query counts, bound by the read of V (and bf16 rows TMA cannot address);
+- ``tiled`` (``csrc/bucket_scores_tiled.cu``): f32 corpora at large
+  query counts, bound by the fp32 FMA rate (and bf16 rows TMA cannot
+  address);
+- ``tensor_bf16`` and ``tensor_int8`` (``csrc/bucket_scores_tensor.cu``,
+  one frame for both types): the bf16 and the int8 corpus on the tensor
+  cores (``wgmma`` fed by TMA), for rows of a multiple of 16 bytes;
 - ``generic_int8`` (``csrc/bucket_scores.cu``): int8 rows that TMA cannot
   address (D not a multiple of 16), on the CUDA cores.
 
@@ -47,7 +49,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bucket_scores.cu", "bucket_scores_stream.cu", "bucket_scores_tiled.cu", "bucket_scores_int8.cu")
+_SOURCES = ("bucket_scores.cu", "bucket_scores_stream.cu", "bucket_scores_tiled.cu", "bucket_scores_tensor.cu")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -66,6 +68,7 @@ LAUNCHES: dict[str, int] = {
     "bucket_scores.kernel.tiled": 0,
     "bucket_scores.kernel.generic_int8": 0,
     "bucket_scores.kernel.tensor_int8": 0,
+    "bucket_scores.kernel.tensor_bf16": 0,
 }
 
 # The same launches per card: "bucket_scores.kernel.<design>.cuda<index>",
@@ -73,24 +76,42 @@ LAUNCHES: dict[str, int] = {
 DEVICE_LAUNCHES: dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
-_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3}
-_INT8_DESIGNS = ("tensor_int8", "generic_int8")
+_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3, "tensor_bf16": 4}
+# the designs that take each corpus dtype
+_DESIGNS = {
+    torch.float32: ("stream", "tiled"),
+    torch.bfloat16: ("stream", "tiled", "tensor_bf16"),
+    torch.int8: ("tensor_int8", "generic_int8"),
+}
+# rows TMA can address: 16-byte strides (a shape rule of the tensor-core designs)
+_TENSOR_ROW_MULTIPLE = {"tensor_int8": 16, "tensor_bf16": 8}
 MAX_BUCKET = 128  # a bucket lies inside one row tile of every design
 
 # Largest query count the stream kernel serves; above it the tiled one.
 # From chip_smoke.py phase 2's forced timings at 8,388,608 x 128 on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at Q=32 stream 2.886 ms
-# vs tiled 4.705 (f32) and 3.069 vs 4.456 (bf16); at Q=64 tiled 4.398 vs
-# stream 5.829 and 4.470 vs 6.134.
-STREAM_MAX_Q = {torch.float32: 32, torch.bfloat16: 32}
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), f32: at Q=32 stream 2.009 ms
+# vs tiled 4.386, at Q=64 (two groups of 32) 3.960 vs 4.430, at Q=128
+# 8.098 vs 7.418. bf16 reaches these kernels only with rows TMA cannot
+# address (D % 8 != 0), where stream takes groups of 8 queries; it keeps
+# the switch of the one-row-a-thread stream kernel (at Q=64 tiled 4.470
+# vs stream 6.134).
+STREAM_MAX_Q = {torch.float32: 64, torch.bfloat16: 32}
+# bf16 rows of a multiple of 8 values take the tensor cores above this
+# query count (0: at every count). The same timings, bf16: tensor_bf16
+# 0.722-0.787 ms at Q=1-64 against stream's 0.768-2.080 at Q=1-32 and
+# tiled's 4.479 at Q=64; 1.564 vs tiled's 14.018 at Q=256.
+TENSOR_BF16_MIN_Q = 0
 
 
 def kernel_for(dtype: torch.dtype, qt: int, d: int) -> str:
     """The kernel design that serves a (corpus dtype, query count, row
-    width) triple. int8 rows go to the tensor cores when TMA can address
-    them (16-byte row strides); that is a shape rule, not a fallback."""
+    width) triple. int8 and bf16 rows go to the tensor cores when TMA can
+    address them (16-byte row strides); that is a shape rule, not a
+    fallback."""
     if dtype == torch.int8:
         return "tensor_int8" if d % 16 == 0 else "generic_int8"
+    if dtype == torch.bfloat16 and d % 8 == 0 and qt > TENSOR_BF16_MIN_Q:
+        return "tensor_bf16"
     return "stream" if qt <= STREAM_MAX_Q[dtype] else "tiled"
 
 
@@ -268,15 +289,15 @@ def bucket_scores(
         if inv_sq.shape[0] != qt:
             raise ValueError(f"inv_sq has {inv_sq.shape[0]} entries for {qt} queries")
     design = kernel_for(v.dtype, qt, d) if _kernel is None else _kernel
-    if (design in _INT8_DESIGNS) != (v.dtype == torch.int8) or design not in _KERNEL_CODES:
+    if design not in _DESIGNS[v.dtype]:
         raise ValueError(f"no {design!r} kernel for {v.dtype} inputs")
-    if design == "tensor_int8" and d % 16:
-        raise ValueError(f"tensor_int8 needs rows of a multiple of 16 bytes, got D={d}")
+    if d % _TENSOR_ROW_MULTIPLE.get(design, 1):
+        raise ValueError(f"{design} needs rows of a multiple of 16 bytes, got D={d}")
     out = torch.empty((qt, n // bucket), dtype=torch.float32, device=device)
     if qt == 0 or n == 0:
         return out
-    if v.dtype == torch.bfloat16:
-        q = q.to(torch.float32)  # the f32/bf16 kernels take f32 queries: QT x D, small
+    if v.dtype == torch.bfloat16 and design != "tensor_bf16":
+        q = q.to(torch.float32)  # stream and tiled take f32 queries: QT x D, small
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

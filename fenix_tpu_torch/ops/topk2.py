@@ -205,14 +205,20 @@ def topk_two_phase(
     metric: str,
     corpus_scan: torch.Tensor | None = None,
     corpus_scan_int8: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k: (distances [Q, k], row ids [Q, k]; +inf / −1 padding).
+    with_scores: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Exact top-k: (distances [Q, k], row ids [Q, k]; +inf / −1 padding),
+    in (score desc, row id asc) order.
 
     ``corpus_scan`` substitutes a bf16 copy for phase 1 and
     ``corpus_scan_int8`` a ``(v8, sv)`` pair from
     :func:`quantize_corpus_int8`. Phase 2 always rescores against the
     fp32 ``corpus``, so returned distances are fp32-exact; only bucket
-    selection sees the scan precision (int8 doubles the margin)."""
+    selection sees the scan precision (int8 doubles the margin).
+    ``with_scores`` also returns the fused scores ``[Q, k]`` (−inf
+    padding), the key a caller merging several calls must order by: l2
+    distances are recomputed as ‖q − v‖ and need not follow the score
+    order at near ties."""
     metric = canonical_metric(metric)
     n, d = corpus.shape
     q = queries.shape[0]
@@ -227,7 +233,8 @@ def topk_two_phase(
     )
     bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
     del bucket_max
-    return _rescore(corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric)
+    out = _rescore(corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric)
+    return out if with_scores else out[:2]
 
 
 def _rescore(
@@ -241,10 +248,11 @@ def _rescore(
     k: int,
     metric: str,
     probe: "tuple[torch.Tensor, torch.Tensor] | None" = None,  # (coded [N_pad], cells [Q, P])
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Phase 2: gather the selected buckets' rows, rescore them fp32-true,
     and take the top-k by (score desc, row id asc); with ``probe``, rows
-    whose cell is not among the query's probe cells score −inf."""
+    whose cell is not among the query's probe cells score −inf. Returns
+    (dist, ids, scores)."""
     n, d = corpus.shape
     q, kp = bidx.shape
     n_buckets = n // bucket
@@ -292,9 +300,9 @@ def _rescore(
 
 def _finish(
     top_s: torch.Tensor, top_ids: torch.Tensor, dist: torch.Tensor, k: int
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pad ``[Q, kk]`` winners to ``k`` and mark the −inf ones as
-    (+inf, −1)."""
+    (+inf, −1): (dist, ids, scores)."""
     q, kk = top_s.shape
     if kk < k:  # pad to k
         top_s = torch.cat([top_s, top_s.new_full((q, k - kk), NEG_INF)], dim=1)
@@ -303,7 +311,7 @@ def _finish(
     missing = top_s == NEG_INF
     dist = torch.where(missing, torch.inf, dist)
     top_ids = torch.where(missing, -1, top_ids)
-    return dist, top_ids
+    return dist, top_ids, top_s
 
 
 def topk_window_int8(
@@ -514,7 +522,7 @@ def topk_two_phase_probed(
     del bucket_max
     return _rescore(
         corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric, probe=(coded, cells)
-    )
+    )[:2]
 
 
 def _topk_min_id(
@@ -616,7 +624,7 @@ def topk_ivf_clustered(
         dist = scores_to_distances(top_s, queries, metric)
     else:
         dist = torch.cat(top_d) if top_d else corpus_s.new_empty((0, kk))
-    return _finish(top_s, top_ids, dist, k)
+    return _finish(top_s, top_ids, dist, k)[:2]
 
 
 def state_from_numpy(

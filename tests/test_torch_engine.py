@@ -469,20 +469,23 @@ def test_chip_smoke_kernel_entries():
     rows = [row("stream", "f32", 8, 1 << 20, 128, 1.0), row("stream", "f32", 8, 1 << 23, 128, 2.0, "q8"),
             row("tiled", "f32", 1024, 1 << 23, 32, 60.0, "q1024"), row("tiled", "f32", 64, 1 << 23, 128, 4.0),
             row("tensor_int8", "int8", 8, 1 << 22, 128, 1.5, "auto_q8"),
-            row("generic_int8", "int8", 1024, 1 << 23, 32, 57.0)]
+            row("generic_int8", "int8", 1024, 1 << 23, 32, 57.0),
+            row("tensor_bf16", "bf16", 64, 1 << 23, 128, 0.8, "q64_bf16"), row("tensor_bf16", "bf16", 1024, 1 << 23, 32, 4.0)]
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.tensor_int8": 4,
-              "kernel.generic_int8": 0}
+              "kernel.generic_int8": 0, "kernel.tensor_bf16": 1}
     selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
-    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0}, "selection": selection,
+    bf16 = {"bf16": 4, "kernel.tensor_bf16": 4}
+    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0, "kernel.tensor_bf16": 0},
+               "selection": selection,
                "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
                "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
-               "types": {**selection, "kernel.stream": 2},
-               "mesh": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
+               "types": {**selection, "kernel.stream": 2, "bf16": 1, "kernel.tensor_bf16": 1},
+               "mesh": {**selection, **bf16, "kernel.stream": 4, "f32.bucket128": 4},
                "mesh_analytics": {**selection, "kernel.stream": 4},
-               "repartition": {**selection, "kernel.stream": 4, "f32.bucket128": 4},
-               "multihost": {**selection, "kernel.stream": 4, "f32.bucket128": 4}}
+               "repartition": {**selection, **bf16, "kernel.stream": 4, "f32.bucket128": 4},
+               "multihost": {**selection, **bf16, "kernel.stream": 4, "f32.bucket128": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
     generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
@@ -494,6 +497,10 @@ def test_chip_smoke_kernel_entries():
                                          "analytics": 1, "batching": 1, "types": 1, "mesh": 1,
                                          "mesh_analytics": 1, "repartition": 1, "multihost": 1}
     assert tiled["timed_at"]["search"] == "q1024"
+    tensor_bf16 = entries["bucket_scores.kernel.tensor_bf16"]  # timed at its main-path shape, not the forced Q=1024
+    assert tensor_bf16["ms"] == 0.8 and tensor_bf16["launches"] == 14
+    assert tensor_bf16["replaces"] == "fenix_tpu/ops/topk2.py:453"
+    assert tensor_bf16["source"] == entries["bucket_scores.kernel.tensor_int8"]["source"]
     stream = entries["bucket_scores.kernel.stream"]
     assert stream["ms"] == 2.0 and stream["bound_by"] == "bytes" and stream["launches"] == 33
     assert entries["bucket_scores.f32@bucket128"]["launches_by_path"]["repartition"] == 4
@@ -533,6 +540,9 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["repartition"]["f32.bucket128"], by_path["multihost"]["kernel.tiled"] = 4, 0
     with pytest.raises(AssertionError, match="tiled was not launched on the multihost path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["multihost"]["kernel.tiled"], by_path["types"]["kernel.tensor_bf16"] = 1, 0
+    with pytest.raises(AssertionError, match="tensor_bf16 was not launched on the types path"):
         smoke.kernel_entries(rows, by_path)
 
 

@@ -38,7 +38,7 @@ ROWS, DIM = 3 * 16384, 16  # three scan blocks: a 5 MB budget streams 3 chunks
 STREAM_BUDGET = str(5 << 20)
 
 
-def _make_root(path: str, vectors: np.ndarray) -> str:
+def _make_root(path: str, vectors: np.ndarray, tags: "np.ndarray | None" = None) -> str:
     n = vectors.shape[0]
     table.make(
         path,
@@ -46,7 +46,7 @@ def _make_root(path: str, vectors: np.ndarray) -> str:
         pa.table(
             {
                 "id": pa.array(np.arange(n, dtype=np.int64)),
-                "tag": pa.array((np.arange(n) % 10).astype(np.int64)),
+                "tag": pa.array((np.arange(n) % 10 if tags is None else tags).astype(np.int64)),
                 "vector": ingest.numpy_to_fixed_size_list(vectors, pa.float32()),
             }
         ).to_reader(max_chunksize=16384),
@@ -241,6 +241,84 @@ def test_near_tied_maxima_match_jax(near_tie_root, monkeypatch, mode, metric, q)
     # the default window (4,096 ≪ N): the int8 selection margin is under test
     got, want = _search_both(cache_pair, target=queries, metric=metric, maxval=16, residency=mode[0])
     assert_tables_match(got, want)
+
+
+# -- stream against dual on phase 6's shape of rows --------------------------
+
+DRAW_ROWS, DRAW_DIM, DRAW_DUP = 65_536, 64, 4096  # rows DUP..2·DUP−1 copy rows 0..DUP−1
+
+
+def _drawn_rows(draw: str):
+    """chip_smoke.py phase 6's kind of table at a small size: normal rows
+    (numpy's generator, or torch's), duplicated rows, tags 0..99; with
+    "planted", each query's source row also has 24 near copies (noise of
+    1e-6, a few fp32 ulps) spread over every chunk, so their scores and
+    distances tie up to fp32 rounding."""
+    if draw == "torch":
+        g = torch.Generator().manual_seed(7)
+        vectors = torch.randn((DRAW_ROWS, DRAW_DIM), generator=g).numpy()
+        tags = torch.randint(0, 100, (DRAW_ROWS,), generator=g).numpy()
+    else:
+        rng = np.random.default_rng(7)
+        vectors = rng.standard_normal((DRAW_ROWS, DRAW_DIM), dtype=np.float32)
+        tags = rng.integers(0, 100, DRAW_ROWS)
+    vectors[DRAW_DUP : 2 * DRAW_DUP] = vectors[:DRAW_DUP]
+    # sources whose both copies pass the filter, so exact ties reach each top-k
+    pool = np.flatnonzero((tags[:DRAW_DUP] < 50) & (tags[DRAW_DUP : 2 * DRAW_DUP] < 50))[:4]
+    if draw == "planted":
+        rng = np.random.default_rng(8)
+        slots = rng.choice(np.arange(2 * DRAW_DUP, DRAW_ROWS), size=(pool.size, 24), replace=False)
+        for src, sl in zip(pool, slots):
+            vectors[sl] = vectors[src] + (1e-6 * rng.standard_normal((24, DRAW_DIM))).astype(np.float32)
+            tags[sl] = 0
+    rng = np.random.default_rng(9)
+    queries = rng.standard_normal((8, DRAW_DIM), dtype=np.float32)
+    queries[: pool.size] = vectors[pool] + 0.05 * rng.standard_normal((pool.size, DRAW_DIM), dtype=np.float32)
+    return vectors, tags, queries
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("draw", ["numpy", "torch", "planted"])
+def test_stream_equals_dual_on_drawn_rows(tmp_path, monkeypatch, draw, metric):
+    """The fp32 stream route (4 chunks) gives dual's answer position by
+    position, in both the ids and the distances, on rows drawn by numpy,
+    by torch's generator, and with near fp32 ties planted: each chunk is
+    scored with the aux dual uses and the chunks merge by (score, id), the
+    order of one pass over the table. Each mode returns the JAX package's
+    ids: position by position on the drawn rows, as sets per query where
+    ties are planted (the two packages sum the scores in different orders,
+    which orders near ties otherwise). Distances are held to float64 within
+    1e-5 · max(1, d): the JAX package's l2 distance is the expanded
+    √(‖q‖² − s), which cancels for near rows (~1e-4 relative here)."""
+    vectors, tags, queries = _drawn_rows(draw)
+    path = _make_root(str(tmp_path / "drawn"), vectors, tags)
+    pair = (DeviceCache(path, device="cpu"), JaxCache(path, mesh=None))
+    kw = dict(target=queries, metric=metric, maxval=100, filter=expr.field("tag") < 50)
+    monkeypatch.setenv("FENIX_HBM_BUDGET", str(3 << 20))
+    before = _counter("search.stream_chunks")[0]
+    stream = _search_both(pair, residency="stream", **kw)
+    assert _counter("search.stream_chunks")[0] - before == 4
+    monkeypatch.delenv("FENIX_HBM_BUDGET")
+    dual = _search_both(pair, residency="dual", **kw)
+
+    def cols(t):
+        ids = np.asarray(t.column("id")).reshape(queries.shape[0], 100)
+        return ids, np.asarray(t.column("__DISTANCE__")).reshape(ids.shape)
+
+    (s_ids, s_dist), (d_ids, d_dist) = cols(stream[0]), cols(dual[0])
+    np.testing.assert_array_equal(s_ids, d_ids)
+    np.testing.assert_array_equal(s_dist, d_dist)
+    v64, q64 = vectors.astype(np.float64)[d_ids], queries.astype(np.float64)[:, None, :]
+    if metric == "l2":
+        truth = np.sqrt(np.sum(np.square(v64 - q64), axis=-1))
+    else:
+        truth = 0.5 - 0.5 * np.sum(v64 * q64, axis=-1) / (np.linalg.norm(v64, axis=-1) * np.linalg.norm(q64, axis=-1))
+    assert np.all(np.abs(d_dist - truth) <= 1e-5 * np.maximum(1.0, truth))
+    for got, want in (stream, dual):
+        g_ids, w_ids = cols(got)[0], cols(want)[0]
+        if draw == "planted":
+            g_ids, w_ids = np.sort(g_ids, axis=1), np.sort(w_ids, axis=1)
+        np.testing.assert_array_equal(g_ids, w_ids)
 
 
 # -- the window op -------------------------------------------------------------

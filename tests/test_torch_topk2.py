@@ -140,23 +140,33 @@ def test_plain_phase1_bf16_matches_xla(rng):
 
 
 @pytest.mark.parametrize(
-    "dtype,bucket,metric",
-    [("f32", 128, "l2"), ("f32", 32, "cosine"), ("bf16", 32, "dot")],
+    "dtype,bucket,metric,qt",
+    [("f32", 128, "l2", 256), ("f32", 32, "cosine", 256), ("bf16", 32, "dot", 256),
+     ("bf16", 32, "dot", 8), ("bf16", 128, "cosine", 64)],
+    ids=["f32-128-l2", "f32-32-cosine", "bf16-32-dot", "bf16-32-dot-q8", "bf16-128-cosine-q64"],
 )
-def test_plain_phase1_matches_pallas_interpret(rng, dtype, bucket, metric):
-    n, d, qt = 2048, 128, 256
+def test_plain_phase1_matches_pallas_interpret(rng, dtype, bucket, metric, qt):
+    """The JAX Pallas kernel (interpret mode) against the port's phase 1 on
+    the same inputs: the f32 body, and the bf16 body at the query counts
+    the port sends to ``tensor_bf16`` (on the card; its plain version
+    here). The kernel tiles 256 queries, so a smaller batch is padded with
+    zero queries and its first rows compared. Both sides sum exact bf16
+    products in f32: rtol/atol 1e-5."""
+    n, d = 2048, 128
     corpus, queries = build(rng, n, d, qt)
     aux_mul, aux_add = jtopk2.prepare_aux(jnp.asarray(corpus), None, metric)
     qp = jtopk2.prepare_queries(jnp.asarray(queries), metric)
     c, q = jnp.asarray(corpus), qp
     if dtype == "bf16":
         c, q = c.astype(jnp.bfloat16), q.astype(jnp.bfloat16)
+    q_tiled = jnp.pad(q, ((0, -qt % 256), (0, 0)))
     want = np.asarray(
-        jtopk2.bucket_scores_pallas_bigq(q, c, aux_mul, aux_add, interpret=True, bucket=bucket)
-    )
+        jtopk2.bucket_scores_pallas_bigq(q_tiled, c, aux_mul, aux_add, interpret=True, bucket=bucket)
+    )[:qt]
     tq, tc = t(q.astype(jnp.float32)), t(c.astype(jnp.float32))
     if dtype == "bf16":
         tq, tc = tq.to(torch.bfloat16), tc.to(torch.bfloat16)
+        assert kernels.kernel_for(torch.bfloat16, qt, d) == "tensor_bf16"
     got = kernels.bucket_scores(tq, tc, t(aux_mul), t(aux_add), bucket).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -199,21 +209,27 @@ def test_plain_phase1_edges(rng):
 
 @pytest.mark.parametrize(
     "dtype,q,d,design",
-    [(torch.float32, q, 128, "stream") for q in (1, 8, 9, 32)]
-    + [(torch.float32, q, 128, "tiled") for q in (33, 64, 1024)]
-    + [(torch.bfloat16, q, 128, "stream") for q in (1, 16, 32)]
-    + [(torch.bfloat16, q, 128, "tiled") for q in (33, 64)]
+    [(torch.float32, q, d, "stream") for d in (128, 100) for q in (1, 8, 9, 32, 33, 64)]
+    + [(torch.float32, q, d, "tiled") for d in (128, 100) for q in (65, 128, 1024)]
+    + [(torch.bfloat16, q, d, "tensor_bf16") for d in (96, 128, 768) for q in (1, 8, 16, 32, 33, 64, 256, 1024)]
+    + [(torch.bfloat16, q, d, "stream") for d in (100, 130) for q in (1, 16, 32)]
+    + [(torch.bfloat16, q, d, "tiled") for d in (100, 130) for q in (33, 64, 1024)]
     + [(torch.int8, q, d, "tensor_int8") for d in (128, 768) for q in (1, 8, 256, 1024)]
     + [(torch.int8, q, d, "generic_int8") for d in (100, 130) for q in (1, 8, 256, 1024)],
 )
 def test_kernel_for_picks_by_dtype_and_q(dtype, q, d, design):
     """The dispatcher: int8 rows of a multiple of 16 bytes → the tensor-core
-    design at every Q, other int8 rows → generic; f32/bf16 stream up to the
-    measured threshold (32 queries), tiled above it, at any D."""
+    design at every Q, other int8 rows → generic; bf16 rows of a multiple of
+    16 bytes (D % 8 == 0) → the tensor-core design above the measured
+    threshold (TENSOR_BF16_MIN_Q = 0: every Q); f32 rows stream up to the
+    measured threshold (64 queries), other bf16 rows up to 32, tiled
+    above."""
+    assert kernels.TENSOR_BF16_MIN_Q == 0
+    assert kernels.STREAM_MAX_Q == {torch.float32: 64, torch.bfloat16: 32}
     assert kernels.kernel_for(dtype, q, d) == design
 
 
-@pytest.mark.parametrize("design", [None, "stream", "tiled", "tensor_int8", "generic_int8"])
+@pytest.mark.parametrize("design", [None, "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16"])
 @pytest.mark.parametrize("scan", ["f32", "bf16", "int8"])
 def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     """On CPU tensors the wrapper runs the plain version (bit-equal) for
@@ -232,7 +248,7 @@ def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     got = kernels.bucket_scores(q, v, mul, add, 32, inv_sq=isq, _kernel=design)
     assert torch.equal(got, kernels.bucket_scores_plain(q, v, mul, add, 32, isq))
     assert kernels.LAUNCHES == before
-    designs = ("stream", "tiled", "tensor_int8", "generic_int8")
+    designs = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")
     assert {f"bucket_scores.kernel.{k}" for k in designs} <= set(before)
     args = (q, v, mul, add, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -254,15 +270,15 @@ def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["auto", "stream", "tiled", "tensor_int8", "generic_int8"])
+@pytest.mark.parametrize("design", ["auto", "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16"])
 def test_kernel_matches_plain_on_card(design):
     """The CUDA kernels against their plain version, on the card: each
     design forced ("auto": the dispatcher's pick for every scan type) over
-    ragged Q (int8 also past its 128- and 256-query tiles), D not a
-    multiple of 16 bytes (tensor_int8 takes only D that is), buckets
-    1..128, N not a multiple of the 128-row tile where the bucket allows,
-    -inf rows and whole -inf buckets. Runs where a CUDA card is present.
-    Tolerance rtol 1e-5, atol 1e-3 at D=128, atol growing with D
+    ragged Q (int8 and bf16 also past the 128- and 256-query tiles), D not
+    a multiple of 16 bytes (the tensor-core designs take only D that is),
+    buckets 1..128, N not a multiple of the 128-row tile where the bucket
+    allows, -inf rows and whole -inf buckets. Runs where a CUDA card is
+    present. Tolerance rtol 1e-5, atol 1e-3 at D=128, atol growing with D
     (|q|·|v| ~ D)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -270,7 +286,7 @@ def test_kernel_matches_plain_on_card(design):
     forced = None if design == "auto" else design
     int8_only = design in ("tensor_int8", "generic_int8")
     for d in (96, 100, 128, 130, 768):
-        if design == "tensor_int8" and d % 16:
+        if design == "tensor_int8" and d % 16 or design == "tensor_bf16" and d % 8:
             continue
         for bucket in (1, 2, 32, 128):
             n = 16_384 + (96 if bucket <= 32 else 128)
@@ -283,9 +299,11 @@ def test_kernel_matches_plain_on_card(design):
             for qn in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 200, 257, 1024):
                 q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).cuda()
                 cases = []
-                if not int8_only:
+                if design == "tensor_bf16":
+                    cases.append((q.bfloat16(), v.bfloat16(), mul, add, bucket, None))
+                elif not int8_only:
                     cases += [(q, v, mul, add, bucket, None), (q.bfloat16(), v.bfloat16(), mul, add, bucket, None)]
-                if forced is None or int8_only:
+                if forced is None or int8_only:  # tensor_bf16 takes bf16 alone
                     q8, inv_sq = topk2.quantize_queries_int8(q)
                     cases.append((q8, v8, mul * sv, add, bucket, inv_sq))
                 for args in cases:
