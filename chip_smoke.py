@@ -12,14 +12,14 @@ Phases, each printing one JSON line with its own timings:
    1024}, bucket in {128, 32} and f32/bf16/int8, then the edge shapes
    (every Q in EDGE_Q x D in EDGE_D x bucket in EDGE_BUCKETS, N not a
    multiple of the 128-row tile where the bucket allows, whole -inf
-   buckets; f32 and bf16 through both the stream and the tiled kernel,
-   int8 at EDGE_Q_INT8 through both int8 designs, tensor_int8 where D is
-   a multiple of 16, bf16 at EDGE_Q_INT8 through tensor_bf16 where D is a
-   multiple of 8), (b) at the exact inputs the main path gives it in
-   phase 3, each f32/bf16 design forced at 8,388,608 x 128 at the query
-   counts of FORCED and each int8 design at FORCED_INT8's shapes over
-   FORCED_INT8_Q, the timings that set the dispatcher's rules
-   (kernels.STREAM_MAX_Q, kernels.TENSOR_BF16_MIN_Q, kernels.kernel_for).
+   buckets; f32 through both the stream and the tiled kernel, int8 at
+   EDGE_Q_INT8 through both int8 designs, tensor_int8 where D is a
+   multiple of 16, bf16 at EDGE_Q_INT8 through generic_bf16 and, where D
+   is a multiple of 8, tensor_bf16), (b) at the exact inputs the main path
+   gives it in phase 3 and the glove100 path, each f32/bf16 design forced
+   at 8,388,608 rows at the query counts and widths of FORCED and each
+   int8 design at FORCED_INT8's shapes over FORCED_INT8_Q, the timings that
+   set the dispatcher's rules (kernels.STREAM_MAX_Q, kernels.kernel_for).
    Every timed row also
    carries its bound (the larger of bytes over the read rate and
    operations over the peak rate of their type, see `bound`), its share of
@@ -39,13 +39,23 @@ Phases, each printing one JSON line with its own timings:
    Q=1024 l2 top-100 with tag < 50, Q=64 bf16 top-10, Q=256 int8 top-10.
    The server process starts with every kernel launch count at 0; its
    stats action reports them, and each search must raise its route's.
+   Then the exact narrow path, "glove100" in the kernels line: on the same
+   server a 1,183,514 x 100 table (ann-benchmarks' glove-100-angular shape,
+   random normal rows), int8 cosine Q=8 k=10 and Q=1024 k=100 with
+   tag < 50, bf16 cosine Q=64 k=10 and Q=1024 k=100: rows TMA cannot
+   address, served by generic_int8 and generic_bf16; the path's launches
+   are the counts after it less those before.
 4. oracle: float64 exact ranking on the card, ordered by (distance, id),
    written independently of the port. fp32 ids must match it position by
    position, exact float64 ties (the duplicate rows) in id order; the
    only swaps allowed are between rows whose float64 distances differ by
    less than NEAR_TIE * max(1, d), which no fp32 engine can order.
    bf16/int8 recall@k >= 0.99; every returned distance within
-   1e-4 * max(1, d) of float64. A query may return fewer than k rows
+   1e-4 * max(1, d) of float64. The glove100 searches are held to the
+   fp32 rule whatever their scan precision, distances within
+   1e-5 * max(1, d) (phase 2 rescores fp32-true), and then the kernel
+   against its plain version at each of their phase-1 inputs (the
+   engine's rows padded to whole 16,384-row blocks: 1,196,032). A query may return fewer than k rows
    where a filter (and probes) leave fewer; its count must then be
    min(k, the rows the oracle allows), wherever results meet the oracle.
    (c) at 1,048,576 x 768: f32 Q=8 bucket 128, int8 Q=8 bucket 128 and
@@ -119,7 +129,7 @@ Phases, each printing one JSON line with its own timings:
    search.residency_host_nomax and pass the same oracle.
 
 9. IVF past the budget, on the phase-6 server after 8 (d): make_index of
-   an IVF2048 l2 coder (batch 65,536, 2 epochs: 128 Lloyd steps) must
+   an IVF1024 l2 coder (batch 65,536, 2 epochs: 128 Lloyd steps) must
    train by streaming the host corpus in fp32 transport
    (train.stream_fp32, train.stream_steps) and assign every row on the
    host (index.host_assigns); make-coder / make-index seconds and the cell
@@ -235,8 +245,8 @@ Phases, each printing one JSON line with its own timings:
    intervals inside it, the idle share 1 - busy / wall, the other spans'
    times and the top device operations; a trace without kernel events
    fails. Then, with the server gone, the query log replays in this
-   process on the card, every logged search matching its digest, and
-   python -m fenix_tpu_torch.examples.quickstart runs on the card.
+   process on the card, every logged search matching its digest (the
+   quickstart runs on the CPU tests only since the glove100 path came).
 
 15. the serving mesh (fenix_tpu_torch/parallel): every card when the
    machine has two or more, else MESH_SHARDS = 4 shards on the one card
@@ -412,8 +422,10 @@ SEARCHES = (
 )
 ROUTES = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
 K3_ROUTE = "f32.bucket128"  # f32 launches at bucket 128 also serve K3
-DESIGNS = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")  # LAUNCHES["bucket_scores.kernel.<design>"]
+# LAUNCHES["bucket_scores.kernel.<design>"]
+DESIGNS = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16", "generic_bf16")
 INT8_DESIGNS = ("tensor_int8", "generic_int8")
+BF16_DESIGNS = ("tensor_bf16", "generic_bf16")  # the bf16 designs on the tensor cores
 KERNELS = (
     # name in the kernels line, launch-count key, source, TPU kernel it
     # replaces, paths that must launch it
@@ -430,27 +442,52 @@ KERNELS = (
     # the repartitioned table and the multi-host workers
     ("bucket_scores.kernel.tensor_bf16", "kernel.tensor_bf16", "fenix_tpu_torch/csrc/bucket_scores_tensor.cu",
      "fenix_tpu/ops/topk2.py:453", ("exact", "types", "mesh", "repartition", "multihost")),
-    # int8 rows that are not 16-byte strided only; no main-path table has them
-    ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores.cu",
-     "fenix_tpu/ops/topk2.py:464", ()),
+    # int8 and bf16 rows that are not 16-byte strided: the glove100 table's
+    ("bucket_scores.kernel.generic_int8", "kernel.generic_int8", "fenix_tpu_torch/csrc/bucket_scores_tensor.cu",
+     "fenix_tpu/ops/topk2.py:464", ("glove100",)),
+    ("bucket_scores.kernel.generic_bf16", "kernel.generic_bf16", "fenix_tpu_torch/csrc/bucket_scores_tensor.cu",
+     "fenix_tpu/ops/topk2.py:453", ("glove100",)),
     ("bucket_scores.f32@bucket128", K3_ROUTE, "fenix_tpu_torch/csrc/bucket_scores_stream.cu",
      "fenix_tpu/ops/topk2.py:357", ("exact", "residency", "mesh", "repartition", "multihost")),  # K3
 )
+# phases 3-5, the exact narrow path ("glove100" in the kernels line), on
+# the phase-3 server: the shape of ann-benchmarks' glove-100-angular
+# (Aumueller, Bernhardsson and Faithfull, ANN-Benchmarks: 1,183,514 x 100,
+# angular, 10,000 test queries) at the dataset's own row count; random
+# normal rows from the script's seed (nothing is downloaded) with an int32
+# tag, duplicate rows as in phase 3. 100 int8 or bf16 values are not a
+# multiple of 16 bytes, so TMA cannot address the rows: the generic
+# designs serve both scans.
+GLOVE_TABLE = "smoke/glove100"
+GLOVE_ROWS = 1_183_514
+GLOVE_D = 100
+GLOVE_BLOCK = 16_384  # the engine's row block (engine/session.py): it scans whole blocks
+GLOVE_SEARCHES = (
+    # name, queries, metric, k, precision, filtered, flat
+    ("glove_q8_int8_cosine_k10", 8, "cosine", 10, "int8", False, False),
+    ("glove_q1024_int8_cosine_k100_filtered", 1024, "cosine", 100, "int8", True, False),
+    ("glove_q64_bf16_cosine_k10", 64, "cosine", 10, "bf16", False, False),
+    ("glove_q1024_bf16_cosine_k100", 1024, "cosine", 100, "bf16", False, False),
+)
+GLOVE_DIST_TOL = 1e-5  # phase 2 rescores fp32-true: distances within 1e-5 * max(1, d) of float64
 # phase 2 (a): edge shapes, each design against the plain version
 EDGE_Q = (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65)
 EDGE_Q_INT8 = EDGE_Q + (100, 200, 257, 1024)  # the tensor cores also: 128- and 256-query tiles, several
-EDGE_D = (96, 100, 130, 768)  # 100 and 130 are not a multiple of 16 bytes of bf16 / f32
+# 25, 100, 130 and 301 are not a multiple of 16 bytes of int8, bf16 or f32; 25 and 301 of 4 bytes of int8
+EDGE_D = (25, 96, 100, 130, 301, 768)
 EDGE_BUCKETS = (1, 2, 32, 128)
-# phase 2 (b): f32/bf16 designs forced at ROWS x D: (route, query count, designs)
+# phase 2 (b): f32/bf16 designs forced at ROWS x D: (route, query count, D, designs)
 FORCED = (
-    *(("f32", q, ("stream", "tiled")) for q in (1, 8, 16, 32, 64)),
-    *(("f32", q, ("stream",)) for q in (12, 24)),  # the outer-product groups between 8 and 32
-    ("f32", 128, ("stream", "tiled")),  # where stream hands over to tiled
-    *(("bf16", q, ("tensor_bf16", "stream")) for q in (1, 8, 16, 32)),
-    *(("bf16", q, ("tensor_bf16", "tiled")) for q in (64, 256, 1024)),
+    *(("f32", q, D, ("stream", "tiled")) for q in (1, 8, 16, 32, 64)),
+    *(("f32", q, D, ("stream",)) for q in (12, 24)),  # the outer-product groups between 8 and 32
+    ("f32", 128, D, ("stream", "tiled")),  # where stream hands over to tiled
+    *(("bf16", q, D, ("tensor_bf16",)) for q in (1, 8, 16, 32, 64, 256, 1024)),
+    # rows TMA cannot address, beside the rows it can at the same Q
+    *(("bf16", q, GLOVE_D, ("generic_bf16",)) for q in (1, 8, 32, 64, 256, 1024)),
 )
-# phase 2 (b): each int8 design forced at these (rows, D) over these query counts
-FORCED_INT8 = ((8_388_608, 128), (4_194_304, 768))
+# phase 2 (b): each int8 design forced at these (rows, D) over these query
+# counts (tensor_int8 where D is a multiple of 16)
+FORCED_INT8 = ((8_388_608, 128), (8_388_608, GLOVE_D), (4_194_304, 768))
 FORCED_INT8_Q = (1, 8, 16, 32, 64, 256, 1024)
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # 700 W limit): HBM3 read rate, fp32 on the CUDA cores, bf16 and int8 on
@@ -529,13 +566,15 @@ ALL_LAUNCH_KEYS = (*ROUTES.values(), K3_ROUTE, *(f"kernel.{k}" for k in DESIGNS)
 
 # phase 9: IVF past the budget on the phase-6 server (4,194,304 x 768 past
 # 6 GiB); the fp32 form (12.9 GB) passes 0.9 x the budget, so the coder
-# trains by streaming and the rows are assigned on the host. IVF2048 =
-# sqrt(N): cut from IVF8192 = 4*sqrt(N), the lower edge of FAISS's
+# trains by streaming and the rows are assigned on the host. IVF1024 =
+# sqrt(N) / 2: cut from IVF8192 = 4*sqrt(N), the lower edge of FAISS's
 # 4*sqrt(N) to 16*sqrt(N) (faiss wiki, "Guidelines to choose an index"),
 # because the host assignment at 8,192 cells took 602 s on the card's host
-# and at 4,096 cells ~90-100 s, the most of any phase, when phase 17 came
-IVFH_CODER = "ivf2k"
-IVFH_CELLS = 2048
+# and at 4,096 cells ~90-100 s, the most of any phase, when phase 17 came;
+# then to 1,024 cells (from 2,048, 45 s) when the glove100 path came and a
+# slower host took the whole run to 92 % of its limit
+IVFH_CODER = "ivf1k"
+IVFH_CELLS = 1024
 IVFH_CONFIG = {"metric": "l2", "codebook_size": IVFH_CELLS, "num_codebooks": 1,
                "batch_size": 65_536, "num_epochs": 2}
 IVFH_K = 100
@@ -792,7 +831,9 @@ def library_fn(q, v, chunk: int = 128):
     left and widths that are multiples of 8, so a chunk of 16 queries or
     fewer goes on its right (``V8 · Q8ᵀ``, ``Q8ᵀ`` a view: the card took it
     and ran it faster than a contiguous copy); None where a chunk fits
-    neither way."""
+    neither way. A width that is not a multiple of 8 is zero-padded to one:
+    the padded copies of Q8 and V8, made here and not in the timed call,
+    give the same products."""
     import torch
 
     if q.dtype != torch.int8:
@@ -803,8 +844,10 @@ def library_fn(q, v, chunk: int = 128):
         return run
     qt, d = q.shape
     sizes = [min(chunk, qt - s) for s in range(0, qt, chunk)]
-    if d % 8 or v.shape[0] % 8 or any(m <= 16 and (m % 8 or v.shape[0] <= 16) for m in sizes):
+    if v.shape[0] % 8 or any(m <= 16 and (m % 8 or v.shape[0] <= 16) for m in sizes):
         return None
+    if d % 8:
+        q, v = (torch.nn.functional.pad(x, (0, -d % 8)) for x in (q, v))
 
     def run_int8():
         for s in range(0, qt, chunk):
@@ -905,7 +948,7 @@ def edge_rows(bucket: int) -> int:
 
 def phase_edge_shapes(kernels, topk2) -> dict:
     """Phase 2 (a), edge shapes: every design against the plain version
-    over EDGE_Q (int8 and tensor_bf16: EDGE_Q_INT8) x EDGE_D x
+    over EDGE_Q (the int8 and bf16 designs: EDGE_Q_INT8) x EDGE_D x
     EDGE_BUCKETS, untimed; where both int8 designs run, they are also
     bit-equal."""
     import torch
@@ -928,9 +971,7 @@ def phase_edge_shapes(kernels, topk2) -> dict:
                 cases = []
                 if qn in EDGE_Q:
                     cases += [(q32, v32, None, k) for k in ("stream", "tiled")]
-                    cases += [(q32.to(torch.bfloat16), v16, None, k) for k in ("stream", "tiled")]
-                if d % 8 == 0:
-                    cases.append((q32.to(torch.bfloat16), v16, None, "tensor_bf16"))
+                cases += [(q32.to(torch.bfloat16), v16, None, k) for k in BF16_DESIGNS if k != "tensor_bf16" or d % 8 == 0]
                 cases += [(q8, v8, inv_sq, k) for k in INT8_DESIGNS if k != "tensor_int8" or d % 16 == 0]
                 outs = {}
                 for q, v, isq, kernel in cases:
@@ -947,35 +988,40 @@ def phase_edge_shapes(kernels, topk2) -> dict:
 
 def phase_forced(kernels, topk2, vectors) -> list[dict]:
     """Phase 2 (b): the f32/bf16 designs, each forced, at ROWS x D (cosine
-    aux, random queries) at the query counts of FORCED."""
+    aux, random queries; phase 3's rows at D, rows drawn on the card at any
+    other D) at the query counts of FORCED."""
     import numpy as np
     import torch
 
-    corpus = torch.from_numpy(vectors).to(DEVICE)
-    mul, add = topk2.prepare_aux(corpus, None, "cosine")
     rng = np.random.default_rng(2)
+    g = torch.Generator(device=DEVICE).manual_seed(6)
     rows = []
-    for route in ("f32", "bf16"):
-        dtype = torch.float32 if route == "f32" else torch.bfloat16
-        v = corpus if route == "f32" else corpus.to(dtype)
-        for _, qn, designs in (f for f in FORCED if f[0] == route):
-            q = torch.from_numpy(rng.standard_normal((qn, D), dtype=np.float32)).to(DEVICE)
-            qp = topk2.prepare_queries(q, "cosine").to(dtype).contiguous()
-            bucket = topk2.bucket_for(qn, ROWS)
-            for kernel in designs:
-                rows.append({"route": route, "q": qn, "n": ROWS, "bucket": bucket,
-                             **compare(kernels, qp, v, mul, add, bucket, None, kernel=kernel)})
-                emit({"phase": "kernel_forced", **rows[-1]})
-        del v
-    del corpus, mul, add
-    torch.cuda.empty_cache()
+    for d in sorted({f[2] for f in FORCED}):
+        corpus = (torch.from_numpy(vectors).to(DEVICE) if d == D
+                  else torch.randn((ROWS, d), generator=g, device=DEVICE))
+        mul, add = topk2.prepare_aux(corpus, None, "cosine")
+        for route in ("f32", "bf16"):
+            dtype = torch.float32 if route == "f32" else torch.bfloat16
+            v = corpus if route == "f32" else corpus.to(dtype)
+            for _, qn, _, designs in (f for f in FORCED if f[0] == route and f[2] == d):
+                q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).to(DEVICE)
+                qp = topk2.prepare_queries(q, "cosine").to(dtype).contiguous()
+                bucket = topk2.bucket_for(qn, ROWS)
+                for kernel in designs:
+                    rows.append({"route": route, "q": qn, "n": ROWS, "d": d, "bucket": bucket,
+                                 **compare(kernels, qp, v, mul, add, bucket, None, kernel=kernel)})
+                    emit({"phase": "kernel_forced", **rows[-1]})
+            del v
+        del corpus, mul, add
+        torch.cuda.empty_cache()
     return rows
 
 
 def phase_forced_int8(kernels, topk2) -> list[dict]:
     """Phase 2 (b), int8: both int8 designs forced at the (rows, D) of
     FORCED_INT8 (l2 aux of random normal rows, random queries) over
-    FORCED_INT8_Q; the timings behind kernels.kernel_for's int8 rule."""
+    FORCED_INT8_Q (tensor_int8 where D is a multiple of 16); the timings
+    behind kernels.kernel_for's int8 rule."""
     import torch
 
     g = torch.Generator(device=DEVICE).manual_seed(4)
@@ -990,7 +1036,7 @@ def phase_forced_int8(kernels, topk2) -> list[dict]:
             q32 = torch.randn((qn, d), generator=g, device=DEVICE)
             q8, inv_sq = topk2.quantize_queries_int8(topk2.prepare_queries(q32, "l2"))
             bucket = topk2.bucket_for(qn, n)
-            for kernel in INT8_DESIGNS:
+            for kernel in (k for k in INT8_DESIGNS if k != "tensor_int8" or d % 16 == 0):
                 rows.append({"route": "int8", "q": qn, "n": n, "d": d, "bucket": bucket,
                              **compare(kernels, q8, v8, mul8, add, bucket, inv_sq, kernel=kernel)})
                 emit({"phase": "kernel_forced_int8", **rows[-1]})
@@ -1024,17 +1070,22 @@ def phase_kernel_vs_plain_d768(kernels, topk2) -> list[dict]:
     return results
 
 
-def main_path_inputs(topk2, vectors, tags, spec, queries_np, device):
+def main_path_inputs(topk2, vectors, tags, spec, queries_np, device, n_pad: "int | None" = None):
     """The phase-1 kernel's inputs exactly as topk_two_phase builds them
-    for one search of phase 3."""
+    for one search of phase 3 (or of the glove100 path, whose rows the
+    engine pads with masked zero rows to ``n_pad``)."""
     import torch
 
     name, qn, metric, k, precision, filtered, flat = spec
     corpus = torch.from_numpy(vectors).to(device)
-    n = corpus.shape[0]
-    valid = torch.ones(n, dtype=torch.bool, device=device)
+    valid = torch.ones(corpus.shape[0], dtype=torch.bool, device=device)
     if filtered:
         valid &= torch.from_numpy(tags < 50).to(device)
+    if n_pad is not None and n_pad > corpus.shape[0]:
+        extra = n_pad - corpus.shape[0]
+        corpus = torch.cat([corpus, corpus.new_zeros((extra, corpus.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros(extra)])
+    n = corpus.shape[0]
     mul, add = topk2.prepare_aux(corpus, valid, metric)
     qp = topk2.prepare_queries(torch.from_numpy(queries_np).to(device), metric).contiguous()
     bucket = topk2.bucket_for(qn, n)
@@ -1201,12 +1252,13 @@ def allowed(mask, ids, device) -> bool:
     return True
 
 
-def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, require_ties) -> dict:
+def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, require_ties,
+              dist_tol: float = 1e-4) -> dict:
     """Hold [Q, k] result ids and distances to the float64 oracle over the
     rows ``mask`` allows: each query's row count (ids of -1 are padding,
     see split_result) equal to min(k, its allowed rows), then fp32 ids
     position by position up to near ties (exact ties in id order),
-    bf16/int8 recall@k >= 0.99, every distance within 1e-4 * max(1, d)."""
+    bf16/int8 recall@k >= 0.99, every distance within dist_tol * max(1, d)."""
     import numpy as np
     import torch
 
@@ -1220,7 +1272,7 @@ def check_ids(oracle, name, metric, k, precision, queries_np, ids, dist, mask, r
     got_d64 = oracle.exact(q, torch.from_numpy(np.where(real, ids, 0)).to(oracle.device), metric).cpu().numpy()
     got_d64 = np.where(real, got_d64, 0.0)  # padding: 0 against 0 below
     dist_err = np.abs(np.where(real, dist, 0.0) - got_d64) / np.maximum(1.0, np.abs(got_d64))
-    if dist_err.max() > 1e-4:
+    if dist_err.max() > dist_tol:
         raise AssertionError(f"{name}: distance off float64 by {dist_err.max()} relative")
     if mask is not None and not allowed(mask, ids, oracle.device):
         raise AssertionError(f"{name}: a row outside the filter or the probes was returned")
@@ -1283,6 +1335,111 @@ def start_server(root: str, port: int, log_path: str, env_extra: "dict | None" =
         "--host", "127.0.0.1", "--port", str(port), "--device", DEVICE,
     ]
     return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT), log
+
+
+# -- phases 3-5, the exact narrow path (glove100) ----------------------------
+
+
+def put_items(client, name: str, vectors, ids_np, tags) -> float:
+    """Put a table of (id, vector, tag) rows over Flight in batches of
+    BATCH_ROWS; the seconds it took."""
+    import pyarrow as pa
+
+    from fenix_tpu_torch.io import ingest
+
+    schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), vectors.shape[1]),
+                        "tag": pa.int32()})
+
+    def batches():
+        for s in range(0, vectors.shape[0], BATCH_ROWS):
+            e = min(s + BATCH_ROWS, vectors.shape[0])
+            yield pa.record_batch([pa.array(ids_np[s:e]), ingest.numpy_to_fixed_size_list(vectors[s:e], pa.float32()),
+                                   pa.array(tags[s:e])], schema=schema)
+
+    t = time.perf_counter()
+    client.make_table(name, pa.RecordBatchReader.from_batches(schema, batches()))
+    return time.perf_counter() - t
+
+
+def glove_rows_scanned() -> int:
+    """The rows the engine scans for the glove100 table: GLOVE_ROWS padded
+    to whole GLOVE_BLOCK blocks. They set bucket_for's bucket (GLOVE_ROWS
+    itself is 2 times an odd number: a bucket of 2)."""
+    return -(-GLOVE_ROWS // GLOVE_BLOCK) * GLOVE_BLOCK
+
+
+def phase_glove_serve(client, expr, kernels, data, queries) -> dict:
+    """The glove100 path on the phase-3 server: put the table, then each
+    search of GLOVE_SEARCHES once cold and WARM_REPS times warm; on a card
+    every call must raise its route's launch count and that of the design
+    kernel_for picks at GLOVE_D (CPU tensors count nothing). The path's
+    launches are the counts after it less those before."""
+    import numpy as np
+    import torch
+
+    vectors, ids_np, tags = data
+    put_s = put_items(client, GLOVE_TABLE, vectors, ids_np, tags)
+    emit({"phase": "glove_put", "rows": vectors.shape[0], "dim": vectors.shape[1], "seconds": put_s})
+    scan = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    before = launches(client)
+    results, latencies = [], {}
+    for spec, qnp in zip(GLOVE_SEARCHES, queries):
+        name, qn, metric, k, precision, filtered, flat = spec
+        kw = dict(metric=metric, maxval=k, precision=precision)
+        if filtered:
+            kw["filter"] = expr.field("tag") < 50
+        keys = (ROUTES[precision], f"kernel.{kernels.kernel_for(scan[precision], qn, vectors.shape[1])}")
+        calls = []
+        for _ in range(1 + WARM_REPS):
+            c0 = launches(client)
+            t = time.perf_counter()
+            result = client.search(qnp[0] if flat else qnp, GLOVE_TABLE, "vector", **kw)
+            calls.append((time.perf_counter() - t) * 1e3)
+            c1 = launches(client)
+            for key in keys:
+                if DEVICE == "cuda" and c1[key] <= c0[key]:
+                    raise AssertionError(f"{name}: the {key} kernel count did not rise")
+            if len(calls) == 1:
+                results.append(result)
+        latencies[name] = calls[1:]
+        emit({"phase": "glove_search", "search": name, "q": qn, "k": k, "metric": metric, "precision": precision,
+              "filtered": filtered, "design": keys[1], "rows_returned": results[-1].num_rows,
+              "first_call_ms": calls[0], "warm_median_ms": float(np.median(calls[1:]))})
+    after = launches(client)
+    return {"results": results, "latencies": latencies, "launches": {k: v - before[k] for k, v in after.items()}}
+
+
+def phase_glove_checks(kernels, topk2, data, queries, glove: dict) -> list[dict]:
+    """After the server: each glove100 search against the float64 oracle
+    by the fp32 rule whatever its scan precision (ids equal up to near
+    ties, exact ties in id order; phase 2 rescores fp32-true, so distances
+    within GLOVE_DIST_TOL), then the kernel against its plain version at
+    each search's phase-1 inputs (the engine's padded rows), timed."""
+    import torch
+
+    vectors, ids_np, tags = data
+    oracle = Oracle(vectors, DEVICE)
+    mask = torch.from_numpy(tags < 50).to(DEVICE)
+    for spec, qnp, result in zip(GLOVE_SEARCHES, queries, glove["results"]):
+        name, qn, metric, k, precision, filtered, flat = spec
+        ids, dist = split_result(result, qn, k)
+        check = check_ids(oracle, name, metric, k, "fp32", qnp, ids, dist, mask if filtered else None,
+                          require_ties=True, dist_tol=GLOVE_DIST_TOL)
+        emit({"phase": "glove_oracle", "search": name, "precision": precision, **check})
+    del oracle, mask
+    rows = []
+    for spec, qnp in zip(GLOVE_SEARCHES, queries):
+        inputs = main_path_inputs(topk2, vectors, tags, spec, qnp, DEVICE, n_pad=glove_rows_scanned())
+        want = 128 if spec[1] <= 64 else 32
+        if inputs[4] != want:
+            raise AssertionError(f"{spec[0]}: bucket {inputs[4]} at {inputs[1].shape[0]} rows, expected {want}")
+        rows.append({"search": spec[0], "route": ROUTES[spec[4]], "q": spec[1], "n": inputs[1].shape[0],
+                     "d": vectors.shape[1], "bucket": inputs[4], **compare(kernels, *inputs)})
+        emit({"phase": "kernel_vs_plain_glove100", **rows[-1]})
+        del inputs
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return rows
 
 
 # -- phase 6: host-corpus residency (int8-resident and streaming) ------------
@@ -3534,8 +3691,7 @@ def phase_tracing_serve(client, expr, vectors, queries, trace_dir: str, smi: str
 
 def phase_tracing_after(root: str, log_path: str, smi: str, kind: str) -> dict:
     """Phase 14 after its server: the query log replayed in this process on
-    DEVICE (every logged search must match its digest), then the
-    quickstart as a subprocess."""
+    DEVICE (every logged search must match its digest)."""
     from fenix_tpu_torch.engine import executor
     from fenix_tpu_torch.utils import replay
 
@@ -3545,19 +3701,9 @@ def phase_tracing_after(root: str, log_path: str, smi: str, kind: str) -> dict:
     logged = sum(1 for _ in replay.load(log_path))
     if stats != {"total": logged, "matched": logged, "mismatched": 0} or not logged:
         raise AssertionError(f"replay of {logged} logged searches: {stats}")
-    executor.get_cache(root, DEVICE).invalidate()  # free the card for the quickstart
-    emit({"phase": "replay", **stats, "seconds": replay_s})
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fenix_tpu_torch.examples.quickstart", "--device", DEVICE],
-                          cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"quickstart exited {proc.returncode}: {proc.stderr[-2000:]}")
-    row = {"phase": "quickstart", "rc": proc.returncode, "seconds": time.perf_counter() - t,
-           "stdout": proc.stdout.splitlines()[:4], "device": kind, "nvidia_smi": smi}
-    emit(row)
-    return {"replay": stats, "quickstart": row}
+    executor.get_cache(root, DEVICE).invalidate()
+    emit({"phase": "replay", **stats, "seconds": replay_s, "device": kind, "nvidia_smi": smi})
+    return {"replay": stats}
 
 
 # -- phase 15: the serving mesh ------------------------------------------------
@@ -3792,7 +3938,7 @@ def per_card_designs(kernels, topk2) -> list[dict]:
     for card in range(torch.cuda.device_count()):
         dev = torch.device("cuda", card)
         for d, designs in ((128, ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")),
-                           (100, ("generic_int8",))):
+                           (100, ("generic_int8", "generic_bf16"))):
             v = torch.from_numpy(rng.standard_normal((1 << 16, d), dtype=np.float32)).to(dev)
             mul = torch.ones(v.shape[0], device=dev)
             add = torch.from_numpy(rng.standard_normal(v.shape[0]).astype(np.float32)).to(dev)
@@ -3802,7 +3948,7 @@ def per_card_designs(kernels, topk2) -> list[dict]:
             for design in designs:
                 if "int8" in design:
                     args = (q8, v8, mul * sv, add, 32, inv_sq)
-                elif design == "tensor_bf16":
+                elif design in BF16_DESIGNS:
                     args = (q.bfloat16(), v.bfloat16(), mul, add, 32, None)
                 else:
                     args = (q, v, mul, add, 32, None)
@@ -5480,6 +5626,7 @@ def run() -> int:
     # release the GIL) under the build and phases 2-5
     draws = ThreadPoolExecutor(max_workers=1, thread_name_prefix="smoke-draws")
     phase3_data = draws.submit(make_data, ROWS, 0)
+    glove_draw = draws.submit(make_data, GLOVE_ROWS, 2, GLOVE_D)
     wide_data = draws.submit(make_data, RES_ROWS, 1, RES_D)
     draws.shutdown(wait=False)
     t = time.perf_counter()
@@ -5541,27 +5688,8 @@ def run() -> int:
             raise AssertionError(f"launch counts not 0 before the main path: {before}")
         emit({"phase": "server_up", "seconds": time.perf_counter() - t})
 
-        import pyarrow as pa
-
-        from fenix_tpu_torch.io import ingest
-
-        schema = pa.schema({"id": pa.int64(), "vector": pa.list_(pa.float32(), D),
-                            "tag": pa.int32()})
-
-        def batches():
-            for s in range(0, ROWS, BATCH_ROWS):
-                e = min(s + BATCH_ROWS, ROWS)
-                yield pa.record_batch(
-                    [pa.array(ids_np[s:e]),
-                     ingest.numpy_to_fixed_size_list(vectors[s:e], pa.float32()),
-                     pa.array(tags[s:e])],
-                    schema=schema,
-                )
-
-        t = time.perf_counter()
-        client.make_table("smoke/items", pa.RecordBatchReader.from_batches(schema, batches()))
-        emit({"phase": "put", "rows": ROWS, "batch_rows": BATCH_ROWS,
-              "seconds": time.perf_counter() - t})
+        put_s = put_items(client, "smoke/items", vectors, ids_np, tags)
+        emit({"phase": "put", "rows": ROWS, "batch_rows": BATCH_ROWS, "seconds": put_s})
 
         results, latencies, first_calls = [], {}, []
         for spec, qnp in zip(SEARCHES, queries):
@@ -5601,6 +5729,13 @@ def run() -> int:
         stats = client.stats()
         emit({"phase": "main_path_done", "launches": main_launches,
               "cache_device_bytes": stats.get("cache.device_bytes")})
+
+        # -- phases 3-5, the exact narrow path (glove100) ----------------------
+        t = time.perf_counter()
+        glove_data = glove_draw.result()
+        glove_queries = [make_queries(glove_data[0], spec[1], seed=900 + i) for i, spec in enumerate(GLOVE_SEARCHES)]
+        glove = phase_glove_serve(client, expr, kernels, glove_data, glove_queries)
+        emit({"phase": "glove_serve_done", "launches": glove["launches"], "seconds": time.perf_counter() - t})
 
         # -- phase 7 (on the server) ------------------------------------------
         t = time.perf_counter()
@@ -5666,6 +5801,10 @@ def run() -> int:
         check = check_search(oracle, spec, qnp, result, mask if spec[5] else None)
         emit({"phase": "oracle", "search": spec[0], **check})
     emit({"phase": "oracle_done", "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    glove_rows = phase_glove_checks(kernels, topk2, glove_data, glove_queries, glove)
+    del glove_data
+    emit({"phase": "glove_done", "seconds": time.perf_counter() - t})
 
     # -- phase 7 (after the server) -------------------------------------------
     t = time.perf_counter()
@@ -5707,8 +5846,8 @@ def run() -> int:
     emit({"phase": "mutation_kernels_done", "seconds": time.perf_counter() - t})
 
     # -- phase 5 --------------------------------------------------------------
-    for spec in SEARCHES:
-        warm = latencies[spec[0]]
+    for spec in (*SEARCHES, *GLOVE_SEARCHES):
+        warm = latencies[spec[0]] if spec in SEARCHES else glove["latencies"][spec[0]]
         emit({"phase": "warm_latency", "search": spec[0], "q": spec[1], "k": spec[3],
               "precision": spec[4], "median_ms": float(np.median(warm)),
               "min_ms": float(min(warm)), "all_ms": warm, "device": kind, "nvidia_smi": smi})
@@ -5733,10 +5872,10 @@ def run() -> int:
     res = phase_residency(kernels, topk2, Flight, expr, smi, kind, wide_data)
 
     # -- the kernels line ------------------------------------------------------
-    compares = small + forced + wide + main_shapes + mut_checks + res["checks"] + mesh["checks"]
+    compares = small + forced + wide + main_shapes + glove_rows + mut_checks + res["checks"] + mesh["checks"]
     mutation = {k: v + res["mutation_launches"][k] for k, v in mut_launches.items()}
     batching = {k: v + res["batching_launches"][k] for k, v in mb["launches"].items()}
-    by_path = {"exact": main_launches, "residency": res["launches"], "ivf": ivf_launches,
+    by_path = {"exact": main_launches, "glove100": glove["launches"], "residency": res["launches"], "ivf": ivf_launches,
                "selection": sel_launches, "mutation": mutation, "analytics": an_launches,
                "batching": batching, "types": ty_launches,
                "mesh": {k: mesh["launches"].get(k, 0) for k in ALL_LAUNCH_KEYS},

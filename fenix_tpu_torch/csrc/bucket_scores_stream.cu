@@ -1,5 +1,7 @@
 // bucket_scores_stream: the phase-1 kernel for small query batches
-// (f32 and bf16 corpora), bound by the read of V.
+// (f32 corpora), bound by the read of V. Its kernels are written over the
+// element type; only f32 is instantiated (bf16 corpora take the tensor
+// cores, bucket_scores_tensor.cu, at every row width).
 //
 // Replaces, for small Q: fenix_tpu/ops/topk2.py:453 (kernel_f32 of
 // bucket_scores_pallas_bigq; on the TPU small batches took the XLA dot
@@ -35,7 +37,7 @@
 // - The aux vectors of a tile arrive with its last k-step's stage; the
 //   bucket max is taken with warp shuffles, across warps through shared
 //   memory for buckets of 64 and 128.
-// - D that is not a multiple of 16 bytes (4 f32, 8 bf16) takes the same
+// - D that is not a multiple of 16 bytes (4 f32) takes the same
 //   kernel with plain element loads into the stages (kAsync = false), in
 //   groups of 8 at any Q.
 //
@@ -329,7 +331,7 @@ struct Outer {
   static constexpr int kElems = kSliceBytes / sizeof(T);  // k per stage
   static constexpr int kVBoxes = kRows < kBox ? 1 : kRows / kBox;
   static constexpr int kBoxRows = kRows < kBox ? kRows : kBox;
-  static constexpr int kQBoxes = kElems * 4 / kSliceBytes;  // 1 (f32) or 2 (bf16)
+  static constexpr int kQBoxes = kElems * 4 / kSliceBytes;  // 1 for f32
   static constexpr int kQBox = (QB * kSliceBytes + 1023) / 1024 * 1024;
   static constexpr int kV = kRows * kSliceBytes;
   static constexpr int kQ = kQBoxes * kQBox;
@@ -604,13 +606,9 @@ int launch_t(const Args& a) {
 
 }  // namespace
 
-int launch_stream(int dtype, const float* q, const void* v, const float* aux_mul,
-                  const float* aux_add, float* out, int64_t qt, int64_t n, int64_t d,
-                  int bucket_log2, cudaStream_t stream) {
-  const Args a{q, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, stream};
-  if (dtype == 0) return launch_t<float>(a);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_stream(const float* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
+                  int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream) {
+  return launch_t<float>(Args{q, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, stream});
 }
 
 }  // namespace fenix

@@ -1,5 +1,7 @@
 // bucket_scores_tiled: the phase-1 kernel for large query batches
-// (f32 and bf16 corpora), bound by fp32 FMA throughput.
+// (f32 corpora), bound by fp32 FMA throughput. Its kernel is written over
+// the element type; only f32 is instantiated (bf16 corpora take the tensor
+// cores, bucket_scores_tensor.cu, at every row width).
 //
 // Replaces, for large Q: fenix_tpu/ops/topk2.py:453 (kernel_f32 of
 // bucket_scores_pallas_bigq) and, at bucket 128, fenix_tpu/ops/topk2.py:357
@@ -16,7 +18,7 @@
 //   8-row x TN-query register tile (TN = BQ / 16).
 // - V and Q stay k-contiguous in shared memory, as they lie in device
 //   memory, so 16-byte cp.async copies fill them; a thread reads 4 k of
-//   each of its rows and queries with one 16-byte (bf16: 8-byte) load:
+//   each of its rows and queries with one 16-byte load:
 //   16 loads per 256 FMAs at TN = 8. Rows and queries are padded by 16
 //   bytes against bank conflicts.
 // - Three stages of 64 k each form a ring; persistent blocks walk
@@ -27,7 +29,7 @@
 //   the bucket max in registers (8 rows), with one shuffle (16 rows) and
 //   across warps through shared memory (32..128 rows). The score tile
 //   never reaches device memory.
-// - D that is not a multiple of 16 bytes (4 f32, 8 bf16) takes the same
+// - D that is not a multiple of 16 bytes (4 f32) takes the same
 //   kernel with plain element loads into the stages (kAsync = false).
 
 #include <algorithm>
@@ -311,13 +313,9 @@ int launch_t(const Args& a) {
 
 }  // namespace
 
-int launch_tiled(int dtype, const float* q, const void* v, const float* aux_mul,
-                 const float* aux_add, float* out, int64_t qt, int64_t n, int64_t d,
-                 int bucket_log2, cudaStream_t stream) {
-  const Args a{q, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, stream};
-  if (dtype == 0) return launch_t<float>(a);
-  if (dtype == 1) return launch_t<__nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_tiled(const float* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
+                 int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream) {
+  return launch_t<float>(Args{q, v, aux_mul, aux_add, out, qt, n, d, bucket_log2, stream});
 }
 
 }  // namespace fenix

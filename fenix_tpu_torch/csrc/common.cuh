@@ -1,6 +1,6 @@
-// Helpers shared by the phase-1 kernels: asynchronous 16-byte copies,
-// mbarriers and TMA tiles, bf16 widening, the launch-shape queries the
-// persistent kernels use, and the designs' entry points.
+// Helpers shared by the phase-1 kernels: asynchronous 16-byte and bulk
+// copies, mbarriers and TMA tiles, f32 shared-memory loads, the launch-shape
+// queries the persistent kernels use, and the designs' entry points.
 
 #pragma once
 
@@ -87,6 +87,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16) from 16-byte-aligned global
+// memory to 16-byte-aligned shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
 // -- TMA descriptors (host) --------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -125,6 +134,22 @@ inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_byt
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A row-major [rows, row_bytes] byte matrix as TMA boxes of box_rows rows x
+// box_bytes, unswizzled (box rows box_bytes apart in shared memory); reads
+// past either edge fill with zeros. Box origins must be 16-byte aligned.
+inline bool encode_bytes(CUtensorMap* map, const void* base, int64_t rows, int64_t row_bytes, int box_bytes,
+                         int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(row_bytes), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // An f32 vector of `len` as TMA boxes of `box` elements; zeros past its end.
 inline bool encode_vector(CUtensorMap* map, const float* base, int64_t len, int box) {
   const EncodeTiled fn = encoder();
@@ -139,20 +164,15 @@ inline bool encode_vector(CUtensorMap* map, const float* base, int64_t len, int 
 }
 
 // Raw storage type of one element: the scalar (unaligned) load paths
-// copy bits, so bf16 needs no arithmetic operators.
+// copy bits.
 template <typename T>
 struct Raw;
 template <>
 struct Raw<float> {
   using type = uint32_t;
 };
-template <>
-struct Raw<__nv_bfloat16> {
-  using type = uint16_t;
-};
 
-// Four consecutive elements at `p` in shared memory, widened to f32
-// (16 bytes for f32, 8 for bf16; `p` aligned to that size).
+// Four consecutive f32 at `p` in shared memory (16-byte aligned).
 __device__ __forceinline__ void load4(const float* p, float* x) {
   const float4 w = *reinterpret_cast<const float4*>(p);
   x[0] = w.x;
@@ -161,27 +181,8 @@ __device__ __forceinline__ void load4(const float* p, float* x) {
   x[3] = w.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
-  // a bf16 is the high half of an f32: widening is a shift, exactly
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(w.x << 16);
-  x[1] = __uint_as_float(w.x & 0xffff0000u);
-  x[2] = __uint_as_float(w.y << 16);
-  x[3] = __uint_as_float(w.y & 0xffff0000u);
-}
-
-// The 16 bytes at `p` in shared memory (4 f32 or 8 bf16), widened to f32.
+// The 16 bytes at `p` in shared memory: 4 f32.
 __device__ __forceinline__ void load16(const float* p, float* x) { load4(p, x); }
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(words[i] << 16);
-    x[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
 
 // Blocks of `kernel` that fit one SM at `threads` threads and `smem`
 // dynamic shared bytes, after raising the kernel's shared-memory cap.
@@ -230,20 +231,24 @@ bool launch_shape(Occupancy& occ, Kernel kernel, int threads, int smem, int* per
   return *per_sm > 0 && *sms > 0;
 }
 
-// Entry points of the two f32/bf16 designs (q is f32 in both: the
-// wrapper widens a bf16 query batch, which is QT x D and small).
-int launch_stream(int dtype, const float* q, const void* v, const float* aux_mul,
-                  const float* aux_add, float* out, int64_t qt, int64_t n, int64_t d,
-                  int bucket_log2, cudaStream_t stream);
-int launch_tiled(int dtype, const float* q, const void* v, const float* aux_mul,
-                 const float* aux_add, float* out, int64_t qt, int64_t n, int64_t d,
-                 int bucket_log2, cudaStream_t stream);
+// Entry points of the two f32 designs.
+int launch_stream(const float* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
+                  int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream);
+int launch_tiled(const float* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
+                 int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream);
 // Entry points of the tensor-core designs (bucket_scores_tensor.cu): int8 q
-// and v with D a multiple of 16; bf16 q and v with D a multiple of 8.
+// and v with D a multiple of 16 and bf16 q and v with D a multiple of 8
+// (tensor_*), or int8 and bf16 at any D with q zero-padded to 16-byte rows,
+// [QT, D rounded up to 16 bytes] (generic_*).
 int launch_tensor_int8(const void* q, const void* v, const float* aux_mul, const float* aux_add,
                        const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
                        int bucket_log2, cudaStream_t stream);
 int launch_tensor_bf16(const void* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
                        int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream);
+int launch_generic_int8(const void* q, const void* v, const float* aux_mul, const float* aux_add,
+                        const float* inv_sq, float* out, int64_t qt, int64_t n, int64_t d,
+                        int bucket_log2, cudaStream_t stream);
+int launch_generic_bf16(const void* q, const void* v, const float* aux_mul, const float* aux_add, float* out,
+                        int64_t qt, int64_t n, int64_t d, int bucket_log2, cudaStream_t stream);
 
 }  // namespace fenix

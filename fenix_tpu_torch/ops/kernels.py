@@ -3,18 +3,18 @@
 One kernel family lives here today, the phase-1 bucket-max scan, which
 replaces ``fenix_tpu/ops/topk2.py:bucket_scores_pallas_bigq`` (its f32/bf16
 and int8 bodies), the small-Q XLA dot beside it, and
-``bucket_scores_pallas`` (K3). Five designs share one wrapper:
+``bucket_scores_pallas`` (K3). Six designs share one wrapper:
 
 - ``stream`` (``csrc/bucket_scores_stream.cu``): f32 corpora at small
-  query counts, bound by the read of V (and bf16 rows TMA cannot address);
+  query counts, bound by the read of V;
 - ``tiled`` (``csrc/bucket_scores_tiled.cu``): f32 corpora at large
-  query counts, bound by the fp32 FMA rate (and bf16 rows TMA cannot
-  address);
+  query counts, bound by the fp32 FMA rate;
 - ``tensor_bf16`` and ``tensor_int8`` (``csrc/bucket_scores_tensor.cu``,
   one frame for both types): the bf16 and the int8 corpus on the tensor
   cores (``wgmma`` fed by TMA), for rows of a multiple of 16 bytes;
-- ``generic_int8`` (``csrc/bucket_scores.cu``): int8 rows that TMA cannot
-  address (D not a multiple of 16), on the CUDA cores.
+- ``generic_bf16`` and ``generic_int8`` (the same frame and file): every
+  other row width on the tensor cores, the rows copied by the producer
+  warpgroup since TMA cannot address them.
 
 :func:`kernel_for` picks one by dtype, query count and row width.
 
@@ -69,6 +69,7 @@ LAUNCHES: dict[str, int] = {
     "bucket_scores.kernel.generic_int8": 0,
     "bucket_scores.kernel.tensor_int8": 0,
     "bucket_scores.kernel.tensor_bf16": 0,
+    "bucket_scores.kernel.generic_bf16": 0,
 }
 
 # The same launches per card: "bucket_scores.kernel.<design>.cuda<index>",
@@ -76,43 +77,39 @@ LAUNCHES: dict[str, int] = {
 DEVICE_LAUNCHES: dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"), torch.int8: (2, "int8")}
-_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3, "tensor_bf16": 4}
+_KERNEL_CODES = {"stream": 0, "tiled": 1, "generic_int8": 2, "tensor_int8": 3, "tensor_bf16": 4, "generic_bf16": 5}
 # the designs that take each corpus dtype
 _DESIGNS = {
     torch.float32: ("stream", "tiled"),
-    torch.bfloat16: ("stream", "tiled", "tensor_bf16"),
+    torch.bfloat16: ("tensor_bf16", "generic_bf16"),
     torch.int8: ("tensor_int8", "generic_int8"),
 }
 # rows TMA can address: 16-byte strides (a shape rule of the tensor-core designs)
 _TENSOR_ROW_MULTIPLE = {"tensor_int8": 16, "tensor_bf16": 8}
+# the designs whose query batch comes zero-padded to 16-byte rows
+_PADDED_QUERIES = ("generic_int8", "generic_bf16")
 MAX_BUCKET = 128  # a bucket lies inside one row tile of every design
 
-# Largest query count the stream kernel serves; above it the tiled one.
-# From chip_smoke.py phase 2's forced timings at 8,388,608 x 128 on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), f32: at Q=32 stream 2.009 ms
-# vs tiled 4.386, at Q=64 (two groups of 32) 3.960 vs 4.430, at Q=128
-# 8.098 vs 7.418. bf16 reaches these kernels only with rows TMA cannot
-# address (D % 8 != 0), where stream takes groups of 8 queries; it keeps
-# the switch of the one-row-a-thread stream kernel (at Q=64 tiled 4.470
-# vs stream 6.134).
-STREAM_MAX_Q = {torch.float32: 64, torch.bfloat16: 32}
-# bf16 rows of a multiple of 8 values take the tensor cores above this
-# query count (0: at every count). The same timings, bf16: tensor_bf16
-# 0.722-0.787 ms at Q=1-64 against stream's 0.768-2.080 at Q=1-32 and
-# tiled's 4.479 at Q=64; 1.564 vs tiled's 14.018 at Q=256.
-TENSOR_BF16_MIN_Q = 0
+# Largest query count the stream kernel serves (f32); above it the tiled
+# one. From chip_smoke.py phase 2's forced timings at 8,388,608 x 128 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): at Q=32 stream 2.009 ms vs
+# tiled 4.386, at Q=64 (two groups of 32) 3.960 vs 4.430, at Q=128 8.098
+# vs 7.418. No bf16 row reaches stream or tiled: on rows TMA cannot address
+# (8,388,608 x 100) generic_bf16 beat both at every query count timed
+# (PERF.md), so their bf16 instantiations are gone.
+STREAM_MAX_Q = 64
 
 
 def kernel_for(dtype: torch.dtype, qt: int, d: int) -> str:
     """The kernel design that serves a (corpus dtype, query count, row
-    width) triple. int8 and bf16 rows go to the tensor cores when TMA can
-    address them (16-byte row strides); that is a shape rule, not a
-    fallback."""
+    width) triple. int8 and bf16 rows go to the tensor cores at every
+    width: by TMA where it can address them (16-byte row strides), else
+    through the generic producer; that is a shape rule, not a fallback."""
     if dtype == torch.int8:
         return "tensor_int8" if d % 16 == 0 else "generic_int8"
-    if dtype == torch.bfloat16 and d % 8 == 0 and qt > TENSOR_BF16_MIN_Q:
-        return "tensor_bf16"
-    return "stream" if qt <= STREAM_MAX_Q[dtype] else "tiled"
+    if dtype == torch.bfloat16:
+        return "tensor_bf16" if d % 8 == 0 else "generic_bf16"
+    return "stream" if qt <= STREAM_MAX_Q else "tiled"
 
 
 _LIB: ctypes.CDLL | None = None
@@ -296,8 +293,9 @@ def bucket_scores(
     out = torch.empty((qt, n // bucket), dtype=torch.float32, device=device)
     if qt == 0 or n == 0:
         return out
-    if v.dtype == torch.bfloat16 and design != "tensor_bf16":
-        q = q.to(torch.float32)  # stream and tiled take f32 queries: QT x D, small
+    if design in _PADDED_QUERIES and (d * q.element_size()) % 16:
+        # TMA brings the query tile: QT x D, small, zero-padded to 16-byte rows
+        q = torch.nn.functional.pad(q, (0, -d % (16 // q.element_size())))
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

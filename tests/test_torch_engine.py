@@ -448,7 +448,9 @@ def test_chip_smoke_bound(route, q, n, d, bucket, want_ms, want_by):
 def test_chip_smoke_library_fn(rng):
     """The library yardstick: matmul for f32/bf16, _int_mm for int8 where
     its shape rules allow: a chunk of more than 16 queries on the left, of
-    16 or fewer (a multiple of 8) on the right as V8 · Q8ᵀ, else None."""
+    16 or fewer (a multiple of 8) on the right as V8 · Q8ᵀ, else None; a
+    width that is not a multiple of 8 on zero-padded copies (the same
+    products)."""
     v = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     v8, _ = topk2.quantize_corpus_int8(v)
     for q in (v[:3], v[:3].to(torch.bfloat16)):
@@ -457,27 +459,38 @@ def test_chip_smoke_library_fn(rng):
     assert smoke.library_fn(v8[:3], v8) is None  # 3 queries fit neither side
     assert smoke.library_fn(v8[:33], v8, chunk=16) is None  # a 1-row last chunk
     smoke.library_fn(v8[:40], v8)()
+    w8 = v8[:, :30].contiguous()  # 30 wide
+    smoke.library_fn(w8[:40], w8)()
+    smoke.library_fn(w8[:8], w8)()
 
 
 def test_chip_smoke_kernel_entries():
     """The kernels line: one entry per design and K3, timed at the largest
-    main-path shape, refused when a design misses a path it must run on."""
-    def row(kernel, route, q, n, bucket, ms, search=None):
-        return {"kernel": kernel, "route": route, "q": q, "n": n, "bucket": bucket, "search": search,
+    main-path shape, refused when a design misses a path it must run on
+    (the generic designs: the glove100 path)."""
+    def row(kernel, route, q, n, bucket, ms, search=None, d=smoke.D):
+        return {"kernel": kernel, "route": route, "q": q, "n": n, "d": d, "bucket": bucket, "search": search,
                 "max_abs_err": 1e-6 * q, "ms": ms, "plain_ms": 2 * ms, "library_ms": None,
-                **smoke.bound(route, q, n, smoke.D, bucket)}
+                **smoke.bound(route, q, n, d, bucket)}
+    glove_n = smoke.glove_rows_scanned()
     rows = [row("stream", "f32", 8, 1 << 20, 128, 1.0), row("stream", "f32", 8, 1 << 23, 128, 2.0, "q8"),
             row("tiled", "f32", 1024, 1 << 23, 32, 60.0, "q1024"), row("tiled", "f32", 64, 1 << 23, 128, 4.0),
             row("tensor_int8", "int8", 8, 1 << 22, 128, 1.5, "auto_q8"),
-            row("generic_int8", "int8", 1024, 1 << 23, 32, 57.0),
+            row("generic_int8", "int8", 1024, 1 << 23, 32, 6.0, d=100),
+            row("generic_int8", "int8", 1024, glove_n, 32, 0.9, "glove_q1024_int8", d=100),
+            row("generic_int8", "int8", 8, glove_n, 128, 0.1, "glove_q8_int8", d=100),
+            row("generic_bf16", "bf16", 1024, 1 << 23, 32, 9.0, d=100),
+            row("generic_bf16", "bf16", 1024, glove_n, 32, 1.4, "glove_q1024_bf16", d=100),
             row("tensor_bf16", "bf16", 64, 1 << 23, 128, 0.8, "q64_bf16"), row("tensor_bf16", "bf16", 1024, 1 << 23, 32, 4.0)]
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     counts = {"f32": 3, "f32.bucket128": 2, "kernel.stream": 2, "kernel.tiled": 1, "kernel.tensor_int8": 4,
-              "kernel.generic_int8": 0, "kernel.tensor_bf16": 1}
+              "kernel.generic_int8": 0, "kernel.tensor_bf16": 1, "kernel.generic_bf16": 0}
     selection = {**{k: 0 for k in counts}, "f32": 1, "int8": 1, "kernel.tiled": 1, "kernel.tensor_int8": 1}
     bf16 = {"bf16": 4, "kernel.tensor_bf16": 4}
-    by_path = {"exact": counts, "residency": {**counts, "kernel.tiled": 0, "kernel.tensor_bf16": 0},
+    glove = {**{k: 0 for k in counts}, "int8": 2, "bf16": 2, "kernel.generic_int8": 2, "kernel.generic_bf16": 2}
+    by_path = {"exact": counts, "glove100": glove,
+               "residency": {**counts, "kernel.tiled": 0, "kernel.tensor_bf16": 0},
                "selection": selection,
                "mutation": {**selection, "kernel.stream": 1}, "analytics": {**selection, "kernel.stream": 3},
                "batching": {**selection, "kernel.stream": 7, "kernel.tensor_int8": 0},
@@ -488,12 +501,18 @@ def test_chip_smoke_kernel_entries():
                "multihost": {**selection, **bf16, "kernel.stream": 4, "f32.bucket128": 4}}
     entries = {e["name"]: e for e in smoke.kernel_entries(rows, by_path)}
     assert set(entries) == {k[0] for k in smoke.KERNELS}
-    generic = entries["bucket_scores.kernel.generic_int8"]  # on no main path: its forced row
-    assert generic["launches"] == 0 and generic["ms"] == 57.0 and generic["timed_at"]["search"] is None
+    for name in ("generic_int8", "generic_bf16"):  # timed at the glove100 path's Q=1024, not the forced rows
+        generic = entries[f"bucket_scores.kernel.{name}"]
+        assert generic["launches"] == 2 and generic["launches_by_path"]["glove100"] == 2
+        assert generic["timed_at"]["search"].startswith("glove_q1024")
+        assert generic["timed_at"]["n"] == glove_n and generic["timed_at"]["d"] == 100
+        assert generic["source"] == "fenix_tpu_torch/csrc/bucket_scores_tensor.cu"
+    assert entries["bucket_scores.kernel.generic_int8"]["ms"] == 0.9
+    assert entries["bucket_scores.kernel.generic_bf16"]["replaces"] == "fenix_tpu/ops/topk2.py:453"
     assert entries["bucket_scores.kernel.tensor_int8"]["launches"] == 16
     tiled = entries["bucket_scores.kernel.tiled"]
     assert tiled["ms"] == 60.0 and tiled["bound_by"] == "operations" and tiled["launches"] == 10
-    assert tiled["launches_by_path"] == {"exact": 1, "residency": 0, "selection": 1, "mutation": 1,
+    assert tiled["launches_by_path"] == {"exact": 1, "glove100": 0, "residency": 0, "selection": 1, "mutation": 1,
                                          "analytics": 1, "batching": 1, "types": 1, "mesh": 1,
                                          "mesh_analytics": 1, "repartition": 1, "multihost": 1}
     assert tiled["timed_at"]["search"] == "q1024"
@@ -543,6 +562,12 @@ def test_chip_smoke_kernel_entries():
         smoke.kernel_entries(rows, by_path)
     by_path["multihost"]["kernel.tiled"], by_path["types"]["kernel.tensor_bf16"] = 1, 0
     with pytest.raises(AssertionError, match="tensor_bf16 was not launched on the types path"):
+        smoke.kernel_entries(rows, by_path)
+    by_path["types"]["kernel.tensor_bf16"], glove["kernel.generic_int8"] = 1, 0
+    with pytest.raises(AssertionError, match="generic_int8 was not launched on the glove100 path"):
+        smoke.kernel_entries(rows, by_path)
+    glove["kernel.generic_int8"], glove["kernel.generic_bf16"] = 2, 0
+    with pytest.raises(AssertionError, match="generic_bf16 was not launched on the glove100 path"):
         smoke.kernel_entries(rows, by_path)
 
 
@@ -846,6 +871,68 @@ def test_chip_smoke_selection_phase_on_the_cpu(tmp_path, monkeypatch):
         smoke.check_selection(oracle, "x", "l2", host_queries[:1], one, lambda qi: rows)
 
 
+def test_chip_smoke_glove_phase_on_the_cpu(tmp_path, monkeypatch):
+    """The glove100 path of chip_smoke.py rehearsed on the CPU at a small
+    size on the port's server (CPU device): a 100-wide table whose row count
+    is not a multiple of the engine's 16,384-row block, its four searches
+    over Flight, then the float64 oracle by the fp32 rule with distances
+    within 1e-5 and the phase-1 rows at the padded row count. A spy on the
+    phase-1 wrapper shows the engine scanning the padded count with the
+    bucket it sets (128 at Q <= 64, 32 above; the unpadded 17,618 rows
+    would give a bucket of 2), and a result off the oracle is refused."""
+    import threading
+
+    import fenix_tpu_torch
+
+    rows = smoke.GLOVE_BLOCK + 1_234
+    for name, value in {
+        "DEVICE": "cpu", "GLOVE_ROWS": rows, "WARM_REPS": 1,
+        "GLOVE_SEARCHES": tuple((s[0], min(s[1], 100), *s[2:]) for s in smoke.GLOVE_SEARCHES),
+    }.items():
+        monkeypatch.setattr(smoke, name, value)
+    padded = 2 * smoke.GLOVE_BLOCK
+    assert smoke.glove_rows_scanned() == padded
+    data = smoke.make_data(rows, 2, smoke.GLOVE_D)
+    queries = [smoke.make_queries(data[0], s[1], seed=900 + i) for i, s in enumerate(smoke.GLOVE_SEARCHES)]
+    seen = []
+    real = kernels.bucket_scores
+
+    def spy(q, v, aux_mul, aux_add, bucket, inv_sq=None, _kernel=None):
+        seen.append((q.shape[0], v.shape, v.dtype, bucket))
+        return real(q, v, aux_mul, aux_add, bucket, inv_sq=inv_sq, _kernel=_kernel)
+
+    server = fenix_tpu_torch.Server(str(tmp_path), host="127.0.0.1", port=0, device="cpu")
+    threading.Thread(target=server.serve, daemon=True).start()
+    client = fenix_tpu_torch.Flight(host="127.0.0.1", port=server.port)
+    try:
+        monkeypatch.setattr(kernels, "bucket_scores", spy)
+        glove = smoke.phase_glove_serve(client, expr, kernels, data, queries)
+        monkeypatch.setattr(kernels, "bucket_scores", real)
+    finally:
+        client.close()
+        server.shutdown()
+    assert not any(glove["launches"].values())  # CPU tensors launch nothing
+    assert {(qn, tuple(shape), dtype) for qn, shape, dtype, _ in seen} == {
+        (s[1], (padded, smoke.GLOVE_D), {"int8": torch.int8, "bf16": torch.bfloat16}[s[4]])
+        for s in smoke.GLOVE_SEARCHES}
+    assert all(bucket == (128 if qn <= 64 else 32) for qn, _, _, bucket in seen)
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
+    got = smoke.phase_glove_checks(kernels, topk2, data, queries, glove)
+    assert [r["search"] for r in got] == [s[0] for s in smoke.GLOVE_SEARCHES]
+    assert all(r["n"] == padded and r["d"] == smoke.GLOVE_D for r in got)
+    assert [r["kernel"] for r in got] == ["generic_int8", "generic_int8", "generic_bf16", "generic_bf16"]
+    assert [r["bucket"] for r in got] == [128, 32, 128, 32]
+    assert got[1]["library_ms"] is not None  # _int_mm on zero-padded copies of the 100-wide rows
+    # a result with its first two winners swapped is off the oracle
+    ids, dist = smoke.split_result(glove["results"][0], smoke.GLOVE_SEARCHES[0][1], 10)
+    oracle = smoke.Oracle(data[0], "cpu")
+    far = ids[:, 1] != ids[:, 2]
+    ids[far, 1], ids[far, 2] = ids[far, 2], ids[far, 1].copy()
+    with pytest.raises(AssertionError, match="ids differ|distance off"):
+        smoke.check_ids(oracle, "swapped", "cosine", 10, "fp32", queries[0], ids, dist, None, True,
+                        dist_tol=smoke.GLOVE_DIST_TOL)
+
+
 def test_chip_smoke_mutation_phase_on_the_cpu(tmp_path, monkeypatch):
     """Phase 10 (a) and (c) of chip_smoke.py rehearsed on the CPU at a small
     size, on the port's server (CPU device) after phase 7's index: append
@@ -1103,8 +1190,7 @@ def test_chip_smoke_tracing_phase_on_the_cpu(tmp_path, monkeypatch):
     server with FENIX_TRACE_DIR and FENIX_QUERY_LOG over a root holding
     items, phase 7's coder and the attrs table; the catalog calls; each
     request kind warmed up and traced, its trace parsed (no card: no
-    kernel events required); the log replayed, every search matched; the
-    quickstart on the CPU."""
+    kernel events required); the log replayed, every search matched."""
     for name, value in {
         "DEVICE": "cpu", "ROWS": SMOKE_ROWS, "SEARCHES": _small_searches(), "IVF_CELLS": 64, "BATCH_ROWS": 4096,
         "IVF_CONFIG": {"metric": "l2", "codebook_size": 64, "num_codebooks": 1, "batch_size": 1024,

@@ -212,24 +212,21 @@ def test_plain_phase1_edges(rng):
     [(torch.float32, q, d, "stream") for d in (128, 100) for q in (1, 8, 9, 32, 33, 64)]
     + [(torch.float32, q, d, "tiled") for d in (128, 100) for q in (65, 128, 1024)]
     + [(torch.bfloat16, q, d, "tensor_bf16") for d in (96, 128, 768) for q in (1, 8, 16, 32, 33, 64, 256, 1024)]
-    + [(torch.bfloat16, q, d, "stream") for d in (100, 130) for q in (1, 16, 32)]
-    + [(torch.bfloat16, q, d, "tiled") for d in (100, 130) for q in (33, 64, 1024)]
+    + [(torch.bfloat16, q, d, "generic_bf16") for d in (25, 100, 130) for q in (1, 16, 32, 33, 64, 1024)]
     + [(torch.int8, q, d, "tensor_int8") for d in (128, 768) for q in (1, 8, 256, 1024)]
-    + [(torch.int8, q, d, "generic_int8") for d in (100, 130) for q in (1, 8, 256, 1024)],
+    + [(torch.int8, q, d, "generic_int8") for d in (25, 100, 130, 301) for q in (1, 8, 256, 1024)],
 )
 def test_kernel_for_picks_by_dtype_and_q(dtype, q, d, design):
-    """The dispatcher: int8 rows of a multiple of 16 bytes → the tensor-core
-    design at every Q, other int8 rows → generic; bf16 rows of a multiple of
-    16 bytes (D % 8 == 0) → the tensor-core design above the measured
-    threshold (TENSOR_BF16_MIN_Q = 0: every Q); f32 rows stream up to the
-    measured threshold (64 queries), other bf16 rows up to 32, tiled
-    above."""
-    assert kernels.TENSOR_BF16_MIN_Q == 0
-    assert kernels.STREAM_MAX_Q == {torch.float32: 64, torch.bfloat16: 32}
+    """The dispatcher: int8 and bf16 rows go to the tensor cores at every Q
+    and D: rows of a multiple of 16 bytes (int8 D % 16 == 0, bf16 D % 8 ==
+    0) to the TMA-fed designs, every other width to the generic ones; f32
+    rows stream up to the measured threshold (64 queries), tiled above."""
+    assert kernels.STREAM_MAX_Q == 64
     assert kernels.kernel_for(dtype, q, d) == design
 
 
-@pytest.mark.parametrize("design", [None, "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16"])
+@pytest.mark.parametrize("design", [None, "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16",
+                                    "generic_bf16"])
 @pytest.mark.parametrize("scan", ["f32", "bf16", "int8"])
 def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     """On CPU tensors the wrapper runs the plain version (bit-equal) for
@@ -248,7 +245,7 @@ def test_wrapper_counts_only_kernel_launches(rng, scan, design):
     got = kernels.bucket_scores(q, v, mul, add, 32, inv_sq=isq, _kernel=design)
     assert torch.equal(got, kernels.bucket_scores_plain(q, v, mul, add, 32, isq))
     assert kernels.LAUNCHES == before
-    designs = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16")
+    designs = ("stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16", "generic_bf16")
     assert {f"bucket_scores.kernel.{k}" for k in designs} <= set(before)
     args = (q, v, mul, add, 32)
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -270,22 +267,23 @@ def test_build_dir_in_checkout_and_installed(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["auto", "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16"])
+@pytest.mark.parametrize("design", ["auto", "stream", "tiled", "tensor_int8", "generic_int8", "tensor_bf16",
+                                    "generic_bf16"])
 def test_kernel_matches_plain_on_card(design):
     """The CUDA kernels against their plain version, on the card: each
     design forced ("auto": the dispatcher's pick for every scan type) over
     ragged Q (int8 and bf16 also past the 128- and 256-query tiles), D not
-    a multiple of 16 bytes (the tensor-core designs take only D that is),
-    buckets 1..128, N not a multiple of the 128-row tile where the bucket
-    allows, -inf rows and whole -inf buckets. Runs where a CUDA card is
-    present. Tolerance rtol 1e-5, atol 1e-3 at D=128, atol growing with D
-    (|q|·|v| ~ D)."""
+    a multiple of 16 bytes (the TMA-fed tensor-core designs take only D
+    that is; 25 and 301 not even of 4 bytes of int8), buckets 1..128, N not
+    a multiple of the 128-row tile where the bucket allows, -inf rows and
+    whole -inf buckets. Runs where a CUDA card is present. Tolerance rtol
+    1e-5, atol 1e-3 at D=128, atol growing with D (|q|·|v| ~ D)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(0)
     forced = None if design == "auto" else design
     int8_only = design in ("tensor_int8", "generic_int8")
-    for d in (96, 100, 128, 130, 768):
+    for d in (25, 96, 100, 128, 130, 301, 768):
         if design == "tensor_int8" and d % 16 or design == "tensor_bf16" and d % 8:
             continue
         for bucket in (1, 2, 32, 128):
@@ -299,11 +297,11 @@ def test_kernel_matches_plain_on_card(design):
             for qn in (1, 2, 7, 8, 9, 16, 17, 32, 33, 64, 65, 100, 200, 257, 1024):
                 q = torch.from_numpy(rng.standard_normal((qn, d), dtype=np.float32)).cuda()
                 cases = []
-                if design == "tensor_bf16":
+                if forced in (None, "stream", "tiled"):  # the f32 designs
+                    cases.append((q, v, mul, add, bucket, None))
+                if forced is None or forced in ("tensor_bf16", "generic_bf16"):
                     cases.append((q.bfloat16(), v.bfloat16(), mul, add, bucket, None))
-                elif not int8_only:
-                    cases += [(q, v, mul, add, bucket, None), (q.bfloat16(), v.bfloat16(), mul, add, bucket, None)]
-                if forced is None or int8_only:  # tensor_bf16 takes bf16 alone
+                if forced is None or int8_only:
                     q8, inv_sq = topk2.quantize_queries_int8(q)
                     cases.append((q8, v8, mul * sv, add, bucket, inv_sq))
                 for args in cases:
@@ -394,6 +392,18 @@ TWO_PHASE_CASES = (
 def test_two_phase_matches_jax(rng, metric, scan, q):
     corpus, queries = build(rng, 4096, 32, q)
     _assert_same(*_both(corpus, queries, 10, metric, scan))
+
+
+@pytest.mark.parametrize("scan", ["bf16", "int8"])
+@pytest.mark.parametrize("q", [8, 100])
+def test_two_phase_narrow_rows_match_jax(rng, scan, q):
+    """A 100-wide table, GloVe-100's width: 100 bf16 or int8 values are not
+    a multiple of 16 bytes, so on the card the generic designs scan it.
+    Both packages' two-phase search, cosine: ids exact, distances within
+    1e-5."""
+    corpus, queries = build(rng, 4096, 100, q)
+    assert kernels.kernel_for({"bf16": torch.bfloat16, "int8": torch.int8}[scan], q, 100) == f"generic_{scan}"
+    _assert_same(*_both(corpus, queries, 10, "cosine", scan))
 
 
 def test_two_phase_respects_mask_like_jax(rng):
