@@ -534,7 +534,7 @@ IVF_SEARCHES = (
     ("ivf_q256_p64_int8", 256, 64, False, "int8", "scan", "l2"),
 )
 IVF_ROUTES = {"clustered": "search.ivf_clustered", "scan": "search.ivf_scan"}
-IVF_SPLIT_KEYS = ("search.seconds", "ivf.seconds", "ivf.rank_seconds", "ivf.route_seconds")
+IVF_SPLIT_KEYS = ("search.seconds", "ivf.rank_seconds", "ivf.route_seconds")
 IVF_SAMPLE_ROWS = 1 << 20  # rows of the assignment check
 IVF_STEP_ROWS = 65_536  # rows of the Lloyd-step check
 IVF_CHECKED = 64  # queries of a larger batch held to the oracle, evenly spaced
@@ -551,7 +551,7 @@ SEL_PUSHDOWN = (
     ("pushdown_ivf_q8_p64", "ivf_q8_p64_filtered"),
 )
 SEL_ROUTES = {"device": "filter.device_pushdown", "host": "filter.host_upload"}
-SEL_SPLIT_KEYS = ("search.seconds", "filter.seconds", "ivf.seconds", "nomax.seconds")
+SEL_SPLIT_KEYS = ("search.seconds", "filter.seconds")
 # (b) no-top-k reads (maxval=None): name, queries, metric, tag predicate
 # ("==", v) / ("<", v) or None, probes of the phase-7 coder or None
 SEL_READS = (
@@ -2126,7 +2126,7 @@ def selection_read(client, expr, spec, table_name: str, queries, smi: str, kind:
     target = queries[0] if qn == 1 else queries
     rises = {counter: 1, "filter.device_pushdown": int(pred is not None and pushdown),
              "filter.host_upload": 0, **launch_rises(ALL_LAUNCH_KEYS, 0)}
-    client_ms, server_ms, device_ms = [], [], []
+    client_ms, server_ms = [], []
     result = None
     for _ in range(1 + SEL_READ_REPS):
         a = client.stats()
@@ -2136,13 +2136,11 @@ def selection_read(client, expr, spec, table_name: str, queries, smi: str, kind:
         b = client.stats()
         check_counter_rises(name, a, b, rises)
         server_ms.append((b["search.seconds"] - a.get("search.seconds", 0)) * 1e3)
-        device_ms.append((b.get("nomax.seconds", 0) - a.get("nomax.seconds", 0)) * 1e3)
         result = got if result is None else result
     row = {"phase": "selection_read", "search": name, "q": qn, "metric": metric, "filter": pred,
            "probes": probes, "rows_returned": result.num_rows, "first_client_ms": client_ms[0],
            "first_server_ms": server_ms[0], "warm_client_median_ms": float(np.median(client_ms[1:])),
            "warm_server_median_ms": float(np.median(server_ms[1:])),
-           "warm_nomax_median_ms": float(np.median(device_ms[1:])),
            "client_ms": client_ms, "server_ms": server_ms, "device": kind, "nvidia_smi": smi}
     emit(row)
     return result, row

@@ -21,6 +21,16 @@ hanging. Counters: ``batch.dispatches``, ``batch.requests``,
 ``batch.queries`` and ``batch.drains`` (queue drains, each giving one
 dispatch per distinct key).
 
+Spans (``utils/profiling``, recorded while a capture is active): on the
+handler's thread ``batch.wait`` (submit to done) or ``search.solo``; on
+the dispatcher's ``batch.idle`` (waiting on an empty queue) and
+``batch.dispatch`` (one group, its members' request ids); on the
+completer's ``batch.finish``. Timers: ``batch.queue_wait_seconds`` (each
+request's wait from its enqueue until a drain takes it),
+``batch.dispatch_seconds``, and ``batch.dispatch_host_seconds`` and
+``batch.dispatch_cpu_seconds`` (a dispatch's wall and its thread's CPU
+seconds, less its ``fenix.fetch`` waits for the card).
+
 ``FENIX_PIPELINE_DEPTH > 0`` adds a completion thread that waits for
 each batch's results while the dispatcher launches the next (at most
 that many batches in flight); the default 0 finishes each batch on the
@@ -32,6 +42,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from collections import deque
 
 import numpy as np
@@ -40,6 +51,7 @@ import pyarrow as pa
 from fenix_tpu_torch.engine import executor
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest
+from fenix_tpu_torch.utils import profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 # Upper bound on coalesced queries per dispatch: bounds the [Q, N/bucket]
@@ -48,12 +60,16 @@ MAX_BATCH_QUERIES = 4096
 
 
 class _Item:
-    __slots__ = ("req", "queries", "key", "result", "error", "done", "inflight")
+    __slots__ = ("req", "queries", "key", "request", "enqueued", "result", "error", "done", "inflight")
 
-    def __init__(self, req: executor.SearchRequest, queries: int, key: tuple) -> None:
+    def __init__(
+        self, req: executor.SearchRequest, queries: int, key: tuple, request: "int | None" = None
+    ) -> None:
         self.req = req
         self.queries = queries
         self.key = key
+        self.request = request  # the search's request id
+        self.enqueued = time.perf_counter()
         self.result: pa.Table | None = None
         self.error: BaseException | None = None
         self.done = threading.Event()
@@ -77,26 +93,36 @@ class SearchBatcher:
 
     # -- public -----------------------------------------------------------
 
-    def submit(self, req: executor.SearchRequest) -> pa.Table:
+    def submit(self, req: executor.SearchRequest, request: "int | None" = None) -> pa.Table:
+        """``req``'s result; ``request`` is its request id, for the spans."""
+        queued = self._queued(req)
+        if queued is None:
+            with profiling.annotate("search.solo", requests=(request,)):
+                return executor.execute_search(self.cache, req)
+        with profiling.annotate("batch.wait", requests=(request,)):
+            return self._wait(_Item(req, *queued, request))
+
+    def _queued(self, req: executor.SearchRequest) -> "tuple[int, tuple] | None":
+        """``(queries, batch key)`` of a request that may join a batch,
+        else None: it runs solo, on the caller's thread."""
         if not executor.batchable(req):
-            return executor.execute_search(self.cache, req)
+            return None
         try:
             field = self.cache.host_table(req.source).schema.field(req.column)
             dim = ingest.vector_field_type(field).list_size
         except Exception:
-            # missing table or column: fail on the caller's thread
-            return executor.execute_search(self.cache, req)
+            return None  # missing table or column: fail on the caller's thread
         queries = _query_count(req.target, dim)
         if queries is None or queries > self.max_queries // 2:
-            return executor.execute_search(self.cache, req)
+            return None
         try:
             # the key validates the metric: a bad request fails on the
             # caller's thread instead of reaching the dispatcher
-            key = executor.batch_key(req)
+            return queries, executor.batch_key(req)
         except Exception:
-            return executor.execute_search(self.cache, req)
+            return None
 
-        item = _Item(req, queries, key)
+    def _wait(self, item: _Item) -> pa.Table:
         with self._cv:
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(target=self._run, name="fenix-search-batcher", daemon=True)
@@ -119,15 +145,18 @@ class SearchBatcher:
         """Everything queued, up to ``max_queries`` queries; waits while the
         queue is empty."""
         with self._cv:
-            while not self._queue:
-                self._cv.wait()
+            if not self._queue:
+                with profiling.annotate("batch.idle"):
+                    while not self._queue:
+                        self._cv.wait()
             items: list[_Item] = []
             total = 0
             while self._queue and total + self._queue[0].queries <= self.max_queries:
                 item = self._queue.popleft()
                 items.append(item)
                 total += item.queries
-            return items
+        METRICS.add("batch.queue_wait_seconds", len(items) * time.perf_counter() - sum(i.enqueued for i in items))
+        return items
 
     def _run(self) -> None:
         while True:
@@ -151,6 +180,19 @@ class SearchBatcher:
                         item.done.set()
 
     def _dispatch(self, group: list[_Item]) -> None:
+        """One group as one device search. Its members are released once
+        the dispatch's span and counters are in, so a caller that has its
+        answer finds its dispatch counted."""
+        with profiling.annotate(
+            "batch.dispatch", counter="batch.dispatch", cpu=True, requests=tuple(item.request for item in group)
+        ):
+            settled = self._search(group)
+        for item in settled:
+            item.done.set()
+
+    def _search(self, group: list[_Item]) -> list[_Item]:
+        """Launch ``group`` and, without a completer, finish it; returns the
+        members it settled (none while they are in flight)."""
         METRICS.add("batch.dispatches")
         METRICS.add("batch.requests", len(group))
         METRICS.add("batch.queries", sum(item.queries for item in group))
@@ -158,32 +200,35 @@ class SearchBatcher:
             finish = executor.execute_search_batched(self.cache, [item.req for item in group], defer=True)
         except Exception as exc:  # noqa: BLE001 — delivered to the callers
             self._fallback_solo(group, exc)
-            return
+            return group
         if self.pipeline_depth <= 0:
             self._finish_group(group, finish)
-            return
+            return group
         for item in group:
             item.inflight = True
         self._inflight.put((group, finish))  # bounded: backpressure
+        return []
 
     def _complete(self) -> None:
         while True:
             group, finish = self._inflight.get()
-            self._finish_group(group, finish)
+            with profiling.annotate("batch.finish", requests=tuple(item.request for item in group)):
+                self._finish_group(group, finish)
+            for item in group:
+                item.done.set()
 
     def _finish_group(self, group: list[_Item], finish) -> None:
+        """Each member's result, or its error."""
         try:
             results = finish()
             for item, result in zip(group, results):
                 item.result = result
-            for item in group:
-                item.done.set()
         except Exception as exc:  # noqa: BLE001
             self._fallback_solo(group, exc)
 
     def _fallback_solo(self, group: list[_Item], exc: BaseException) -> None:
-        """Deliver a failed batch: a poisoned group (one bad target dim, say)
-        must not fail innocent members, so each is retried solo."""
+        """A failed batch's results: a poisoned group (one bad target dim,
+        say) must not fail innocent members, so each is retried solo."""
         if len(group) > 1:
             for item in group:
                 try:
@@ -192,8 +237,6 @@ class SearchBatcher:
                     item.error = solo_exc
         else:
             group[0].error = exc
-        for item in group:
-            item.done.set()
 
 
 def _query_count(target, dim: int) -> int | None:

@@ -28,12 +28,19 @@ both packages pick the same route though this one pads no queries):
 the clustered gather (``topk2.topk_ivf_clustered`` over
 ``session.clustered``; counter ``search.ivf_clustered``) or the masked
 scan (``topk2.topk_two_phase_probed``, fp32/bf16/int8; counter
-``search.ivf_scan``). Timers: ``ivf.seconds`` (ranking, layouts, the
-device search and the copy of its result, so ``search.seconds`` minus
-it is the wire and the result gather), and within it
-``ivf.rank_seconds`` (the host cell ranking) and ``ivf.route_seconds``
-(the clustered layout's host metadata, the bucket lists and the route
-decision).
+``search.ivf_scan``). Timers: ``ivf.rank_seconds`` (the host cell
+ranking) and ``ivf.route_seconds`` (the clustered layout's host
+metadata, the bucket lists and the route decision).
+
+Spans (``utils/profiling``, recorded while a capture is active):
+``fenix.snapshot`` (``session``), ``executor.prepare`` (targets, host
+views, filter plan), ``executor.launch`` (enqueueing phases 1 and 2,
+holding ``fenix.rank_cells``, ``ivf.route`` and ``fenix.mask_build``),
+``fenix.fetch`` (the wait for the card, timed always, so that a
+dispatch's host time leaves it out) and ``fenix.result_gather`` (timer
+``results.gather_seconds``); while a capture is active, phase 2's device
+time (``ops/topk2``, counter ``phase2.device_seconds``) is read once the
+fetch has synchronised.
 
 Probed search past the device budget is ``residency.probed_topk`` on
 the host.
@@ -482,7 +489,7 @@ def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
         arrays = [t.numpy() for t in tensors]
 
         def ready() -> list[np.ndarray]:
-            with profiling.annotate("fenix.fetch"):
+            with profiling.annotate("fenix.fetch", wait=True):
                 return arrays
 
         return ready
@@ -493,7 +500,7 @@ def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
     done.record()
 
     def wait() -> list[np.ndarray]:
-        with profiling.annotate("fenix.fetch"):
+        with profiling.annotate("fenix.fetch", wait=True):
             done.synchronize()
             return [host.numpy() for host in hosts]
 
@@ -513,45 +520,45 @@ def _execute_batch_once(
         return (lambda: tables) if defer else tables
 
     data, corpus, snap_stamp = cache.snapshot(r0.source, r0.column, r0.coding)
-    column_type = ingest.vector_field_type(data.schema.field(r0.column))
-    value_dtype = column_type.value_type.to_pandas_dtype()
-    targets = [normalize_target(r.target, column_type.list_size) for r in reqs]
-    counts = [t.shape[0] for t in targets]
-    stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
-    coding_data = cache.coding(r0.coding) if probed else None
-    metric = _request_metric(r0, coding_data)
+    with profiling.annotate("executor.prepare"):
+        column_type = ingest.vector_field_type(data.schema.field(r0.column))
+        value_dtype = column_type.value_type.to_pandas_dtype()
+        targets = [normalize_target(r.target, column_type.list_size) for r in reqs]
+        counts = [t.shape[0] for t in targets]
+        stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
+        coding_data = cache.coding(r0.coding) if probed else None
+        metric = _request_metric(r0, coding_data)
 
-    n_pad, rows = corpus.rows_padded, corpus.rows
-    views = cache.host_column_views(r0.source, data, snap_stamp, r0.coding)
-    # members share one predicate (the batch key carries its wire form),
-    # so one overlay serves the whole batch
-    plan = _FilterPlan(cache, r0.source, r0.column, r0.filter, data, n_pad, rows)
+        n_pad, rows = corpus.rows_padded, corpus.rows
+        views = cache.host_column_views(r0.source, data, snap_stamp, r0.coding)
+        # members share one predicate (the batch key carries its wire form),
+        # so one overlay serves the whole batch
+        plan = _FilterPlan(cache, r0.source, r0.column, r0.filter, data, n_pad, rows)
 
     k = int(min(max(r.maxval for r in reqs), rows))
     k_pad = min(_canonical_k(k), n_pad)
-    queries = torch.tensor(stacked, device=cache.device)  # a target may view Arrow memory
-    t = time.perf_counter()
-    if probed:
-        dists, ids = _probed_topk(
-            cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
-        )
-    elif cache.mesh is not None:
-        dists, ids = _mesh_exact(cache, r0, corpus, queries, metric, plan, k_pad, snap_stamp)
-    else:
-        aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
-        aux_add = plan.overlay(aux_add)
-        scan = _scan_copies(cache, r0)
-        _check_revision(cache, r0.source, r0.column, r0.coding, snap_stamp)
-        dists, ids = topk2.topk_two_phase(
-            corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
-        )
-    # one device→host copy of the small [Q, k] results
-    fetch = _fetch_async(dists[:, :k], ids[:, :k])
+    with profiling.annotate("executor.launch"), profiling.device_timings() as timings:
+        queries = torch.tensor(stacked, device=cache.device)  # a target may view Arrow memory
+        if probed:
+            dists, ids = _probed_topk(
+                cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
+            )
+        elif cache.mesh is not None:
+            dists, ids = _mesh_exact(cache, r0, corpus, queries, metric, plan, k_pad, snap_stamp)
+        else:
+            aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
+            aux_add = plan.overlay(aux_add)
+            scan = _scan_copies(cache, r0)
+            _check_revision(cache, r0.source, r0.column, r0.coding, snap_stamp)
+            dists, ids = topk2.topk_two_phase(
+                corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
+            )
+        # one device→host copy of the small [Q, k] results
+        fetch = _fetch_async(dists[:, :k], ids[:, :k])
 
     def finish() -> list[pa.Table]:
         dists_np, ids_np = fetch()
-        if probed:
-            METRICS.add("ivf.seconds", time.perf_counter() - t)
+        profiling.settle(timings)  # the fetch has passed phase 2's events
         out = []
         offset = 0
         for req, c in zip(reqs, counts):
@@ -597,8 +604,7 @@ def _execute_nomax(
     """No-top-k read (``maxval=None``): every selected row with its exact
     distance, in table order (the reference's index.py:162, probe pruning
     AND'd into the filter). Counters: ``search.nomax_full`` and
-    ``search.nomax_selected``; ``nomax.seconds`` times the device work and
-    its copies to the host.
+    ``search.nomax_selected``.
 
     Full read (no filter, no probes): the output is ``[Q, rows]``; it is
     computed in row chunks, each copied to the host, so no ``[Q, N_pad]``
@@ -618,7 +624,6 @@ def _execute_nomax(
     else:
         pieces, q_on = [(0, rows, corpus.data)], [queries]
     chunk = select_ops.chunk_for(pieces[0][2].shape[0], num_queries, _NOMAX_BLOCK)
-    t = time.perf_counter()
 
     if not plan.active and coding_data is None:
         dists = np.empty((num_queries, rows), np.float32)
@@ -628,7 +633,6 @@ def _execute_nomax(
                 dists[:, offset + start : offset + stop] = select_ops.distances(
                     q_s, x[start:stop], metric
                 ).cpu().numpy()
-        METRICS.add("nomax.seconds", time.perf_counter() - t)
         METRICS.add("search.nomax_full")
         _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
         parts = []
@@ -684,7 +688,6 @@ def _execute_nomax(
     else:
         ids_all = np.full((num_queries, 1), -1, np.int64)
         d_all = np.full((num_queries, 1), np.inf, np.float32)
-    METRICS.add("nomax.seconds", time.perf_counter() - t)
     METRICS.add("search.nomax_selected")
     _check_revision(cache, req.source, req.column, req.coding, snap_stamp)
     return gather_results(data, select, d_all, ids_all, value_dtype, views=views)
@@ -763,16 +766,19 @@ def _mesh_probed(
     q_pad = _canonical_q(q)
     t = time.perf_counter()
     bucket_stack = None
-    if _clustered_eligible(coding_data):
-        perm_local, offsets, _ = cache.sharded_clustered_meta(req.coding, req.source, req.column)
-        if perm_local.shape[0] != plan.n_pad:
-            raise _StaleRevision
-        per = perm_local.shape[0] // mesh.size
-        bucket = topk2.bucket_for(q_pad, per)
-        lists = [_ivf_bucket_lists(cells_np, offsets[s], bucket, per // bucket) for s in range(mesh.size)]
-        width = max(b.shape[1] for b in lists)
-        if q_pad * width * bucket <= per:
-            bucket_stack = np.stack([np.pad(b, ((0, 0), (0, width - b.shape[1])), constant_values=-1) for b in lists])
+    with profiling.annotate("ivf.route"):
+        if _clustered_eligible(coding_data):
+            perm_local, offsets, _ = cache.sharded_clustered_meta(req.coding, req.source, req.column)
+            if perm_local.shape[0] != plan.n_pad:
+                raise _StaleRevision
+            per = perm_local.shape[0] // mesh.size
+            bucket = topk2.bucket_for(q_pad, per)
+            lists = [_ivf_bucket_lists(cells_np, offsets[s], bucket, per // bucket) for s in range(mesh.size)]
+            width = max(b.shape[1] for b in lists)
+            if q_pad * width * bucket <= per:
+                bucket_stack = np.stack(
+                    [np.pad(b, ((0, 0), (0, width - b.shape[1])), constant_values=-1) for b in lists]
+                )
     METRICS.add("ivf.route_seconds", time.perf_counter() - t)
 
     if bucket_stack is not None:
@@ -823,16 +829,17 @@ def _probed_topk(
 
     t = time.perf_counter()
     bucket_lists = None
-    if _clustered_eligible(coding_data):
-        perm, offsets = cache.clustered_meta(req.coding, req.source, req.column)
-        if perm.shape[0] != n_pad:
-            raise _StaleRevision  # snapshot and layout span revisions
-        bucket = topk2.bucket_for(q_pad, n_pad)
-        bucket_lists = _ivf_bucket_lists(cells_np, offsets, bucket, n_pad // bucket)
-        # the clustered gather moves Q·B·bucket rows in scattered chunks,
-        # the masked scan reads the corpus once whatever Q is
-        if q_pad * bucket_lists.shape[1] * bucket > n_pad:
-            bucket_lists = None
+    with profiling.annotate("ivf.route"):
+        if _clustered_eligible(coding_data):
+            perm, offsets = cache.clustered_meta(req.coding, req.source, req.column)
+            if perm.shape[0] != n_pad:
+                raise _StaleRevision  # snapshot and layout span revisions
+            bucket = topk2.bucket_for(q_pad, n_pad)
+            bucket_lists = _ivf_bucket_lists(cells_np, offsets, bucket, n_pad // bucket)
+            # the clustered gather moves Q·B·bucket rows in scattered chunks,
+            # the masked scan reads the corpus once whatever Q is
+            if q_pad * bucket_lists.shape[1] * bucket > n_pad:
+                bucket_lists = None
     METRICS.add("ivf.route_seconds", time.perf_counter() - t)
 
     if bucket_lists is None:
@@ -921,7 +928,7 @@ def gather_results(
     their exact result types. An extension column read without its type
     registered keeps its ``ARROW:extension:*`` field metadata, so the
     result's IPC form is the typed column's."""
-    with profiling.annotate("fenix.result_gather"):
+    with profiling.annotate("fenix.result_gather", counter="results.gather"):
         num_queries, k = ids.shape
         valid = ids >= 0  # [Q, k]
         row_ids = ids[valid].astype(np.int64)

@@ -6,12 +6,12 @@ join's attribute table. A request with a ``join`` goes to
 ``analytics.execute_search_join`` (with its ``aggregate``, if any); every
 other request goes to the cache's micro-batcher
 (``batching.get_batcher(cache).submit``), which coalesces concurrent
-compatible searches into one device search and runs the rest solo. A
-request captured by a trace (``profiling.tracing()``) runs on its own
-thread instead (a batch of one, the batcher's path for a lone request),
-since torch's profiler records only the thread that started it. A
-config with an ``aggregate`` and no ``join`` is the plain search, as in
-the JAX package, which reads the aggregate only inside a join.
+compatible searches into one device search and runs the rest solo; a
+traced request too, since the spans of every thread are recorded while
+a capture is active (``utils/profiling``). ``request`` is the search's
+request id, which its spans carry. A config with an ``aggregate`` and no
+``join`` is the plain search, as in the JAX package, which reads the
+aggregate only inside a join.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from fenix_tpu_torch import expr as expr_mod
 from fenix_tpu_torch.engine import analytics, batching, executor
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.parallel import distributed
-from fenix_tpu_torch.utils import profiling
 
 
 def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchRequest:
@@ -48,14 +47,14 @@ def request_from_config(config: dict[str, Any], target: Any) -> executor.SearchR
     )
 
 
-def run_search_config(cache: DeviceCache, config: dict[str, Any], target: Any) -> pa.Table:
+def run_search_config(
+    cache: DeviceCache, config: dict[str, Any], target: Any, request: "int | None" = None
+) -> pa.Table:
     config = {**config, "source": distributed.resolve_source(cache.root, config["source"])}
     req = request_from_config(config, target)
     join = config.get("join")
     if join is None:
-        if profiling.tracing():
-            return executor.execute_search(cache, req)
-        return batching.get_batcher(cache).submit(req)
+        return batching.get_batcher(cache).submit(req, request)
     join = {**join, "source": distributed.resolve_source(cache.root, join["source"])}
     aggregate = config.get("aggregate")
     return analytics.execute_search_join(

@@ -53,13 +53,18 @@ registers no extension type and reads them by name.
 
 Diagnostics: with ``$FENIX_TRACE_DIR`` set, each search is captured by
 ``utils/profiling.trace`` into a Chrome trace under ``fenix.rpc.search``
-(one capture at a time; a traced search runs on its handler's thread, so
-its spans land in the capture); with ``$FENIX_QUERY_LOG`` set, each
-search is appended to that query log (``utils/replay.py``).
+(one capture at a time); a traced search goes through the micro-batcher
+like any other, and the spans of the dispatcher's thread land in the
+capture beside the handler's. Each search gets a request id, which its
+``fenix.rpc.search`` span and its batch's ``batch.dispatch`` span carry;
+the handler's own work is timed as ``flight.decode_seconds`` (the target)
+and ``flight.encode_seconds`` (the result). With ``$FENIX_QUERY_LOG``
+set, each search is appended to that query log (``utils/replay.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -143,6 +148,7 @@ class Server(fl.FlightServerBase):
         self.root = os.path.abspath(root)
         self.device = device
         self.grpc = f"grpc://{host}:{port}"
+        self._search_ids = itertools.count(1)  # request ids of the searches' spans
         super().__init__(location=self.grpc)
 
     @property
@@ -235,29 +241,33 @@ class Server(fl.FlightServerBase):
     ) -> None:
         FAULTS.check("search")
         config = _loads(descriptor.command)
-        target_table = reader.read_all()
-        # a typed target (tensor, quint8) arrives in its unregistered form
-        target = types.typed_column(target_table, "target").combine_chunks()
-
-        # a trace per request behind $FENIX_TRACE_DIR (a no-op when unset;
-        # requests during an active capture run untraced)
+        request = next(self._search_ids)
+        # a trace per request behind $FENIX_TRACE_DIR (a no-op when unset; a
+        # request during an active capture writes no file, its spans land in it)
         with profiling.trace(cuda=self.cache.device.type == "cuda"), profiling.annotate(
-            "fenix.rpc.search"
-        ), METRICS.timed("search", source=config["source"], metric=config.get("metric")) as record:
-            data = service.run_search_config(self.cache, config, target)
-            record["rows_returned"] = data.num_rows
-            # flat value column = one query (reference wire shape);
-            # FixedSizeList (or typed) column = one query per row
-            typed = isinstance(target, pa.ExtensionArray)
-            record["queries"] = len(target) if typed or pa.types.is_fixed_size_list(target.type) else 1
-            record["maxval"] = config.get("maxval")
-            record["probes"] = config.get("probes")
-            record["precision"] = config.get("precision") or "fp32"
+            "fenix.rpc.search", requests=(request,)
+        ):
+            with profiling.annotate("flight.decode", counter="flight.decode"):
+                target_table = reader.read_all()
+                # a typed target (tensor, quint8) arrives in its unregistered form
+                target = types.typed_column(target_table, "target").combine_chunks()
 
-        replay.record(config, target_table, data)
+            with METRICS.timed("search", source=config["source"], metric=config.get("metric")) as record:
+                data = service.run_search_config(self.cache, config, target, request)
+                record["rows_returned"] = data.num_rows
+                # flat value column = one query (reference wire shape);
+                # FixedSizeList (or typed) column = one query per row
+                typed = isinstance(target, pa.ExtensionArray)
+                record["queries"] = len(target) if typed or pa.types.is_fixed_size_list(target.type) else 1
+                record["maxval"] = config.get("maxval")
+                record["probes"] = config.get("probes")
+                record["precision"] = config.get("precision") or "fp32"
 
-        writer.begin(data.schema)
-        writer.write_table(data)
+            replay.record(config, target_table, data)
+
+            with profiling.annotate("flight.encode", counter="flight.encode"):
+                writer.begin(data.schema)
+                writer.write_table(data)
 
     # -- control plane ----------------------------------------------------
 

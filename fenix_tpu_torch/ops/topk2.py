@@ -14,7 +14,9 @@ per-row int8 copy), chosen by dtype and query count in
 their rows and rescores them exactly in fp32 (TF32 is off, see
 ``ops/__init__.py``), then takes the final top-k; an l2 distance is
 taken as ``‖q − v‖`` of the winning row (the fused score's expanded
-form cancels for near rows).
+form cancels for near rows). While a capture is active its device time
+is timed by a pair of CUDA events (``utils/profiling.device_timer``,
+counter ``phase2.device_seconds``), for a caller that collects them.
 
 **Phase A** of the int8-resident and streaming modes
 (:func:`topk_window_int8`) stops after a narrowing rescore and returns a
@@ -42,6 +44,7 @@ import torch
 
 from fenix_tpu_torch.ops import kernels
 from fenix_tpu_torch.ops.distance import NEG_INF, canonical_metric, normalize
+from fenix_tpu_torch.utils import profiling
 
 BUCKET = 128  # rows per bucket for small query batches
 # Finer rescore granularity for big query batches: phase-2 gather
@@ -51,6 +54,7 @@ _BUCKET_SWITCH_Q = 64  # above this query count use BUCKET_LARGE_Q
 BUCKET_PAD = 8  # extra buckets gathered for fp-rounding safety
 _RESCORE_GATHER_CAP = 2 << 30  # phase-2 [chunk, kp, bucket, D] gather cap
 _QUANTIZE_CHUNK_ROWS = 1 << 20  # bounds quantize temporaries to one chunk
+PHASE2_COUNTER = "phase2.device_seconds"  # phase 2's device time, while a capture is active
 
 
 # -- metric preparation ----------------------------------------------------
@@ -231,9 +235,10 @@ def topk_two_phase(
     bucket_max = bucket_scores(
         queries_p, corpus, aux_mul, aux_add, bucket, corpus_scan, corpus_scan_int8
     )
-    bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
-    del bucket_max
-    out = _rescore(corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric)
+    with profiling.device_timer(PHASE2_COUNTER, corpus.device):
+        bidx = topk_buckets(bucket_max, kp)  # ascending → candidates in row order
+        del bucket_max
+        out = _rescore(corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric)
     return out if with_scores else out[:2]
 
 
@@ -518,11 +523,13 @@ def topk_two_phase_probed(
             queries_p, corpus, aux_mul, aux_add, coded, cells, bucket
         )
     pad = BUCKET_PAD * 2 if corpus_scan_int8 is not None else BUCKET_PAD
-    bidx = topk_buckets(bucket_max, min(k + pad, n // bucket))
-    del bucket_max
-    return _rescore(
-        corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric, probe=(coded, cells)
-    )[:2]
+    with profiling.device_timer(PHASE2_COUNTER, corpus.device):
+        bidx = topk_buckets(bucket_max, min(k + pad, n // bucket))
+        del bucket_max
+        out = _rescore(
+            corpus, queries, queries_p, aux_mul, aux_add, bidx, bucket, k, metric, probe=(coded, cells)
+        )
+    return out[:2]
 
 
 def _topk_min_id(

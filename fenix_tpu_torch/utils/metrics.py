@@ -1,8 +1,9 @@
 """Structured per-query metrics and counters.
 
-Copied from ``fenix_tpu/utils/metrics.py`` (it is JAX-free); only the package
-paths in imports and the logger name differ, so both packages share
-one on-disk format.
+Copied from ``fenix_tpu/utils/metrics.py`` (it is JAX-free); the package
+paths in imports and the logger name differ, and ``timed`` builds its log
+line only when INFO is enabled (it runs on every search), so both
+packages share one on-disk format.
 
 The reference has no observability beyond a startup log line
 (upstream fenix/launch.py:7-15; SURVEY.md §5). Here every
@@ -38,19 +39,20 @@ class Metrics:
 
     @contextmanager
     def timed(self, name: str, **fields: Any) -> Iterator[dict[str, Any]]:
-        """Time a block; emits one structured log line and bumps
-        ``<name>.count`` / ``<name>.seconds``."""
+        """Time a block; bumps ``<name>.count`` / ``<name>.seconds`` and,
+        with INFO enabled, emits one structured log line."""
         record: dict[str, Any] = dict(fields)
         start = time.perf_counter()
         try:
             yield record
         finally:
             elapsed = time.perf_counter() - start
-            record["op"] = name
-            record["seconds"] = round(elapsed, 6)
             self.add(f"{name}.count")
             self.add(f"{name}.seconds", elapsed)
-            LOGGER.info(json.dumps(record, default=str))
+            if LOGGER.isEnabledFor(logging.INFO):
+                record["op"] = name
+                record["seconds"] = round(elapsed, 6)
+                LOGGER.info(json.dumps(record, default=str))
 
 
 GLOBAL = Metrics()
