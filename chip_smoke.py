@@ -96,12 +96,15 @@ Phases, each printing one JSON line with its own timings:
    65,536 rows, for the trained coder and a 2 x 64 composite coder
    (codebooks within 1e-5 relative except centroids a near-tie flip
    touched, flips counted); the float64 oracle over the rows of each
-   query's probe cells (those of topk_cells_np, the server's ranking)
-   that pass the filter, held as in phase 4 (fp32 ids up to near ties,
+   query's probe cells (those of the server's own ranking,
+   executor.rank_cells, which fails the phase where it differs from a
+   float64 ranking of the cells off a near tie within 1e-5 relative;
+   every phase's probe cells print a probe_cells line with the count of
+   queries at such a near tie) that pass the filter, held as in phase 4 (fp32 ids up to near ties,
    int8 recall@10 >= 0.99, distances within 1e-4 * max(1, d)) on every
    query of a batch up to 64 and 64 evenly spaced queries of larger ones;
-   the count of queries whose topk_cells_np probe set differs from a
-   float64 ranking; and, timed alone, the masked scan at the Q=1024 shape
+   the count of queries whose probe set differs from the float64
+   ranking at such a near tie; and, timed alone, the masked scan at the Q=1024 shape
    beside the unprobed phase-1 kernel at the same Q, N and D, the
    clustered gather at the Q=8 shape, one Lloyd step and one assignment
    block. No hand-written kernel serves IVF: the path's launch counts are
@@ -538,6 +541,7 @@ IVF_SPLIT_KEYS = ("search.seconds", "ivf.rank_seconds", "ivf.route_seconds")
 IVF_SAMPLE_ROWS = 1 << 20  # rows of the assignment check
 IVF_STEP_ROWS = 65_536  # rows of the Lloyd-step check
 IVF_CHECKED = 64  # queries of a larger batch held to the oracle, evenly spaced
+CELL_TIE = 1e-5  # cells whose float64 distances lie this close may rank either way in fp32
 IVF_TIMED = {"masked_scan": "ivf_q1024_p64", "clustered": "ivf_q8_p64_filtered"}  # timed alone
 
 # phase 8: selection, on the phase-3 server and table after phase 7 (the
@@ -1844,6 +1848,78 @@ def lloyd_step_check(kmeans, cells, codebooks_np, rows_np, name: str) -> dict:
             "assign_near_tie_differences": int(moved.numel())}
 
 
+def cell_distances64(queries, codebooks, metric: str, device):
+    """``[Q, k^n]`` float64 distances of the composite cells (the sum over
+    the codebooks, codebook 0 the most significant digit), computed here
+    apart from the port's code."""
+    import numpy as np
+    import torch
+
+    q = torch.from_numpy(np.asarray(queries)).to(device, torch.float64)
+    cb = torch.from_numpy(np.asarray(codebooks)).to(device, torch.float64)
+    if metric == "cosine":
+        q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        cb = cb / cb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    if metric == "l2":
+        per = torch.stack([torch.cdist(q, c) for c in cb], dim=1)
+    else:
+        dots = torch.einsum("qd,nkd->qnk", q, cb)
+        per = 0.5 - 0.5 * dots if metric == "cosine" else -dots
+    out = per[:, 0]
+    for j in range(1, per.shape[1]):
+        out = (out[:, :, None] + per[:, j, None, :]).reshape(q.shape[0], -1)
+    return out
+
+
+def cells_off_float64(cells_np, queries, codebooks, metric: str) -> int:
+    """The count of queries whose probe set (``cells_np``, ``[Q, P]``)
+    differs from the ``P`` nearest cells in float64; an AssertionError
+    where one differs outside near ties: a set holds every cell nearer
+    than the first cell past the ``P`` nearest by more than CELL_TIE, and
+    none farther than the ``P``-th by more than it (CELL_TIE relative past
+    a distance of 1)."""
+    import torch
+
+    d = cell_distances64(queries, codebooks, metric, DEVICE)
+    q, probes = cells_np.shape
+    rows = torch.arange(q, device=d.device)[:, None]
+    chosen = torch.zeros_like(d, dtype=torch.bool)
+    chosen[rows, torch.from_numpy(cells_np.astype("int64")).to(d.device)] = True
+    nearest = torch.sort(d, dim=1, stable=True)
+    last = nearest.values[:, probes - 1 : probes]
+    loose = d <= last + CELL_TIE * last.abs().clamp_min(1.0)
+    if probes < d.shape[1]:
+        past = nearest.values[:, probes : probes + 1]
+        strict = d < past - CELL_TIE * past.abs().clamp_min(1.0)
+    else:
+        strict = loose
+    off = (strict & ~chosen).any(dim=1) | (chosen & ~loose).any(dim=1)
+    if bool(off.any()):
+        raise AssertionError(f"{int(off.sum())} of {q} queries probe cells that a float64 ranking "
+                             f"puts elsewhere, off a near tie (metric {metric}, {probes} probes)")
+    top = torch.zeros_like(chosen)
+    top[rows, nearest.indices[:, :probes]] = True
+    return int((top != chosen).any(dim=1).sum())
+
+
+def server_cells(queries, codebooks, metric: str, probes: int, site: str):
+    """Each query's top ``probes`` cells by the server's own ranking
+    (``executor.rank_cells`` on DEVICE), held to the float64 ranking
+    (cells_off_float64); prints a ``probe_cells`` line for ``site`` with
+    the count of queries that differ from it at a near tie."""
+    import numpy as np
+
+    from fenix_tpu_torch.engine import executor
+
+    queries = np.ascontiguousarray(queries, dtype=np.float32)
+    codebooks = np.asarray(codebooks, dtype=np.float32)
+    cells_np, _ = executor.rank_cells(DEVICE, queries, codebooks, metric, probes)
+    near = cells_off_float64(cells_np, queries, codebooks, metric)
+    emit({"phase": "probe_cells", "site": site, "metric": metric, "queries": int(cells_np.shape[0]),
+          "probes": int(cells_np.shape[1]), "probe_sets_off_float64": near})
+    return cells_np
+
+
 def probe_mask(codes_dev, cells_np, tags_dev, n_cells: "int | None" = None):
     """``mask(start, stop)`` for Oracle.topk: the rows whose cell (of
     ``n_cells``) is among those queries' probe cells (and, given
@@ -1863,29 +1939,23 @@ def probe_mask(codes_dev, cells_np, tags_dev, n_cells: "int | None" = None):
 
 def ivf_oracle_checks(oracle, ivf: dict, tags) -> list[dict]:
     """Each phase-7 search against the float64 oracle over its probe
-    cells (as the server ranks them, cells.topk_cells_np), on every query
+    cells (as the server ranks them, server_cells), on every query
     of a batch up to IVF_CHECKED and IVF_CHECKED evenly spaced queries of
     a larger one; and the count of queries whose probe set differs from a
-    float64 ranking of the cells."""
+    float64 ranking of the cells at a near tie (cells_off_float64)."""
     import numpy as np
     import torch
-
-    from fenix_tpu_torch.ops import cells
 
     codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
     tags_dev = torch.from_numpy(tags).to(oracle.device)
     cb = ivf["codebooks"]
-    cb64 = torch.from_numpy(cb[0]).to(oracle.device, torch.float64)
     out = []
     for name, qn, probes, filtered, precision, route, _ in IVF_SEARCHES:
         queries, result = ivf["searches"][name]
         ids, dist = split_result(result, qn, IVF_K)
         sel = np.arange(qn) if qn <= IVF_CHECKED else np.linspace(0, qn - 1, IVF_CHECKED).astype(np.int64)
-        probe_cells = cells.topk_cells_np(queries, cb, "l2", probes)
-        q64 = torch.from_numpy(queries).to(oracle.device, torch.float64)
-        d64 = torch.cdist(q64, cb64)
-        ranked = torch.topk(d64, probes, dim=1, largest=False).indices.cpu().numpy()
-        boundary = sum(set(a.tolist()) != set(b.tolist()) for a, b in zip(ranked, probe_cells))
+        probe_cells = server_cells(queries, cb, "l2", probes, f"ivf_oracle.{name}")
+        boundary = cells_off_float64(probe_cells, queries, cb, "l2")
         check = check_ids(oracle, name, "l2", IVF_K, precision, np.ascontiguousarray(queries[sel]),
                           ids[sel], dist[sel], probe_mask(codes_dev, probe_cells[sel],
                                                           tags_dev if filtered else None),
@@ -1916,7 +1986,7 @@ def ivf_timings(kernels, topk2, kmeans, cells, executor, vectors, tags, ivf, smi
     qn, p = queries.shape[0], probes[IVF_TIMED["masked_scan"]]
     mul, add = topk2.prepare_aux(corpus, None, "l2")
     coded = torch.from_numpy(codes.astype(np.int32)).to(DEVICE)
-    probe = torch.from_numpy(cells.topk_cells_np(queries, ivf["codebooks"], "l2", p)).to(DEVICE)
+    probe = torch.from_numpy(server_cells(queries, ivf["codebooks"], "l2", p, "ivf_timings.masked_scan")).to(DEVICE)
     q = torch.from_numpy(queries).to(DEVICE)
     qp = topk2.prepare_queries(q, "l2").contiguous()
     bucket = topk2.bucket_for(qn, ROWS)
@@ -1952,7 +2022,7 @@ def ivf_timings(kernels, topk2, kmeans, cells, executor, vectors, tags, ivf, smi
     mul_s, add_s = topk2.prepare_aux(corpus_s, valid_s, "l2")
     coded_s = coded[perm_dev]
     orig = perm_dev.to(torch.int32)
-    probe = cells.topk_cells_np(queries, ivf["codebooks"], "l2", p)
+    probe = server_cells(queries, ivf["codebooks"], "l2", p, "ivf_timings.clustered")
     bucket = topk2.bucket_for(queries.shape[0], ROWS)
     lists = executor._ivf_bucket_lists(probe, offsets, bucket, ROWS // bucket)
     q = torch.from_numpy(queries).to(DEVICE)
@@ -2223,12 +2293,10 @@ def check_selection(oracle, name: str, metric: str, queries, result, want_rows) 
 
 def phase_selection_checks(oracle, tags, ivf: dict, sel: dict) -> list[dict]:
     """Phase 8 (c): each device read against its oracle; the probed read's
-    rows are those of the server's probe cells (cells.topk_cells_np over
+    rows are those of the server's probe cells (server_cells over
     the persisted codebooks) that pass the filter, through probe_mask."""
     import numpy as np
     import torch
-
-    from fenix_tpu_torch.ops import cells
 
     out = []
     for name, (spec, queries, result) in sel["reads"].items():
@@ -2239,7 +2307,7 @@ def phase_selection_checks(oracle, tags, ivf: dict, sel: dict) -> list[dict]:
             want = lambda qi, rows=rows: rows  # noqa: E731
         else:
             codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
-            probe = cells.topk_cells_np(queries, ivf["codebooks"], "l2", probes)
+            probe = server_cells(queries, ivf["codebooks"], "l2", probes, f"selection.{name}")
             mask = probe_mask(codes_dev, probe, torch.from_numpy(tags).to(oracle.device))
             want = lambda qi, mask=mask: np.flatnonzero(mask(qi, qi + 1)[0].cpu().numpy())  # noqa: E731
         out.append(check_selection(oracle, name, metric, queries, result, want))
@@ -2257,7 +2325,6 @@ def selection_timings(vectors, tags, ivf: dict, smi: str, kind: str) -> dict:
 
     from fenix_tpu_torch import expr
     from fenix_tpu_torch.engine import executor
-    from fenix_tpu_torch.ops import cells
     from fenix_tpu_torch.ops import select as select_ops
 
     def timed(shape: dict, per_request: str, fn) -> dict:
@@ -2290,7 +2357,7 @@ def selection_timings(vectors, tags, ivf: dict, smi: str, kind: str) -> dict:
                                          chunk=chunk, width=width))
 
     _, qn, metric, pred, probes = SEL_READS[1]
-    probe = cells.topk_cells_np(make_queries(vectors, qn, seed=301), ivf["codebooks"], "l2", probes)
+    probe = server_cells(make_queries(vectors, qn, seed=301), ivf["codebooks"], "l2", probes, "selection_timings")
     cells_sorted = torch.from_numpy(np.sort(probe, axis=1).astype(np.int32)).to(DEVICE)
     coded = torch.from_numpy(ivf["codes"].astype(np.int32)).to(DEVICE)
     chunk = select_ops.chunk_for(n, qn, executor._NOMAX_BLOCK)
@@ -2417,7 +2484,7 @@ def phase_ivf_host_checks(oracle, vectors, tags, ivfh: dict, smi: str, kind: str
     """Phase 9 after the server: IVF_SAMPLE_ROWS rows' cell ids against the
     float64 argmin; one Lloyd step of a streamed chunk's shape on the card
     against the CPU from the trained codebooks; each probed search against
-    the float64 oracle over its probe cells' rows (cells.topk_cells_np)
+    the float64 oracle over its probe cells' rows (server_cells)
     that pass the filter: recall@100 >= 0.99, every distance within
     1e-4 * max(1, d); the probed read's rows exactly the probe cells' rows
     with tag == 7, in table order; then the host hot ops timed alone."""
@@ -2444,14 +2511,14 @@ def phase_ivf_host_checks(oracle, vectors, tags, ivfh: dict, smi: str, kind: str
     for name, qn, probes, filtered in IVFH_SEARCHES:
         queries, _, result = ivfh["searches"][name]
         ids, dist = split_result(result, qn, IVFH_K)
-        probe = cells.topk_cells_np(queries, codebooks, "l2", probes)
+        probe = server_cells(queries, codebooks, "l2", probes, f"ivf_host.{name}")
         mask = probe_mask(codes_dev, probe, tags_dev if filtered else None, IVFH_CELLS)
         check = check_ids(oracle, name, "l2", IVFH_K, "int8", queries, ids, dist, mask, require_ties=False)
         out["oracle"].append({"search": name, **check})
         emit({"phase": "ivf_host_oracle", **out["oracle"][-1]})
     read_queries, read = ivfh["read"]
     name, _, metric, pred, probes = IVFH_READ
-    probe = cells.topk_cells_np(read_queries, codebooks, "l2", probes)
+    probe = server_cells(read_queries, codebooks, "l2", probes, f"ivf_host.{name}")
     want = lambda qi: np.flatnonzero(np.isin(codes, probe[qi]) & tag_mask(tags, pred))  # noqa: E731
     out["read"] = check_selection(oracle, name, metric, read_queries, read, want)
     emit({"phase": "ivf_host_oracle", **out["read"]})
@@ -2460,7 +2527,7 @@ def phase_ivf_host_checks(oracle, vectors, tags, ivfh: dict, smi: str, kind: str
     # (native.row_score over its probe cells' rows, held contiguous as the
     # cell-sorted layout holds them) and one host assignment block
     queries = ivfh["searches"][IVFH_SEARCHES[-1][0]][0]
-    probe = cells.topk_cells_np(queries[:1], codebooks, "l2", IVFH_SEARCHES[-1][2])[0]
+    probe = server_cells(queries[:1], codebooks, "l2", IVFH_SEARCHES[-1][2], "ivf_host_timings")[0]
     sel = np.flatnonzero(np.isin(codes, probe))
     c8, sv = topk2.quantize_rows_int8_np(vectors[sel])
     pos = np.arange(sel.size)
@@ -2615,8 +2682,6 @@ def phase_mutations_serve(client, expr, vectors, ids_np, tags, queries, ivf: dic
     import numpy as np
     import torch
 
-    from fenix_tpu_torch.ops import cells
-
     start_launches = launches(client)
     live = Live(vectors, ids_np, tags)
     rows0 = vectors.shape[0]
@@ -2656,7 +2721,7 @@ def phase_mutations_serve(client, expr, vectors, ids_np, tags, queries, ivf: dic
         raise AssertionError(f"append_ivf_q8_p64 took no single IVF route: {row}")
     if split_result(result, 8, IVF_K)[0][0, 0] != rows0 + 1:
         raise AssertionError("the probed search does not find the appended copy of its query 0")
-    probe = cells.topk_cells_np(ivf_q, ivf["codebooks"], "l2", probes)
+    probe = server_cells(ivf_q, ivf["codebooks"], "l2", probes, "mutations.append_ivf_q8_p64")
     row["oracle"] = check_live(live, "append_ivf_q8_p64", "l2", IVF_K, ivf_q, result, mask_fn=lambda dev: probe_mask(
         torch.from_numpy(codes).to(dev), probe, torch.from_numpy(live.tags).to(dev)))
     steps["append_probed"] = row
@@ -3036,8 +3101,6 @@ def phase_analytics_checks(oracle, tags, ivf: dict, an: dict, label: str = "anal
     import pyarrow as pa
     import torch
 
-    from fenix_tpu_torch.ops import cells
-
     attrs, dup = an["attrs"], an["dup"]
     codes_dev = torch.from_numpy(ivf["codes"]).to(oracle.device)
     tag_mask_dev = torch.from_numpy(tags < 50).to(oracle.device)
@@ -3046,7 +3109,7 @@ def phase_analytics_checks(oracle, tags, ivf: dict, an: dict, label: str = "anal
         queries, plain, joined = an["results"][name]
         ids, dist = split_result(plain, qn, k)
         if probes is not None:
-            mask = probe_mask(codes_dev, cells.topk_cells_np(queries, ivf["codebooks"], metric, probes), None)
+            mask = probe_mask(codes_dev, server_cells(queries, ivf["codebooks"], metric, probes, f"{label}.{name}"), None)
         else:
             mask = tag_mask_dev if filtered else None
         row = {"search": name, **check_ids(oracle, name, metric, k, precision, queries, ids, dist, mask,
@@ -3530,7 +3593,6 @@ def phase_typed_checks(ty: dict, queries, tags, smi: str, kind: str) -> list[dic
 
     from fenix_tpu_torch import types
     from fenix_tpu_torch.io import ingest
-    from fenix_tpu_torch.ops import cells
 
     new_ids, new_tags, deq_new, append_queries, appended = ty["append"]
     oracle = Oracle([ty["deq"], deq_new], DEVICE)
@@ -3547,7 +3609,7 @@ def phase_typed_checks(ty: dict, queries, tags, smi: str, kind: str) -> list[dic
     out.append(check_selection(oracle, "q8_" + TY_READ[0], TY_READ[2], read_queries, read, lambda qi: want_rows))
     probed_queries, probed, cell_ids, codebooks = ty["probed"]
     name, qn, probes = TY_PROBED
-    probe_cells = cells.topk_cells_np(probed_queries, codebooks, "l2", probes)
+    probe_cells = server_cells(probed_queries, codebooks, "l2", probes, f"typed.{name}")
     in_cells = probe_mask(torch.from_numpy(cell_ids).to(DEVICE), probe_cells, None, TY_CELLS)
 
     def probed_mask(s, e):  # the appended rows came after the search
@@ -3835,8 +3897,6 @@ def mesh_oracle_checks(oracle, r: dict, result, codes, codebooks, tags) -> dict:
     import numpy as np
     import torch
 
-    from fenix_tpu_torch.ops import cells
-
     kind = r["check"][0]
     if kind == "search":
         spec = r["check"][1]
@@ -3849,7 +3909,7 @@ def mesh_oracle_checks(oracle, r: dict, result, codes, codebooks, tags) -> dict:
     qn = r["q"]
     ids, dist = split_result(result, qn, IVF_K)
     sel = np.arange(qn) if qn <= IVF_CHECKED else np.linspace(0, qn - 1, IVF_CHECKED).astype(np.int64)
-    probe_cells = cells.topk_cells_np(r["queries"], codebooks, "l2", probes)
+    probe_cells = server_cells(r["queries"], codebooks, "l2", probes, f"mesh.{r['name']}")
     codes_dev = torch.from_numpy(codes).to(oracle.device)
     tags_dev = torch.from_numpy(tags).to(oracle.device) if filtered else None
     return check_ids(oracle, r["name"], "l2", IVF_K, "fp32", np.ascontiguousarray(r["queries"][sel]), ids[sel],

@@ -20,17 +20,19 @@ any device fp32 is built.
 
 IVF (a ``coding`` and a nonzero ``probes``; ``probes=0`` is the exact
 search over the coded table, as in the JAX package): the metric defaults
-to the coder's; the probe cells are ranked on the host (``cells.topk_cells_np``; the bounded
-beam on the device past ``DENSE_CELL_LIMIT``); then one of two routes,
+to the coder's; the probe cells are ranked on the card, over the queries
+already there (``cells.topk_cells``, counter ``ivf.rank_device``),
+and on a CPU device on the host (``cells.topk_cells_np``), the bounded
+beam on the device past ``DENSE_CELL_LIMIT``; then one of two routes,
 decided before any device layout is built, by the JAX package's rule on
 total work ``q_pad · B · bucket ≤ n_pad`` (``_canonical_q`` copied, so
 both packages pick the same route though this one pads no queries):
 the clustered gather (``topk2.topk_ivf_clustered`` over
 ``session.clustered``; counter ``search.ivf_clustered``) or the masked
 scan (``topk2.topk_two_phase_probed``, fp32/bf16/int8; counter
-``search.ivf_scan``). Timers: ``ivf.rank_seconds`` (the host cell
-ranking) and ``ivf.route_seconds`` (the clustered layout's host
-metadata, the bucket lists and the route decision).
+``search.ivf_scan``). Timers: ``ivf.rank_seconds`` (the cell ranking,
+with the read of its host copy) and ``ivf.route_seconds`` (the clustered
+layout's host metadata, the bucket lists and the route decision).
 
 Spans (``utils/profiling``, recorded while a capture is active):
 ``fenix.snapshot`` (``session``), ``executor.prepare`` (targets, host
@@ -305,19 +307,48 @@ def _check_revision(cache: DeviceCache, source, column: str, coding, snap_stamp:
         raise _StaleRevision
 
 
-def _rank_cells(target: np.ndarray, coding_data, metric: str, probes: int, device) -> np.ndarray:
-    """Top-``probes`` composite cells per query as a host ``[Q, P]`` int32
-    array: ranked on the host for dense grids, by the bounded beam on the
-    device past ``DENSE_CELL_LIMIT`` (as ``coder.call``)."""
-    codebooks = coding_data["tensor"]
+def rank_cells(
+    device, target: np.ndarray, codebooks: np.ndarray, metric: str, probes: int,
+    queries: "torch.Tensor | None" = None, books: "Callable[[], torch.Tensor] | None" = None,
+) -> tuple[np.ndarray, torch.Tensor]:
+    """Top-``probes`` composite cells per query, as a host ``[Q, P]`` int32
+    array and as a tensor on ``device``: the ranking of every probed read.
+    A CUDA device ranks them (``cells.topk_cells`` over ``queries``, the
+    targets on the card, and ``books()``, the codebooks there; each
+    uploaded when not given); a CPU device ranks dense grids on the host
+    with the JAX package's numpy ranking (``cells.topk_cells_np``). Past
+    ``DENSE_CELL_LIMIT`` the bounded beam runs on the device (as
+    ``coder.call``)."""
+    device = torch.device(device)
     n_books, k_book, _ = codebooks.shape
     probes = int(min(probes, k_book**n_books))
+    dense = k_book**n_books <= cells_ops.DENSE_CELL_LIMIT
+    if dense and device.type != "cuda":
+        cells_np = cells_ops.topk_cells_np(target, codebooks, metric, probes)
+        return cells_np, torch.from_numpy(cells_np).to(device)
+    if queries is None:
+        queries = torch.tensor(target, device=device)
+    on_device = books() if books is not None else torch.tensor(codebooks, device=device)
+    rank = cells_ops.topk_cells if dense else cells_ops.topk_cells_bounded
+    cells = rank(queries, on_device, metric, probes)
+    return cells.cpu().numpy(), cells
+
+
+def _rank_cells(
+    cache: DeviceCache, coding: str, target: np.ndarray, metric: str, probes: int,
+    queries: "torch.Tensor | None" = None,
+) -> tuple[np.ndarray, torch.Tensor]:
+    """:func:`rank_cells` on the cache's device, against the coder's
+    memoized device codebooks; a ranking on the card counts
+    ``ivf.rank_device``."""
     with profiling.annotate("fenix.rank_cells"):
-        if k_book**n_books > cells_ops.DENSE_CELL_LIMIT:
-            return cells_ops.topk_cells_bounded(
-                torch.tensor(target, device=device), torch.tensor(codebooks, device=device), metric, probes
-            ).cpu().numpy()
-        return cells_ops.topk_cells_np(target, codebooks, metric, probes)
+        cells_np, cells = rank_cells(
+            cache.device, target, cache.coding(coding)["tensor"], metric, probes, queries,
+            lambda: cache.codebooks(coding),
+        )
+        if cells.device.type == "cuda":
+            METRICS.add("ivf.rank_device")
+        return cells_np, cells
 
 
 def _clustered_eligible(coding_data) -> bool:
@@ -646,9 +677,9 @@ def _execute_nomax(
     fmask = plan.mask(sharded=sharded) if plan.active else None
     coded = cells_sorted = None
     if coding_data is not None:
-        cells = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
+        _, cells = _rank_cells(cache, req.coding, target, metric, int(req.probes), queries)
         # sorted per query for the searchsorted membership
-        cells_sorted = torch.from_numpy(np.sort(cells, axis=1).astype(np.int32)).to(cache.device)
+        cells_sorted = torch.sort(cells, dim=1).values
         coded_col = cache.coded_ids(req.coding, req.source, req.column, sharded=sharded)
         if coded_col.rows_padded != n_pad:
             raise _StaleRevision
@@ -821,9 +852,8 @@ def _probed_topk(
     n_pad = corpus.rows_padded
     q_pad = _canonical_q(target.shape[0])
     t = time.perf_counter()
-    cells_np = _rank_cells(target, coding_data, metric, int(req.probes), cache.device)
+    cells_np, cells = _rank_cells(cache, req.coding, target, metric, int(req.probes), queries)
     METRICS.add("ivf.rank_seconds", time.perf_counter() - t)
-    cells = torch.from_numpy(cells_np).to(cache.device)
     if cache.mesh is not None:
         return _mesh_probed(cache, req, coding_data, corpus, queries, cells_np, cells, metric, plan, k_pad, snap_stamp)
 

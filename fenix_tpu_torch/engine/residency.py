@@ -309,7 +309,7 @@ def probed_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     exact fp32 host rescore of the int8-resident mode. Work is O(probed
     rows). The JAX package's function, its per-query loop kept."""
     metric = _request_metric(cache, req)
-    cells = executor._rank_cells(stacked, cache.coding(req.coding), metric, int(req.probes), cache.device)
+    cells, _ = executor._rank_cells(cache, req.coding, stacked, metric, int(req.probes))
     codes_s, _, orig, offsets = cache.host_clustered_int8(req.coding, req.source, req.column)
     mul_s, add_s = cache.host_clustered_aux(req.coding, req.source, req.column, metric)
     host = cache.host_matrix(req.source, req.column)
@@ -566,7 +566,7 @@ def execute_nomax_host(cache, req) -> pa.Table:
         if mask is not None and mask.shape[0] != rows:
             continue  # the mask and the matrix span revisions
         if probed:
-            cells = executor._rank_cells(target, cache.coding(req.coding), metric, int(req.probes), cache.device)
+            cells, _ = executor._rank_cells(cache, req.coding, target, metric, int(req.probes))
             try:
                 orig, offsets = cache.host_cell_meta(req.coding, req.source, req.column)
             except executor._StaleRevision:

@@ -1236,6 +1236,17 @@ class DeviceCache:
         stamp = os.path.getmtime(coder_mod.path_of(self.root, name))
         return self._memo(self._host, ("coding", name), stamp, lambda: coder_mod.load(self.root, name))
 
+    def codebooks(self, name: str) -> torch.Tensor:
+        """The coder ``name``'s ``[n, K, D]`` fp32 codebooks on the cache's
+        device, memoized per artifact mtime as :meth:`coding` is: the
+        device cell ranking reads them on every probed search."""
+        stamp = os.path.getmtime(coder_mod.path_of(self.root, name))
+        # keyed by no table, so a table's new revision keeps it
+        return self._memo(
+            self._device, ((), name, "codebooks"), stamp,
+            lambda: torch.tensor(self.coding(name)["tensor"], device=self.device),
+        )
+
     def _coded_paths(self, coding: str, key: tuple[str, ...], column: str) -> list[str]:
         return [index_mod.path_of(self.root, coding, s, column) for s in key]
 

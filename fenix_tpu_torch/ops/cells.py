@@ -16,7 +16,8 @@ the JAX package's numpy functions, so host routes rank and assign with
 the same arithmetic whichever package serves: the product is numpy's,
 and the elementwise finish (the same IEEE operations in the same order)
 and the first-min argmin run as in-place torch CPU ops, on every core of
-the host, where numpy takes one.
+the host, where numpy takes one. Probed serving on a card ranks with
+``topk_cells`` instead, on the device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,13 @@ from fenix_tpu_torch.ops.distance import canonical_metric, pairwise_distance
 
 # k^n at or below this is scored by direct enumeration.
 DENSE_CELL_LIMIT = 1 << 20
+
+# topk_cells ranks the queries in chunks of at most this many cells
+# ([chunk, k^n]): the fp32 scores, the stable sort's int64 iota, its
+# scratch copies of keys and positions, and its sorted keys and positions
+# come to about 40 bytes a cell, so a chunk stays within 256 MiB (1,638
+# queries at 4,096 cells, 6 at DENSE_CELL_LIMIT).
+RANK_CHUNK_CELLS = (256 << 20) // 40
 
 # Composite cell ids are int32; configurations past this are refused up
 # front instead of wrapping.
@@ -87,15 +95,21 @@ def topk_cells(
     metric: str,
     maxval: int,
 ) -> torch.Tensor:  # [Q, maxval] int32 cell ids, ascending by score
-    """Top-``maxval`` composite cells per target (dense grids)."""
+    """Top-``maxval`` composite cells per target (dense grids), over
+    chunks of the queries within ``RANK_CHUNK_CELLS``: each row's ranking
+    is its own, whatever the chunk."""
     n, k, _ = codebooks.shape
     if k**n > DENSE_CELL_LIMIT:
         raise NotImplementedError(
             f"k^n = {k**n} exceeds dense enumeration limit; "
             "use per-codebook bounded search (cells.topk_cells_bounded)"
         )
-    scores = _enumerate_cell_scores(codebook_distances(targets, codebooks, metric))
-    return _ascending(scores, maxval).to(torch.int32)
+    chunk = max(1, RANK_CHUNK_CELLS // k**n)
+    out = [
+        _ascending(_enumerate_cell_scores(codebook_distances(targets[lo : lo + chunk], codebooks, metric)), maxval)
+        for lo in range(0, targets.shape[0], chunk)
+    ]
+    return (out[0] if len(out) == 1 else torch.cat(out)).to(torch.int32)
 
 
 def all_cell_ranks(

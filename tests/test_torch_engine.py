@@ -621,6 +621,33 @@ def _with_ids(result, ids, dist):
     return pa.table(cols)
 
 
+@pytest.mark.parametrize("metric", ["l2", "cosine", "dot"])
+def test_chip_smoke_probe_cells_are_held_to_float64(monkeypatch, metric):
+    """server_cells takes the server's own ranking and holds it to a
+    float64 ranking of the cells: a probe set with one far cell fails; one
+    that takes a centroid's exact twin in place of the smaller id passes,
+    counted as a near-tie difference."""
+    monkeypatch.setattr(smoke, "DEVICE", "cpu")
+    rng = np.random.default_rng(5)
+    books = rng.standard_normal((1, 64, 16)).astype(np.float32)
+    queries = rng.standard_normal((12, 16)).astype(np.float32)
+    got = smoke.server_cells(queries, books, metric, 8, "test")
+    np.testing.assert_array_equal(got, executor.rank_cells("cpu", queries, books, metric, 8)[0])
+    assert smoke.cells_off_float64(got, queries, books, metric) == 0
+    d = smoke.cell_distances64(queries, books, metric, "cpu").numpy()
+    wrong = got.copy()
+    wrong[0, -1] = np.argmax(d[0])
+    with pytest.raises(AssertionError, match="off a near tie"):
+        smoke.cells_off_float64(wrong, queries, books, metric)
+    last, far = got[0, -1], np.argmax(d[0])
+    books[0, far] = books[0, last]  # query 0's 8th and 9th cells tie exactly
+    got = smoke.server_cells(queries, books, metric, 8, "test")
+    assert min(last, far) in got[0] and max(last, far) not in got[0]
+    swapped = np.where(got == min(last, far), max(last, far), got)
+    swapped[1:] = got[1:]
+    assert smoke.cells_off_float64(swapped, queries, books, metric) == 1
+
+
 def test_chip_smoke_check_search_takes_a_short_result(smoke_root, tmp_path):
     """A filtered 1-probe IVF search whose probe cell holds fewer than k
     allowed rows returns them all and no more; check_search takes the

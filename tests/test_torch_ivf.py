@@ -135,6 +135,92 @@ def test_topk_cells_bounded_matches_dense_enumeration(rng):
     np.testing.assert_array_equal(cells.topk_cells_bounded(t(x), t(cb), "cosine", 10).numpy(), dense)
 
 
+GRIDS = [(1, 4096), (2, 64)]  # (codebooks, cells a codebook): glove's grid and a composite one
+
+
+def _chunks_of_3(monkeypatch, n, k):
+    """``topk_cells`` ranks 3 queries a chunk."""
+    monkeypatch.setattr(cells, "RANK_CHUNK_CELLS", 3 * k**n)
+
+
+def _f64_cell_distances(x, cb, metric):
+    """[Q, k^n] float64 distances of the composite cells (sums over codebooks)."""
+    x64, cb64 = x.astype(np.float64), cb.astype(np.float64)
+    if metric == "cosine":
+        x64 = x64 / np.linalg.norm(x64, axis=-1, keepdims=True)
+        cb64 = cb64 / np.linalg.norm(cb64, axis=-1, keepdims=True)
+    if metric == "l2":
+        per = np.sqrt(((x64[:, None, None, :] - cb64[None]) ** 2).sum(-1))
+    elif metric == "cosine":
+        per = 0.5 - 0.5 * np.einsum("qd,nkd->qnk", x64, cb64)
+    else:
+        per = -np.einsum("qd,nkd->qnk", x64, cb64)
+    out = per[:, 0, :]
+    for j in range(1, cb.shape[0]):
+        out = (out[:, :, None] + per[:, j, None, :]).reshape(x.shape[0], -1)
+    return out
+
+
+@pytest.mark.parametrize("n,k", GRIDS, ids=["1x4096", "2x64"])
+@pytest.mark.parametrize("metric", METRICS_ALL)
+def test_device_ranking_matches_host_ranking(rng, monkeypatch, metric, n, k):
+    """The card's ranking (``topk_cells``), run here on CPU tensors over
+    queries in chunks of 3, gives the JAX package's ids (its numpy
+    ranking) wherever no two cells near the first ``probes`` lie within
+    1e-5 in float64."""
+    cb = codebooks_for(rng, n, k=k, d=16)
+    probes = 8
+    x = rng.standard_normal((200, 16)).astype(np.float32)
+    d64 = np.sort(_f64_cell_distances(x, cb, metric), axis=1)[:, : probes + 1]
+    x = x[(np.diff(d64, axis=1) > 1e-5).all(axis=1)][:10]  # no near ties, 10 queries: 4 chunks
+    assert x.shape[0] == 10
+    _chunks_of_3(monkeypatch, n, k)
+    got = cells.topk_cells(t(x), t(cb), metric, probes)
+    assert got.dtype == torch.int32 and got.shape == (10, probes)
+    np.testing.assert_array_equal(got.numpy(), jcells.topk_cells_np(x, cb, metric, probes))
+
+
+@pytest.mark.parametrize("n,k", GRIDS, ids=["1x4096", "2x64"])
+@pytest.mark.parametrize("metric", METRICS_ALL)
+def test_device_ranking_keeps_the_smallest_id_on_ties(rng, monkeypatch, metric, n, k):
+    """Duplicated codebook rows tie every composite cell with its twin: the
+    card's ranking puts the smaller id first, and never takes a twin
+    without the smaller one."""
+    cb = codebooks_for(rng, n, k=k, d=16)
+    cb[-1, k // 2 :] = cb[-1, : k // 2]  # the last codebook's second half repeats its first
+    x = rng.standard_normal((10, 16)).astype(np.float32)
+    probes = 12
+    _chunks_of_3(monkeypatch, n, k)
+    got = cells.topk_cells(t(x), t(cb), metric, probes).numpy()
+    digit = got % k
+    twin = np.where(digit >= k // 2, got - k // 2, -1)  # the smaller twin of an upper-half cell
+    for qi in range(x.shape[0]):
+        pos = {c: r for r, c in enumerate(got[qi])}
+        for r, tw in enumerate(twin[qi]):
+            if tw >= 0:
+                assert pos.get(tw, probes) < r, (qi, got[qi])
+    assert (twin >= 0).any()
+
+
+@pytest.mark.parametrize("n,k", GRIDS, ids=["1x4096", "2x64"])
+@pytest.mark.parametrize("metric", METRICS_ALL)
+def test_rank_cells_on_a_cpu_device_is_the_host_ranking(tmp_path, rng, metric, n, k):
+    """On a CPU device the executor ranks on the host, bit for bit the JAX
+    package's numpy ranking; its tensor is that array, and the card's
+    counter stays."""
+    cb = codebooks_for(rng, n, k=k, d=16)
+    config = {"metric": metric, "codebook_size": k, "num_codebooks": n, "batch_size": 256, "num_epochs": 1}
+    coder._persist(str(tmp_path), "c", config, pa.list_(pa.float32(), 16), cb)
+    cache = DeviceCache(str(tmp_path), device="cpu")
+    x = rng.standard_normal((10, 16)).astype(np.float32)
+    before = METRICS.snapshot().get("ivf.rank_device", 0)
+    host, dev = executor._rank_cells(cache, "c", x, metric, 8)
+    np.testing.assert_array_equal(host, jcells.topk_cells_np(x, cb, metric, 8))
+    assert host.dtype == np.int32 and dev.device.type == "cpu"
+    np.testing.assert_array_equal(dev.numpy(), host)
+    assert METRICS.snapshot().get("ivf.rank_device", 0) == before
+
+
 def test_check_cell_space_refuses_past_int32():
     cells.check_cell_space(2**15, 2)
     with pytest.raises(ValueError, match="int32"):
@@ -604,6 +690,32 @@ def test_clustered_layout_and_revisions(tmp_path, rng):
     os.utime(index.path_of(root, "ivf", "items", "vector"), ns=(1, 1))
     assert cache.snapshot_stamp("items", "vector", "ivf") != stamp
     assert cache.clustered("ivf", "items", "vector")[0] is not corpus_s  # rebuilt
+
+
+def test_device_codebooks_memo(tmp_path, rng, monkeypatch):
+    """The coder's device codebooks upload once: two probed searches share
+    the copy, and a rewritten artifact uploads the new one. Run on the CPU
+    through the bounded beam, which takes the same memo as the card's
+    dense ranking (the dense limit lowered under the 16-cell coder)."""
+    root = str(tmp_path)
+    table.make(root, "items", make_items(rng, n=3000).to_reader())
+    coder.make(root, "ivf", "items", "vector", CONFIG, seed=2, device="cpu")
+    index.make(root, "ivf", "items", "vector", device="cpu")
+    monkeypatch.setattr(cells, "DENSE_CELL_LIMIT", 8)
+    cache = DeviceCache(root, device="cpu")
+    req = executor.SearchRequest(source="items", column="vector", target=rng.standard_normal((4, DIM)).astype(np.float32),
+                                 maxval=5, coding="ivf", probes=3)
+    first = executor.execute_search(cache, req)
+    books = cache.codebooks("ivf")
+    assert cache.device_entry_kinds()["codebooks"] == 1
+    second = executor.execute_search(cache, req)
+    assert cache.codebooks("ivf") is books and second.equals(first)
+    new = codebooks_for(rng, 1, k=16, d=DIM)
+    coder._persist(root, "ivf", CONFIG, pa.list_(pa.float32(), DIM), new)
+    os.utime(coder.path_of(root, "ivf"), ns=(1, 1))  # a new mtime, however coarse the clock
+    rebuilt = cache.codebooks("ivf")
+    assert rebuilt is not books
+    np.testing.assert_array_equal(rebuilt.numpy(), new)
 
 
 def test_desynced_index_is_rebuilt(tmp_path, rng):

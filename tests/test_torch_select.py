@@ -305,7 +305,7 @@ def test_nomax_rows_are_the_filter_and_probe_oracle(root):
     cache = DeviceCache(root, device="cpu")
     data = cache.coded_table("c", "t", "vector")
     codes = data.column("__CODED_ID__").to_numpy()
-    cells = executor._rank_cells(target, cache.coding("c"), "l2", 4, "cpu")
+    cells, _ = executor._rank_cells(cache, "c", target, "l2", 4)
     for qi in range(3):
         keep = filt.mask(data) & np.isin(codes, cells[qi])
         part = got.filter(pc.equal(got.column("__QUERY_ID__"), qi))
