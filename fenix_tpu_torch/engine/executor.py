@@ -42,7 +42,9 @@ holding ``fenix.rank_cells``, ``ivf.route`` and ``fenix.mask_build``),
 dispatch's host time leaves it out) and ``fenix.result_gather`` (timer
 ``results.gather_seconds``); while a capture is active, phase 2's device
 time (``ops/topk2``, counter ``phase2.device_seconds``) is read once the
-fetch has synchronised.
+fetch has synchronised. A batch that ``residency.plan`` sends to a
+host-corpus mode runs inside ``executor.host_corpus`` (its spans and
+timers are ``engine/residency.py``'s).
 
 Probed search past the device budget is ``residency.probed_topk`` on
 the host.
@@ -547,7 +549,8 @@ def _execute_batch_once(
     if mode != residency.DUAL:
         # host-corpus modes: one stacked pass, split per request (the
         # batch key carries the residency, so the group is uniform)
-        tables = residency.execute_many(cache, reqs, mode)
+        with profiling.annotate("executor.host_corpus"):
+            tables = residency.execute_many(cache, reqs, mode)
         return (lambda: tables) if defer else tables
 
     data, corpus, snap_stamp = cache.snapshot(r0.source, r0.column, r0.coding)

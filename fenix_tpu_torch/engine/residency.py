@@ -44,15 +44,29 @@ Counters (``stats``): ``search.residency_int8``,
 ``search.residency_host_nomax``, ``search.residency_probed_host`` (the
 reference's names), and
 ``residency.phase_a_seconds`` (host wall time of the device calls, each
-ending in the device→host copy of its result) and
-``residency.rescore_seconds`` (host gather + exact rescore).
+ending in the device→host copy of its result),
+``residency.rescore_seconds`` (host gather + exact rescore), split into
+``residency.rescore_gather_seconds`` (the row gathers) and
+``residency.rescore_score_seconds`` (the rest: scores, order, distances),
+and ``residency.rescore_rows`` (candidate rows rescored: Q × window).
+While a capture is active on a card, ``residency.phase_a_device_seconds``
+times the int8-resident phase A on the card by a pair of CUDA events,
+read once the window's copy to the host has synchronised.
+
+Spans (``utils/profiling``, recorded while a capture is active):
+``residency.int8`` (the int8-resident search) ⊃ ``residency.phase_a``
+(the device call and the window's copy) and ``residency.rescore`` (every
+mode's host rescore) ⊃ ``residency.gather``, ``residency.score``, one
+pair a query block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -66,7 +80,7 @@ from fenix_tpu_torch.ops import distance as distance_ops
 from fenix_tpu_torch.ops import topk2
 from fenix_tpu_torch.parallel import mesh as mesh_mod
 from fenix_tpu_torch.parallel import search as psearch
-from fenix_tpu_torch.utils import hbm
+from fenix_tpu_torch.utils import hbm, profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 DUAL = "dual"
@@ -82,6 +96,9 @@ _SAFETY = 0.9
 _DEFAULT_WINDOW = 4096
 # float64 bytes of one block of gathered rows in the host l2 read
 _NOMAX_BLOCK_BYTES = 128 << 20
+PHASE_A_DEVICE_COUNTER = "residency.phase_a_device_seconds"  # while a capture is active
+# largest buffer of gathered rows the host rescore keeps between calls
+_SCRATCH_BYTES = 2 << 30
 
 
 def plan(cache, req) -> str:
@@ -140,6 +157,52 @@ def _scores_to_distances_np(scores, queries, metric: str):
     return -scores
 
 
+class _RowScratch:
+    """The one buffer the host rescore gathers its candidate rows into,
+    kept between calls. A fresh ``[64, W, D]`` block (1.6 GB at W = 4,096,
+    D = 1,536) is faulted in page by page on every dispatch: on an H100
+    host that was 70–80 % of the gather's time and most of its spread from
+    run to run. One rescore at a time holds it (a concurrent one allocates
+    its own); it grows to the largest block asked for, up to
+    ``_SCRATCH_BYTES``, and is never freed."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._buf = np.empty(0, np.float32)
+
+    @contextlib.contextmanager
+    def lend(self) -> "Iterator[_RowScratch | None]":
+        """The scratch for the block, or None while another rescore holds it."""
+        if not self._lock.acquire(blocking=False):
+            yield None
+            return
+        try:
+            yield self
+        finally:
+            self._lock.release()
+
+    def rows(self, n: int, d: int) -> "np.ndarray | None":
+        """An ``[n, d]`` float32 view of the buffer (the holder's alone), or
+        None past ``_SCRATCH_BYTES``."""
+        if 4 * n * d > _SCRATCH_BYTES:
+            return None
+        if self._buf.size < n * d:
+            self._buf = np.empty(n * d, np.float32)
+        return self._buf[: n * d].reshape(n, d)
+
+
+_SCRATCH = _RowScratch()
+
+
+def _gather_rows(host: np.ndarray, ids: np.ndarray, spent: list, out: "np.ndarray | None" = None) -> np.ndarray:
+    """``native.gather_rows`` (into ``out`` when given) in a
+    ``residency.gather`` span, its wall seconds added to ``spent[0]``."""
+    with profiling.annotate("residency.gather", counter="residency.rescore_gather") as span:
+        out = native.gather_rows(host, ids, out=out)
+    spent[0] += span.seconds
+    return out
+
+
 def _host_rescore_topk(
     host: np.ndarray,  # [N, D] fp32
     aux_mul: np.ndarray,  # [N] f32
@@ -151,18 +214,27 @@ def _host_rescore_topk(
     k: int,
     metric: str,
     q_block: int = 64,
+    spent: "list | None" = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact fp32 rescore + top-k over per-query candidate windows, on
     the host: a threaded row gather (``native.gather_rows``) and one
     einsum per query block, ordered by (score desc, id asc), i.e.
     (distance asc, id asc). Returns (dist [Q, k] f32, ids [Q, k] int32;
-    +inf / −1 padding).
+    +inf / −1 padding). ``spent[0]`` gains the gathers' wall seconds. The
+    rows of each block are gathered into ``_SCRATCH`` when it is free.
 
     The reference's code, with one change: an l2 distance is returned as
     ``‖q − v‖`` of the winning row, not as ``sqrt(‖q‖² − s)``. The
     expanded form cancels for near rows (on an H100 host at D=768 it came
     out 1.8e-4 relative off float64 for noisy copies of corpus rows); the
     order stays the score's."""
+    spent = [0.0] if spent is None else spent
+    with _SCRATCH.lend() as scratch:
+        return _rescore_blocks(host, aux_mul, aux_add, mask, queries, win, rows, k, metric, q_block, spent,
+                               scratch)
+
+
+def _rescore_blocks(host, aux_mul, aux_add, mask, queries, win, rows, k, metric, q_block, spent, scratch):
     qt, w = win.shape
     qp = _prepare_queries_np(queries, metric)
     out_d = np.empty((qt, k), np.float32)
@@ -174,30 +246,32 @@ def _host_rescore_topk(
         flat = wb.reshape(-1)
         valid = (flat >= 0) & (flat < rows)
         safe = np.where(valid, flat, 0).astype(np.int64)
-        cand = native.gather_rows(host, safe).reshape(e - s, w, host.shape[1])
-        sc = np.einsum("qd,qwd->qw", qp[s:e], cand, dtype=np.float32, optimize=True)
-        sc = sc * aux_mul[safe].reshape(e - s, w) + aux_add[safe].reshape(e - s, w)
-        ok = valid.reshape(e - s, w)
-        if mask is not None:
-            ok = ok & mask[safe].reshape(e - s, w)
-        sc = np.where(ok, sc, -np.inf)
+        buf = scratch.rows(safe.shape[0], host.shape[1]) if scratch is not None else None
+        cand = _gather_rows(host, safe, spent, buf).reshape(e - s, w, host.shape[1])
+        with profiling.annotate("residency.score"):
+            sc = np.einsum("qd,qwd->qw", qp[s:e], cand, dtype=np.float32, optimize=True)
+            sc = sc * aux_mul[safe].reshape(e - s, w) + aux_add[safe].reshape(e - s, w)
+            ok = valid.reshape(e - s, w)
+            if mask is not None:
+                ok = ok & mask[safe].reshape(e - s, w)
+            sc = np.where(ok, sc, -np.inf)
 
-        kk = min(k, w)
-        part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
-        ps = np.take_along_axis(sc, part, axis=1)
-        pi = np.take_along_axis(wb, part, axis=1)
-        # (score desc, id asc) with the query-block row as the major key:
-        # one sort for the whole block
-        qb = e - s
-        flat_order = np.lexsort((pi.ravel(), -ps.ravel(), np.repeat(np.arange(qb), kk))).reshape(
-            qb, kk
-        )
-        order = flat_order - (np.arange(qb) * kk)[:, None]
-        top_s = np.take_along_axis(ps, order, axis=1)
-        top_i = np.take_along_axis(pi, order, axis=1)
-        dead = ~np.isfinite(top_s)  # invalid, masked or padding candidates
+            kk = min(k, w)
+            part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
+            ps = np.take_along_axis(sc, part, axis=1)
+            pi = np.take_along_axis(wb, part, axis=1)
+            # (score desc, id asc) with the query-block row as the major key:
+            # one sort for the whole block
+            qb = e - s
+            flat_order = np.lexsort((pi.ravel(), -ps.ravel(), np.repeat(np.arange(qb), kk))).reshape(
+                qb, kk
+            )
+            order = flat_order - (np.arange(qb) * kk)[:, None]
+            top_s = np.take_along_axis(ps, order, axis=1)
+            top_i = np.take_along_axis(pi, order, axis=1)
+            dead = ~np.isfinite(top_s)  # invalid, masked or padding candidates
         if metric == "l2":
-            winners = native.gather_rows(host, np.where(dead, 0, top_i).ravel())
+            winners = _gather_rows(host, np.where(dead, 0, top_i).ravel(), spent)
             diff = winners.reshape(qb, kk, -1) - queries[s:e, None, :]
             dist = np.sqrt(np.square(diff).sum(axis=-1, dtype=np.float32))
         else:
@@ -212,10 +286,15 @@ def _host_rescore_topk(
     return out_d, out_i
 
 
-def _timed_rescore(*args) -> tuple[np.ndarray, np.ndarray]:
-    t = time.perf_counter()
-    out = _host_rescore_topk(*args)
-    METRICS.add("residency.rescore_seconds", time.perf_counter() - t)
+def _timed_rescore(host, hmul, hadd, mask, stacked, win, *args) -> tuple[np.ndarray, np.ndarray]:
+    """``_host_rescore_topk`` in the ``residency.rescore`` span: its wall
+    seconds, and their split into the row gathers and the rest, which add
+    up to them; the candidate rows it rescored."""
+    spent = [0.0]
+    with profiling.annotate("residency.rescore", counter="residency.rescore") as span:
+        out = _host_rescore_topk(host, hmul, hadd, mask, stacked, win, *args, spent=spent)
+    METRICS.add("residency.rescore_score_seconds", span.seconds - spent[0])
+    METRICS.add("residency.rescore_rows", win.size)
     return out
 
 
@@ -234,6 +313,11 @@ def _request_window(req, n_pad: int, k_pad: int) -> int:
 def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
     """(dist [Q, k], ids [Q, k]) via the int8-resident two-phase: device
     phase A window → host gather + exact fp32 rescore."""
+    with profiling.annotate("residency.int8"):
+        return _int8_topk(cache, req, stacked, k, k_pad)
+
+
+def _int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
     metric = distance_ops.canonical_metric(req.metric)
     mesh = cache.mesh
     if mesh is not None:
@@ -258,18 +342,21 @@ def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.n
             aux_add = torch.where(torch.from_numpy(padded).to(cache.device), aux_add, distance_ops.NEG_INF)
 
     w = _request_window(req, n_pad, k_pad)
-    t = time.perf_counter()
-    queries = torch.tensor(stacked, device=cache.device)
-    if mesh is not None:
-        # [S, Q, W'] global-id windows → one [Q, S·W'] union, shard-major
-        fn = psearch.build_serving_window_int8(mesh, k_pad, min(w, v8.data.rows_local), metric)
-        wins = fn(v8.data, sv.data, queries, aux_mul, aux_add).cpu().numpy()
-        win = np.concatenate(list(wins), axis=1)
-    else:
-        win = topk2.topk_window_int8(
-            v8.data, sv.data, queries, aux_mul, aux_add, k=k_pad, w=w, metric=metric
-        ).cpu().numpy()
-    METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
+    with profiling.annotate("residency.phase_a", counter="residency.phase_a"), \
+            profiling.device_timings() as timings:
+        queries = torch.tensor(stacked, device=cache.device)
+        if mesh is not None:
+            # [S, Q, W'] global-id windows → one [Q, S·W'] union, shard-major
+            fn = psearch.build_serving_window_int8(mesh, k_pad, min(w, v8.data.rows_local), metric)
+            wins = fn(v8.data, sv.data, queries, aux_mul, aux_add).cpu().numpy()
+            win = np.concatenate(list(wins), axis=1)
+        else:
+            with profiling.device_timer(PHASE_A_DEVICE_COUNTER, queries.device):
+                win = topk2.topk_window_int8(
+                    v8.data, sv.data, queries, aux_mul, aux_add, k=k_pad, w=w, metric=metric
+                )
+            win = win.cpu().numpy()
+    profiling.settle(timings)  # the window's copy has passed phase A's events
 
     host = cache.host_matrix(req.source, req.column)
     hmul, hadd = cache.host_aux(req.source, req.column, metric)

@@ -96,7 +96,10 @@ LOGGER = logging.getLogger("fenix_tpu_torch")
 METRICS_SET: set[str] = {"cosine", "dot", "inner_product", "l2", "euclidean"}
 
 # route counters, shown from the start: the JAX package's residency
-# counters under its names, and the two IVF routes
+# counters under its names, the two IVF routes, and the rows the host
+# rescore reads (its timers, ``residency.phase_a_seconds``,
+# ``residency.rescore_{gather,score}_seconds``, appear once they count;
+# its spans are listed in ``engine/residency.py``)
 _ROUTE_COUNTERS = (
     "search.ivf_clustered",
     "search.ivf_scan",
@@ -109,6 +112,7 @@ _ROUTE_COUNTERS = (
     "search.residency_int8",
     "search.residency_stream",
     "search.stream_chunks",
+    "residency.rescore_rows",
     "cache.int8_sidecar_loads",
     "cache.int8_sidecar_writes",
     "cache.ivf_sidecar_loads",

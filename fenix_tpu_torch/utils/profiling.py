@@ -36,8 +36,11 @@ dispatcher), ``batch.finish`` (the completer), ``search.solo`` (a search
 run on its handler's thread); ``fenix.snapshot``, ``executor.prepare``,
 ``fenix.mask_build``, ``fenix.rank_cells``, ``ivf.route``,
 ``executor.launch``, ``fenix.fetch`` (the wait for the card) and
-``fenix.result_gather``. :func:`device_timer` times a stretch of the
-card's work with a pair of CUDA events (phase 2 of ``ops/topk2``), read
+``fenix.result_gather``; past the device budget ``executor.host_corpus``
+⊃ ``residency.int8`` ⊃ ``residency.phase_a``, ``residency.rescore`` ⊃
+``residency.gather``, ``residency.score`` (``engine/residency.py``).
+:func:`device_timer` times a stretch of the card's work with a pair of
+CUDA events (phase 2 of ``ops/topk2``, the int8-resident phase A), read
 after the fetch has synchronised (:func:`device_timings`, :func:`settle`).
 """
 
