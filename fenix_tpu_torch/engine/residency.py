@@ -8,8 +8,8 @@
            on the device, built without any device fp32
            (``session.int8_solo``). Device phase A returns a top-W window
            per query (``topk2.topk_window_int8``, the K2 kernel); the host
-           gathers those rows from the memory-mapped fp32 corpus and
-           rescores them exactly.
+           rescores those rows exactly, in one threaded pass over the
+           memory-mapped fp32 corpus (``ops/host_rescore.py``).
 ``stream`` larger than device memory: the host corpus moves through the
            device in double-buffered chunks (``io.batch.prefetch_to_device``).
            fp32 chunks run the exact two-phase search (the K1 kernel) and
@@ -45,10 +45,12 @@ Counters (``stats``): ``search.residency_int8``,
 reference's names), and
 ``residency.phase_a_seconds`` (host wall time of the device calls, each
 ending in the device→host copy of its result),
-``residency.rescore_seconds`` (host gather + exact rescore), split into
-``residency.rescore_gather_seconds`` (the row gathers) and
-``residency.rescore_score_seconds`` (the rest: scores, order, distances),
-and ``residency.rescore_rows`` (candidate rows rescored: Q × window).
+``residency.rescore_seconds`` (the exact host rescore), split into
+``residency.rescore_gather_seconds`` (the l2 winners' row gathers; cosine
+and dot gather nothing) and ``residency.rescore_score_seconds`` (the
+rest: the scoring pass, the order, the distances),
+``residency.rescore_fused`` (scoring passes, one a rescore) and
+``residency.rescore_rows`` (candidate rows rescored: Q × window).
 While a capture is active on a card, ``residency.phase_a_device_seconds``
 times the int8-resident phase A on the card by a pair of CUDA events,
 read once the window's copy to the host has synchronised.
@@ -56,17 +58,16 @@ read once the window's copy to the host has synchronised.
 Spans (``utils/profiling``, recorded while a capture is active):
 ``residency.int8`` (the int8-resident search) ⊃ ``residency.phase_a``
 (the device call and the window's copy) and ``residency.rescore`` (every
-mode's host rescore) ⊃ ``residency.gather``, ``residency.score``, one
-pair a query block.
+mode's host rescore) ⊃ ``residency.score`` (the scoring pass and the
+order) and, for l2, ``residency.gather`` (the winners' rows, one a block
+of queries).
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
-import threading
 import time
-from typing import Iterator, Sequence
+from typing import Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -77,7 +78,7 @@ from fenix_tpu_torch.engine import executor  # circular: used at call time only
 from fenix_tpu_torch.io import batch as batch_io
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import distance as distance_ops
-from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.ops import host_rescore, topk2
 from fenix_tpu_torch.parallel import mesh as mesh_mod
 from fenix_tpu_torch.parallel import search as psearch
 from fenix_tpu_torch.utils import hbm, profiling
@@ -97,8 +98,6 @@ _DEFAULT_WINDOW = 4096
 # float64 bytes of one block of gathered rows in the host l2 read
 _NOMAX_BLOCK_BYTES = 128 << 20
 PHASE_A_DEVICE_COUNTER = "residency.phase_a_device_seconds"  # while a capture is active
-# largest buffer of gathered rows the host rescore keeps between calls
-_SCRATCH_BYTES = 2 << 30
 
 
 def plan(cache, req) -> str:
@@ -157,50 +156,26 @@ def _scores_to_distances_np(scores, queries, metric: str):
     return -scores
 
 
-class _RowScratch:
-    """The one buffer the host rescore gathers its candidate rows into,
-    kept between calls. A fresh ``[64, W, D]`` block (1.6 GB at W = 4,096,
-    D = 1,536) is faulted in page by page on every dispatch: on an H100
-    host that was 70–80 % of the gather's time and most of its spread from
-    run to run. One rescore at a time holds it (a concurrent one allocates
-    its own); it grows to the largest block asked for, up to
-    ``_SCRATCH_BYTES``, and is never freed."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._buf = np.empty(0, np.float32)
-
-    @contextlib.contextmanager
-    def lend(self) -> "Iterator[_RowScratch | None]":
-        """The scratch for the block, or None while another rescore holds it."""
-        if not self._lock.acquire(blocking=False):
-            yield None
-            return
-        try:
-            yield self
-        finally:
-            self._lock.release()
-
-    def rows(self, n: int, d: int) -> "np.ndarray | None":
-        """An ``[n, d]`` float32 view of the buffer (the holder's alone), or
-        None past ``_SCRATCH_BYTES``."""
-        if 4 * n * d > _SCRATCH_BYTES:
-            return None
-        if self._buf.size < n * d:
-            self._buf = np.empty(n * d, np.float32)
-        return self._buf[: n * d].reshape(n, d)
-
-
-_SCRATCH = _RowScratch()
-
-
-def _gather_rows(host: np.ndarray, ids: np.ndarray, spent: list, out: "np.ndarray | None" = None) -> np.ndarray:
-    """``native.gather_rows`` (into ``out`` when given) in a
-    ``residency.gather`` span, its wall seconds added to ``spent[0]``."""
+def _gather_rows(host: np.ndarray, ids: np.ndarray, spent: list) -> np.ndarray:
+    """``native.gather_rows`` in a ``residency.gather`` span, its wall
+    seconds added to ``spent[0]``."""
     with profiling.annotate("residency.gather", counter="residency.rescore_gather") as span:
-        out = native.gather_rows(host, ids, out=out)
+        out = native.gather_rows(host, ids)
     spent[0] += span.seconds
     return out
+
+
+def _order_block(sc: np.ndarray, wb: np.ndarray, kk: int) -> tuple[np.ndarray, np.ndarray]:
+    """The ``kk`` best (score, id) of each row of a block of queries'
+    window scores, ordered by (score desc, id asc): one argpartition, and
+    one lexsort for the whole block with the query as the major key."""
+    part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
+    ps = np.take_along_axis(sc, part, axis=1)
+    pi = np.take_along_axis(wb, part, axis=1)
+    qb = sc.shape[0]
+    flat_order = np.lexsort((pi.ravel(), -ps.ravel(), np.repeat(np.arange(qb), kk))).reshape(qb, kk)
+    order = flat_order - (np.arange(qb) * kk)[:, None]
+    return np.take_along_axis(ps, order, axis=1), np.take_along_axis(pi, order, axis=1)
 
 
 def _host_rescore_topk(
@@ -217,73 +192,48 @@ def _host_rescore_topk(
     spent: "list | None" = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact fp32 rescore + top-k over per-query candidate windows, on
-    the host: a threaded row gather (``native.gather_rows``) and one
-    einsum per query block, ordered by (score desc, id asc), i.e.
-    (distance asc, id asc). Returns (dist [Q, k] f32, ids [Q, k] int32;
-    +inf / −1 padding). ``spent[0]`` gains the gathers' wall seconds. The
-    rows of each block are gathered into ``_SCRATCH`` when it is free.
+    the host: one threaded pass scores every window slot straight from the
+    host column (``host_rescore.window_scores``, counted as
+    ``residency.rescore_fused``), then each block of ``q_block`` queries is
+    ordered by (score desc, id asc), i.e. (distance asc, id asc). Returns
+    (dist [Q, k] f32, ids [Q, k] int32; +inf / −1 padding). ``spent[0]``
+    gains the wall seconds of the l2 winners' gathers.
 
-    The reference's code, with one change: an l2 distance is returned as
-    ``‖q − v‖`` of the winning row, not as ``sqrt(‖q‖² − s)``. The
-    expanded form cancels for near rows (on an H100 host at D=768 it came
-    out 1.8e-4 relative off float64 for noisy copies of corpus rows); the
-    order stays the score's."""
+    The reference's code, with two changes: the scores come from the one
+    pass, not from an einsum over a gather of the window's rows (the same
+    products, summed in another fixed order); and an l2 distance is
+    returned as ``‖q − v‖`` of the winning row, not as ``sqrt(‖q‖² − s)``.
+    The expanded form cancels for near rows (on an H100 host at D=768 it
+    came out 1.8e-4 relative off float64 for noisy copies of corpus rows);
+    the order stays the score's."""
     spent = [0.0] if spent is None else spent
-    with _SCRATCH.lend() as scratch:
-        return _rescore_blocks(host, aux_mul, aux_add, mask, queries, win, rows, k, metric, q_block, spent,
-                               scratch)
-
-
-def _rescore_blocks(host, aux_mul, aux_add, mask, queries, win, rows, k, metric, q_block, spent, scratch):
     qt, w = win.shape
-    qp = _prepare_queries_np(queries, metric)
-    out_d = np.empty((qt, k), np.float32)
-    out_i = np.empty((qt, k), np.int32)
-
-    for s in range(0, qt, q_block):
-        e = min(s + q_block, qt)
-        wb = win[s:e]
-        flat = wb.reshape(-1)
-        valid = (flat >= 0) & (flat < rows)
-        safe = np.where(valid, flat, 0).astype(np.int64)
-        buf = scratch.rows(safe.shape[0], host.shape[1]) if scratch is not None else None
-        cand = _gather_rows(host, safe, spent, buf).reshape(e - s, w, host.shape[1])
-        with profiling.annotate("residency.score"):
-            sc = np.einsum("qd,qwd->qw", qp[s:e], cand, dtype=np.float32, optimize=True)
-            sc = sc * aux_mul[safe].reshape(e - s, w) + aux_add[safe].reshape(e - s, w)
-            ok = valid.reshape(e - s, w)
-            if mask is not None:
-                ok = ok & mask[safe].reshape(e - s, w)
-            sc = np.where(ok, sc, -np.inf)
-
-            kk = min(k, w)
-            part = np.argpartition(-sc, kk - 1, axis=1)[:, :kk]
-            ps = np.take_along_axis(sc, part, axis=1)
-            pi = np.take_along_axis(wb, part, axis=1)
-            # (score desc, id asc) with the query-block row as the major key:
-            # one sort for the whole block
-            qb = e - s
-            flat_order = np.lexsort((pi.ravel(), -ps.ravel(), np.repeat(np.arange(qb), kk))).reshape(
-                qb, kk
-            )
-            order = flat_order - (np.arange(qb) * kk)[:, None]
-            top_s = np.take_along_axis(ps, order, axis=1)
-            top_i = np.take_along_axis(pi, order, axis=1)
-            dead = ~np.isfinite(top_s)  # invalid, masked or padding candidates
-        if metric == "l2":
-            winners = _gather_rows(host, np.where(dead, 0, top_i).ravel(), spent)
-            diff = winners.reshape(qb, kk, -1) - queries[s:e, None, :]
-            dist = np.sqrt(np.square(diff).sum(axis=-1, dtype=np.float32))
-        else:
-            dist = _scores_to_distances_np(top_s, queries[s:e], metric)
-        dist[dead] = np.inf
-        top_i = np.where(dead, -1, top_i).astype(np.int32)
-        if kk < k:
-            dist = np.concatenate([dist, np.full((qb, k - kk), np.inf, np.float32)], axis=1)
-            top_i = np.concatenate([top_i, np.full((qb, k - kk), -1, np.int32)], axis=1)
-        out_d[s:e] = dist[:, :k]
-        out_i[s:e] = top_i[:, :k]
-    return out_d, out_i
+    kk = min(k, w)
+    with profiling.annotate("residency.score"):
+        sc = host_rescore.window_scores(host, win, _prepare_queries_np(queries, metric), aux_mul, aux_add, mask,
+                                        rows)
+        METRICS.add("residency.rescore_fused")
+        top_s = np.empty((qt, kk), np.float32)
+        top_i = np.empty((qt, kk), win.dtype)
+        for s in range(0, qt, q_block):
+            top_s[s : s + q_block], top_i[s : s + q_block] = _order_block(sc[s : s + q_block],
+                                                                          win[s : s + q_block], kk)
+        dead = ~np.isfinite(top_s)  # invalid, masked or padding candidates
+    if metric == "l2":
+        dist = np.empty((qt, kk), np.float32)
+        for s in range(0, qt, q_block):
+            e = min(s + q_block, qt)
+            winners = _gather_rows(host, np.where(dead[s:e], 0, top_i[s:e]).ravel(), spent)
+            diff = winners.reshape(e - s, kk, -1) - queries[s:e, None, :]
+            dist[s:e] = np.sqrt(np.square(diff).sum(axis=-1, dtype=np.float32))
+    else:
+        dist = _scores_to_distances_np(top_s, queries, metric)
+    dist[dead] = np.inf
+    top_i = np.where(dead, -1, top_i).astype(np.int32)
+    if kk < k:
+        dist = np.concatenate([dist, np.full((qt, k - kk), np.inf, np.float32)], axis=1)
+        top_i = np.concatenate([top_i, np.full((qt, k - kk), -1, np.int32)], axis=1)
+    return dist, top_i
 
 
 def _timed_rescore(host, hmul, hadd, mask, stacked, win, *args) -> tuple[np.ndarray, np.ndarray]:
@@ -312,7 +262,7 @@ def _request_window(req, n_pad: int, k_pad: int) -> int:
 
 def int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
     """(dist [Q, k], ids [Q, k]) via the int8-resident two-phase: device
-    phase A window → host gather + exact fp32 rescore."""
+    phase A window → the host's exact fp32 rescore."""
     with profiling.annotate("residency.int8"):
         return _int8_topk(cache, req, stacked, k, k_pad)
 

@@ -26,8 +26,9 @@ from a source checkout, in ``$XDG_CACHE_HOME/fenix_tpu_torch`` (default
 ``~/.cache``) when it is installed, or in ``$FENIX_TORCH_BUILD_DIR``; it is
 named by a hash of its sources and flags so a changed source rebuilds.
 The build runs at most once per process (thread lock) and once per build
-directory (file lock), the first time a CUDA tensor reaches a wrapper —
-never at import.
+directory (file lock, :func:`locked_build`, which the host rescore's g++
+build in ``ops/host_rescore.py`` shares), the first time a CUDA tensor
+reaches a wrapper — never at import.
 
 Dispatch: a wrapper given CPU tensors computes its plain PyTorch twin
 (the CPU tests run that); given CUDA tensors it launches the kernel or
@@ -148,42 +149,53 @@ def library_path() -> Path:
     return build_dir() / f"libfenix_kernels-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library if this source revision has none yet:
-    one ``nvcc`` per source, all started together, then one link."""
-    lib = library_path()
+def locked_build(lib: Path, make) -> Path:
+    """``lib``, made at most once per build directory: under the
+    directory's file lock, unless it exists, ``make(tmp)`` writes it to a
+    path of this process that then replaces it (``make`` raises on a
+    failed build)."""
     lib.parent.mkdir(parents=True, exist_ok=True)
     with open(lib.parent / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
-            nvcc = _nvcc()
-            objs = [lib.with_name(f"{lib.stem}.{Path(s).stem}.{os.getpid()}.o") for s in _SOURCES]
-            logs = [obj.with_suffix(".log") for obj in objs]
-            procs = []
-            for src, obj, log in zip(_SOURCES, objs, logs):
-                with open(log, "w") as fh:  # a file, not a pipe: no compile blocks on output
-                    procs.append(subprocess.Popen(
-                        [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)],
-                        stdout=fh, stderr=subprocess.STDOUT,
-                    ))
-            errors = []
-            for src, proc, log in zip(_SOURCES, procs, logs):
-                if proc.wait() != 0:
-                    errors.append(f"nvcc {src} failed ({proc.returncode}):\n{log.read_text()}")
             tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            if not errors:
-                done = subprocess.run(
-                    [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
-                    capture_output=True, text=True,
-                )
-                if done.returncode != 0:
-                    errors.append(f"nvcc link failed ({done.returncode}):\n{done.stderr}")
-            for path in (*objs, *logs):
-                path.unlink(missing_ok=True)
-            if errors:
-                raise RuntimeError("\n".join(errors))
+            make(tmp)
             os.replace(tmp, lib)
     return lib
+
+
+def build() -> Path:
+    """Compile the kernel library if this source revision has none yet:
+    one ``nvcc`` per source, all started together, then one link."""
+    return locked_build(library_path(), _compile)
+
+
+def _compile(tmp: Path) -> None:
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.stem}.{Path(s).stem}.o") for s in _SOURCES]
+    logs = [obj.with_suffix(".log") for obj in objs]
+    procs = []
+    for src, obj, log in zip(_SOURCES, objs, logs):
+        with open(log, "w") as fh:  # a file, not a pipe: no compile blocks on output
+            procs.append(subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)],
+                stdout=fh, stderr=subprocess.STDOUT,
+            ))
+    errors = []
+    for src, proc, log in zip(_SOURCES, procs, logs):
+        if proc.wait() != 0:
+            errors.append(f"nvcc {src} failed ({proc.returncode}):\n{log.read_text()}")
+    if not errors:
+        done = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if done.returncode != 0:
+            errors.append(f"nvcc link failed ({done.returncode}):\n{done.stderr}")
+    for path in (*objs, *logs):
+        path.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def _library() -> ctypes.CDLL:

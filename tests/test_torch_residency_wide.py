@@ -11,7 +11,7 @@ of phase A (``topk2.bucket_for``); a ``tag`` filter folds into the aux as
 
 The window is cut to ``WINDOW`` rows and the narrowing's gather cap to
 ``GATHER_CAP`` so that the CPU's temporaries stay small: the narrowing
-then runs in chunks, and the host gathers Q × ``WINDOW`` rows of 6 KB.
+then runs in chunks, and the host rescores Q × ``WINDOW`` rows of 6 KB.
 """
 
 import sys
@@ -132,16 +132,19 @@ def test_int8_resident_through_flight(client, corpus, q, filtered):
 
 
 def test_rescore_counters(client, corpus):
-    """``residency.rescore_rows`` is Q × window; the gather and score
-    seconds add up to the rescore's."""
+    """``residency.rescore_rows`` is Q × window; a cosine rescore gathers
+    no rows, so its score seconds are the rescore's; one scoring pass a
+    rescore."""
     queries = corpus[3][:64]
     before = client.stats()
     client.search(queries, "wide", "vector", metric="cosine", maxval=K, precision="int8", residency="int8")
     after = client.stats()
     delta = {n: after.get(n, 0.0) - before.get(n, 0.0) for n in after}
     assert delta["residency.rescore_rows"] == 64 * WINDOW
-    assert delta["residency.rescore_gather_seconds"] > 0 and delta["residency.rescore_score_seconds"] > 0
-    assert delta["residency.rescore_gather_seconds"] + delta["residency.rescore_score_seconds"] == \
+    assert delta["residency.rescore_fused"] == delta["search.residency_int8"] == 1
+    assert delta.get("residency.rescore_gather_seconds", 0.0) == 0.0
+    assert delta["residency.rescore_score_seconds"] > 0
+    assert delta["residency.rescore_score_seconds"] == \
         pytest.approx(delta["residency.rescore_seconds"], rel=1e-9, abs=1e-12)
     assert delta["residency.phase_a_seconds"] > 0
     assert "residency.phase_a_device_seconds" not in delta  # a card's events, under a capture
@@ -176,14 +179,14 @@ def test_spans_on_the_dispatcher_under_a_capture(client, corpus):
     (route,) = by_name["residency.int8"]
     (phase_a,) = by_name["residency.phase_a"]
     (rescore,) = by_name["residency.rescore"]
-    (gather,) = by_name["residency.gather"]  # one query block
-    (score,) = by_name["residency.score"]
+    (score,) = by_name["residency.score"]  # the scoring pass and the order
+    assert "residency.gather" not in by_name  # cosine gathers no rows
     assert dispatch.thread == "fenix-search-batcher"
     for child, parent in ((branch, dispatch), (route, branch), (phase_a, route), (rescore, route),
-                          (gather, rescore), (score, rescore)):
+                          (score, rescore)):
         assert child.parent == parent.id and child.tid == dispatch.tid
         assert parent.start_ns <= child.start_ns <= child.end_ns <= parent.end_ns
-    assert phase_a.end_ns <= rescore.start_ns and gather.end_ns <= score.start_ns
+    assert phase_a.end_ns <= rescore.start_ns
 
 
 def test_concurrent_requests_share_one_pass(corpus, small_work):
@@ -241,9 +244,9 @@ def test_concurrent_requests_share_one_pass(corpus, small_work):
 
 
 def test_rescore_scratch_is_held_by_one_call(corpus):
-    """The host rescore answers alike into its kept buffer and into fresh
-    ones (while another call holds the buffer), and calls on many threads
-    at once each rescore their own rows."""
+    """Host rescores on many threads at once (each scoring pass on the
+    host's threads of its own, the interpreter lock released) each answer
+    their own rows, as they do one at a time."""
     _, vectors, _, queries = corpus
     rng = np.random.default_rng(5)
     mul = (1.0 / np.linalg.norm(vectors, axis=1)).astype(np.float32)
@@ -253,14 +256,6 @@ def test_rescore_scratch_is_held_by_one_call(corpus):
     def rescore(i):
         return residency._host_rescore_topk(vectors, mul, add, None, queries[16 * i : 16 * (i + 1)], wins[i],
                                             ROWS, K, "cosine")
-
-    kept = rescore(0)
-    assert residency._SCRATCH._buf.size >= 16 * WINDOW * DIM
-    with residency._SCRATCH.lend() as other:
-        assert other is not None
-        fresh = rescore(0)
-    for a, b in zip(kept, fresh):
-        np.testing.assert_array_equal(a, b)
 
     want = [rescore(i) for i in range(len(wins))]
     got: list = [None] * len(wins)
