@@ -206,7 +206,7 @@ Phases, each printing one JSON line with its own timings:
    (d) Q=1 l2 k=10 at 16 probes of phase 7's coder from 16 threads x 8
    requests (one probed route per dispatch). (e) on the phase-6 server
    after phase 6's searches: Q=8 auto (int8-resident) from 8 threads x 2
-   requests, one residency.execute_many pass per dispatch, held to the
+   requests, one int8-resident route call per dispatch, held to the
    solo answers by the graded rule (recall >= 0.99, equal distances on
    shared ids). After the servers: the result gather's vector rows of
    phase 3's Q=1024 filtered search, numpy indexing against
@@ -3329,8 +3329,8 @@ def phase_batching_serve(client, Flight, port: int, expr, vectors, smi: str, kin
 
 def phase_batching_residency(client, Flight, port: int, vectors, smi: str, kind: str) -> dict:
     """Phase 12 (e) on the phase-6 server: Q=8 auto (int8-resident) from a
-    few threads through residency.execute_many, one int8-resident pass per
-    dispatch; each answer held to its solo one by the graded rule."""
+    few threads through the executor's one request path, one int8-resident
+    pass per dispatch; each answer held to its solo one by the graded rule."""
     c0 = launches(client)
     threads, per, qn = MB_RES
     qs = make_queries(vectors, qn * threads * per, seed=603).reshape(threads * per, qn, RES_D)

@@ -660,12 +660,7 @@ def execute_search_join(
         and req.metric is not None
         and residency.plan(cache, req) == residency.DUAL
     ):
-        for _ in range(4):
-            try:
-                return _execute_fused(cache, req, join, aggregate)
-            except _StaleRevision:
-                continue
-        raise RuntimeError(f"table {req.source!r} kept changing during search")
+        return executor._retry(lambda: _execute_fused(cache, req, join, aggregate), req.source)
     return _execute_two_step(cache, req, join, aggregate)
 
 

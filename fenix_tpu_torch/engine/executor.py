@@ -14,9 +14,19 @@ Served here: exact top-k (``maxval`` set) over one device, ``dual``
 residency, fp32/bf16/int8 scan precision; the no-top-k read
 (``maxval=None``, ``_execute_nomax`` over ``ops/select.py``); filters on
 the card where the predicate allows it, else from the host table
-(``_FilterPlan``). A request that ``residency.plan`` routes to the
-int8-resident or streaming mode goes to ``engine/residency.py`` before
-any device fp32 is built.
+(``_FilterPlan``).
+
+One request path: ``_execute_batch_once`` serves every top-k batch and
+``_execute_search_once`` the no-top-k read, each retried by ``_retry``
+(four attempts while catalog mutations land mid-request). Each
+validates, asks ``residency.plan`` for the mode, takes the revision,
+normalises and stacks the targets, runs a route and gathers each
+member's rows. DUAL snapshots the host table with the device fp32 and
+runs the device routes here. The host-corpus modes build no device fp32:
+they take the revision stamp and the host table (the coded one under a
+probed top-k), run a route of ``engine/residency.py`` (probe cells
+ranked here) and check the stamp again; ``k_pad`` is ``_canonical_k(k)``,
+with no device ``n_pad`` to cap it.
 
 IVF (a ``coding`` and a nonzero ``probes``; ``probes=0`` is the exact
 search over the coded table, as in the JAX package): the metric defaults
@@ -42,21 +52,17 @@ holding ``fenix.rank_cells``, ``ivf.route`` and ``fenix.mask_build``),
 dispatch's host time leaves it out) and ``fenix.result_gather`` (timer
 ``results.gather_seconds``); while a capture is active, phase 2's device
 time (``ops/topk2``, counter ``phase2.device_seconds``) is read once the
-fetch has synchronised. A batch that ``residency.plan`` sends to a
-host-corpus mode runs inside ``executor.host_corpus`` (its spans and
-timers are ``engine/residency.py``'s).
-
-Probed search past the device budget is ``residency.probed_topk`` on
-the host.
+fetch has synchronised. A host-corpus top-k batch runs whole, its rows
+gathered included, inside ``executor.host_corpus`` and has no other span
+of this module (its route's are ``engine/residency.py``'s).
 
 Micro-batching (``engine/batching.py``): ``batchable`` and ``batch_key``
 decide which requests may share a dispatch, and
 ``execute_search_batched`` runs them as one search over their stacked
 queries (DUAL exact at every scan precision, both probed routes chosen
-over the stacked batch, the host-corpus modes through
-``residency.execute_many``), with one filter overlay for the batch. A
-top-k request alone is a batch of one, so both paths share every route
-and counter.
+over the stacked batch, the host-corpus routes), with one filter overlay
+for the batch. A top-k request alone is a batch of one, so both paths
+share every route and counter.
 
 Meshes (a cache with a ``mesh``, ``parallel/mesh.py``): the snapshot's
 matrix is the row-sharded one and every route runs over row-sharded
@@ -76,6 +82,7 @@ shard by shard and concatenates in shard order, which is table order.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -399,15 +406,22 @@ def _ivf_bucket_lists(
     return out.astype(np.int32)
 
 
-def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
-    """Run a search request against device-resident columns, retrying
-    when a concurrent catalog mutation lands mid-request."""
+def _retry(attempt: Callable[[], Any], source) -> Any:
+    """``attempt()``, made again while a concurrent catalog mutation lands
+    mid-request (``_StaleRevision``): four attempts in all, then
+    ``RuntimeError``. The one retry of every request path."""
     for _ in range(4):
         try:
-            return _execute_search_once(cache, req)
+            return attempt()
         except _StaleRevision:
             continue
-    raise RuntimeError(f"table {req.source!r} kept changing during search")
+    raise RuntimeError(f"table {source!r} kept changing during search")
+
+
+def execute_search(cache: DeviceCache, req: SearchRequest) -> pa.Table:
+    """Run a search request, retrying when a concurrent catalog mutation
+    lands mid-request."""
+    return _retry(lambda: _execute_search_once(cache, req), req.source)
 
 
 def _validate(req: SearchRequest) -> bool:
@@ -423,37 +437,36 @@ def _validate(req: SearchRequest) -> bool:
     return probed
 
 
-def _request_metric(req: SearchRequest, coding_data) -> str:
-    """The request's metric, or the coder's (the reference's
-    index.py:116-117)."""
-    metric = req.metric if req.metric is not None else coding_data["config"]["metric"]
-    return distance_ops.canonical_metric(metric)
-
-
 def _execute_search_once(cache: DeviceCache, req: SearchRequest) -> pa.Table:
     if req.maxval is not None:  # top-k: a batch of one
         return _execute_batch_once(cache, [req], defer=False)[0]
     probed = _validate(req)
-    # corpora past the budget serve through the host-corpus modes,
-    # before any device fp32 is built
-    mode = residency.plan(cache, req)
-    if mode != residency.DUAL:
-        return residency.execute_solo(cache, req, mode)
-
-    # host table (with the __CODED_ID__ join under a coder) + device
-    # matrix of the same revision
-    data, corpus, snap_stamp = cache.snapshot(req.source, req.column, req.coding)
+    on_card = residency.plan(cache, req) == residency.DUAL
+    if on_card:  # the host table (with __CODED_ID__ under a coder) and the device matrix of one revision
+        data, corpus, snap_stamp = cache.snapshot(req.source, req.column, req.coding)
+        views_stamp, variant = snap_stamp, req.coding
+    else:  # the table's own columns, as in the JAX package; a probed read's revision is the index's too
+        views_stamp, variant = cache.snapshot_stamp(req.source), None
+        snap_stamp = cache.snapshot_stamp(req.source, req.column, req.coding) if probed else views_stamp
+        data = cache.host_table(req.source)
     column_type = ingest.vector_field_type(data.schema.field(req.column))
     value_dtype = column_type.value_type.to_pandas_dtype()
     target = normalize_target(req.target, column_type.list_size)
-    coding_data = cache.coding(req.coding) if probed else None
-    metric = _request_metric(req, coding_data)
-    views = cache.host_column_views(req.source, data, snap_stamp, req.coding)
-    plan = _FilterPlan(cache, req.source, req.column, req.filter, data, corpus.rows_padded, corpus.rows)
+    metric = residency._request_metric(cache, req)
+    views = cache.host_column_views(req.source, data, views_stamp, variant)
     select = [*req.select] if req.select is not None else data.column_names
-    queries = torch.tensor(target, device=cache.device)  # target may view Arrow memory
+    queries = torch.tensor(target, device=cache.device) if on_card else None  # target may view Arrow memory
+    cells_np, cells = (_rank_cells(cache, req.coding, target, metric, int(req.probes), queries) if probed
+                       else (None, None))
+    if not on_card:
+        dists, ids = residency.execute_nomax_host(cache, req, target, cells_np)
+        _check_revision(cache, req.source, req.column, req.coding if probed else None, snap_stamp)
+        METRICS.add("search.residency_host_nomax")
+        return gather_results(data, select + [DIST_COL], dists, ids, value_dtype, views=views)
+
+    plan = _FilterPlan(cache, req.source, req.column, req.filter, data, corpus.rows_padded, corpus.rows)
     return _execute_nomax(
-        cache, req, data, corpus, plan, coding_data, metric, target, queries,
+        cache, req, data, corpus, plan, cells, metric, target, queries,
         value_dtype, select + [DIST_COL], snap_stamp, views,
     )
 
@@ -504,12 +517,7 @@ def execute_search_batched(
     to pinned host memory is enqueued right behind the search, with an
     event) and gathers each member's table. Retried when a catalog
     mutation lands mid-request."""
-    for _ in range(4):
-        try:
-            return _execute_batch_once(cache, reqs, defer)
-        except _StaleRevision:
-            continue
-    raise RuntimeError(f"table {reqs[0].source!r} kept changing during search")
+    return _retry(lambda: _execute_batch_once(cache, reqs, defer), reqs[0].source)
 
 
 def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
@@ -543,71 +551,89 @@ def _fetch_async(*tensors: torch.Tensor) -> "Callable[[], list[np.ndarray]]":
 def _execute_batch_once(
     cache: DeviceCache, reqs: Sequence[SearchRequest], defer: bool
 ) -> "list[pa.Table] | Callable[[], list[pa.Table]]":
+    """The top-k request path (module docstring); a deferred host-corpus
+    batch returns the tables it has already built."""
     r0 = reqs[0]
     probed = _validate(r0)
     mode = residency.plan(cache, r0)
-    if mode != residency.DUAL:
-        # host-corpus modes: one stacked pass, split per request (the
-        # batch key carries the residency, so the group is uniform)
-        with profiling.annotate("executor.host_corpus"):
-            tables = residency.execute_many(cache, reqs, mode)
-        return (lambda: tables) if defer else tables
-
-    data, corpus, snap_stamp = cache.snapshot(r0.source, r0.column, r0.coding)
-    with profiling.annotate("executor.prepare"):
-        column_type = ingest.vector_field_type(data.schema.field(r0.column))
-        value_dtype = column_type.value_type.to_pandas_dtype()
-        targets = [normalize_target(r.target, column_type.list_size) for r in reqs]
-        counts = [t.shape[0] for t in targets]
-        stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
-        coding_data = cache.coding(r0.coding) if probed else None
-        metric = _request_metric(r0, coding_data)
-
-        n_pad, rows = corpus.rows_padded, corpus.rows
-        views = cache.host_column_views(r0.source, data, snap_stamp, r0.coding)
-        # members share one predicate (the batch key carries its wire form),
-        # so one overlay serves the whole batch
-        plan = _FilterPlan(cache, r0.source, r0.column, r0.filter, data, n_pad, rows)
-
-    k = int(min(max(r.maxval for r in reqs), rows))
-    k_pad = min(_canonical_k(k), n_pad)
-    with profiling.annotate("executor.launch"), profiling.device_timings() as timings:
-        queries = torch.tensor(stacked, device=cache.device)  # a target may view Arrow memory
-        if probed:
-            dists, ids = _probed_topk(
-                cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
-            )
-        elif cache.mesh is not None:
-            dists, ids = _mesh_exact(cache, r0, corpus, queries, metric, plan, k_pad, snap_stamp)
+    on_card = mode == residency.DUAL
+    span = profiling.annotate if on_card else contextlib.nullcontext  # the host modes' spans are their own
+    with contextlib.nullcontext() if on_card else profiling.annotate("executor.host_corpus"):
+        coding = r0.coding if on_card or probed else None
+        if on_card:
+            data, corpus, snap_stamp = cache.snapshot(r0.source, r0.column, coding)
+            n_pad, rows = corpus.rows_padded, corpus.rows
         else:
-            aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
-            aux_add = plan.overlay(aux_add)
-            scan = _scan_copies(cache, r0)
-            _check_revision(cache, r0.source, r0.column, r0.coding, snap_stamp)
-            dists, ids = topk2.topk_two_phase(
-                corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
-            )
-        # one device→host copy of the small [Q, k] results
-        fetch = _fetch_async(dists[:, :k], ids[:, :k])
+            snap_stamp = cache.snapshot_stamp(r0.source, r0.column, coding)
+            data = cache.coded_table(coding, r0.source, r0.column) if probed else cache.host_table(r0.source)
+            rows = data.num_rows
+        with span("executor.prepare"):
+            column_type = ingest.vector_field_type(data.schema.field(r0.column))
+            value_dtype = column_type.value_type.to_pandas_dtype()
+            targets = [normalize_target(r.target, column_type.list_size) for r in reqs]
+            counts = [t.shape[0] for t in targets]
+            stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
+            metric = residency._request_metric(cache, r0)
+            views = cache.host_column_views(r0.source, data, snap_stamp, coding)
+            if on_card:
+                coding_data = cache.coding(r0.coding) if probed else None
+                # members share one predicate (the batch key carries its wire
+                # form), so one overlay serves the whole batch
+                plan = _FilterPlan(cache, r0.source, r0.column, r0.filter, data, n_pad, rows)
 
-    def finish() -> list[pa.Table]:
-        dists_np, ids_np = fetch()
-        profiling.settle(timings)  # the fetch has passed phase 2's events
-        out = []
-        offset = 0
-        for req, c in zip(reqs, counts):
-            m = int(min(req.maxval, rows))
-            select = [*req.select] if req.select is not None else data.column_names
-            out.append(
-                gather_results(
-                    data, select + [DIST_COL], dists_np[offset : offset + c, :m],
-                    ids_np[offset : offset + c, :m], value_dtype, views=views,
+        k = int(min(max(r.maxval for r in reqs), rows))
+        if on_card:
+            k_pad = min(_canonical_k(k), n_pad)
+            with profiling.annotate("executor.launch"), profiling.device_timings() as timings:
+                queries = torch.tensor(stacked, device=cache.device)  # a target may view Arrow memory
+                if probed:
+                    dists, ids = _probed_topk(
+                        cache, r0, coding_data, corpus, queries, stacked, metric, plan, k_pad, snap_stamp
+                    )
+                elif cache.mesh is not None:
+                    dists, ids = _mesh_exact(cache, r0, corpus, queries, metric, plan, k_pad, snap_stamp)
+                else:
+                    aux_mul, aux_add = cache.metric_aux(r0.source, r0.column, metric)
+                    aux_add = plan.overlay(aux_add)
+                    scan = _scan_copies(cache, r0)
+                    _check_revision(cache, r0.source, r0.column, r0.coding, snap_stamp)
+                    dists, ids = topk2.topk_two_phase(
+                        corpus.data, queries, aux_mul, aux_add, k=k_pad, metric=metric, **scan
+                    )
+                # one device→host copy of the small [Q, k] results
+                fetch = _fetch_async(dists[:, :k], ids[:, :k])
+        else:
+            k_pad = _canonical_k(k)  # no device padding to cap it: k is capped by the host rows
+            if probed:
+                cells, _ = _rank_cells(cache, r0.coding, stacked, metric, int(r0.probes))
+                answer = residency.probed_topk(cache, r0, stacked, k, k_pad, cells)
+            else:
+                route = residency.int8_topk if mode == residency.INT8 else residency.stream_topk
+                answer = route(cache, r0, stacked, k, k_pad)
+            _check_revision(cache, r0.source, r0.column, coding, snap_stamp)
+            fetch, timings = (lambda: answer), []
+
+        def finish() -> list[pa.Table]:
+            dists_np, ids_np = fetch()
+            profiling.settle(timings)  # the fetch has passed phase 2's events
+            out = []
+            offset = 0
+            for req, c in zip(reqs, counts):
+                m = int(min(req.maxval, rows))
+                select = [*req.select] if req.select is not None else data.column_names
+                out.append(
+                    gather_results(
+                        data, select + [DIST_COL], dists_np[offset : offset + c, :m],
+                        ids_np[offset : offset + c, :m], value_dtype, views=views,
+                    )
                 )
-            )
-            offset += c
-        return out
+                offset += c
+            return out
 
-    return finish if defer else finish()
+        if on_card and defer:
+            return finish
+        tables = finish()
+    return (lambda: tables) if defer else tables
 
 
 # result rows from which the chunked vector gather spreads over threads
@@ -626,7 +652,7 @@ def _execute_nomax(
     data: pa.Table,
     corpus,
     plan: _FilterPlan,
-    coding_data,
+    cells: "torch.Tensor | None",
     metric: str,
     target: np.ndarray,
     queries: torch.Tensor,
@@ -637,8 +663,8 @@ def _execute_nomax(
 ) -> pa.Table:
     """No-top-k read (``maxval=None``): every selected row with its exact
     distance, in table order (the reference's index.py:162, probe pruning
-    AND'd into the filter). Counters: ``search.nomax_full`` and
-    ``search.nomax_selected``.
+    by the ranked ``cells`` AND'd into the filter). Counters:
+    ``search.nomax_full`` and ``search.nomax_selected``.
 
     Full read (no filter, no probes): the output is ``[Q, rows]``; it is
     computed in row chunks, each copied to the host, so no ``[Q, N_pad]``
@@ -659,7 +685,7 @@ def _execute_nomax(
         pieces, q_on = [(0, rows, corpus.data)], [queries]
     chunk = select_ops.chunk_for(pieces[0][2].shape[0], num_queries, _NOMAX_BLOCK)
 
-    if not plan.active and coding_data is None:
+    if not plan.active and cells is None:
         dists = np.empty((num_queries, rows), np.float32)
         for (offset, valid, x), q_s in zip(pieces, q_on):
             for start in range(0, valid, chunk):
@@ -679,8 +705,7 @@ def _execute_nomax(
 
     fmask = plan.mask(sharded=sharded) if plan.active else None
     coded = cells_sorted = None
-    if coding_data is not None:
-        _, cells = _rank_cells(cache, req.coding, target, metric, int(req.probes), queries)
+    if cells is not None:
         # sorted per query for the searchsorted membership
         cells_sorted = torch.sort(cells, dim=1).values
         coded_col = cache.coded_ids(req.coding, req.source, req.column, sharded=sharded)

@@ -21,14 +21,16 @@
 first that fits ``FENIX_HBM_BUDGET`` (or the card's memory, see
 ``utils/hbm.py``); "dual" / "int8" / "stream" force one.
 
-Probed (IVF) requests over a host corpus run on the host, no device
-involved (``probed_topk``, and the probed branch of
-``execute_nomax_host``): each probed cell is a contiguous slice of the
-cell-sorted host layouts (``session.host_clustered_int8`` and its IVF
-sidecar, ``session.host_cell_meta``). ``execute_many`` serves a list of compatible top-k requests
-in one pass: a micro-batch (``executor.execute_search_batched``), a
-lone request being a batch of one. ``maxval=None`` over a host corpus is
-``execute_nomax_host``.
+The modes are routes below the executor's one request path, which takes
+the revision, stacks the targets and gathers the rows: a top-k route
+(``int8_topk``, ``stream_topk``, ``probed_topk``) returns the ``[Q, k]``
+(dist, ids) of the stacked queries, the no-top-k read
+(``execute_nomax_host``) every selected row; each raises
+``_StaleRevision`` when the host entries it read span a mutation.
+Probed (IVF) routes run on the host alone, over the probe cells the
+executor ranked: each cell is a contiguous slice of the cell-sorted host
+layouts (``session.host_clustered_int8`` and its IVF sidecar,
+``session.host_cell_meta``).
 
 Over a mesh (``DeviceCache.mesh``) the modes compose with the row split,
 and the budget is per device: ``plan`` compares each device's slice
@@ -48,8 +50,7 @@ ending in the device→host copy of its result),
 ``residency.rescore_seconds`` (the exact host rescore), split into
 ``residency.rescore_gather_seconds`` (the l2 winners' row gathers; cosine
 and dot gather nothing) and ``residency.rescore_score_seconds`` (the
-rest: the scoring pass, the order, the distances),
-``residency.rescore_fused`` (scoring passes, one a rescore) and
+rest: the scoring pass, the order, the distances) and
 ``residency.rescore_rows`` (candidate rows rescored: Q × window).
 While a capture is active on a card, ``residency.phase_a_device_seconds``
 times the int8-resident phase A on the card by a pair of CUDA events,
@@ -67,14 +68,12 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Sequence
 
 import numpy as np
-import pyarrow as pa
 import torch
 
 from fenix_tpu_torch import native
-from fenix_tpu_torch.engine import executor  # circular: used at call time only
+from fenix_tpu_torch.engine.session import _StaleRevision
 from fenix_tpu_torch.io import batch as batch_io
 from fenix_tpu_torch.io import ingest
 from fenix_tpu_torch.ops import distance as distance_ops
@@ -193,11 +192,11 @@ def _host_rescore_topk(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact fp32 rescore + top-k over per-query candidate windows, on
     the host: one threaded pass scores every window slot straight from the
-    host column (``host_rescore.window_scores``, counted as
-    ``residency.rescore_fused``), then each block of ``q_block`` queries is
-    ordered by (score desc, id asc), i.e. (distance asc, id asc). Returns
-    (dist [Q, k] f32, ids [Q, k] int32; +inf / −1 padding). ``spent[0]``
-    gains the wall seconds of the l2 winners' gathers.
+    host column (``host_rescore.window_scores``), then each block of
+    ``q_block`` queries is ordered by (score desc, id asc), i.e. (distance
+    asc, id asc). Returns (dist [Q, k] f32, ids [Q, k] int32; +inf / −1
+    padding). ``spent[0]`` gains the wall seconds of the l2 winners'
+    gathers.
 
     The reference's code, with two changes: the scores come from the one
     pass, not from an einsum over a gather of the window's rows (the same
@@ -212,7 +211,6 @@ def _host_rescore_topk(
     with profiling.annotate("residency.score"):
         sc = host_rescore.window_scores(host, win, _prepare_queries_np(queries, metric), aux_mul, aux_add, mask,
                                         rows)
-        METRICS.add("residency.rescore_fused")
         top_s = np.empty((qt, kk), np.float32)
         top_i = np.empty((qt, kk), win.dtype)
         for s in range(0, qt, q_block):
@@ -281,7 +279,7 @@ def _int8_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.
     mask = _host_mask(cache, req)
     if mask is not None:
         if mask.shape[0] != rows:
-            raise executor._StaleRevision
+            raise _StaleRevision
         padded = np.zeros(n_pad, bool)
         padded[:rows] = mask
         METRICS.add("filter.host_upload")
@@ -331,22 +329,22 @@ def _ranges_to_positions(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
 
 
 def _request_metric(cache, req) -> str:
-    """The request's metric, by default its coder's (as on the device
-    routes; the JAX package's host routes require one)."""
+    """The request's metric, or its coder's (the reference's
+    index.py:116-117): the one rule of every route, on the card or not."""
     metric = req.metric if req.metric is not None else cache.coding(req.coding)["config"]["metric"]
     return distance_ops.canonical_metric(metric)
 
 
-def probed_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
+def probed_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int,
+                cells: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(dist [Q, k], ids [Q, k]) of a probed request over a host corpus,
-    on the host alone: the probe cells are ranked as on every probed route
-    (``executor._rank_cells``); each probed cell is a contiguous slice of
-    the cell-sorted int8 layout, scored by ``native.row_score`` (int8 rows,
-    fp32 query); the top ``window`` per query (``argpartition``) go to the
-    exact fp32 host rescore of the int8-resident mode. Work is O(probed
-    rows). The JAX package's function, its per-query loop kept."""
+    on the host alone, over its ranked probe ``cells`` [Q, P]: each probed
+    cell is a contiguous slice of the cell-sorted int8 layout, scored by
+    ``native.row_score`` (int8 rows, fp32 query); the top ``window`` per
+    query (``argpartition``) go to the exact fp32 host rescore of the
+    int8-resident mode. Work is O(probed rows). The JAX package's
+    function, its per-query loop kept."""
     metric = _request_metric(cache, req)
-    cells, _ = executor._rank_cells(cache, req.coding, stacked, metric, int(req.probes))
     codes_s, _, orig, offsets = cache.host_clustered_int8(req.coding, req.source, req.column)
     mul_s, add_s = cache.host_clustered_aux(req.coding, req.source, req.column, metric)
     host = cache.host_matrix(req.source, req.column)
@@ -354,7 +352,7 @@ def probed_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     mask = _host_mask(cache, req)
     rows = host.shape[0]
     if orig.shape[0] != rows or (mask is not None and mask.shape[0] != rows):
-        raise executor._StaleRevision
+        raise _StaleRevision
     qt = stacked.shape[0]
     qp = _prepare_queries_np(stacked, metric)
     w = _request_window(req, max(rows, 1), k_pad)
@@ -404,7 +402,7 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     mask = _host_mask(cache, req)
     rows, dim = host.shape
     if mask is not None and mask.shape[0] != rows:
-        raise executor._StaleRevision
+        raise _StaleRevision
     int8_mode = req.precision == "int8"
     if int8_mode:
         # the memoized host mirror: quantizing inside every search would
@@ -513,128 +511,50 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     return dq, np.where(np.isfinite(dq), iq, -1).astype(np.int32)
 
 
-# -- engine entry points ---------------------------------------------------
+# -- the no-top-k read -----------------------------------------------------
 
 
-def execute_many(cache, reqs: Sequence, mode: str) -> "list[pa.Table]":
-    """Serve compatible requests (same source, column, metric, filter,
-    precision, coder and probes) through a host-corpus mode as one pass,
-    retrying when a catalog mutation lands mid-request. A probed request
-    (a coder and nonzero probes) runs ``probed_topk`` over the coded
-    table, whatever the mode."""
-    r0 = reqs[0]
-    probed = bool(r0.coding) and bool(r0.probes)
-    coding = r0.coding if probed else None
-    if probed:
-        fn = probed_topk
-    else:
-        fn = int8_topk if mode == INT8 else stream_topk
-    for _ in range(4):
-        stamp = cache.snapshot_stamp(r0.source, r0.column, coding)
-        data = cache.coded_table(coding, r0.source, r0.column) if probed else cache.host_table(r0.source)
-        column_type = ingest.vector_field_type(data.schema.field(r0.column))
-        value_dtype = column_type.value_type.to_pandas_dtype()
-        targets = [executor.normalize_target(r.target, column_type.list_size) for r in reqs]
-        counts = [t.shape[0] for t in targets]
-        stacked = np.concatenate(targets) if len(targets) > 1 else targets[0]
-        rows = data.num_rows
-        k = int(min(max(r.maxval for r in reqs), rows))
-        try:
-            dist, ids = fn(cache, r0, stacked, k, executor._canonical_k(k))
-        except executor._StaleRevision:
-            continue
-        if cache.snapshot_stamp(r0.source, r0.column, coding) != stamp:
-            continue
-
-        views = cache.host_column_views(r0.source, data, stamp, coding)
-        out = []
-        offset = 0
-        for req, c in zip(reqs, counts):
-            m = int(min(req.maxval, rows))
-            select = [*req.select] if req.select is not None else data.column_names
-            out.append(
-                executor.gather_results(
-                    data,
-                    select + [executor.DIST_COL],
-                    dist[offset : offset + c, :m],
-                    ids[offset : offset + c, :m],
-                    value_dtype,
-                    views=views,
-                )
-            )
-            offset += c
-        return out
-    raise RuntimeError(f"table {r0.source!r} kept changing during search")
-
-
-def execute_solo(cache, req, mode: str) -> pa.Table:
-    if req.maxval is None:
-        return execute_nomax_host(cache, req)
-    return execute_many(cache, [req], mode)[0]
-
-
-def execute_nomax_host(cache, req) -> pa.Table:
-    """No-top-k read over a host-resident corpus: every row that passes
-    the filter (and, probed, lies in one of the query's probe cells), in
-    table order, with its exact fp32 distance, computed on the host (the
-    output is O(selected rows): no reason to stream the corpus through
-    the card for a host-delivered result). The reference's index.py:162,
-    as ``fenix_tpu/engine/residency.py:675-739`` serves it, with two
-    changes: an unprobed selection is the same for every query, so it is
-    found once; and an l2 distance is ``‖q − v‖`` of the selected row (the
-    port's l2 rule, :func:`_host_l2`), while cosine and dot come from
-    ``native.row_score``. A probed read finds each query's rows through
-    the cell-sorted order (``session.host_cell_meta``); its columns are
-    the table's, without ``__CODED_ID__``, as in the JAX package.
-    Counter: ``search.residency_host_nomax``."""
-    probed = bool(req.coding) and bool(req.probes)
-    metric = _request_metric(cache, req) if probed else distance_ops.canonical_metric(req.metric)
-    for _ in range(4):
-        table_stamp = cache.snapshot_stamp(req.source)
-        stamp = cache.snapshot_stamp(req.source, req.column, req.coding) if probed else table_stamp
-        data = cache.host_table(req.source)
-        column_type = ingest.vector_field_type(data.schema.field(req.column))
-        value_dtype = column_type.value_type.to_pandas_dtype()
-        target = executor.normalize_target(req.target, column_type.list_size)
-        host = cache.host_matrix(req.source, req.column)
-        rows = host.shape[0]
-        qt = target.shape[0]
-        mask = cache.host_filter_mask(req.source, req.filter) if req.filter is not None else None
-        if mask is not None and mask.shape[0] != rows:
-            continue  # the mask and the matrix span revisions
-        if probed:
-            cells, _ = executor._rank_cells(cache, req.coding, target, metric, int(req.probes))
-            try:
-                orig, offsets = cache.host_cell_meta(req.coding, req.source, req.column)
-            except executor._StaleRevision:
-                continue
-            if orig.shape[0] != rows:
-                continue
-            sels = []
-            for qi in range(qt):
-                sel = np.sort(orig[_ranges_to_positions(offsets[cells[qi]], offsets[cells[qi] + 1])])
-                sels.append(sel if mask is None else sel[mask[sel]])
-            width = max(max(x.size for x in sels), 1)
-            ids = np.full((qt, width), -1, np.int64)
-            dist = np.full((qt, width), np.inf, np.float32)
-            for qi, sel in enumerate(sels):
-                ids[qi, : sel.size] = sel
-                dist[qi, : sel.size] = _host_distances(cache, req, host, sel, target[qi : qi + 1], metric)[0]
-        else:
-            sel = np.arange(rows) if mask is None else np.flatnonzero(mask)
-            dist = _host_distances(cache, req, host, sel, target, metric)
-            ids = np.broadcast_to(sel, (qt, sel.size))
-            if sel.size == 0:  # one dropped slot per query, as the device read
-                ids, dist = np.full((qt, 1), -1, np.int64), np.full((qt, 1), np.inf, np.float32)
-        if cache.snapshot_stamp(req.source, req.column, req.coding if probed else None) != stamp:
-            continue
-        select = [*req.select] if req.select is not None else data.column_names
-        METRICS.add("search.residency_host_nomax")
-        return executor.gather_results(
-            data, select + [executor.DIST_COL], dist, ids, value_dtype,
-            views=cache.host_column_views(req.source, data, table_stamp),
-        )
-    raise RuntimeError(f"table {req.source!r} kept changing during search")
+def execute_nomax_host(cache, req, target: np.ndarray, cells: "np.ndarray | None") -> tuple[np.ndarray, np.ndarray]:
+    """(dist [Q, W], ids [Q, W]) of a no-top-k read over a host-resident
+    corpus, −1 / +inf padded: every row that passes the filter (and lies
+    in one of the query's ranked probe ``cells`` [Q, P]; None unprobed),
+    in table order, with its exact fp32 distance, computed on the host
+    (the output is O(selected rows): no reason to stream the corpus
+    through the card for a host-delivered result). The reference's
+    index.py:162, as ``fenix_tpu/engine/residency.py:675-739`` serves it,
+    with two changes: an unprobed selection is the same for every query,
+    so it is found once; and an l2 distance is ``‖q − v‖`` of the selected
+    row (the port's l2 rule, :func:`_host_l2`), while cosine and dot come
+    from ``native.row_score``. A probed read finds each query's rows
+    through the cell-sorted order (``session.host_cell_meta``)."""
+    metric = _request_metric(cache, req)
+    host = cache.host_matrix(req.source, req.column)
+    rows = host.shape[0]
+    qt = target.shape[0]
+    mask = _host_mask(cache, req)
+    if mask is not None and mask.shape[0] != rows:
+        raise _StaleRevision  # the mask and the matrix span revisions
+    if cells is None:
+        sel = np.arange(rows) if mask is None else np.flatnonzero(mask)
+        dist = _host_distances(cache, req, host, sel, target, metric)
+        ids = np.broadcast_to(sel, (qt, sel.size))
+        if sel.size == 0:  # one dropped slot per query, as the device read
+            ids, dist = np.full((qt, 1), -1, np.int64), np.full((qt, 1), np.inf, np.float32)
+        return dist, ids
+    orig, offsets = cache.host_cell_meta(req.coding, req.source, req.column)
+    if orig.shape[0] != rows:
+        raise _StaleRevision
+    sels = []
+    for qi in range(qt):
+        sel = np.sort(orig[_ranges_to_positions(offsets[cells[qi]], offsets[cells[qi] + 1])])
+        sels.append(sel if mask is None else sel[mask[sel]])
+    width = max(max(x.size for x in sels), 1)
+    ids = np.full((qt, width), -1, np.int64)
+    dist = np.full((qt, width), np.inf, np.float32)
+    for qi, sel in enumerate(sels):
+        ids[qi, : sel.size] = sel
+        dist[qi, : sel.size] = _host_distances(cache, req, host, sel, target[qi : qi + 1], metric)[0]
+    return dist, ids
 
 
 def _host_distances(

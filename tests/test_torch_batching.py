@@ -322,9 +322,9 @@ def test_batcher_concurrent_probed(root, cache, rng):
 
 @pytest.mark.parametrize("mode", ["int8", "stream"])
 def test_batched_host_corpus_modes(root, cache, rng, mode):
-    """Host-corpus residency: one residency.execute_many pass for the
-    batch, each member's table equal to its solo one and to the JAX
-    package's batched answer."""
+    """Host-corpus residency: one host-corpus route call over the batch's
+    stacked queries, each member's table equal to its solo one and to the
+    JAX package's batched answer."""
     reqs = [_req(rng.standard_normal((q, DIM)).astype(np.float32), maxval=6, residency=mode)
             for q in (1, 3)]
     got = _batched_both(root, cache, reqs)

@@ -224,8 +224,8 @@ def test_unported_requests_raise(root, rng, monkeypatch, tmp_path):
     assert residency.plan(cache, executor.SearchRequest("items", "vector", target, maxval=5)) == "stream"
     assert run().column("id").equals(dual.column("id"))
     assert run(maxval=None).column("id").equals(nomax.column("id"))  # the host-corpus read
-    host = residency.execute_solo(
-        cache, executor.SearchRequest("items", "vector", target, metric="l2"), "stream"
+    host = executor.execute_search(
+        cache, executor.SearchRequest("items", "vector", target, metric="l2", residency="stream")
     )
     assert host.column("id").equals(nomax.column("id"))
     before = METRICS.snapshot().get("search.residency_probed_host", 0)
@@ -350,6 +350,75 @@ def test_port_imports_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
     subprocess.run([sys.executable, "-c", code], check=True, cwd=repo, env=env, timeout=120)
+
+
+def test_residency_does_not_import_the_executor():
+    """``engine/residency.py`` lies below the executor: it imports nothing
+    of ``engine.executor``, in any form, so the request path runs one way."""
+    import ast
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "fenix_tpu_torch", "engine", "residency.py")) as fh:
+        tree = ast.parse(fh.read())
+    package = ["fenix_tpu_torch", "engine"]
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[: len(package) - node.level + 1] if node.level else [])
+            module = ".".join(x for x in (base, node.module or "") if x)
+            imported += [module] + [f"{module}.{a.name}" for a in node.names]
+    assert imported and "fenix_tpu_torch.engine.session" in imported
+    assert not [m for m in imported if m.startswith("fenix_tpu_torch.engine.executor")], imported
+
+
+# (route, request fields) of the retry test: one case per route of the shell
+RETRY_ROUTES = {
+    "dual_topk": dict(residency="dual", maxval=5),
+    "int8_topk": dict(residency="int8", maxval=5),
+    "stream_topk": dict(residency="stream", maxval=5),
+    "probed_host_topk": dict(residency="stream", maxval=5, coding="ivf", probes=4, metric=None),
+    "host_read": dict(residency="stream", maxval=None),
+}
+
+
+@pytest.mark.parametrize("route", list(RETRY_ROUTES))
+def test_one_retry_on_every_route(root, rng, monkeypatch, route):
+    """A catalog mutation that lands between the revision snapshot and the
+    stamp check (the stamp moves once) is retried, and the answer is a
+    cold cache's; a stamp that moves at every check raises ``kept
+    changing`` after exactly four attempts. The device route and the
+    host-corpus routes share the one retry."""
+    kw = RETRY_ROUTES[route]
+    if "coding" in kw:
+        config = {"metric": "l2", "codebook_size": 8, "num_codebooks": 1, "batch_size": 512, "num_epochs": 1}
+        coder.make(root, "ivf", "items", "vector", config, seed=0, device="cpu")
+        index.make(root, "ivf", "items", "vector", device="cpu")
+    target = rng.standard_normal((3, DIM)).astype(np.float32)
+    req = executor.SearchRequest(**{"source": "items", "column": "vector", "target": target, "metric": "l2", **kw})
+    cold = executor.execute_search(DeviceCache(root, device="cpu"), req)
+    cache = DeviceCache(root, device="cpu")
+    executor.execute_search(cache, req)  # warm: an attempt now reads the stamp a fixed number of times
+    real = cache.snapshot_stamp
+    calls, moved = [], set()
+
+    def stamp(*args):
+        calls.append(args)
+        return real(*args) + (("moved", len(calls)) if len(calls) in moved else ())
+
+    monkeypatch.setattr(cache, "snapshot_stamp", stamp)
+    assert executor.execute_search(cache, req).equals(cold)
+    per_attempt = len(calls)  # the last read of an attempt is its stamp check
+    calls.clear()
+    moved.add(per_attempt)
+    assert executor.execute_search(cache, req).equals(cold)
+    assert len(calls) == 2 * per_attempt  # one retry
+    calls.clear()
+    moved.update(per_attempt * i for i in range(1, 5))
+    with pytest.raises(RuntimeError, match="kept changing during search"):
+        executor.execute_search(cache, req)
+    assert len(calls) == 4 * per_attempt
 
 
 def _chip_smoke(*args):

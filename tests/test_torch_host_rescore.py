@@ -120,28 +120,35 @@ def test_rescore_topk_against_the_jax_package(metric, w):
         assert (got_i[:, w:] == -1).all()
 
 
-def test_rescore_fused_counts_one_pass_a_rescore():
-    """One ``residency.rescore_fused`` a rescore, whatever its query
-    blocks; cosine gathers nothing, so its score seconds are the
-    rescore's; l2 gathers its winners."""
+def test_rescore_fused_counts_one_pass_a_rescore(monkeypatch):
+    """One scoring pass (``host_rescore.window_scores``) a rescore,
+    whatever its query blocks; cosine gathers nothing, so its score
+    seconds are the rescore's; l2 gathers its winners."""
     rng = np.random.default_rng(9)
     n, d, k = 1500, 32, 10
     host = rng.standard_normal((n, d), np.float32)
     queries = rng.standard_normal((150, d), np.float32)
     ids = rng.integers(-1, n, (150, 64))
-    names = ("residency.rescore_fused", "residency.rescore_seconds", "residency.rescore_score_seconds",
-             "residency.rescore_gather_seconds")
+    passes = []
+    real = host_rescore.window_scores
+
+    def counted(*args):
+        passes.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(host_rescore, "window_scores", counted)
+    names = ("residency.rescore_seconds", "residency.rescore_score_seconds", "residency.rescore_gather_seconds")
     before = METRICS.snapshot()
     for q in (1, 150, 64):  # 150 queries: three blocks of 64
         residency._timed_rescore(host, *_aux(host, "cosine"), None, queries[:q], ids[:q], n, k, "cosine")
     mid = METRICS.snapshot()
     delta = {m: mid.get(m, 0.0) - before.get(m, 0.0) for m in names}
-    assert delta["residency.rescore_fused"] == 3
+    assert len(passes) == 3
     assert delta["residency.rescore_gather_seconds"] == 0.0
     assert delta["residency.rescore_score_seconds"] == pytest.approx(delta["residency.rescore_seconds"], rel=1e-9)
     residency._timed_rescore(host, *_aux(host, "l2"), None, queries, ids, n, k, "l2")
     after = METRICS.snapshot()
-    assert after["residency.rescore_fused"] - mid["residency.rescore_fused"] == 1
+    assert len(passes) == 4
     assert after["residency.rescore_gather_seconds"] > mid.get("residency.rescore_gather_seconds", 0.0)
 
 

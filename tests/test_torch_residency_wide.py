@@ -28,7 +28,7 @@ from fenix_tpu_torch import expr
 from fenix_tpu_torch.engine import batching, executor, residency
 from fenix_tpu_torch.engine.session import DeviceCache
 from fenix_tpu_torch.io import ingest, table
-from fenix_tpu_torch.ops import topk2
+from fenix_tpu_torch.ops import host_rescore, topk2
 from fenix_tpu_torch.utils import profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
@@ -131,17 +131,25 @@ def test_int8_resident_through_flight(client, corpus, q, filtered):
     assert_exact(out, vectors, queries[:q], tags < 50 if filtered else None)
 
 
-def test_rescore_counters(client, corpus):
+def test_rescore_counters(client, corpus, monkeypatch):
     """``residency.rescore_rows`` is Q × window; a cosine rescore gathers
     no rows, so its score seconds are the rescore's; one scoring pass a
     rescore."""
     queries = corpus[3][:64]
+    passes = []
+    real = host_rescore.window_scores
+
+    def counted(*args):
+        passes.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(host_rescore, "window_scores", counted)
     before = client.stats()
     client.search(queries, "wide", "vector", metric="cosine", maxval=K, precision="int8", residency="int8")
     after = client.stats()
     delta = {n: after.get(n, 0.0) - before.get(n, 0.0) for n in after}
     assert delta["residency.rescore_rows"] == 64 * WINDOW
-    assert delta["residency.rescore_fused"] == delta["search.residency_int8"] == 1
+    assert len(passes) == delta["search.residency_int8"] == 1
     assert delta.get("residency.rescore_gather_seconds", 0.0) == 0.0
     assert delta["residency.rescore_score_seconds"] > 0
     assert delta["residency.rescore_score_seconds"] == \
@@ -190,8 +198,9 @@ def test_spans_on_the_dispatcher_under_a_capture(client, corpus):
 
 
 def test_concurrent_requests_share_one_pass(corpus, small_work):
-    """Requests queued together are one ``residency.execute_many`` call,
-    and each member's table equals its solo answer."""
+    """Requests queued together are one host-corpus route call (one
+    ``residency.int8_topk`` over their stacked queries), and each member's
+    table equals its solo answer."""
     root, vectors, _, queries = corpus
     cache = DeviceCache(root, device="cpu")
     batcher = batching.SearchBatcher(cache)
@@ -203,13 +212,13 @@ def test_concurrent_requests_share_one_pass(corpus, small_work):
     solo = [executor.execute_search(cache, r) for r in reqs]
 
     calls, gate = [], threading.Event()
-    real = residency.execute_many
+    real = residency.int8_topk
 
-    def held(cache_, group, mode):
-        calls.append(len(group))
+    def held(cache_, req, stacked, k, k_pad):
+        calls.append(stacked.shape[0])  # the dispatch's queries
         if len(calls) == 1:
             gate.wait(60)  # the first (blocking) dispatch holds the others in the queue
-        return real(cache_, group, mode)
+        return real(cache_, req, stacked, k, k_pad)
 
     results: list = [None] * (len(reqs) + 1)
 
@@ -217,7 +226,7 @@ def test_concurrent_requests_share_one_pass(corpus, small_work):
         results[i] = batcher.submit(req)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(residency, "execute_many", held)
+        mp.setattr(residency, "int8_topk", held)
         threads = [threading.Thread(target=submit, args=(0, reqs[0]))]
         threads[0].start()
         deadline = time.monotonic() + 60
@@ -235,7 +244,7 @@ def test_concurrent_requests_share_one_pass(corpus, small_work):
         for t in threads:
             t.join(120)
             assert not t.is_alive()
-    assert calls == [1, len(reqs)]
+    assert calls == [sizes[0], sum(sizes)]  # the first request alone, then all of them in one call
     assert METRICS.snapshot()["search.residency_int8"] == before + 2
     assert results[0] == solo[0]
     for got, want, req in zip(results[1:], solo, reqs):
