@@ -52,16 +52,25 @@ ending in the device→host copy of its result),
 and dot gather nothing) and ``residency.rescore_score_seconds`` (the
 rest: the scoring pass, the order, the distances) and
 ``residency.rescore_rows`` (candidate rows rescored: Q × window).
+The stream counts ``residency.stream_scan_seconds`` (each chunk's device
+search and its copy back, also added to ``residency.phase_a_seconds``),
+``residency.stream_merge_seconds`` (the host merge of the chunks, or the
+int8 stream's one rescore) and ``residency.stream_rows`` (rows streamed:
+chunks × chunk rows).
 While a capture is active on a card, ``residency.phase_a_device_seconds``
 times the int8-resident phase A on the card by a pair of CUDA events,
-read once the window's copy to the host has synchronised.
+read once the window's copy to the host has synchronised;
+``residency.stream_device_seconds`` so times each streamed chunk's
+search (the chunk's aux and the two-phase search, or the int8 window).
 
 Spans (``utils/profiling``, recorded while a capture is active):
 ``residency.int8`` (the int8-resident search) ⊃ ``residency.phase_a``
 (the device call and the window's copy) and ``residency.rescore`` (every
 mode's host rescore) ⊃ ``residency.score`` (the scoring pass and the
 order) and, for l2, ``residency.gather`` (the winners' rows, one a block
-of queries).
+of queries); ``residency.stream`` (the streamed search) ⊃
+``transfer.wait`` (``io/batch.py``: the chunk not yet on the card),
+``residency.stream_scan`` (one a chunk) and ``residency.stream_merge``.
 """
 
 from __future__ import annotations
@@ -97,6 +106,7 @@ _DEFAULT_WINDOW = 4096
 # float64 bytes of one block of gathered rows in the host l2 read
 _NOMAX_BLOCK_BYTES = 128 << 20
 PHASE_A_DEVICE_COUNTER = "residency.phase_a_device_seconds"  # while a capture is active
+STREAM_DEVICE_COUNTER = "residency.stream_device_seconds"  # while a capture is active
 
 
 def plan(cache, req) -> str:
@@ -396,6 +406,11 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
     fp32: the exact two-phase search per chunk, host merge by (score, id).
     int8: a phase-A window per chunk, one exact host rescore over the
     union."""
+    with profiling.annotate("residency.stream"):
+        return _stream_topk(cache, req, stacked, k, k_pad)
+
+
+def _stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
     metric = distance_ops.canonical_metric(req.metric)
     host = cache.host_matrix(req.source, req.column)
     hmul, hadd = cache.host_aux(req.source, req.column, metric)
@@ -457,40 +472,53 @@ def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np
         search = psearch.build_serving_search(mesh, min(k_pad, chunk), metric)
     for i, arrays in enumerate(placed):
         start = i * chunk
-        t = time.perf_counter()
-        if int8_mode:
-            c8, sv_c, mul_c, add_c = arrays
-            if mesh is None:
-                win = topk2.topk_window_int8(c8, sv_c, queries, mul_c, add_c, k=k_pad, w=w_c, metric=metric)
-                win = win.cpu().numpy()
-            else:  # [S, Q, W'] → [Q, S·W'], shard-major
-                win = np.concatenate(list(window(c8, sv_c, queries, mul_c, add_c).cpu().numpy()), axis=1)
-            parts.append(np.where(win >= 0, win + start, -1))
-        else:
-            buf, mul_c, add_c = arrays
-            if mesh is None:
-                # the chunk's aux on the device, as dual builds it over the
-                # whole table, so both score every row bit for bit alike
-                # (the host aux carries the filter and the padding as −inf)
-                mul_c, add_c = topk2.prepare_aux(buf, add_c != distance_ops.NEG_INF, metric)
-                d_c, i_c, s_c = topk2.topk_two_phase(
-                    buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric, with_scores=True
-                )
-                key_c = -s_c.cpu().numpy()
-            else:  # the shards' candidates come merged by (distance, id)
-                d_c, i_c = search(buf, queries, mul_c, add_c)
-                key_c = d_c.cpu().numpy()
-            i_c = i_c.cpu().numpy()
-            parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1), key_c))
-        METRICS.add("residency.phase_a_seconds", time.perf_counter() - t)
+        with profiling.annotate("residency.stream_scan", counter="residency.stream_scan") as span, \
+                profiling.device_timings() as timings:
+            if int8_mode:
+                c8, sv_c, mul_c, add_c = arrays
+                if mesh is None:
+                    with profiling.device_timer(STREAM_DEVICE_COUNTER, queries.device):
+                        win = topk2.topk_window_int8(c8, sv_c, queries, mul_c, add_c, k=k_pad, w=w_c,
+                                                     metric=metric)
+                    win = win.cpu().numpy()
+                else:  # [S, Q, W'] → [Q, S·W'], shard-major
+                    win = np.concatenate(list(window(c8, sv_c, queries, mul_c, add_c).cpu().numpy()), axis=1)
+                parts.append(np.where(win >= 0, win + start, -1))
+            else:
+                buf, mul_c, add_c = arrays
+                if mesh is None:
+                    with profiling.device_timer(STREAM_DEVICE_COUNTER, queries.device):
+                        # the chunk's aux on the device, as dual builds it
+                        # over the whole table, so both score every row bit
+                        # for bit alike (the host aux carries the filter and
+                        # the padding as −inf)
+                        mul_c, add_c = topk2.prepare_aux(buf, add_c != distance_ops.NEG_INF, metric)
+                        d_c, i_c, s_c = topk2.topk_two_phase(
+                            buf, queries, mul_c, add_c, k=min(k_pad, chunk), metric=metric, with_scores=True
+                        )
+                    key_c = -s_c.cpu().numpy()
+                else:  # the shards' candidates come merged by (distance, id)
+                    d_c, i_c = search(buf, queries, mul_c, add_c)
+                    key_c = d_c.cpu().numpy()
+                i_c = i_c.cpu().numpy()
+                parts.append((d_c.cpu().numpy(), np.where(i_c >= 0, i_c + start, -1), key_c))
+        profiling.settle(timings)  # the chunk's copy to the host has passed its events
+        METRICS.add("residency.phase_a_seconds", span.seconds)
         n_chunks += 1
     METRICS.add("search.stream_chunks", n_chunks)
     METRICS.add("search.residency_stream")
+    METRICS.add("residency.stream_rows", n_chunks * chunk)
 
-    if int8_mode:
-        win = np.concatenate(parts, axis=1) if parts else np.full((qt, 1), -1, np.int64)
-        return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
+    with profiling.annotate("residency.stream_merge", counter="residency.stream_merge"):
+        if int8_mode:
+            win = np.concatenate(parts, axis=1) if parts else np.full((qt, 1), -1, np.int64)
+            return _timed_rescore(host, hmul, hadd, mask, stacked, win, rows, k, metric)
+        return _merge_chunks(parts, qt, k)
 
+
+def _merge_chunks(parts: list, qt: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The fp32 stream's chunks' ``(dist, ids, key)`` candidates merged
+    into each query's top-k by (key, id)."""
     d_all, i_all, key_all = (np.concatenate(x, axis=1) for x in zip(*parts))
     d_all = np.where(i_all >= 0, d_all, np.inf)
     key_all = np.where(i_all >= 0, key_all, np.inf)

@@ -34,7 +34,9 @@ Counters (``stats``, CUDA only): ``transfer.h2d_bytes`` and
 ``transfer.h2d_seconds`` (the uploads, timed with CUDA events on the
 side stream), ``transfer.stage_seconds`` (host memcpy into the pinned
 buffers) and ``transfer.wait_seconds`` (time the consumer waited on the
-worker).
+worker). Spans (``utils/profiling``, while a capture is active):
+``transfer.stage`` on the worker thread (the memcpy) and
+``transfer.wait`` where the consumer waits for an item.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import itertools
-import time
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
@@ -50,6 +51,7 @@ import torch
 
 from fenix_tpu_torch import native
 from fenix_tpu_torch.io import ingest, table
+from fenix_tpu_torch.utils import profiling
 from fenix_tpu_torch.utils.metrics import GLOBAL as METRICS
 
 _DEPTH = 2  # items in flight: one computing, one staging/uploading
@@ -124,20 +126,17 @@ def _prefetch_cuda(it: Iterator, device: torch.device) -> Iterator[tuple[torch.T
         slots = [_Slot(first, device) for _ in range(_DEPTH)]
     it = itertools.chain([first], it)
     uploads: list = []  # (start event, end event, bytes) per item
-    stage_s = 0.0
 
     def produce(i: int) -> "int | None":
-        nonlocal stage_s
         arrays = next(it, None)
         if arrays is None:
             return None
         slot = slots[i % _DEPTH]
         if slot.copied is not None:
             slot.copied.synchronize()  # its last upload has left the pinned buffer
-        t = time.perf_counter()
-        for dst, src in zip(slot.host, arrays, strict=True):
-            np.copyto(dst, src)
-        stage_s += time.perf_counter() - t
+        with profiling.annotate("transfer.stage", counter="transfer.stage"):
+            for dst, src in zip(slot.host, arrays, strict=True):
+                np.copyto(dst, src)
         with torch.cuda.stream(side):
             side.wait_event(slot.released)  # the consumer is done with the device buffer
             start = torch.cuda.Event(enable_timing=True)
@@ -150,15 +149,13 @@ def _prefetch_cuda(it: Iterator, device: torch.device) -> Iterator[tuple[torch.T
         uploads.append((start, end, sum(p.numel() * p.element_size() for p in slot.pinned)))
         return i % _DEPTH
 
-    wait_s = 0.0
     try:
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
             queue = collections.deque(pool.submit(produce, i) for i in range(_DEPTH))
             i = 0
             while queue:
-                t = time.perf_counter()
-                s = queue.popleft().result()
-                wait_s += time.perf_counter() - t
+                with profiling.annotate("transfer.wait", counter="transfer.wait", wait=True):
+                    s = queue.popleft().result()
                 if s is None:
                     break
                 slot = slots[s]
@@ -174,5 +171,3 @@ def _prefetch_cuda(it: Iterator, device: torch.device) -> Iterator[tuple[torch.T
 
     METRICS.add("transfer.h2d_bytes", float(sum(b for _, _, b in uploads)))
     METRICS.add("transfer.h2d_seconds", sum(s.elapsed_time(e) for s, e, _ in uploads) / 1e3)
-    METRICS.add("transfer.stage_seconds", stage_s)
-    METRICS.add("transfer.wait_seconds", wait_s)

@@ -38,11 +38,14 @@ run on its handler's thread); ``fenix.snapshot``, ``executor.prepare``,
 ``executor.launch``, ``fenix.fetch`` (the wait for the card) and
 ``fenix.result_gather``; past the device budget ``executor.host_corpus``
 ⊃ ``residency.int8`` ⊃ ``residency.phase_a``, ``residency.rescore`` ⊃
-``residency.score`` and, for l2, ``residency.gather``
-(``engine/residency.py``).
+``residency.score`` and, for l2, ``residency.gather``, or
+``residency.stream`` ⊃ ``transfer.wait``, ``residency.stream_scan`` and
+``residency.stream_merge`` (``engine/residency.py``), with
+``transfer.stage`` on the prefetch worker (``io/batch.py``).
 :func:`device_timer` times a stretch of the card's work with a pair of
-CUDA events (phase 2 of ``ops/topk2``, the int8-resident phase A), read
-after the fetch has synchronised (:func:`device_timings`, :func:`settle`).
+CUDA events (phase 2 of ``ops/topk2``, the int8-resident phase A, a
+streamed chunk's search), read after the fetch has synchronised
+(:func:`device_timings`, :func:`settle`).
 """
 
 from __future__ import annotations
