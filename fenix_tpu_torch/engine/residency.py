@@ -401,8 +401,11 @@ def _stream_chunk_rows(budget: "int | None", dim: int, block: int, itemsize: int
 
 def stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[np.ndarray, np.ndarray]:
     """(dist [Q, k], ids [Q, k]) by streaming the host corpus through the
-    device in fixed-shape chunks (the ragged tail padded with zero rows,
-    ``aux_add = −inf``, ``aux_mul = 0`` and, for int8, scale 1e-30).
+    device in fixed-shape chunks. The ragged tail's pad (zero rows,
+    ``aux_add = −inf``, ``aux_mul = 0`` and, for int8, scale 1e-30) is
+    written by ``io/batch``'s stager into the chunk's pinned buffer, in
+    the same copy that stages its rows on all the process's CPUs (over a
+    mesh, and on a CPU device, into a fresh padded array).
     fp32: the exact two-phase search per chunk, host merge by (score, id).
     int8: a phase-A window per chunk, one exact host rescore over the
     union."""
@@ -436,29 +439,21 @@ def _stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[n
     qt = stacked.shape[0]
 
     def chunks():
-        # full chunks are views of the host corpus or mirror; only the
-        # ragged tail is padded on the host
+        # each array the view of its source rows; the ragged tail's pad
+        # rows are written by the stager (io/batch.py), where the rows land
         for start in range(0, rows, chunk):
             end = min(start + chunk, rows)
             pad = chunk - (end - start)
             add_c = hadd[start:end]
             if mask is not None:
                 add_c = np.where(mask[start:end], add_c, np.float32(distance_ops.NEG_INF))
-            mul_c = hmul[start:end]
-            if pad:
-                add_c = np.concatenate([add_c, np.full(pad, distance_ops.NEG_INF, np.float32)])
-                mul_c = np.concatenate([mul_c, np.zeros(pad, np.float32)])
+            aux = (batch_io.Padded(hmul[start:end], pad, 0.0),
+                   batch_io.Padded(add_c, pad, distance_ops.NEG_INF))
             if int8_mode:
-                c8, sv_c = codes[start:end], scales[start:end]
-                if pad:
-                    c8 = np.concatenate([c8, np.zeros((pad, dim), np.int8)])
-                    sv_c = np.concatenate([sv_c, np.full(pad, 1e-30, np.float32)])
-                yield c8, sv_c, mul_c, add_c
+                yield (batch_io.Padded(codes[start:end], pad, 0),
+                       batch_io.Padded(scales[start:end], pad, 1e-30), *aux)
             else:
-                buf = host[start:end]
-                if pad:
-                    buf = np.concatenate([buf, np.zeros((pad, dim), np.float32)])
-                yield buf, mul_c, add_c
+                yield batch_io.Padded(host[start:end], pad, 0.0), *aux
 
     n_chunks = 0
     parts: list = []
@@ -467,7 +462,7 @@ def _stream_topk(cache, req, stacked: np.ndarray, k: int, k_pad: int) -> tuple[n
         placed = batch_io.prefetch_to_device(chunks(), cache.device)
     else:
         # each chunk row-sharded, a slice to each device (uploaded in turn)
-        placed = (tuple(psearch.put_rows(mesh, a, chunk) for a in arrays) for arrays in chunks())
+        placed = (tuple(psearch.put_rows(mesh, batch_io.whole(a), chunk) for a in arrays) for arrays in chunks())
         window = psearch.build_serving_window_int8(mesh, k_pad, w_c, metric)
         search = psearch.build_serving_search(mesh, min(k_pad, chunk), metric)
     for i, arrays in enumerate(placed):

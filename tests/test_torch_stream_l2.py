@@ -136,6 +136,29 @@ def test_stream_l2_through_flight(client, corpus, monkeypatch, chunks, q, filter
     assert_exact(out, vectors, queries[:q], tags < 50 if filtered else None)
 
 
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+@pytest.mark.parametrize("chunks", [1, 5])
+def test_stream_stages_the_ragged_tail_as_one_padded_item(client, corpus, monkeypatch, chunks, precision):
+    """A request's one ragged chunk is the one item whose pad rows the
+    stager writes (5,000 rows: the tail of 5,120 or of 1,024-row chunks
+    for fp32, of 4,096-row chunks for int8 under the budget), and the
+    answers of both precisions stay exact."""
+    _, vectors, tags, queries = corpus
+    if CHUNKS[chunks] is None:
+        monkeypatch.delenv("FENIX_HBM_BUDGET", raising=False)
+    else:
+        monkeypatch.setenv("FENIX_HBM_BUDGET", str(CHUNKS[chunks]))
+    before = client.stats()
+    out = _search(client, queries[:64], True, precision)
+    after = client.stats()
+    delta = {n: after.get(n, 0.0) - before.get(n, 0.0) for n in after}
+    assert delta["transfer.padded_items"] == 1
+    assert delta["transfer.pad_rows"] == delta["residency.stream_rows"] - ROWS
+    assert delta["transfer.pad_rows"] == {("fp32", 1): 120, ("fp32", 5): 120,
+                                          ("int8", 1): 120, ("int8", 5): 3192}[precision, chunks]
+    assert_exact(out, vectors, queries[:64], tags < 50)
+
+
 def test_stream_counters_split_the_route(client, corpus, monkeypatch):
     """Each chunk's scan is timed once, into the stream's counter and into
     ``residency.phase_a_seconds`` alike; the merge apart; no card, no
@@ -226,6 +249,7 @@ def test_stream_on_the_card_stages_on_the_worker(corpus, monkeypatch):
     delta = {n: after.get(n, 0.0) - before.get(n, 0.0) for n in after}
     assert delta["transfer.h2d_bytes"] == 5 * BLOCK * (DIM + 2) * 4  # the rows, aux_mul and aux_add
     assert delta["transfer.h2d_seconds"] > 0 and delta["transfer.stage_seconds"] > 0
+    assert delta["transfer.padded_items"] == 1 and delta["transfer.pad_rows"] == 5 * BLOCK - ROWS
     assert delta[residency.STREAM_DEVICE_COUNTER] > 0
     assert delta["kernel.bucket_scores.kernel.tiled.launches"] == 5
     (route,) = by_name["residency.stream"]
